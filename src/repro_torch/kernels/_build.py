@@ -7,7 +7,9 @@ first use, by ``nvcc`` alone, into its own shared library under
 a hash of their source and flags: an unchanged source is never rebuilt.
 :func:`build_all` starts one ``nvcc`` per source at once.  A failed
 build raises with the compiler's output; the ``-Xptxas -v`` report
-(registers, shared memory, spills per kernel) is printed once per build.
+(registers, shared memory, spills per kernel) is printed once per build
+and kept beside the library (``<name>-<hash>.ptxas.txt``), so
+:data:`ptxas_reports` holds it on a cached load too.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -59,10 +61,18 @@ def _target(name: str):
     return src, flags, so
 
 
+def _report_path(so: str) -> str:
+    return so[:-len(".so")] + ".ptxas.txt"
+
+
 def _start(name: str):
-    """Start ``nvcc`` for one source; returns None when already built."""
+    """Start ``nvcc`` for one source; returns None when already built
+    (its saved ``-Xptxas -v`` report then goes into ``ptxas_reports``)."""
     src, flags, so = _target(name)
     if os.path.exists(so):
+        if os.path.exists(_report_path(so)):
+            with open(_report_path(so)) as f:
+                ptxas_reports[name] = f.read()
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
@@ -80,9 +90,11 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{' '.join(cmd)}\n{out}")
-    os.replace(tmp, so)
     report = "\n".join(line for line in out.splitlines()
                        if "ptxas" in line)
+    with open(_report_path(so), "w") as f:
+        f.write(report)
+    os.replace(tmp, so)
     ptxas_reports[name] = report
     print(f"[repro_torch build] csrc/{name}.cu -> {os.path.relpath(so, _ROOT)}"
           f"\n{report}", flush=True)

@@ -18,9 +18,10 @@ a long prompt trickles in.
 
 The submit/stream API (:class:`StreamHandle`, ``on_token`` callbacks,
 deadlines, cancellation), the observability hooks (``metrics=``, default
-the no-op ``NULL_OBS``), fault containment (``faults=``, ``max_queue=``,
-``validate_every=``) and nested-precision lanes (``Request.precision``)
-are the reference's, unchanged.
+the no-op ``NULL_OBS``), fault containment (``faults=``) and nested-precision lanes
+(``Request.precision``) are the reference's, unchanged.  Backpressure
+(``max_queue=``) and the pool watchdog (``validate_every=``) are not
+ported yet (ROADMAP queue 1, item 9).
 
 Where the reference jit-compiles one program per bucket, the port runs
 eagerly: :func:`prefill_step_bucketed` and :func:`serve_step` are plain
@@ -32,7 +33,6 @@ contiguous engine (``paged=False``) is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -161,9 +161,6 @@ class Request:                      # must never compare prompt arrays
     # why the request stopped: one of FINISH_REASONS (the class constant
     # below is THE enum -- obs labels and tests assert against it)
     finish_reason: Optional[str] = None
-    # backpressure hint: seconds to wait before resubmitting, set when
-    # the engine sheds this request off a full queue (max_queue)
-    retry_after: Optional[float] = None
 
     # not a dataclass field (no annotation): the single definition of
     # every value ``finish_reason`` may take
@@ -198,48 +195,8 @@ class StreamHandle:
         ``{'rejected', 'error'}``), else None."""
         return self.req.error
 
-    @property
-    def retry_after(self) -> Optional[float]:
-        """Backpressure hint attached when the engine shed this request
-        off a full queue."""
-        return self.req.retry_after
-
     def cancel(self) -> bool:
         return self.engine.cancel(self.req)
-
-    def resubmit(self, max_attempts: int = 5, base_delay: float = 0.05,
-                 max_delay: float = 2.0,
-                 sleep: Optional[Callable[[float], None]] = None
-                 ) -> "StreamHandle":
-        """Client-side backoff helper: while the request sits shed
-        (``finish_reason='rejected'``), wait max(engine ``retry_after``
-        hint, capped exponential backoff) and submit it again.  Returns
-        self once the request is back in the engine (drive it with
-        :meth:`tokens`/:meth:`result` as usual) or after
-        ``max_attempts`` consecutive sheds.  ``sleep`` is injectable so
-        tests back off on a fake clock."""
-        sleep = time.sleep if sleep is None else sleep
-        for attempt in range(max_attempts):
-            if not (self.req.done and self.req.finish_reason == "rejected"):
-                return self
-            sleep(min(max_delay, max(self.req.retry_after or 0.0,
-                                     base_delay * (2 ** attempt))))
-            self._reset_for_resubmit()
-            self.engine.submit(self.req)
-        return self
-
-    def _reset_for_resubmit(self) -> None:
-        """Clear the terminal fields a shed left behind so the request
-        can go through ``submit`` again (deadline is recomputed from
-        ``timeout``; emitted tokens are untouched -- a shed request
-        never emitted any)."""
-        r = self.req
-        r.done = False
-        r.error = None
-        r.finish_reason = None
-        r.retry_after = None
-        r.deadline = None
-        r._engine = None       # re-arm the double-submit guard
 
     def tokens(self, max_steps: int = 10_000):
         """Yield output tokens as they are emitted, stepping the engine
@@ -275,12 +232,13 @@ class Engine:
     and prefills only the suffix; block aliasing is refcounted with
     copy-on-write, so sharing changes memory management, not math:
     greedy decode stays token-identical to ``prefix_cache=False``.
-    ``paged`` must be True (the contiguous engine is not ported).
+    ``paged`` defaults to True and ``paged=False`` raises (the contiguous
+    engine is not ported).
     """
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 4,
                  max_len: int = 256, quant: Optional[QuantConfig] = None,
-                 paged: bool = False, block_size: int = 16,
+                 paged: bool = True, block_size: int = 16,
                  n_blocks: Optional[int] = None,
                  max_batch: Optional[int] = None,
                  prefix_cache: bool = True,
@@ -299,12 +257,10 @@ class Engine:
         # shared by the pool, scheduler, and engine; NULL_FAULTS (default)
         # is the constant-False twin -- hot path and tokens untouched
         self.faults = faults if faults is not None else NULL_FAULTS
-        # backpressure: bound on the waiting queue; submits past it are
-        # shed with finish_reason='rejected' + a retry_after hint
-        self.max_queue = max_queue
-        # pool integrity watchdog cadence (steps between validate runs)
-        assert validate_every is None or validate_every >= 1, validate_every
-        self.validate_every = validate_every
+        if max_queue is not None or validate_every is not None:
+            raise NotImplementedError(
+                "Engine(max_queue=, validate_every=): backpressure and the "
+                "pool watchdog are not ported yet (ROADMAP queue 1, item 9)")
         # deadline clock, injectable for deterministic timeout tests; ALL
         # observability timestamps route through it too, so a ServingObs
         # built with its own test clock supplies the engine clock when
@@ -365,8 +321,7 @@ class Engine:
                                        else None))
         self.n_batch_blocks = max_len // block_size   # table width
         # robustness counters live in the pool's registry, so render()
-        # scrapes faults, quarantines, and sheds next to the serving
-        # counters
+        # scrapes faults and quarantines next to the serving counters
         reg = self.pool.metrics
         self._c_fault_requests = reg.counter(
             "repro_engine_fault_requests",
@@ -377,16 +332,6 @@ class Engine:
             "repro_engine_fault_steps",
             "steps aborted by a transient pool fault the scheduler "
             "could not absorb (state intact, step retried)")
-        self._c_watchdog = reg.counter(
-            "repro_engine_fault_watchdog_violations",
-            "pool invariant violations caught by the validate_every "
-            "watchdog (corrupt chains quarantined, free lists rebuilt)")
-        self._c_shed = reg.counter(
-            "repro_sched_shed_requests",
-            "submits shed by the max_queue backpressure bound")
-        self._g_retry_after = reg.gauge(
-            "repro_sched_shed_retry_after",
-            "retry_after hint attached to the most recent shed (s)")
         self._c_precision = reg.counter(
             "repro_engine_precision",
             "output tokens emitted per effective serving precision "
@@ -414,27 +359,8 @@ class Engine:
         # trace starts BEFORE scheduler.submit so an immediate
         # rejection still closes a balanced span tree
         self.obs.on_submit(req)
-        depth = len(self.scheduler.waiting)
-        if self.max_queue is not None and depth >= self.max_queue:
-            self._shed(req, depth)
-            return StreamHandle(self, req)
         self.scheduler.submit(req)
         return StreamHandle(self, req)
-
-    def _shed(self, req: Request, depth: int) -> None:
-        """Backpressure: the waiting queue is at ``max_queue`` -- finish
-        the request immediately with ``finish_reason='rejected'`` and a
-        ``retry_after`` hint that grows with queue depth and pool
-        occupancy (deterministic, so shed/backoff behavior replays)."""
-        occ = self.pool.used_blocks / max(self.pool.n_usable, 1)
-        req.retry_after = 0.05 * (depth + 1) * (1.0 + occ)
-        req.error = (f"rejected: queue full ({depth} waiting >= "
-                     f"max_queue={self.max_queue})")
-        req.done = True
-        req.finish_reason = "rejected"
-        self._c_shed.inc()
-        self._g_retry_after.set(req.retry_after)
-        self.obs.on_finish(req, "rejected")
 
     # -- nested-precision lanes --------------------------------------------
     def _tier_policy(self, req: Request) -> int:
@@ -569,62 +495,6 @@ class Engine:
         req.finish_reason = "error"
         self.obs.on_finish(req, "error", seq=seq)
 
-    # -- pool integrity watchdog -------------------------------------------
-    def _watchdog(self) -> None:
-        """``validate_every`` cadence: run the pool's full invariant
-        checker off the hot path; on violation, recover instead of
-        raising -- quarantine the chains whose tables are corrupt and
-        rebuild the pool's bookkeeping from the survivors."""
-        try:
-            self.pool.validate()
-        except AssertionError:
-            self._c_watchdog.inc()
-            self._rebuild_pool()
-
-    def _rebuild_pool(self) -> None:
-        """Recover a pool whose invariants broke: block tables are the
-        ground truth.  Sequences whose table is self-evidently corrupt
-        (out-of-range, null, or duplicated block ids) are quarantined *bypassing* release -- their references cannot
-        be trusted against the refcount map.  Every derived structure
-        is then rebuilt from the surviving tables: refcounts from a
-        table-reference count, the free list as the unreferenced ids.
-        The prefix cache
-        is dropped wholesale (hits become misses; math unchanged) and
-        chain memos reset.  Ends with a full ``validate()`` -- recovery
-        must restore the invariants it is guarding, not defer them."""
-        from collections import Counter as _Counter
-        from repro_torch.serving.paged_cache import ChainMemo
-        pool, sch = self.pool, self.scheduler
-
-        def table_corrupt(s) -> bool:
-            seen = set()
-            for b in s.blocks:
-                b = int(b)
-                if b < 1 or b > pool.n_usable or b in seen:
-                    return True
-                seen.add(b)
-            return False
-        bad = [s for s in sch.running if table_corrupt(s)]
-        for seq in bad:
-            sch.running.remove(seq)
-            seq.blocks = []
-            self._quarantine(
-                seq, RequestFault("pool integrity violation: block "
-                                  "table corrupt", kind="watchdog"))
-        counts = _Counter(int(b) for s in sch.running for b in s.blocks)
-        pool._ref = dict(counts)
-        pool._lru.clear()            # prefix cache dropped wholesale
-        pool._meta.clear()
-        pool._full_index.clear()
-        pool._partial_index.clear()
-        pool._free = [b for b in range(pool.n_blocks - 1, 0, -1)
-                      if b not in counts]
-        for seq in sch.running:
-            seq.chain_memo = ChainMemo()
-        pool.version += 1
-        sch._blocked_head = None
-        pool.validate()
-
     # -- device transfer ----------------------------------------------------
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(arr, np.int32),
@@ -717,9 +587,6 @@ class Engine:
         obs = self.obs
         t0 = obs.t() if obs.enabled else 0.0
         self._expire()
-        if self.validate_every is not None and self.steps \
-                and self.steps % self.validate_every == 0:
-            self._watchdog()
         try:
             if self.chunk_tokens is None:
                 # whole-prompt mode: admission prefills, the step decodes

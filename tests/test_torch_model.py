@@ -222,5 +222,10 @@ def test_unported_configs_and_paths_raise():
         get_config("mixtral-8x7b")
     cfg = get_config("llama3-8b").reduced(n_layers=1)
     p = TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TE.Engine(p, cfg, quant=QuantConfig(kv_bits=8), paged=False)
+    for kw in (dict(paged=False), dict(max_queue=4),
+               dict(validate_every=1)):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+            TE.Engine(p, cfg, quant=QuantConfig(kv_bits=8), **kw)
+    eng = TE.Engine(p, cfg, quant=QuantConfig(kv_bits=8), max_len=32,
+                    block_size=8)              # paged is the default
+    assert eng.pool.n_usable == 4 * 32 // 8
