@@ -11,20 +11,29 @@ exit and no result line):
    ``nvcc`` for sm_90a, one process per source, and the ``-Xptxas -v``
    summary;
 3. kernels -- each hand-written kernel against its plain torch version on
-   the card, at the shapes of llama3-8b's serving path (K3 words and the
-   K1 integer core of every weight bit-exact; K1 SiLU outputs within 1
-   bf16 ulp of the plain version, K2 outputs within 1 bf16 ulp or 1e-5),
-   with its time (CUDA events, L2 flushed before every launch), its
-   bound on this card, the plain version's time and the yardsticks;
-4. full width, depth 2 -- one forward on the card, then the same forward
-   with the parameters moved to the CPU (the plain versions run there
-   because the device decides), logits compared;
-5. end to end -- the full 32-layer llama3-8b (random weights from
-   ``--seed``) quantized on the card to w2 (K3 at load) and served by
-   ``Engine(paged=True, block_size=16, chunk_tokens=256)`` at w2/a8/kv8:
-   the launch counters are zeroed just before and read just after;
-6. the ``kernels:`` line, the JSON kernels line, the ``nvidia-smi`` line
-   and, last, the JSON device line.
+   the card, at the shapes of llama3-8b's and mixtral-8x7b's serving
+   paths (K3 words, the K1 and K4 integer cores of every weight and K4's
+   bf16 output bit-exact; K1 and K4 SiLU outputs within 1 bf16 ulp of
+   the plain version; K4's dead rows exactly 0 and its live map equal
+   to the analytic one; K2 outputs within 1 bf16 ulp or 1e-5), with its
+   time (CUDA events, L2 flushed before every launch), its bound on this
+   card, the plain version's time and the yardsticks;
+4. full width, shallow -- one forward of llama3-8b (depth 2) and of
+   mixtral-8x7b (depth 1) on the card, then the same forward with the
+   parameters moved to the CPU (the plain versions run there because
+   the device decides), logits compared and, for mixtral, the share of
+   tokens routed to the same experts;
+5. end to end -- two main paths, each served by ``Engine(paged=True,
+   block_size=16, chunk_tokens=256)`` at w2/a8/kv8 with random weights
+   from ``--seed`` quantized on the card (K3 at load), the launch
+   counters zeroed just before and read just after each: the full
+   32-layer llama3-8b (4 requests), then the full 32-layer mixtral-8x7b
+   (5 requests, one of 4,300 tokens that attends through the rolling
+   4,096-token window), where every forward dispatch launches K4 64
+   times and K1 129 times;
+6. the launch counts of each path, the JSON kernels line (one entry per
+   path and kernel of that path, ``launches`` that path's own count), the
+   ``nvidia-smi`` line and, last, the JSON device line.
 
 It imports nothing of JAX and nothing of the reference package.
 """
@@ -330,8 +339,144 @@ def k2_phase(torch, timer, seed, results):
     torch.cuda.empty_cache()
 
 
+def routed_counts(torch, gen, *, e, g, tg, k=2, cap, skew=0.0):
+    """Keep counts ``(E, G)`` int32 of a top-``k`` routing of ``g`` groups
+    of ``tg`` tokens with random router logits (``skew`` tilts them
+    toward the low experts, for uneven loads); no token picks the last
+    expert, so its count is 0."""
+    import torch.nn.functional as F
+    logits = torch.randn((g, tg, e), generator=gen, device="cuda")
+    logits += skew * torch.linspace(1, -1, e, device="cuda")
+    logits[..., e - 1] = -1e9
+    top_e = logits.topk(k, dim=-1).indices.reshape(g, tg * k)
+    oh = F.one_hot(top_e, e).to(torch.int32)
+    pos = torch.gather(torch.cumsum(oh, 1) - oh, 2, top_e[..., None])[..., 0]
+    keep = (pos < cap)[..., None].to(torch.int32)
+    return (oh * keep).sum(1).T.contiguous().to(torch.int32)
+
+
+def _k4_case(torch, timer, g_, name, *, e, groups, seg, k, n, counts,
+             dual, w_bits=2, a_bits=8):
+    from repro_torch.core import bipolar
+    from repro_torch.kernels import moe, ops, ref
+    from repro_torch.models.config import QuantConfig
+    from repro_torch.models.model import _quantize_experts
+    q = QuantConfig(w_bits=w_bits)
+
+    def weight():
+        return _quantize_experts(torch.randn((e, n, k), generator=g_,
+                                             device="cuda"), q)
+
+    w = weight()
+    w2 = weight() if dual else None
+    c = groups * seg
+    x = torch.randn((e, c, k), generator=g_, device="cuda").to(torch.bfloat16)
+    rows = torch.arange(c, device="cuda")
+    live_rows = (rows % seg)[None, :] < counts[:, rows // seg]   # (E, C)
+    x = torch.where(live_rows[..., None], x, torch.zeros_like(x))
+    a_s = bipolar.absmax_scale(x.float(), a_bits, axis=-1)
+    bc = ops.moe_row_tile(seg)
+    act = "silu" if dual else "none"
+    # the integer core of each weight: act=none, f32 out -- bit-exact,
+    # dead rows exactly 0, the live map equal to the analytic one
+    for wt in (w, w2) if dual else (w,):
+        core, live = moe.moe_expert_linear(x, a_s, counts, wt, a_bits=a_bits,
+                                           out_dtype=torch.float32, bc=bc)
+        torch.cuda.synchronize()
+        core_ref, live_ref = moe.moe_expert_linear_plain(
+            x, a_s, counts, wt, a_bits=a_bits, out_dtype=torch.float32, bc=bc)
+        if not torch.equal(core, core_ref):
+            raise AssertionError(f"K4 {name}: integer core differs from "
+                                 f"plain")
+        if not torch.equal(live, live_ref):
+            raise AssertionError(f"K4 {name}: live map {live.tolist()} != "
+                                 f"{live_ref.tolist()}")
+        if (~live_rows).any() and core[~live_rows].abs().max() != 0:
+            raise AssertionError(f"K4 {name}: dead rows not zero")
+        del core, core_ref
+    got = moe.moe_expert_linear(x, a_s, counts, w, a_bits=a_bits,
+                                out_dtype=torch.bfloat16, bc=bc)[0]
+    want = ref.ap_moe_expert_linear_ref(x, a_s, counts, w, a_bits=a_bits,
+                                        out_dtype=torch.bfloat16)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K4 {name}: bf16 act=none output differs")
+
+    def run():
+        return moe.moe_expert_linear(x, a_s, counts, w, w2=w2, a_bits=a_bits,
+                                     act=act, out_dtype=torch.bfloat16,
+                                     bc=bc)[0]
+
+    def run_plain():
+        return ref.ap_moe_expert_linear_ref(x, a_s, counts, w, w2=w2,
+                                            a_bits=a_bits, act=act,
+                                            out_dtype=torch.bfloat16)
+
+    got, want = run(), run_plain()
+    err = (got.float() - want.float()).abs().max().item()
+    ulps = int(bf16_ulps(got, want).max())
+    if ulps > (1 if dual else 0):
+        raise AssertionError(f"K4 {name} act={act}: bf16 output {ulps} "
+                             f"ulps from plain (max |err| {err})")
+    if (~live_rows).any() and got[~live_rows].abs().max() != 0:
+        raise AssertionError(f"K4 {name}: dead rows not zero")
+    ms = timer(run, iters=10)
+    plain = timer(run_plain, iters=2, warmup=1)
+    nw = 2 if dual else 1
+    n_live = int(live_rows.sum())
+    live_experts = int((counts.sum(1) > 0).sum())
+    kw = w.packed.shape[-1]
+    groups_ab = len(ref.plane_groups(a_bits)) * len(ref.plane_groups(w_bits))
+    n_bytes = n_live * k * 2 + e * c * 4 + counts.numel() * 4 \
+        + live_experts * nw * (w_bits * n * kw * 4 + n * 4) + e * c * n * 2
+    n_ops = nw * groups_ab * 2 * n_live * n * k
+    b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+    # yardstick (not the same function; the port never calls it)
+    wb = torch.randn((e, k, nw * n), generator=g_, device="cuda").to(
+        torch.bfloat16)
+    mm = timer(lambda: torch.bmm(x, wb), iters=10)
+    del wb
+    print(f"K4 moe_expert_linear {name} E={e} G={groups} seg={seg} N={n} "
+          f"K={k}{' dual' if dual else ''} act={act}, {n_live} live rows of "
+          f"{e * c}, {live_experts} live experts: core bit-exact, live map "
+          f"equal, dead rows 0, out max|err| {err:.3g}, {ulps} bf16 ulps "
+          f"(tol {1 if dual else 0}); {ms:.4f} ms (bound {b_ms:.4f} ms by "
+          f"{b_by}, {100 * b_ms / ms:.1f}% of bound), plain {plain:.4f} ms; "
+          f"yardstick (not the same function): torch.bmm bf16 {mm:.4f} ms",
+          flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def k4_phase(torch, timer, seed, results):
+    """K4 at mixtral-8x7b's shapes (E = 8, top 2, capacity factor 1.25),
+    counts from a top-2 routing with one empty expert."""
+    g_ = torch.Generator(device="cuda").manual_seed(seed + 3)
+    d, f = 4096, 14336
+    dec = routed_counts(torch, g_, e=8, g=1, tg=4, cap=2)       # 4 lanes
+    chunk = routed_counts(torch, g_, e=8, g=1, tg=1024, cap=320, skew=1.0)
+    g32 = routed_counts(torch, g_, e=8, g=32, tg=128, cap=40)   # 4096 tok
+    odd = routed_counts(torch, g_, e=4, g=2, tg=6, cap=4)
+    cases = [
+        ("decode gate/up", dict(e=8, groups=1, seg=2, k=d, n=f, counts=dec,
+                                dual=True)),
+        ("decode down", dict(e=8, groups=1, seg=2, k=f, n=d, counts=dec,
+                             dual=False)),
+        ("chunk gate/up", dict(e=8, groups=1, seg=320, k=d, n=f,
+                               counts=chunk, dual=True)),
+        ("G=32 down", dict(e=8, groups=32, seg=40, k=f, n=d, counts=g32,
+                           dual=False)),
+        ("odd", dict(e=4, groups=2, seg=4, k=1000, n=1000, counts=odd,
+                     dual=True)),
+    ]
+    for name, kw in cases:
+        r = _k4_case(torch, timer, g_, name, **kw)
+        if name == "decode gate/up":
+            results["moe_expert_linear"] = r
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
-# phase 4: full width, depth 2, card vs CPU
+# phase 4: full width, shallow, card vs CPU
 # ---------------------------------------------------------------------------
 
 def _to_cpu(tree):
@@ -345,51 +490,77 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def shallow_phase(torch, seed):
+def shallow_phase(torch, seed, arch, n_layers, s):
+    """One full-width forward of ``s`` tokens at depth ``n_layers`` on the
+    card, then on the CPU; MoE layers record each token's top-k experts
+    on both devices."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.models.config import QuantConfig
     from repro_torch.serving import engine as E
     from repro_torch.serving.paged_cache import PagedKVPool
-    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=2)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8)
     params = M.init_params(cfg, seed=seed, device="cuda", quant=quant)
     rng = np.random.default_rng(seed)
-    s = 24
     toks = rng.integers(0, cfg.vocab, (1, s), dtype=np.int32)
     batch_np = dict(tokens=toks, positions=np.arange(s, dtype=np.int32)[None],
                     last_idx=np.array([s - 1], np.int32))
-    tables, lens = np.array([[1, 2]], np.int32), np.zeros(1, np.int32)
+    nb = -(-s // 16)
+    tables = np.arange(1, nb + 1, dtype=np.int32)[None]
+    lens = np.zeros(1, np.int32)
+    routes: dict = {}
+    moe_apply = L.moe_apply
+
+    def recording_moe_apply(p, x, cfg_, quant=None, **kw):
+        lg = torch.einsum("btd,ed->bte", x.float(), p["router"]["w"])
+        top = torch.topk(torch.softmax(lg, -1), cfg_.top_k, -1).indices
+        routes.setdefault(x.device.type, []).append(
+            top.sort(-1).values.cpu())
+        return moe_apply(p, x, cfg_, quant, **kw)
+
     out = {}
-    for dev, p in (("cuda", params), ("cpu", None)):
-        if p is None:
-            p = _to_cpu(params)
-            del params
-            torch.cuda.empty_cache()
-        pool = PagedKVPool(cfg, 3, 16, quant=quant, device=dev)
-        batch = {k: torch.as_tensor(v, device=dev)
-                 for k, v in batch_np.items()}
-        t0 = time.time()
-        logits, _ = E.prefill_step_bucketed(
-            p, batch, pool.step_caches(tables, lens), cfg, quant)
-        out[dev] = logits.float().cpu()
-        print(f"full width depth 2: forward on {dev} in "
-              f"{time.time() - t0:.2f} s", flush=True)
-        del p, pool
+    L.moe_apply = recording_moe_apply
+    try:
+        for dev, p in (("cuda", params), ("cpu", None)):
+            if p is None:
+                p = _to_cpu(params)
+                del params
+                torch.cuda.empty_cache()
+            pool = PagedKVPool(cfg, nb + 1, 16, quant=quant, device=dev)
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in batch_np.items()}
+            t0 = time.time()
+            logits, _ = E.prefill_step_bucketed(
+                p, batch, pool.step_caches(tables, lens), cfg, quant)
+            out[dev] = logits.float().cpu()
+            print(f"{arch} full width depth {n_layers}: forward on {dev} in "
+                  f"{time.time() - t0:.2f} s", flush=True)
+            del p, pool
+    finally:
+        L.moe_apply = moe_apply
     a, b = out["cuda"], out["cpu"]
     if not (torch.isfinite(a).all() and a.shape == (1, cfg.vocab_padded)):
         raise AssertionError("card logits not finite / wrong shape")
     err = (a - b).abs().max().item()
     scale = b.abs().max().item()
     if err > 0.05 * scale:
-        raise AssertionError(f"card vs CPU logits: max|err| {err} > "
+        raise AssertionError(f"{arch} card vs CPU logits: max|err| {err} > "
                              f"5% of {scale}")
-    print(f"full width depth 2 (d_model 4096, vocab {cfg.vocab}): card vs "
-          f"CPU logits max|err| {err:.4g} (tol 5% of max|logit| {scale:.4g}"
-          f"), argmax card {int(a.argmax())} cpu {int(b.argmax())}",
-          flush=True)
+    routed = ""
+    if routes:
+        rc, rg = torch.cat(routes["cpu"]), torch.cat(routes["cuda"])
+        same = (rc == rg).all(-1).float().mean().item()
+        routed = (f"; {100 * same:.1f}% of {rc.shape[0] * rc.shape[1]} "
+                  f"token-layer routings pick the same top-{cfg.top_k} "
+                  f"experts on the card and the CPU")
+    print(f"{arch} full width depth {n_layers} (d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}, {s} tokens): card vs CPU logits max|err| {err:.4g} "
+          f"(tol 5% of max|logit| {scale:.4g}), argmax card "
+          f"{int(a.argmax())} cpu {int(b.argmax())}{routed}", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -399,7 +570,10 @@ def shallow_phase(torch, seed):
 
 def profile_steps(torch, eng, n_steps: int) -> str:
     """``torch.profiler`` over ``n_steps`` engine steps: device time by
-    kernel name and the device's busy share of the window."""
+    kernel name and the device's busy share of the window.  Only device
+    events count (kernels, copies): a host op's row repeats the device
+    time of the kernels it launched, which have rows of their own."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -410,83 +584,109 @@ def profile_steps(torch, eng, n_steps: int) -> str:
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     rows = []
-    busy = 0.0
+    busy, n_dev = 0.0, 0
     for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
         dev = getattr(ev, "self_device_time_total", None)
         if dev is None:
             dev = getattr(ev, "self_cuda_time_total", 0.0)
         if dev > 0:
             rows.append((dev, ev.count, ev.key))
             busy += dev
+            n_dev += ev.count
+    if not rows:
+        raise AssertionError("the profiler recorded no device time")
     rows.sort(reverse=True)
     print(f"profile of {n_steps} decode steps: wall {wall_us / 1e3:.1f} ms, "
           f"device busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%, "
-          f"idle {100 - 100 * busy / wall_us:.1f}%)", flush=True)
+          f"idle {100 - 100 * busy / wall_us:.1f}%), {n_dev} device "
+          f"kernels and copies", flush=True)
     for dev, cnt, key in rows[:12]:
         print(f"  {dev / 1e3:9.3f} ms  {cnt:6d} x  {key[:90]}", flush=True)
     return prof
 
 
-def e2e_phase(torch, seed):
+def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
+                n_blocks, per_dispatch, n_pack=None):
+    """Serve ``arch`` at full width, end to end: load and quantize on the
+    card, then requests of ``prompt_lens`` tokens (the first and the last
+    share a ``prefix``-token head; the last is submitted once the first
+    has emitted, so its prefix is indexed), 32 greedy tokens each.  The
+    launch counters are zeroed just before and read just after.  Every
+    forward dispatch must launch each kernel ``per_dispatch[name]``
+    times (K3 ``n_pack`` times in all, at load).  Returns the counts."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import apmm, flash_attention, pack
+    from repro_torch.kernels import apmm, flash_attention, moe, pack
     from repro_torch.models import model as M
     from repro_torch.models.config import QuantConfig
     from repro_torch.serving import engine as E
-    cfg = get_config("llama3-8b")
+    cfg = get_config(arch)
     quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8)
+    forward, n_dispatch = M.forward, [0]
+
+    def counting_forward(*a, **kw):
+        n_dispatch[0] += 1
+        return forward(*a, **kw)
+
     torch.cuda.reset_peak_memory_stats()
+    M.forward = counting_forward
     # --- the main path: counters zeroed just before, read just after ---
     pack.LAUNCHES = apmm.LAUNCHES = flash_attention.LAUNCHES = 0
-    t0 = time.time()
-    params = M.init_params(cfg, seed=seed, device="cuda", quant=quant)
-    torch.cuda.synchronize()
-    t_load = time.time() - t0
-    eng = E.Engine(params, cfg, n_slots=4, max_len=1024, quant=quant,
-                   paged=True, block_size=16, n_blocks=257,
-                   chunk_tokens=256)
-    rng = np.random.default_rng(seed)
-    shared = rng.integers(0, cfg.vocab, (128,), dtype=np.int32)
-
-    def prompt(n, prefix=False):
-        body = rng.integers(0, cfg.vocab, (n,), dtype=np.int32)
-        return np.concatenate([shared, body[128:]]) if prefix else body
-
-    first = [E.Request(prompt=prompt(600, prefix=True), max_new_tokens=32),
-             E.Request(prompt=prompt(100), max_new_tokens=32),
-             E.Request(prompt=prompt(300), max_new_tokens=32)]
-    late = E.Request(prompt=prompt(200, prefix=True), max_new_tokens=32)
-    reqs = first + [late]
-    for r in first:
-        eng.submit(r)
-    step_ms = {"prefill": [], "decode": []}
-    prof, t_prof, tok_prof = None, 0.0, 0
-    t_serve = time.time()
-    while eng._has_work() or not late.done:
-        if first[0].out and getattr(late, "_engine", None) is None:
-            eng.submit(late)          # after the shared prefix is indexed
-        kind = "prefill" if (eng.scheduler.waiting or any(
-            s.prefilling for s in eng.scheduler.running)) else "decode"
-        # trace three decode steps in the middle of the run (their times
-        # are left out of the step statistics)
-        traced = kind == "decode" and prof is None \
-            and len(step_ms["decode"]) == 8
-        if traced:
-            n0, tp = sum(len(r.out) for r in reqs), time.time()
-            prof = profile_steps(torch, eng, 3)
-            t_prof = time.time() - tp
-            tok_prof = sum(len(r.out) for r in reqs) - n0
-            continue
-        ts = time.time()
-        if not eng.step():
-            break
+    moe.LAUNCHES = 0
+    try:
+        t0 = time.time()
+        params = M.init_params(cfg, seed=seed, device="cuda", quant=quant)
         torch.cuda.synchronize()
-        step_ms[kind].append((time.time() - ts) * 1e3)
-    t_serve = time.time() - t_serve - t_prof     # traced steps left out
-    counts = {"quantize_pack_rows": pack.LAUNCHES,
-              "apmm_fused_linear": apmm.LAUNCHES,
-              "paged_attention": flash_attention.LAUNCHES}
+        t_load = time.time() - t0
+        eng = E.Engine(params, cfg, n_slots=4, max_len=max_len, quant=quant,
+                       paged=True, block_size=16, n_blocks=n_blocks,
+                       chunk_tokens=256)
+        rng = np.random.default_rng(seed)
+        shared = rng.integers(0, cfg.vocab, (prefix,), dtype=np.int32)
+
+        def prompt(n, with_prefix):
+            body = rng.integers(0, cfg.vocab, (n,), dtype=np.int32)
+            return np.concatenate([shared, body[prefix:]]) if with_prefix \
+                else body
+
+        reqs = [E.Request(prompt=prompt(n, i == 0), max_new_tokens=32)
+                for i, n in enumerate(prompt_lens)]
+        late = E.Request(prompt=prompt(200, True), max_new_tokens=32)
+        reqs.append(late)
+        for r in reqs[:-1]:
+            eng.submit(r)
+        step_ms = {"prefill": [], "decode": []}
+        prof, t_prof, tok_prof = None, 0.0, 0
+        t_serve = time.time()
+        while eng._has_work() or not late.done:
+            if reqs[0].out and getattr(late, "_engine", None) is None:
+                eng.submit(late)      # after the shared prefix is indexed
+            kind = "prefill" if (eng.scheduler.waiting or any(
+                s.prefilling for s in eng.scheduler.running)) else "decode"
+            # trace three decode steps in the middle of the run (their
+            # times are left out of the step statistics)
+            traced = kind == "decode" and prof is None \
+                and len(step_ms["decode"]) == 8
+            if traced:
+                n0, tp = sum(len(r.out) for r in reqs), time.time()
+                prof = profile_steps(torch, eng, 3)
+                t_prof = time.time() - tp
+                tok_prof = sum(len(r.out) for r in reqs) - n0
+                continue
+            ts = time.time()
+            if not eng.step():
+                break
+            torch.cuda.synchronize()
+            step_ms[kind].append((time.time() - ts) * 1e3)
+        t_serve = time.time() - t_serve - t_prof     # traced steps left out
+        counts = {"quantize_pack_rows": pack.LAUNCHES,
+                  "apmm_fused_linear": apmm.LAUNCHES,
+                  "paged_attention": flash_attention.LAUNCHES,
+                  "moe_expert_linear": moe.LAUNCHES}
+    finally:
+        M.forward = forward
     # --- end of the main path ---
     rep = eng.report()
     for r in reqs:
@@ -499,23 +699,32 @@ def e2e_phase(torch, seed):
         raise AssertionError(f"pool did not drain: {rep}")
     eng.pool.validate(check_contents=True)
     if rep["prefix_hits"] < 1:
-        raise AssertionError("the shared 128-token prefix never hit")
-    for name, c in counts.items():
-        if c <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
+        raise AssertionError(f"the shared {prefix}-token prefix never hit")
+    if cfg.window is not None and rep["window_reclaimed"] < 1:
+        raise AssertionError("no block fell out of the window")
+    nd = n_dispatch[0]
+    for name, per in per_dispatch.items():
+        if counts[name] != per * nd or counts[name] <= 0:
+            raise AssertionError(f"{arch}: kernel {name} launched "
+                                 f"{counts[name]} times in {nd} dispatches, "
+                                 f"not {per} per dispatch")
+    if n_pack is not None and counts["quantize_pack_rows"] != n_pack:
+        raise AssertionError(f"{arch}: K3 launched "
+                             f"{counts['quantize_pack_rows']} times at load, "
+                             f"not {n_pack}")
     n_tok = sum(len(r.out) for r in reqs) - tok_prof
     pre, dec = step_ms["prefill"], step_ms["decode"]
-    print(f"end to end llama3-8b 32L w2/a8/kv8 paged bs=16 chunk=256: "
-          f"load+quantize {t_load:.2f} s; {len(reqs)} requests (prompts "
-          f"{[len(r.prompt) for r in reqs]}, prefix hit tokens "
-          f"{rep['prefix_hit_tokens']}), {n_tok} tokens outside the traced "
-          f"steps in {t_serve:.2f} s "
-          f"= {n_tok / t_serve:.2f} tok/s; {len(pre)} prefill steps "
-          f"mean {np.mean(pre):.1f} ms, {len(dec)} decode steps mean "
-          f"{np.mean(dec):.1f} ms (median {np.median(dec):.1f} ms); "
-          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-          f" GiB", flush=True)
+    print(f"end to end {arch} {cfg.n_layers}L w2/a8/kv8 paged bs=16 "
+          f"chunk=256: load+quantize {t_load:.2f} s; {len(reqs)} requests "
+          f"(prompts {[len(r.prompt) for r in reqs]}, prefix hit tokens "
+          f"{rep['prefix_hit_tokens']}, window-reclaimed blocks "
+          f"{rep['window_reclaimed']}), {nd} forward dispatches, launches "
+          f"{counts}; {n_tok} tokens outside the traced steps in "
+          f"{t_serve:.2f} s = {n_tok / t_serve:.2f} tok/s; {len(pre)} "
+          f"prefill steps mean {np.mean(pre):.1f} ms, {len(dec)} decode "
+          f"steps mean {np.mean(dec):.1f} ms (median {np.median(dec):.1f} "
+          f"ms); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     del eng, params
     torch.cuda.empty_cache()
     return counts
@@ -554,13 +763,28 @@ def main() -> int:
     k3_phase(torch, timer, args.seed, results)
     k1_phase(torch, timer, args.seed, results)
     k2_phase(torch, timer, args.seed, results)
+    k4_phase(torch, timer, args.seed, results)
     del timer
     torch.cuda.empty_cache()
-    shallow_phase(torch, args.seed)
-    counts = e2e_phase(torch, args.seed)
-
-    print("kernels: " + ", ".join(f"{k}={v}" for k, v in counts.items()),
-          flush=True)
+    shallow_phase(torch, args.seed, "llama3-8b", n_layers=2, s=24)
+    shallow_phase(torch, args.seed, "mixtral-8x7b", n_layers=1, s=8)
+    paths = {
+        "llama3-8b": serve_phase(
+            torch, args.seed, "llama3-8b", prompt_lens=(600, 100, 300),
+            prefix=128, max_len=1024, n_blocks=257,
+            per_dispatch={"apmm_fused_linear": 193, "paged_attention": 32},
+            n_pack=225),
+        "mixtral-8x7b": serve_phase(
+            torch, args.seed, "mixtral-8x7b",
+            prompt_lens=(600, 100, 300, 4300), prefix=128, max_len=4352,
+            n_blocks=512,
+            per_dispatch={"apmm_fused_linear": 129, "paged_attention": 32,
+                          "moe_expert_linear": 64},
+            n_pack=897),
+    }
+    for arch, c in paths.items():
+        print(f"kernels ({arch} path): "
+              + ", ".join(f"{k}={v}" for k, v in c.items()), flush=True)
     meta = {
         "quantize_pack_rows": ("src/repro_torch/csrc/pack.cu",
                                "src/repro/kernels/pack.py:69"),
@@ -568,16 +792,24 @@ def main() -> int:
                               "src/repro/kernels/apmm.py:355"),
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/flash_attention.py:400"),
+        "moe_expert_linear": ("src/repro_torch/csrc/moe_expert_linear.cu",
+                              "src/repro/kernels/moe.py:273"),
     }
+    # one entry per (path, kernel): ``launches`` is that path's own count
     kernels = []
-    for k, (source, replaces) in meta.items():
-        r = results[k]
-        kernels.append(dict(name=k, route="cuda", source=source,
-                            replaces=replaces, launches=counts[k],
-                            max_abs_err=r["max_abs_err"], ms=r["ms"],
-                            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                            bound_by=r["bound_by"],
-                            library_ms=r["library_ms"]))
+    for arch, counts in paths.items():
+        for k, (source, replaces) in meta.items():
+            if not counts[k]:
+                continue             # not on this path (K4 on llama)
+            r = results[k]
+            kernels.append(dict(name=k, path=arch, route="cuda",
+                                source=source, replaces=replaces,
+                                launches=counts[k],
+                                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                                plain_ms=r["plain_ms"],
+                                bound_ms=r["bound_ms"],
+                                bound_by=r["bound_by"],
+                                library_ms=r["library_ms"]))
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

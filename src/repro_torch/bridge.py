@@ -6,8 +6,12 @@ pytree, and each packed ``BipolarTensor`` into a dict ``{packed, scale,
 n_bits, shape, width_scales}`` -- and returns the port's parameter dict
 on ``device``:
 
-* the scanned ``blocks`` (every leaf with a leading unit axis) are
-  unstacked into one entry per layer of ``params["layers"]``;
+* the unrolled ``prelude`` layers (deepseek-moe's dense layer 0) and
+  the scanned ``blocks`` (every leaf with a leading unit axis) become
+  one entry per layer of ``params["layers"]``, prelude first; a stacked
+  expert weight (packed ``(u, n_bits, E, N, Kw)``, scale ``(u, E, N,
+  1)``) unstacks like any other packed leaf, and the f32 router with
+  it;
 * packed uint32 words are viewed as int32 (same bits);
 * bfloat16 arrays (numpy's ``bfloat16`` extension dtype) are viewed bit
   for bit as ``torch.bfloat16``.
@@ -79,14 +83,15 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     check_supported(cfg)
     dev = resolve_device(device)
     prelude, unit, n_units = plan_split(cfg)
-    assert not prelude, "dense decoders have no prelude"
+    pre = tree.get("prelude", [])
+    assert len(pre) == len(prelude), (len(pre), len(prelude))
     blocks = tree["blocks"]
     assert len(blocks) == len(unit), (len(blocks), len(unit))
     params = {"embed": from_numpy_tree(tree["embed"], dev),
               "final_norm": from_numpy_tree(tree["final_norm"], dev),
-              "layers": [from_numpy_tree(_unit(blocks[i], u), dev)
-                         for u in range(n_units)
-                         for i in range(len(unit))]}
+              "layers": [from_numpy_tree(p, dev) for p in pre]
+              + [from_numpy_tree(_unit(blocks[i], u), dev)
+                 for u in range(n_units) for i in range(len(unit))]}
     if "lm_head" in tree:
         params["lm_head"] = from_numpy_tree(tree["lm_head"], dev)
     return params

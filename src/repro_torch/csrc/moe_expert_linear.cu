@@ -1,0 +1,409 @@
+// K4: grouped quantized MoE expert GEMM, one launch for all experts.
+//
+// Replaces the TPU kernel src/repro/kernels/moe.py::moe_expert_linear
+// (Pallas body `_moe_kernel`), `fused` variant.  Inputs: the capacity-
+// dispatched float activations X (E*G, seg, K) (bf16 or f32), one segment
+// of `seg` rows per (expert, dispatch group), with per-row f32 scales
+// a_s (E*G*seg) and live-row counts counts (E*G) int32; the stacked expert
+// weight planes B (n_b, E, N, Kw) as 32-bit words along K (pad bit 1) with
+// per-(expert, out-channel) f32 scales b_s (E, N); optionally a second
+// expert weight B2 (dual gate/up mode: act(Y1) * Y2).
+//
+//   grid     : one block per (segment eg, row tile, column tile).  The row
+//              tile is 8, 16, 32 or 64 rows, never taller than the segment
+//              padded to 8 rows, so decode (seg = 2) runs 8-row tiles.
+//              Segment eg reads the weights of expert eg / G.
+//   dead     : a block reads counts[eg] from device memory (the wrapper
+//              never syncs for it); a tile whose first row is at or
+//              beyond the count writes zeros and reads neither activations
+//              nor weights (the TPU's grid skip still paid the tile DMA)
+//   prologue : each live row of the X tile quantized in f32 --
+//              q = clip(round_to_odd(x / a_s)) with IEEE division -- and
+//              split into <=7-bit plane groups, int8, in shared memory
+//   weights  : the planes of each group spread 4 bits at a time into int8
+//              lanes (bit i of a nibble to byte i: n * 0x00204081 &
+//              0x01010101) and recombined as sum_i b_i << (i - lo + 1)
+//              - (2^size - 1) with one per-byte subtract
+//   products : __dp4a int8 dot products accumulated in int32 per group
+//              pair, shift-added by (lo_a + lo_b)
+//   epilogue : f32 throughout: (acc * a_s) * b_s as two separate
+//              multiplies; dual: the same for Y2, then act(Y1) * Y2; ONE
+//              cast to the output dtype; rows at or beyond the count are
+//              written as exact zeros (kernels/ref.py::ap_moe_expert_linear_ref)
+//   live map : blocks of the first column tile write live[eg, r0 / bc] =
+//              (count > r0) for each bc-row tile start r0 (bc is the
+//              reference's min(256, round_up(seg, 8)) geometry)
+//
+// K padding, as in K1: pad columns (and tile overhang past K) carry the
+// activation value 0, so the pad bits' weight values add nothing.
+//
+// Bound on Hopper.  At decode (seg = 2 rows per expert) the kernel is
+// bound by bytes: the planes of every live expert, n_b bits per weight
+// element (mixtral gate/up dual, 8 experts live: 235 MB, 0.070 ms at
+// 3.35 TB/s; down 117 MB, 0.035 ms).  At a prefill chunk it is bound by
+// operations: int8 multiply-adds on the live rows only, counted as for K1
+// (2 per multiply-add, times the plane-group pairs: an 8-bit activation
+// is two 4-bit int8 groups).  1024 tokens, top 2, at most 2048 live rows:
+// 2 x 2048 x 14336 x 4096 x 2 weights x 2 groups = 962 G int8 operations
+// for gate/up, 0.486 ms at 1,979 TOP/s.  This first design runs dp4a on
+// CUDA cores (a few percent of either bound); wgmma with TMA and a
+// GEMV-shaped decode kernel are later work.
+//
+// Built with -fmad=false; the epilogue also uses __fmul_rn / __fadd_rn,
+// so at act = none its f32 bits equal the plain version's.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BK = 128;           // K elements per tile (4 words per plane)
+constexpr int LDS = BK + 4;       // padded smem row (bytes)
+constexpr int THREADS = 256;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// silu as y * logistic(y) (the plain version's form); gelu, tanh form
+__device__ __forceinline__ float act_fn(float y, int act) {
+  if (act == 1) {
+    return __fmul_rn(y, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y))));
+  }
+  if (act == 2) {
+    float inner = 0.7978845608028654f * (y + 0.044715f * y * y * y);
+    return 0.5f * y * (1.0f + tanhf(inner));
+  }
+  return y;
+}
+
+// balanced <=7-bit plane groups of ref.plane_groups
+__device__ __forceinline__ void plane_group(int n_bits, int g, int* lo,
+                                            int* size) {
+  int ng = (n_bits + 6) / 7;
+  int base = n_bits / ng, extra = n_bits % ng;
+  int l = 0;
+  for (int i = 0; i < g; ++i) l += base + (i < extra ? 1 : 0);
+  *lo = l;
+  *size = base + (g < extra ? 1 : 0);
+}
+
+// bits 0..3 of n to bit 0 of bytes 0..3
+__device__ __forceinline__ uint32_t spread4(uint32_t n) {
+  return (n * 0x00204081u) & 0x01010101u;
+}
+
+// BM x BN output tile, each of the 256 threads an RM x RN micro-tile of
+// rows ty + TY * i and columns tx + TX * j
+template <typename TX, typename TO, int BM, int BN, int RM, int RN>
+__global__ void __launch_bounds__(THREADS)
+moe_expert_linear_kernel(const TX* __restrict__ x,
+                         const float* __restrict__ a_scale,
+                         const int* __restrict__ counts,
+                         const uint32_t* __restrict__ bp,
+                         const float* __restrict__ b_scale,
+                         const uint32_t* __restrict__ bp2,
+                         const float* __restrict__ b2_scale,
+                         TO* __restrict__ out, int* __restrict__ live_map,
+                         int n_exp, int groups, int seg, int n, int k,
+                         int kw, int n_a, int n_b, int act, int bc,
+                         int n_ci) {
+  constexpr int TX_ = BN / RN;
+  constexpr int TY_ = BM / RM;
+  static_assert(TX_ * TY_ == THREADS, "thread layout");
+  extern __shared__ __align__(16) int8_t smem[];
+
+  const int tid = threadIdx.x;
+  const int eg = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int e = eg / groups;
+  const int cnt = counts[eg];
+  const long long seg_row0 = (long long)eg * seg;   // first row of segment
+
+  if (blockIdx.x == 0 && tid == 0 && m0 % bc == 0)
+    live_map[eg * n_ci + m0 / bc] = cnt > m0 ? 1 : 0;
+
+  if (m0 >= cnt) {                       // dead tile: zeros, no reads
+    for (int item = tid; item < BM * BN; item += THREADS) {
+      int r = m0 + item / BN, c = n0 + item % BN;
+      if (r < seg && c < n) out[(seg_row0 + r) * n + c] = from_f32<TO>(0.0f);
+    }
+    return;
+  }
+
+  const int lim = cnt < seg ? cnt : seg;  // live rows of this segment
+  const int nga = (n_a + 6) / 7;
+  const int ngb = (n_b + 6) / 7;
+  const int nw = bp2 != nullptr ? 2 : 1;
+  int8_t* s_a = smem;                            // [nga][BM][LDS]
+  int8_t* s_b = smem + nga * BM * LDS;           // [nw][ngb][BN][LDS]
+  const int tx = tid % TX_, ty = tid / TX_;
+  const int max_a = (1 << n_a) - 1;
+  const long long plane_stride = (long long)n_exp * n * kw;
+  const uint32_t* wbase = bp + (long long)e * n * kw;
+  const uint32_t* wbase2 = bp2 != nullptr ? bp2 + (long long)e * n * kw
+                                          : nullptr;
+
+  int lo_a[2], sz_a[2], lo_b[2], sz_b[2];
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    plane_group(n_a, g < nga ? g : 0, &lo_a[g], &sz_a[g]);
+    plane_group(n_b, g < ngb ? g : 0, &lo_b[g], &sz_b[g]);
+  }
+
+  int acc[2][RM][RN];
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < RN; ++j) acc[w][i][j] = 0;
+
+  const int kp = kw * 32;
+  for (int k0 = 0; k0 < kp; k0 += BK) {
+    // -- prologue: quantize the live rows of the X tile in f32 ---------
+    for (int item = tid; item < BM * (BK / 4); item += THREADS) {
+      int r = item / (BK / 4), k4 = item % (BK / 4);
+      int row = m0 + r;
+      bool row_live = row < lim;
+      float s = row_live ? a_scale[seg_row0 + row] : 1.0f;
+      int u[4];
+      bool live[4];
+#pragma unroll
+      for (int q4 = 0; q4 < 4; ++q4) {
+        int col = k0 + k4 * 4 + q4;
+        live[q4] = row_live && col < k;
+        u[q4] = 0;
+        if (live[q4]) {
+          float xv = to_f32(x[(seg_row0 + row) * k + col]);
+          float t = __fmul_rn(__fsub_rn(__fdiv_rn(xv, s), 1.0f), 0.5f);
+          float q = __fadd_rn(__fmul_rn(2.0f, rintf(t)), 1.0f);
+          q = fminf(fmaxf(q, (float)(-max_a)), (float)max_a);
+          u[q4] = ((int)q + max_a) >> 1;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        if (g >= nga) break;
+        int mask = (1 << sz_a[g]) - 1;
+        uint32_t word = 0u;
+#pragma unroll
+        for (int q4 = 0; q4 < 4; ++q4) {
+          int v = live[q4] ? ((((u[q4] >> lo_a[g]) & mask) << 1) - mask) : 0;
+          word |= ((uint32_t)(uint8_t)(int8_t)v) << (8 * q4);
+        }
+        *reinterpret_cast<uint32_t*>(s_a + (g * BM + r) * LDS + k4 * 4) =
+            word;
+      }
+    }
+    // -- weights: spread each group's planes into int8 values -----------
+    for (int item = tid; item < nw * BN * (BK / 32); item += THREADS) {
+      int wi = item / (BN * (BK / 32));
+      int rem = item % (BN * (BK / 32));
+      int c = rem / (BK / 32), wd = rem % (BK / 32);
+      int col = n0 + c, kwi = k0 / 32 + wd;
+      const uint32_t* planes = wi == 0 ? wbase : wbase2;
+      bool live = col < n && kwi < kw;
+      uint32_t p[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        p[i] = (live && i < n_b)
+                   ? planes[i * plane_stride + (long long)col * kw + kwi]
+                   : 0u;
+#pragma unroll
+      for (int g = 0; g < 2; ++g) {
+        if (g >= ngb) break;
+        uint32_t maxv4 = (uint32_t)((1 << sz_b[g]) - 1) * 0x01010101u;
+        int8_t* dst = s_b + ((wi * ngb + g) * BN + c) * LDS + wd * 32;
+#pragma unroll
+        for (int nib = 0; nib < 8; ++nib) {
+          uint32_t word = 0u;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)   // static indices keep p[] in registers
+            if (i >= lo_b[g] && i < lo_b[g] + sz_b[g])
+              word += spread4((p[i] >> (4 * nib)) & 0xFu) << (i - lo_b[g] + 1);
+          // per byte: at most 2 * (2^7 - 1) = 254, so no carries across
+          // bytes; the per-byte subtract leaves int8 values
+          word = live ? __vsub4(word, maxv4) : 0u;
+          *reinterpret_cast<uint32_t*>(dst + nib * 4) = word;
+        }
+      }
+    }
+    __syncthreads();
+    // -- products: int8 dp4a per group pair, shift-added ---------------
+#pragma unroll
+    for (int wi = 0; wi < 2; ++wi) {
+      if (wi >= nw) break;
+#pragma unroll
+      for (int gb = 0; gb < 2; ++gb) {
+        if (gb >= ngb) break;
+        const int8_t* sb = s_b + (wi * ngb + gb) * BN * LDS;
+#pragma unroll
+        for (int ga = 0; ga < 2; ++ga) {
+          if (ga >= nga) break;
+          const int8_t* sa = s_a + ga * BM * LDS;
+          int t[RM][RN];
+#pragma unroll
+          for (int i = 0; i < RM; ++i)
+#pragma unroll
+            for (int j = 0; j < RN; ++j) t[i][j] = 0;
+#pragma unroll 4
+          for (int k4 = 0; k4 < BK / 4; ++k4) {
+            int av[RM], bv[RN];
+#pragma unroll
+            for (int i = 0; i < RM; ++i)
+              av[i] = *reinterpret_cast<const int*>(
+                  sa + (ty + TY_ * i) * LDS + k4 * 4);
+#pragma unroll
+            for (int j = 0; j < RN; ++j)
+              bv[j] = *reinterpret_cast<const int*>(
+                  sb + (tx + TX_ * j) * LDS + k4 * 4);
+#pragma unroll
+            for (int i = 0; i < RM; ++i)
+#pragma unroll
+              for (int j = 0; j < RN; ++j)
+                t[i][j] = __dp4a(av[i], bv[j], t[i][j]);
+          }
+          int sh = lo_a[ga] + lo_b[gb];
+#pragma unroll
+          for (int i = 0; i < RM; ++i)
+#pragma unroll
+            for (int j = 0; j < RN; ++j) {
+              if (wi == 0) acc[0][i][j] += t[i][j] << sh;
+              else acc[1][i][j] += t[i][j] << sh;
+            }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // -- epilogue: f32, one cast, dead rows exact zeros ---------------------
+  const float* ws = b_scale + (long long)e * n;
+  const float* ws2 = b2_scale != nullptr ? b2_scale + (long long)e * n
+                                         : nullptr;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    int row = m0 + ty + TY_ * i;
+    if (row >= seg) continue;
+    float as = row < lim ? a_scale[seg_row0 + row] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < RN; ++j) {
+      int col = n0 + tx + TX_ * j;
+      if (col >= n) continue;
+      float yo = 0.0f;
+      if (row < lim) {
+        float yf = __fmul_rn(__fmul_rn((float)acc[0][i][j], as), ws[col]);
+        if (bp2 != nullptr) {
+          float y2 = __fmul_rn(__fmul_rn((float)acc[1][i][j], as), ws2[col]);
+          yf = __fmul_rn(act_fn(yf, act), y2);
+        } else if (act != 0) {
+          yf = act_fn(yf, act);
+        }
+        yo = yf;
+      }
+      out[(seg_row0 + row) * n + col] = from_f32<TO>(yo);
+    }
+  }
+}
+
+template <typename TX, typename TO, int BM, int BN, int RM, int RN>
+int launch_tile(const void* x, const void* a_scale, const void* counts,
+                const void* bp, const void* b_scale, const void* bp2,
+                const void* b2_scale, void* out, void* live, int n_eg,
+                int n_exp, int groups, int seg, int n, int k, int kw,
+                int n_a, int n_b, int act, int bc, int n_ci,
+                cudaStream_t stream) {
+  auto kernel = moe_expert_linear_kernel<TX, TO, BM, BN, RM, RN>;
+  int nga = (n_a + 6) / 7, ngb = (n_b + 6) / 7, nw = bp2 ? 2 : 1;
+  int smem = (nga * BM + nw * ngb * BN) * LDS;
+  static bool configured = false;
+  if (!configured) {
+    int max_smem = (2 * BM + 2 * 2 * BN) * LDS;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid((n + BN - 1) / BN, (seg + BM - 1) / BM, n_eg);
+  kernel<<<grid, THREADS, smem, stream>>>(
+      (const TX*)x, (const float*)a_scale, (const int*)counts,
+      (const uint32_t*)bp, (const float*)b_scale, (const uint32_t*)bp2,
+      (const float*)b2_scale, (TO*)out, (int*)live, n_exp, groups, seg, n,
+      k, kw, n_a, n_b, act, bc, n_ci);
+  return (int)cudaGetLastError();
+}
+
+// the tallest row tile of 8, 16, 32 or 64 rows that is no taller than
+// the padded segment (decode, seg = 2: 8 rows).  Every bc-row tile start
+// is then a row-tile start: bc is the padded segment up to 256 rows, and
+// 256 beyond (a multiple of 64).
+template <typename TX, typename TO>
+int launch(const void* x, const void* a_scale, const void* counts,
+           const void* bp, const void* b_scale, const void* bp2,
+           const void* b2_scale, void* out, void* live, int n_eg, int n_exp,
+           int groups, int seg, int n, int k, int kw, int n_a, int n_b,
+           int act, int bc, int n_ci, cudaStream_t s) {
+  int rows = (seg + 7) / 8 * 8;
+  if (rows >= 64)
+    return launch_tile<TX, TO, 64, 64, 4, 4>(x, a_scale, counts, bp, b_scale,
+        bp2, b2_scale, out, live, n_eg, n_exp, groups, seg, n, k, kw, n_a,
+        n_b, act, bc, n_ci, s);
+  if (rows >= 32)
+    return launch_tile<TX, TO, 32, 64, 2, 4>(x, a_scale, counts, bp, b_scale,
+        bp2, b2_scale, out, live, n_eg, n_exp, groups, seg, n, k, kw, n_a,
+        n_b, act, bc, n_ci, s);
+  if (rows >= 16)
+    return launch_tile<TX, TO, 16, 64, 1, 4>(x, a_scale, counts, bp, b_scale,
+        bp2, b2_scale, out, live, n_eg, n_exp, groups, seg, n, k, kw, n_a,
+        n_b, act, bc, n_ci, s);
+  return launch_tile<TX, TO, 8, 128, 1, 4>(x, a_scale, counts, bp, b_scale,
+      bp2, b2_scale, out, live, n_eg, n_exp, groups, seg, n, k, kw, n_a, n_b,
+      act, bc, n_ci, s);
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16.  act: 0 none, 1 silu, 2 gelu.
+// x (n_eg, seg, k), a_scale (n_eg * seg), counts (n_eg), planes (n_b,
+// n_exp, n, kw), scales (n_exp, n), out (n_eg, seg, n), live (n_eg, n_ci);
+// n_eg = n_exp * groups and segment eg belongs to expert eg / groups.
+extern "C" int repro_moe_expert_linear(
+    const void* x, const void* a_scale, const void* counts, const void* bp,
+    const void* b_scale, const void* bp2, const void* b2_scale, void* out,
+    void* live, int n_eg, int n_exp, int groups, int seg, int n, int k,
+    int kw, int n_a, int n_b, int act, int bc, int n_ci, int x_dtype,
+    int out_dtype, void* stream) {
+  if (n_eg == 0 || seg == 0 || n == 0) return 0;
+  if (n_a < 1 || n_a > 8 || n_b < 1 || n_b > 8 || n_exp * groups != n_eg ||
+      bc < 1 || kw * 32 < k)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (x_dtype == 1 && out_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(x, a_scale, counts, bp,
+        b_scale, bp2, b2_scale, out, live, n_eg, n_exp, groups, seg, n, k,
+        kw, n_a, n_b, act, bc, n_ci, s);
+  if (x_dtype == 1 && out_dtype == 0)
+    return launch<__nv_bfloat16, float>(x, a_scale, counts, bp, b_scale, bp2,
+        b2_scale, out, live, n_eg, n_exp, groups, seg, n, k, kw, n_a, n_b,
+        act, bc, n_ci, s);
+  if (x_dtype == 0 && out_dtype == 1)
+    return launch<float, __nv_bfloat16>(x, a_scale, counts, bp, b_scale, bp2,
+        b2_scale, out, live, n_eg, n_exp, groups, seg, n, k, kw, n_a, n_b,
+        act, bc, n_ci, s);
+  if (x_dtype == 0 && out_dtype == 0)
+    return launch<float, float>(x, a_scale, counts, bp, b_scale, bp2,
+        b2_scale, out, live, n_eg, n_exp, groups, seg, n, k, kw, n_a, n_b,
+        act, bc, n_ci, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -31,10 +31,11 @@ BUILD_DIR = os.path.join(_ROOT, "build", "kernels")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# per-source extra flags: the GEMM epilogue and the pack must not
+# per-source extra flags: the GEMM epilogues and the pack must not
 # contract multiply-adds into FMAs (their f32 bits are held bit-exact
 # against the plain versions); intrinsics pin them too
 EXTRA_FLAGS = {"apmm_fused_linear": ("-fmad=false",),
+               "moe_expert_linear": ("-fmad=false",),
                "pack": ("-fmad=false",)}
 
 _libs: dict = {}

@@ -1,0 +1,120 @@
+"""K4 wrapper: grouped quantized MoE expert GEMM, one launch for all
+experts (``csrc/moe_expert_linear.cu``).
+
+Port of the TPU kernel ``repro/kernels/moe.py::moe_expert_linear``
+(``fused`` variant).  The device decides: CPU tensors run the plain
+version (:func:`repro_torch.kernels.ref.ap_moe_expert_linear_ref` and the
+analytic live map), CUDA tensors launch the kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.bipolar import BipolarTensor
+from repro_torch.kernels import _build, ref
+
+LAUNCHES = 0          # kernel launches since the last reset (chip_smoke)
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ACTS = {"none": 0, "silu": 1, "gelu": 2}
+
+
+def _lib():
+    lib = _build.load("moe_expert_linear")
+    fn = lib.repro_moe_expert_linear
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def moe_expert_linear_plain(x, a_scale, counts, w, *, w2=None, a_bits: int,
+                            variant: str = "fused", act: str = "none",
+                            out_dtype=torch.bfloat16, bc: int):
+    """The plain version: ``(y, live_map)``."""
+    y = ref.ap_moe_expert_linear_ref(x, a_scale, counts, w, w2=w2,
+                                     a_bits=a_bits, variant=variant,
+                                     act=act, out_dtype=out_dtype)
+    seg = x.shape[1] // counts.shape[1]
+    return y, ref.moe_live_map(counts, seg, bc)
+
+
+def moe_expert_linear(x: torch.Tensor, a_scale: torch.Tensor,
+                      counts: torch.Tensor, w: BipolarTensor, *,
+                      w2: BipolarTensor | None = None, a_bits: int,
+                      variant: str = "fused", act: str = "none",
+                      out_dtype=torch.bfloat16, bc: int):
+    """``y (E, C, N) = epi(Q(x (E, C, K)) @ W (E, N, K)^T)`` over ``G``
+    segments of ``seg = C / G`` rows per expert, with per-row f32 scales
+    ``a_scale (E, C, 1)`` and live-row counts ``counts (E, G)`` int32.
+    Returns ``(y, live_map)``: rows at or beyond a segment's count are
+    exact zeros, and ``live_map (E*G, ceil(seg / bc))`` int32 marks the
+    ``bc``-row tiles whose first row is live (the kernel writes it for
+    the tiles it ran)."""
+    if x.device.type == "cpu":
+        return moe_expert_linear_plain(
+            x, a_scale, counts, w, w2=w2, a_bits=a_bits, variant=variant,
+            act=act, out_dtype=out_dtype, bc=bc)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_expert_linear: unsupported device {x.device}")
+    if variant != "fused":
+        raise NotImplementedError(
+            "moe_expert_linear: the bitserial variant has no CUDA kernel "
+            "yet (ROADMAP queue 2, K4 follow-up 6, with K1's b1 XOR-popc "
+            "mma kernel)")
+    global LAUNCHES
+    e, c, k = x.shape
+    n_b, e_w, n, kw = w.packed.shape
+    g = counts.shape[1]
+    if w.shape != (e, n, k) or n_b != w.n_bits or e_w != e:
+        raise ValueError(f"expert weight {w.shape}/{tuple(w.packed.shape)} "
+                         f"does not match x {tuple(x.shape)}")
+    if kw * 32 < k:
+        raise ValueError(f"expert weight packs {kw} words for K={k}")
+    if tuple(counts.shape) != (e, g) or c % g:
+        raise ValueError(f"counts {tuple(counts.shape)} for x "
+                         f"{tuple(x.shape)}")
+    if tuple(a_scale.shape) != (e, c, 1):
+        raise ValueError(f"a_scale {tuple(a_scale.shape)} for x "
+                         f"{tuple(x.shape)}")
+    if w2 is not None and (tuple(w2.packed.shape) != tuple(w.packed.shape)
+                           or w2.shape != w.shape):
+        raise ValueError("dual-GEMM expert weights must match in shape")
+    if x.dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise TypeError(f"moe_expert_linear: dtypes {x.dtype} -> "
+                        f"{out_dtype} not supported")
+    if a_scale.dtype != torch.float32 or counts.dtype != torch.int32:
+        raise TypeError("moe_expert_linear: a_scale must be float32 and "
+                        "counts int32")
+    if act not in _ACTS or not 1 <= a_bits <= 8 or bc < 1:
+        raise ValueError(f"act={act!r}, a_bits={a_bits}, bc={bc}")
+    dev = x.device
+    tensors = [x, a_scale, counts, w.packed, w.scale]
+    if w2 is not None:
+        tensors += [w2.packed, w2.scale]
+    if any(t.device != dev for t in tensors):
+        raise ValueError(f"moe_expert_linear: all operands must lie on {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("moe_expert_linear: operands must be contiguous")
+    ws = w.scale.reshape(e, n).to(torch.float32)
+    w2s = w2.scale.reshape(e, n).to(torch.float32) if w2 is not None \
+        else None
+    seg = c // g
+    n_ci = -(-seg // bc)
+    out = torch.empty((e, c, n), dtype=out_dtype, device=dev)
+    live = torch.empty((e * g, n_ci), dtype=torch.int32, device=dev)
+    fn = _lib()
+    err = fn(x.data_ptr(), a_scale.data_ptr(), counts.data_ptr(),
+             w.packed.data_ptr(), ws.data_ptr(),
+             0 if w2 is None else w2.packed.data_ptr(),
+             0 if w2s is None else w2s.data_ptr(), out.data_ptr(),
+             live.data_ptr(), e * g, e, g, seg, n, k, kw, a_bits, w.n_bits,
+             _ACTS[act], bc, n_ci, _DTYPES[x.dtype], _DTYPES[out_dtype],
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "moe_expert_linear")
+    LAUNCHES += 1
+    return out, live

@@ -19,6 +19,13 @@ Ops on the dense serving path:
   them in jnp);
 * ``paged_kv_cache_attention`` -- attention over the paged KV pool (K2,
   :mod:`repro_torch.kernels.flash_attention`).
+
+On the MoE path:
+
+* ``ap_moe_expert_linear`` -- the grouped expert GEMM over the capacity
+  dispatch, one launch for all experts (K4, :mod:`repro_torch.kernels.moe`):
+  f32 activation quantize, dual gate/up, f32 epilogue with one cast,
+  dead capacity rows exact zeros, the live-tile map.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from repro_torch.core import bipolar
 from repro_torch.core.bipolar import BipolarTensor
 from repro_torch.kernels import apmm as apmm_kernel
 from repro_torch.kernels import flash_attention as flash_kernel
+from repro_torch.kernels import moe as moe_kernel
 from repro_torch.kernels import pack as pack_kernel
 from repro_torch.kernels import ref
 
@@ -108,6 +116,59 @@ def ap_linear_fused(x: torch.Tensor, w: BipolarTensor, *, a_bits: int,
         x2, scale, w, w2=w2, bias=bias, residual=res2, a_bits=a_bits,
         variant=variant, act=act, out_dtype=out_dtype)
     return y.reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# Grouped MoE expert linear
+# ---------------------------------------------------------------------------
+
+def moe_row_tile(seg: int) -> int:
+    """Rows per live-map tile of a ``seg``-row segment:
+    ``min(256, round_up(seg, 8))``, the reference's tile geometry (its
+    ``DEFAULT_BM`` is 256)."""
+    return min(256, -(-seg // 8) * 8)
+
+
+def ap_moe_expert_linear(x: torch.Tensor, w: BipolarTensor, *,
+                         counts: torch.Tensor, a_bits: int,
+                         w2: BipolarTensor | None = None,
+                         act: str = "none", variant: str = "fused",
+                         out_dtype=None, with_stats: bool = False,
+                         w_bits: int | None = None):
+    """Grouped quantized MoE expert linear, one launch for all experts.
+
+    ``y (E, C, N) = epi(Q(x) (E, C, K) @ W (E, N, K)^T)`` where ``C = G
+    * seg`` capacity rows per expert hold ``G`` dispatch-group segments
+    whose live tokens form a prefix of length ``counts[e, g]``
+    (``counts (E, G)`` int32).  Activations are quantized per row in f32
+    from the materialised input (absmax of the upcast rows, division in
+    f32), the epilogue composes in f32 with one cast, and rows at or
+    beyond a segment's count are exact zeros.  ``w2`` is the dual
+    gate/up mode (``act(x @ W^T) * (x @ W2^T)``); ``w_bits`` serves
+    nested expert weights at a lower width.  ``with_stats=True`` also
+    returns the ``(E*G, n_row_tiles)`` int32 live map (analytic for CPU
+    tensors, the kernel's own for CUDA tensors)."""
+    out_dtype = out_dtype or x.dtype
+    if w_bits is not None:
+        w = bipolar.nested_slice(w, w_bits)
+        if w2 is not None:
+            w2 = bipolar.nested_slice(w2, w_bits)
+    e, c, k = x.shape
+    g = counts.shape[1]
+    assert c % g == 0, (c, g)
+    n = w.shape[1]
+    assert w.shape == (e, n, k), (tuple(x.shape), w.shape)
+    if w2 is not None:
+        assert w2.shape == w.shape and w2.n_bits == w.n_bits, \
+            (w.shape, w2.shape)
+    x = x.contiguous()
+    a_scale = bipolar.absmax_scale(x.float(), a_bits, axis=-1,
+                                   keepdims=True)            # (E, C, 1) f32
+    y, live = moe_kernel.moe_expert_linear(
+        x, a_scale, counts.to(torch.int32).contiguous(), w, w2=w2,
+        a_bits=a_bits, variant=variant, act=act, out_dtype=out_dtype,
+        bc=moe_row_tile(c // g))
+    return (y, live) if with_stats else y
 
 
 # ---------------------------------------------------------------------------

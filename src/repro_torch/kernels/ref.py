@@ -136,6 +136,79 @@ def ap_linear_fused_ref(x2: torch.Tensor, a_scale: torch.Tensor,
     return yo
 
 
+# ---------------------------------------------------------------------------
+# Grouped MoE expert linear
+# ---------------------------------------------------------------------------
+
+def silu_f32(y: torch.Tensor) -> torch.Tensor:
+    """SiLU as the reference writes it, ``y * logistic(y)``: closer to
+    XLA's bits than ``F.silu``'s ``y / (1 + exp(-y))``."""
+    return y * torch.sigmoid(y)
+
+
+def moe_act(y: torch.Tensor, act: str) -> torch.Tensor:
+    return silu_f32(y) if act == "silu" else apply_act(y, act)
+
+
+def expert_weight(w: BipolarTensor, e: int) -> BipolarTensor:
+    """Expert ``e`` of a stacked expert weight (packed ``(n_bits, E, N,
+    Kw)``, scale ``(E, N, 1)``) as a 2-D packed weight ``(N, K)``."""
+    return BipolarTensor(packed=w.packed[:, e], scale=w.scale[e],
+                         n_bits=w.n_bits, shape=tuple(w.shape[1:]),
+                         pack_axis=1)
+
+
+def moe_expert_int_core(q: torch.Tensor, w: BipolarTensor, n_a: int,
+                        variant: str) -> torch.Tensor:
+    """Exact int32 batched expert NT GEMM ``(E, C, K) x (E, N, K) -> (E,
+    C, N)`` of activation *values* against a stacked packed expert
+    weight, K-pad corrected, one expert at a time (each the 2-D core of
+    :func:`ap_linear_fused_ref`; the integers are exact, so the order
+    of experts is immaterial)."""
+    return torch.stack([_linear_int_core(q[e], expert_weight(w, e), n_a,
+                                         variant)
+                        for e in range(q.shape[0])])
+
+
+def moe_live_map(counts: torch.Tensor, seg: int, bc: int) -> torch.Tensor:
+    """``(E*G, n_row_tiles)`` int32: 1 where a ``bc``-row tile of a
+    segment starts below the segment's live-row count."""
+    n_ci = -(-seg // bc)
+    starts = torch.arange(n_ci, dtype=torch.int32, device=counts.device) * bc
+    return (counts.reshape(-1, 1) > starts[None, :]).to(torch.int32)
+
+
+def ap_moe_expert_linear_ref(x: torch.Tensor, a_scale: torch.Tensor,
+                             counts: torch.Tensor, w: BipolarTensor, *,
+                             w2: BipolarTensor | None = None, a_bits: int,
+                             variant: str = "fused", act: str = "none",
+                             out_dtype=None) -> torch.Tensor:
+    """Plain grouped expert linear ``y (E, C, N) = epi(Q(x (E, C, K)) @
+    W (E, N, K)^T)``: quantize in f32 with the per-row f32 scales
+    ``a_scale (E, C, 1)``, the exact int core per weight, dequantize in
+    f32 as ``(int * a_s) * w_s``, ``act(Y1) * Y2`` in f32 (dual), ONE
+    cast to the output dtype, and exact zeros in every row at or beyond
+    its segment's count (``counts (E, G)``: ``C = G * seg`` rows hold
+    ``G`` segments)."""
+    od = out_dtype or x.dtype
+    q = bipolar.quantize_values(x.float(), a_bits, a_scale)
+    yf = moe_expert_int_core(q, w, a_bits, variant).float() * a_scale \
+        * w.scale[:, None, :, 0]
+    if w2 is not None:
+        y2 = moe_expert_int_core(q, w2, a_bits, variant).float() \
+            * a_scale * w2.scale[:, None, :, 0]
+        yf = moe_act(yf, act) * y2
+    elif act != "none":
+        yf = moe_act(yf, act)
+    yo = yf.to(od)
+    c = x.shape[1]
+    seg = c // counts.shape[1]
+    rows = torch.arange(c, device=x.device)
+    live = (rows % seg)[None, :] < counts[:, rows // seg]      # (E, C)
+    return torch.where(live[..., None], yo, torch.zeros((), dtype=od,
+                                                        device=x.device))
+
+
 def quantize_pack_rows(x: torch.Tensor, scale: torch.Tensor, *, n_bits: int,
                        pad_bit: int) -> torch.Tensor:
     """Per-row quantize ``x (R, K)`` with ``scale (R, 1)``, decompose into

@@ -1,7 +1,9 @@
-"""Layers of the dense decoder, in torch: linear, embedding, norm, RoPE,
-paged GQA attention over the bipolar KV pool, SwiGLU/GELU MLP.
+"""Layers of the dense and MoE decoders, in torch: linear, embedding,
+norm, RoPE, paged GQA attention over the bipolar KV pool, SwiGLU/GELU
+MLP, and the top-k capacity-dispatched MoE.
 
-A port of the dense subset of the reference ``repro.models.layers``, with
+A port of the attention, MLP and MoE layers of the reference
+``repro.models.layers``, with
 the same functional shape: ``<layer>_init(...) -> params`` and
 ``<layer>_apply(params, x, ...) -> y`` over plain dicts.  Linear weights
 are stored ``(d_out, d_in)``; serving-time quantization replaces a weight
@@ -11,6 +13,9 @@ to the fused quantized linear (:func:`repro_torch.kernels.ops.ap_linear_fused`).
 Attention runs on the paged block pool only (the serving engine's path):
 new K/V are quantized to bipolar planes, scattered into the request's
 blocks, and read back through :func:`repro_torch.kernels.ops.paged_kv_cache_attention`.
+Quantized experts run through the grouped expert GEMM
+(:func:`repro_torch.kernels.ops.ap_moe_expert_linear`, two launches per
+MoE layer).
 """
 
 from __future__ import annotations
@@ -18,13 +23,14 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.core import bipolar
 from repro_torch.core.bipolar import BipolarTensor
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import apply_act
+from repro_torch.kernels.ref import apply_act, silu_f32
 from repro_torch.models.config import ModelConfig
 
 
@@ -279,8 +285,10 @@ def make_kv_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
 # MLP (SwiGLU / GELU)
 # ---------------------------------------------------------------------------
 
-def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, device,
+             d_ff: Optional[int] = None) -> dict:
+    """``d_ff`` overrides ``cfg.d_ff`` (the MoE shared experts)."""
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     dt = _dtype(cfg)
     p = {"w_up": linear_init(gen, d, f, dt, device),
          "w_down": linear_init(gen, f, d, dt, device)}
@@ -307,3 +315,137 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, quant=None,
     else:
         h = linear_apply(params["w_up"], x, quant=quant, act="gelu")
     return linear_apply(params["w_down"], h, quant=quant, residual=residual)
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k routing, capacity dispatch, optional shared experts)
+# ---------------------------------------------------------------------------
+
+def moe_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """Router ``(E, d)`` f32, stacked experts ``w_up``/``w_gate`` ``(E,
+    F, d)`` and ``w_down`` ``(E, d, F)``, and the shared experts as one
+    MLP of width ``n_shared_experts * F``."""
+    d, f, e = cfg.d_model, cfg.expert_d_ff, cfg.n_experts
+    dt = _dtype(cfg)
+    scale = 1.0 / math.sqrt(d)
+    p = {
+        "router": {"w": _normal(gen, (e, d), device) * scale},
+        "w_up": (_normal(gen, (e, f, d), device) * scale).to(dt),
+        "w_gate": (_normal(gen, (e, f, d), device) * scale).to(dt),
+        "w_down": (_normal(gen, (e, d, f), device) / math.sqrt(f)).to(dt),
+    }
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_init(gen, cfg, device,
+                               d_ff=cfg.n_shared_experts * f)
+    return p
+
+
+MOE_DISPATCH_GROUPS = 32   # static token-group count (per-group capacity)
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, quant=None,
+              *, with_aux: bool = False, with_stats: bool = False):
+    """Top-k capacity-bounded MoE over ``x (B, S, d)``.
+
+    Tokens split into ``G`` static groups (``G = 1`` below 4096 tokens)
+    with per-group capacity ``cap`` from the static shapes alone (no
+    device sync), clamped to the group's assignments.  Every token is
+    routed, bucket pads (position -1) included, so pads take capacity as
+    in the reference.  The f32 router picks the top ``k`` experts; a
+    token's ``k`` assignments claim capacity slots in order, and one
+    beyond ``cap`` is dropped.  Kept rows are copied into their slots of
+    a zero ``(E, G * cap, d)`` dispatch; dropped ones all land in one
+    overflow row that is never read.  Quantized experts run as two
+    grouped-kernel launches (dual gate/up with ``silu(gate) * up``, then
+    down) whose live-row counts skip empty capacity tiles; the combine
+    gathers each assignment's row, weights it by its renormalised
+    router probability cast to the output dtype, and sums the ``k`` rows
+    in that dtype.  Unquantized experts run as bf16 batched einsums.  The
+    shared experts add a dense MLP.
+
+    Returns ``(y, aux, stats)``.  ``aux`` is the Switch-style
+    load-balance loss, computed only with ``with_aux=True`` (serving has
+    no use for it), else None.  ``stats`` is the capacity telemetry,
+    computed only with ``with_stats=True``, else None: ``load (E,)`` kept
+    tokens per expert, ``dropped ()`` assignments lost to capacity (int32,
+    on ``x``'s device) and ``capacity ()`` dispatch slots (from the
+    shapes, on the host).
+    """
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    t = b * s
+    if t >= 4096:
+        g = next(gg for gg in (MOE_DISPATCH_GROUPS, 16, 8, 4, 2, 1)
+                 if t % gg == 0)
+    else:
+        g = 1
+    tg = t // g
+    # the capacity never needs to exceed the group's routed assignments
+    cap = min(int(np.ceil(k * tg * cfg.capacity_factor / e)), tg * k)
+    dev = x.device
+    xt = x.reshape(t, d)
+    xg = x.reshape(g, tg, d)
+
+    logits = torch.einsum("gtd,ed->gte", xg.float(), params["router"]["w"])
+    z = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = z / z.sum(-1, keepdim=True)
+    top_p, top_e = torch.topk(probs, k, dim=-1)               # (G, Tg, k)
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+
+    flat_e = top_e.reshape(g, tg * k)                          # (G, Tg*k)
+    oh = F.one_hot(flat_e, e).to(torch.int32)                  # (G, Tg*k, E)
+    pos = torch.cumsum(oh, dim=1, dtype=torch.int32) - oh      # count before
+    pos = torch.gather(pos, 2, flat_e[..., None])[..., 0]
+    keep = pos < cap
+    slot = torch.where(keep, flat_e * cap + pos, e * cap)      # (G, Tg*k)
+
+    # dispatch: every kept slot receives exactly one row (a copy, not a
+    # sum); the dropped rows all go to the overflow row e * cap
+    idx = slot[..., None].expand(g, tg * k, d)
+    disp = torch.zeros((g, e * cap + 1, d), dtype=x.dtype, device=dev)
+    disp.scatter_(1, idx, torch.repeat_interleave(xg, k, dim=1))
+    disp_e = disp[:, :e * cap].reshape(g, e, cap, d).transpose(0, 1) \
+        .reshape(e, g * cap, d)                                # (E, G*C, d)
+    counts = (oh * keep[..., None]).sum(1, dtype=torch.int32)  # (G, E)
+    counts_e = counts.T.contiguous()                           # (E, G)
+
+    if isinstance(params["w_up"], BipolarTensor):
+        h = ops.ap_moe_expert_linear(
+            disp_e, params["w_gate"], w2=params["w_up"], counts=counts_e,
+            a_bits=quant.a_bits, act="silu", variant=quant.variant,
+            out_dtype=x.dtype, w_bits=quant.nested_bits)
+        out = ops.ap_moe_expert_linear(
+            h, params["w_down"], counts=counts_e, a_bits=quant.a_bits,
+            variant=quant.variant, out_dtype=x.dtype,
+            w_bits=quant.nested_bits)                          # (E, G*C, d)
+    else:
+        def bmm(w, a):
+            return torch.einsum("eck,enk->ecn", a, w.to(a.dtype))
+        up, gate = bmm(params["w_up"], disp_e), bmm(params["w_gate"], disp_e)
+        h = (silu_f32(gate.float()) * up.float()).to(x.dtype)
+        out = bmm(params["w_down"], h)
+
+    out_g = out.reshape(e, g, cap, d).transpose(0, 1)          # (G, E, C, d)
+    out_flat = torch.cat([out_g.reshape(g, e * cap, d),
+                          torch.zeros((g, 1, d), dtype=out.dtype,
+                                      device=dev)], 1)
+    y = torch.gather(out_flat, 1, idx)
+    wgt = (top_p.reshape(g, tg * k)[..., None] * keep[..., None]) \
+        .to(out.dtype)
+    y = (y * wgt).reshape(g, tg, k, d).sum(2).reshape(t, d)
+
+    if "shared" in params:
+        y = y + mlp_apply(params["shared"], xt, cfg, quant=quant)
+
+    aux = stats = None
+    if with_aux:    # Switch-style load-balance auxiliary loss
+        frac_tokens = F.one_hot(top_e[..., 0].reshape(-1), e).float().mean(0)
+        frac_probs = probs.reshape(-1, e).mean(0)
+        aux = e * torch.sum(frac_tokens * frac_probs) * cfg.router_aux_coef
+    if with_stats:
+        routed = oh.sum((0, 1), dtype=torch.int32)             # (E,)
+        load = counts.sum(0, dtype=torch.int32)                # (E,)
+        stats = {"load": load,
+                 "dropped": (routed - load).sum(dtype=torch.int32),
+                 "capacity": torch.tensor(e * cap * g, dtype=torch.int32)}
+    return y.reshape(b, s, d), aux, stats

@@ -1,13 +1,15 @@
-"""Model assembly of the dense decoder, in torch.
+"""Model assembly of the dense and MoE decoders, in torch.
 
-A port of the dense path of the reference ``repro.models.model``: the
-layer plan, parameter init, the block (pre-norm attention + MLP with the
-residual fused into the quantized linears' epilogues), the paged-pool
-caches, the forward pass as a Python loop over layers, the logits, and
-serving-time quantization (:func:`quantize_params`).
+A port of the attention-decoder path of the reference
+``repro.models.model``: the layer plan, parameter init, the block
+(pre-norm attention + a dense MLP, with the residual fused into the
+quantized linears' epilogues, or a MoE), the paged-pool caches, the
+forward pass as a Python loop over layers, the logits, and serving-time
+quantization (:func:`quantize_params`).
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``layers`` (a
-list with one dict per layer; the reference stacks them for
+list with one dict per layer, the prelude's leading dense layers first;
+the reference keeps those in ``prelude`` and stacks the rest for
 ``lax.scan``) and ``lm_head``.  Entry points take an explicit ``device``
 and default to the card: they raise when none is present and never run
 on the CPU unless asked.
@@ -62,23 +64,39 @@ def plan_split(cfg: ModelConfig):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers the dense decoder (attention + dense FFN)."""
-    if cfg.family != "dense" or any(
-            kinds != ("attn", "dense") for kinds in layer_plan(cfg)):
+    """The port covers the dense and MoE decoders (attention + a dense
+    or MoE FFN in every layer)."""
+    if cfg.family not in ("dense", "moe") or any(
+            mk != "attn" or fk not in ("dense", "moe")
+            for mk, fk in layer_plan(cfg)):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported yet: repro_torch "
-            f"runs dense decoders (ROADMAP queue 1, items 5-7)")
+            f"runs dense and MoE decoders (ROADMAP queue 1, items 6-7)")
+
+
+def moe_stats_order(cfg: ModelConfig) -> list:
+    """Layer indices of the MoE layers in the reference's telemetry row
+    order: prelude layers first, then each position of the scanned unit
+    with its units in order."""
+    prelude, unit, n_units = plan_split(cfg)
+    fd, ul = len(prelude), len(unit)
+    order = [i for i, (_, fk) in enumerate(prelude) if fk == "moe"]
+    for p, (_, fk) in enumerate(unit):
+        if fk == "moe":
+            order += [fd + u * ul + p for u in range(n_units)]
+    return order
 
 
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
-def _block_init(gen, cfg: ModelConfig, device) -> dict:
+def _block_init(gen, cfg: ModelConfig, ffn_kind: str, device) -> dict:
     return {"norm1": L.norm_init(cfg.d_model, cfg, device),
             "mixer": L.attention_init(gen, cfg, device),
             "norm2": L.norm_init(cfg.d_model, cfg, device),
-            "ffn": L.mlp_init(gen, cfg, device)}
+            "ffn": (L.moe_init(gen, cfg, device) if ffn_kind == "moe"
+                    else L.mlp_init(gen, cfg, device))}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
@@ -101,8 +119,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         "final_norm": L.norm_init(cfg.d_model, cfg, dev),
         "layers": [],
     }
-    for _ in range(cfg.n_layers):
-        params["layers"].append(finish(_block_init(gen, cfg, dev)))
+    for _, ffn_kind in layer_plan(cfg):
+        params["layers"].append(finish(_block_init(gen, cfg, ffn_kind, dev)))
     if not cfg.tie_embeddings:
         params["lm_head"] = finish(
             {"lm_head": L.linear_init(gen, cfg.d_model, cfg.vocab_padded,
@@ -114,11 +132,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_block(p, x, cfg: ModelConfig, *, positions, cache, quant=None):
-    """One pre-norm block.  Quantized serving with ``fused_linear`` (and
-    ``residual_scale == 1``) threads the block input as ``residual`` into
-    the attention output projection and the MLP down projection, so the
-    residual add runs in the fused linear's epilogue."""
+def _apply_block(p, x, cfg: ModelConfig, ffn_kind: str, *, positions,
+                 cache, quant=None, moe_stats: bool = False):
+    """One pre-norm block; returns ``(x, new_cache, stats)`` (``stats``
+    is :func:`repro_torch.models.layers.moe_apply`'s telemetry for a MoE
+    block when ``moe_stats`` asks for it, else None).  Quantized serving with
+    ``fused_linear`` (and ``residual_scale == 1``) threads the block
+    input as ``residual`` into the attention output projection and the
+    dense MLP's down projection, so the residual add runs in the fused
+    linear's epilogue; a MoE block adds its residual after the
+    combine."""
     rs = dtype_scalar(cfg.residual_scale, x.dtype)
     fuse_res = (quant is not None and quant.enabled and quant.fused_linear
                 and cfg.residual_scale == 1.0)
@@ -128,17 +151,22 @@ def _apply_block(p, x, cfg: ModelConfig, *, positions, cache, quant=None):
         residual=x if fuse_res else None)
     x = h if fuse_res else x + (h.float() * rs).to(x.dtype)
     h = L.norm_apply(p["norm2"], x, cfg)
+    if ffn_kind == "moe":
+        h, _, stats = L.moe_apply(p["ffn"], h, cfg, quant=quant,
+                                  with_stats=moe_stats)
+        return x + (h.float() * rs).to(x.dtype), new_cache, stats
     h = L.mlp_apply(p["ffn"], h, cfg, quant=quant,
                     residual=x if fuse_res else None)
     x = h if fuse_res else x + (h.float() * rs).to(x.dtype)
-    return x, new_cache
+    return x, new_cache, None
 
 
 def init_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
                 quant: Optional[QuantConfig] = None, device="cuda") -> dict:
-    """The paged KV pool: ``{"layers": [one pool per layer]}``, each of
-    ``n_blocks`` blocks of ``block_size`` tokens (block 0 is the null
-    block).  ``quant.kv_bits`` (over ``cfg.kv_bits``) sets the planes."""
+    """The paged KV pool: ``{"layers": [one pool per layer]}`` (prelude
+    layers first, as in ``params["layers"]``), each of ``n_blocks``
+    blocks of ``block_size`` tokens (block 0 is the null block).
+    ``quant.kv_bits`` (over ``cfg.kv_bits``) sets the planes."""
     check_supported(cfg)
     dev = resolve_device(device)
     kvb = effective_kv_bits(cfg, quant)
@@ -149,24 +177,43 @@ def init_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             positions: torch.Tensor, caches: dict,
             quant: Optional[QuantConfig] = None,
-            logits_mode: str = "none"):
+            logits_mode: str = "none", collect_moe_stats: bool = False):
     """Run the stack over ``tokens (B, S)`` at ``positions (B, S)`` (-1 =
     pad) through the paged ``caches`` (from
     :meth:`repro_torch.serving.paged_cache.PagedKVPool.step_caches`).
-    Returns ``(hidden | last-position logits, caches)``."""
+    Returns ``(hidden | last-position logits, caches)``.
+
+    ``collect_moe_stats=True`` appends a third element: the per-MoE-layer
+    capacity telemetry ``{"load": (L_moe, E), "dropped": (L_moe,),
+    "capacity": (L_moe,)}`` (int32; rows in the reference's order, see
+    :func:`moe_stats_order`; ``capacity`` comes from the shapes and lies
+    on the host), or None if the stack has no MoE layers."""
     quant = quant if (quant and (quant.enabled or quant.kv_bits)) else None
     x = params["embed"]["w"][tokens.long()].to(L._dtype(cfg))
     x = (x.float() * dtype_scalar(cfg.emb_scale, x.dtype)).to(x.dtype)
-    new_layers = []
-    for p, c in zip(params["layers"], caches["layers"]):
-        x, nc = _apply_block(p, x, cfg, positions=positions, cache=c,
-                             quant=quant)
+    new_layers, layer_stats = [], {}
+    for i, (p, c, (_, fk)) in enumerate(zip(params["layers"],
+                                            caches["layers"],
+                                            layer_plan(cfg))):
+        x, nc, mst = _apply_block(p, x, cfg, fk, positions=positions,
+                                  cache=c, quant=quant,
+                                  moe_stats=collect_moe_stats)
         new_layers.append(nc)
+        if mst is not None:
+            layer_stats[i] = mst
     x = L.norm_apply(params["final_norm"], x, cfg)
     out = x
     if logits_mode == "last":
         out = _logits(params, x[:, -1:, :], cfg, quant)[:, 0]
-    return out, dict(caches, layers=new_layers)
+    ret = (out, dict(caches, layers=new_layers))
+    if not collect_moe_stats:
+        return ret
+    moe_stats = None
+    if layer_stats:
+        rows = [layer_stats[i] for i in moe_stats_order(cfg)]
+        moe_stats = {kk: torch.stack([r[kk] for r in rows])
+                     for kk in ("load", "dropped", "capacity")}
+    return ret + (moe_stats,)
 
 
 def _logits(params, x, cfg: ModelConfig, quant=None):
@@ -190,8 +237,9 @@ _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down",
 
 
 def quantize_params(params: Any, qcfg: QuantConfig) -> Any:
-    """Replace every quantizable linear weight with packed bipolar planes
-    (norms and embeddings stay as they are)."""
+    """Replace every quantizable linear weight, and every stacked expert
+    weight ``(E, N, K)``, with packed bipolar planes (router, norms and
+    embeddings stay as they are)."""
     if not qcfg.enabled:
         return params
     if isinstance(params, dict):
@@ -200,6 +248,9 @@ def quantize_params(params: Any, qcfg: QuantConfig) -> Any:
             if k in _QUANT_KEYS and isinstance(v, dict) and "w" in v \
                     and not isinstance(v["w"], BipolarTensor):
                 out[k] = {"w": _quantize_leaf(v["w"], qcfg)}
+            elif k in ("w_up", "w_gate", "w_down") \
+                    and isinstance(v, torch.Tensor) and v.ndim == 3:
+                out[k] = _quantize_experts(v, qcfg)
             else:
                 out[k] = quantize_params(v, qcfg)
         return out
@@ -223,3 +274,19 @@ def _quantize_leaf(w: torch.Tensor, qcfg: QuantConfig) -> BipolarTensor:
                          scale=t.scale.reshape(*shape[:-1], 1),
                          n_bits=qcfg.w_bits, shape=shape,
                          pack_axis=len(shape) - 1, width_scales=width_scales)
+
+
+def _quantize_experts(w: torch.Tensor, qcfg: QuantConfig) -> BipolarTensor:
+    """Pack a stacked expert weight ``(E, N, K)`` one expert at a time:
+    packed ``(w_bits, E, N, Kw)``, scale ``(E, N, 1)``, nested scales
+    ``(w_bits, E, N, 1)``.  Scales are per row, so this is bit-identical
+    to packing the ``(E*N, K)`` leaf at once, and the f32 transients of
+    the clip search stay one expert's size."""
+    parts = [_quantize_leaf(w[i], qcfg) for i in range(w.shape[0])]
+    ws = None
+    if parts[0].width_scales is not None:
+        ws = torch.stack([t.width_scales for t in parts], 1)
+    return BipolarTensor(packed=torch.stack([t.packed for t in parts], 1),
+                         scale=torch.stack([t.scale for t in parts]),
+                         n_bits=qcfg.w_bits, shape=tuple(w.shape),
+                         pack_axis=2, width_scales=ws)

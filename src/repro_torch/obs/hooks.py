@@ -34,7 +34,7 @@ from __future__ import annotations
 import time
 from typing import Any, Callable, Optional
 
-import numpy as np
+import torch
 
 from repro_torch.obs.metrics import (LATENCY_BUCKETS, TOKEN_BUCKETS,
                                MetricsRegistry)
@@ -239,18 +239,21 @@ class ServingObs:
         """Record one forward pass's MoE capacity telemetry: ``stats``
         is the :func:`repro_torch.models.model.forward` dict -- ``load``
         ``(L_moe, E)`` kept tokens per expert, ``dropped (L_moe,)``
-        assignments lost to the capacity bound, ``capacity (L_moe,)``
-        dispatch slots -- device arrays; the host transfer happens
-        here, off the jitted step."""
+        assignments lost to the capacity bound (device tensors), and
+        ``capacity (L_moe,)`` dispatch slots (host) -- moved to the host
+        here in one transfer, only when metrics are on."""
         if stats is None:
             return
-        load = np.asarray(stats["load"])
-        for v in load.reshape(-1):
+        n_load = stats["load"].numel()
+        host = torch.cat([stats["load"].reshape(-1),
+                          stats["dropped"].reshape(-1)]).cpu().numpy()
+        load = host[:n_load]
+        for v in load:
             self._h_moe_load.observe(float(v))
-        dropped = int(np.asarray(stats["dropped"]).sum())
+        dropped = int(host[n_load:].sum())
         if dropped:
             self._c_moe_dropped.inc(dropped)
-        cap = int(np.asarray(stats["capacity"]).sum())
+        cap = int(stats["capacity"].cpu().sum())
         if cap:
             self._g_moe_util.set(float(load.sum()) / cap)
 

@@ -18,8 +18,10 @@ a long prompt trickles in.
 
 The submit/stream API (:class:`StreamHandle`, ``on_token`` callbacks,
 deadlines, cancellation), the observability hooks (``metrics=``, default
-the no-op ``NULL_OBS``), fault containment (``faults=``) and nested-precision lanes
-(``Request.precision``) are the reference's, unchanged.  Backpressure
+the no-op ``NULL_OBS``; MoE stacks report their capacity telemetry
+through ``obs.on_moe`` when metrics are on), fault containment
+(``faults=``) and nested-precision lanes (``Request.precision``) are the
+reference's, unchanged.  Backpressure
 (``max_queue=``) and the pool watchdog (``validate_every=``) are not
 ported yet (ROADMAP queue 1, item 9).
 
@@ -49,27 +51,33 @@ from repro_torch.serving.faults import NULL_FAULTS, RequestFault
 # ---------------------------------------------------------------------------
 
 def prefill_step_bucketed(params, batch: dict, caches, cfg: ModelConfig,
-                          quant: Optional[QuantConfig] = None):
+                          quant: Optional[QuantConfig] = None,
+                          moe_stats: bool = False):
     """Forward a length-bucketed ``(B, S)`` batch (pad positions -1,
     masked everywhere) and take the logits at ``batch["last_idx"]`` (B,)
     -- each lane's last *real* token.  Returns ``(logits (B, V),
-    caches)``."""
-    x, caches = M.forward(params, batch["tokens"], cfg,
-                          positions=batch["positions"], caches=caches,
-                          quant=quant, logits_mode="none")
+    caches)``, plus the per-MoE-layer capacity telemetry dict when
+    ``moe_stats=True``."""
+    out = M.forward(params, batch["tokens"], cfg,
+                    positions=batch["positions"], caches=caches,
+                    quant=quant, logits_mode="none",
+                    collect_moe_stats=moe_stats)
+    x, caches = out[:2]
     idx = batch["last_idx"].long()
     xl = x[torch.arange(x.shape[0], device=x.device), idx][:, None, :]
     logits = M._logits(params, xl, cfg, quant)
-    return logits[:, 0], caches
+    return (logits[:, 0], caches) + out[2:]
 
 
 def serve_step(params, batch: dict, caches, cfg: ModelConfig,
-               quant: Optional[QuantConfig] = None):
+               quant: Optional[QuantConfig] = None, moe_stats: bool = False):
     """One decode step: one new token per sequence, ``batch`` = tokens
-    (B, 1), positions (B, 1).  Returns ``(logits (B, V), caches)``."""
+    (B, 1), positions (B, 1).  Returns ``(logits (B, V), caches)``, plus
+    the capacity telemetry dict when ``moe_stats=True``."""
     return M.forward(params, batch["tokens"], cfg,
                      positions=batch["positions"], caches=caches,
-                     quant=quant, logits_mode="last")
+                     quant=quant, logits_mode="last",
+                     collect_moe_stats=moe_stats)
 
 
 def kv_cache_bytes(caches, *, payload_only: bool = False) -> int:
@@ -286,6 +294,11 @@ class Engine:
                 f"metrics: expected None/bool/MetricsRegistry/"
                 f"ServingObs, got {type(metrics).__name__}")
         self._deadlines = False     # fast-path: no deadline submitted yet
+        # MoE capacity telemetry: collected (and moved to the host) only
+        # when observability is on AND the stack has MoE layers
+        self._moe_telemetry = bool(
+            self.obs.enabled
+            and any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers)))
         self.chunk_tokens_processed = 0
         if not paged:
             raise NotImplementedError(
@@ -495,6 +508,17 @@ class Engine:
         req.finish_reason = "error"
         self.obs.on_finish(req, "error", seq=seq)
 
+    def _step(self, step_fn, batch: dict, caches, quant):
+        """Run one forward step (:func:`prefill_step_bucketed` or
+        :func:`serve_step`); with MoE telemetry on, its capacity stats go
+        to ``obs.on_moe``.  Returns ``(logits, caches)``."""
+        if not self._moe_telemetry:
+            return step_fn(self.params, batch, caches, self.cfg, quant)
+        logits, caches, mst = step_fn(self.params, batch, caches, self.cfg,
+                                      quant, moe_stats=True)
+        self.obs.on_moe(mst)
+        return logits, caches
+
     # -- device transfer ----------------------------------------------------
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.ascontiguousarray(arr, np.int32),
@@ -574,8 +598,8 @@ class Engine:
                  "last_idx": self._dev(np.asarray([s - 1], np.int32))}
         caches = self.pool.step_caches(tables, np.asarray([start], np.int32))
         quant = self._quant_for(getattr(seq, "precision", None))
-        logits, caches = prefill_step_bucketed(
-            self.params, batch, caches, self.cfg, quant)
+        logits, caches = self._step(prefill_step_bucketed, batch, caches,
+                                    quant)
         self.pool.absorb(caches)
         return self._host(logits)
 
@@ -711,8 +735,7 @@ class Engine:
                  "positions": self._dev(pos[:, None])}
         caches = self.pool.step_caches(tables, lens, block_offsets=offsets)
         quant = self._quant_for(running[0].precision)
-        logits, caches = serve_step(self.params, batch, caches, self.cfg,
-                                    quant)
+        logits, caches = self._step(serve_step, batch, caches, quant)
         self.pool.absorb(caches)
         return self._host(logits)
 
@@ -774,8 +797,8 @@ class Engine:
                  "last_idx": self._dev(last)}
         caches = self.pool.step_caches(tables, lens, block_offsets=offsets)
         quant = self._quant_for(plan[0][0].precision)
-        logits, caches = prefill_step_bucketed(
-            self.params, batch, caches, self.cfg, quant)
+        logits, caches = self._step(prefill_step_bucketed, batch, caches,
+                                    quant)
         self.pool.absorb(caches)
         logits = self._host(logits)
         return [logits[i] for i in range(len(plan))]

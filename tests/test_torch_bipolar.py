@@ -108,6 +108,11 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+from repro_torch.configs import get_config
+for arch in ("mixtral-8x7b", "deepseek-moe-16b"):
+    assert get_config(arch).family == "moe", arch
+assert {"repro_torch.kernels.moe", "repro_torch.configs.mixtral_8x7b",
+        "repro_torch.configs.deepseek_moe_16b"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "repro" or m.startswith("repro.")
              or (m == "jax" or m.startswith("jax.")) and sys.modules[m])
@@ -117,8 +122,9 @@ assert not bad, bad
 
 
 def test_port_imports_without_jax_or_reference_package():
-    """Every module of repro_torch imports with jax unimportable, and
-    neither jax nor the reference package is loaded afterwards."""
+    """Every module of repro_torch (the MoE kernel wrapper and configs
+    among them) imports with jax unimportable, and neither jax nor the
+    reference package is loaded afterwards."""
     import os
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(os.path.dirname(

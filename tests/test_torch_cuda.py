@@ -8,7 +8,10 @@ Tolerances: K3 words and the K1 integer core (``act="none"``, f32 out)
 are bit-exact; K1 SiLU outputs within 1 bf16 ulp per element (exp
 differs between the kernel and torch, rounded once to bf16), gelu
 within 1.6e-2 relative (tanh); K2 within 1 bf16 ulp per element, or
-1e-5 absolute near zero (f32 sum order and exp).
+1e-5 absolute near zero (f32 sum order and exp).  K4: the integer core
+of each weight and the bf16 ``act="none"`` output bit-exact, the dual
+SiLU output within 1 bf16 ulp, dead rows exactly 0, the live map equal
+to the analytic one.
 """
 
 import numpy as np
@@ -16,7 +19,7 @@ import pytest
 import torch
 
 from repro_torch.core import bipolar
-from repro_torch.kernels import apmm, flash_attention, ops, pack, ref
+from repro_torch.kernels import apmm, flash_attention, moe, ops, pack, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -172,6 +175,66 @@ def test_apmm_kernel_row_edges_gelu_bias_nested(device, m):
                                atol=1e-2)
 
 
+def _expert_weight(rng, dev, e, n, k, bits):
+    w = _rand(rng, (e, n, k), dev) / k ** 0.5
+    from repro_torch.models.model import _quantize_experts
+    from repro_torch.models.config import QuantConfig
+    return _quantize_experts(w, QuantConfig(w_bits=bits))
+
+
+@pytest.mark.parametrize("e,g,seg,k,n", [
+    (8, 1, 2, 256, 300),          # decode: 8-row tiles
+    (4, 2, 5, 37, 19),            # odd K and N, two groups
+    (3, 1, 70, 200, 130),         # 64-row tiles, one 72-row live tile
+    (2, 1, 300, 96, 64),          # two 256-row live tiles
+    (4, 32, 3, 64, 64),           # G = 32
+])
+@pytest.mark.parametrize("a_bits,w_bits", [(8, 2), (4, 3), (8, 8)])
+def test_moe_kernel_matches_plain(device, e, g, seg, k, n, a_bits, w_bits):
+    rng = np.random.default_rng(e * 1000 + seg + k + a_bits * 10 + w_bits)
+    w = _expert_weight(rng, device, e, n, k, w_bits)
+    w2 = _expert_weight(rng, device, e, n, k, w_bits)
+    counts = torch.from_numpy(rng.integers(0, seg + 1, (e, g))
+                              .astype(np.int32))
+    counts[1 % e] = 0                                 # an empty expert
+    counts = counts.to(device)
+    x = _rand(rng, (e, g * seg, k), device, torch.bfloat16)
+    bc = ops.moe_row_tile(seg)
+    a_s = bipolar.absmax_scale(x.float(), a_bits, axis=-1)
+    rows = torch.arange(g * seg, device=device)
+    dead = (rows % seg)[None, :] >= counts[:, rows // seg]
+    before = moe.LAUNCHES
+    for wt in (w, w2):               # integer core of each weight
+        got, live = moe.moe_expert_linear(x, a_s, counts, wt, a_bits=a_bits,
+                                          out_dtype=torch.float32, bc=bc)
+        torch.cuda.synchronize()
+        want, live_ref = moe.moe_expert_linear_plain(
+            x, a_s, counts, wt, a_bits=a_bits, out_dtype=torch.float32,
+            bc=bc)
+        assert torch.equal(got, want)
+        assert torch.equal(live, live_ref)
+        assert not got[dead].any()
+    got = ops.ap_moe_expert_linear(x, w, counts=counts, a_bits=a_bits)
+    want = ref.ap_moe_expert_linear_ref(x, a_s, counts, w, a_bits=a_bits)
+    assert torch.equal(got, want)
+    got = ops.ap_moe_expert_linear(x, w, w2=w2, counts=counts,
+                                   a_bits=a_bits, act="silu")
+    want = ref.ap_moe_expert_linear_ref(x, a_s, counts, w, w2=w2,
+                                        a_bits=a_bits, act="silu")
+    assert int(_bf16_ulps(got, want).max()) <= 1
+    assert not got[dead].any()
+    assert moe.LAUNCHES == before + 4
+    with pytest.raises(NotImplementedError, match="bitserial"):
+        ops.ap_moe_expert_linear(x, w, counts=counts, a_bits=a_bits,
+                                 variant="bitserial")
+    if w_bits == 8:                  # nested slices of the 8-bit weights
+        got = ops.ap_moe_expert_linear(x, w, counts=counts, a_bits=a_bits,
+                                       w_bits=3)
+        want = ref.ap_moe_expert_linear_ref(
+            x, a_s, counts, bipolar.nested_slice(w, 3), a_bits=a_bits)
+        assert torch.equal(got, want)
+
+
 class _RecordingEngine:
     """Mixin recording each logits row the engine samples from."""
 
@@ -233,3 +296,52 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+def test_moe_engine_on_card_matches_engine_on_cpu(device):
+    """Reduced mixtral w2/a8/kv8 with metrics on, served on the card (K1,
+    K2, K4) and on the CPU: prompts beyond the window (reclaim fires),
+    greedy tokens agree wherever the CPU run's top-1/top-2 margin
+    exceeds 0.05, and the card run's MoE telemetry reaches the registry
+    (``obs.on_moe`` moves the card's stats to the host)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.config import QuantConfig
+    from repro_torch.serving import engine as E
+
+    class CpuEngine(_RecordingEngine, E.Engine):
+        pass
+
+    cfg = get_config("mixtral-8x7b").reduced(n_layers=2, d_head=32)
+    q = QuantConfig(w_bits=2, a_bits=8, kv_bits=8)
+    params = M.init_params(cfg, seed=1, device="cpu", quant=q)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, (70 + 7 * i,), dtype=np.int32)
+               for i in range(2)]
+    outs = {}
+    before = moe.LAUNCHES
+    for dev, cls in (("cpu", CpuEngine), ("cuda", E.Engine)):
+        p = params if dev == "cpu" else _to(params, device)
+        eng = cls(p, cfg, n_slots=2, max_len=128, quant=q, paged=True,
+                  block_size=8, chunk_tokens=8, metrics=True)
+        reqs = [E.Request(prompt=pr.copy(), max_new_tokens=8)
+                for pr in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        rep = eng.report()
+        assert rep["free_blocks"] == rep["n_usable"]
+        assert rep["window_reclaimed"] >= 1
+        text = eng.obs.registry.render()
+        count = [ln for ln in text.splitlines()
+                 if ln.startswith("repro_moe_expert_load_count")]
+        assert count and float(count[0].split()[-1]) > 0
+        outs[dev] = (reqs, eng)
+    assert moe.LAUNCHES > before
+    (rc, ec), (rg, _) = outs["cpu"], outs["cuda"]
+    for a, b in zip(rc, rg):
+        kk = next((i for i, (x, y) in enumerate(zip(a.out, b.out))
+                   if x != y), None)
+        if kk is not None:
+            top = np.sort(ec.rows[(id(a), kk)])
+            assert top[-1] - top[-2] < 0.05, (kk, a.out, b.out)

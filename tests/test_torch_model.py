@@ -219,7 +219,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_unported_configs_and_paths_raise():
     with pytest.raises(KeyError):
-        get_config("mixtral-8x7b")
+        get_config("mamba2-130m")
     cfg = get_config("llama3-8b").reduced(n_layers=1)
     p = TM.init_params(cfg, device="cpu")
     for kw in (dict(paged=False), dict(max_queue=4),
