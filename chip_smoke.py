@@ -12,28 +12,38 @@ exit and no result line):
    summary;
 3. kernels -- each hand-written kernel against its plain torch version on
    the card, at the shapes of llama3-8b's and mixtral-8x7b's serving
-   paths (K3 words, the K1 and K4 integer cores of every weight and K4's
-   bf16 output bit-exact; K1 and K4 SiLU outputs within 1 bf16 ulp of
-   the plain version; K4's dead rows exactly 0 and its live map equal
-   to the analytic one; K2 outputs within 1 bf16 ulp or 1e-5), with its
-   time (CUDA events, L2 flushed before every launch), its bound on this
-   card, the plain version's time and the yardsticks;
-4. full width, shallow -- one forward of llama3-8b (depth 2) and of
-   mixtral-8x7b (depth 1) on the card, then the same forward with the
+   paths (K3 words, the K1, K4 and K5 integer cores of every weight, K4's
+   bf16 output and K5's f32/bf16 dequant bit-exact; K1 and K4 SiLU
+   outputs within 1 bf16 ulp of the plain version; K4's dead rows
+   exactly 0 and its live map equal to the analytic one; the unfused
+   linear (K3 + K5) equal to the fused one (K1) bit for bit, within 1
+   ulp through the SwiGLU; K2, K6 and K7 outputs within 1 bf16 ulp or
+   1e-5, and K6 against K2 on the same K/V), with its time (CUDA events,
+   L2 flushed before every launch), its bound on this card, the plain
+   version's time and the yardsticks (K7: one
+   ``scaled_dot_product_attention`` call, the same function);
+4. full width, shallow -- one forward of llama3-8b (depth 2, paged pool
+   and fused linear; then a contiguous cache and the unfused linear) and
+   of mixtral-8x7b (depth 1) on the card, then the same forward with the
    parameters moved to the CPU (the plain versions run there because
    the device decides), logits compared and, for mixtral, the share of
    tokens routed to the same experts;
-5. end to end -- two main paths, each served by ``Engine(paged=True,
-   block_size=16, chunk_tokens=256)`` at w2/a8/kv8 with random weights
-   from ``--seed`` quantized on the card (K3 at load), the launch
-   counters zeroed just before and read just after each: the full
-   32-layer llama3-8b (4 requests), then the full 32-layer mixtral-8x7b
-   (5 requests, one of 4,300 tokens that attends through the rolling
-   4,096-token window), where every forward dispatch launches K4 64
-   times and K1 129 times;
+5. end to end -- three main paths at w2/a8/kv8 with random weights from
+   ``--seed`` quantized on the card (K3 at load), the launch counters
+   zeroed just before and read just after each: the full 32-layer
+   llama3-8b (4 requests) and mixtral-8x7b (5 requests, one of 4,300
+   tokens that attends through the rolling 4,096-token window), each
+   served by ``Engine(paged=True, block_size=16, chunk_tokens=256)``
+   with the fused linear, where every forward dispatch launches K1 193
+   (mixtral 129) times, K2 32 times and K4 64 times on mixtral; then
+   llama3-8b served by ``Engine(paged=False, n_slots=4, max_len=1024)``
+   with the unfused linear (``llama3-8b-contiguous-unfused``), where
+   every dispatch launches K5 and K3 225 times and K6 32 times, and K1,
+   K2, K4 never;
 6. the launch counts of each path, the JSON kernels line (one entry per
-   path and kernel of that path, ``launches`` that path's own count), the
-   ``nvidia-smi`` line and, last, the JSON device line.
+   path and kernel of that path, ``launches`` that path's own count; K7,
+   on no path, with its phase-3 launches), the ``nvidia-smi`` line and,
+   last, the JSON device line.
 
 It imports nothing of JAX and nothing of the reference package.
 """
@@ -41,6 +51,7 @@ It imports nothing of JAX and nothing of the reference package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -475,6 +486,297 @@ def k4_phase(torch, timer, seed, results):
         torch.cuda.empty_cache()
 
 
+def _k5_case(torch, timer, g, name, m, n, k, *, a_bits=8, w_bits=2,
+             extra_b_words=0):
+    """K5 at one shape: A = K3-packed bf16 activations, B = a packed
+    weight (``extra_b_words`` all-one alignment words widen its Kw)."""
+    import dataclasses
+    from repro_torch.kernels import apmm, ops, ref
+    w = ops.pack_weight(torch.randn((n, k), generator=g, device="cuda"),
+                        w_bits)
+    if extra_b_words:
+        fill = torch.full((w_bits, n, extra_b_words), -1, dtype=torch.int32,
+                          device="cuda")
+        w = dataclasses.replace(w, packed=torch.cat([w.packed, fill], -1))
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    a = ops.quantize_rows(x, a_bits, pad_bit=0)
+    a, w = ops._normalize_packed_kw(a, w)
+    raw = apmm.apmm_packed(a, w)
+    torch.cuda.synchronize()
+    if not torch.equal(raw, ref.apmm_packed(a, w)):
+        raise AssertionError(f"K5 {name}: raw int32 product differs")
+    del raw
+    for od in (torch.float32, torch.bfloat16):
+        got = apmm.apmm_packed(a, w, out_dtype=od)
+        want = ref.apmm_dequant(a, w, out_dtype=od)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 {name}: {od} dequant differs")
+    err = (got.float() - want.float()).abs().max().item()
+    del got, want
+
+    def run():
+        return apmm.apmm_packed(a, w, out_dtype=torch.bfloat16)
+
+    def run_plain():
+        return ref.apmm_dequant(a, w, out_dtype=torch.bfloat16)
+
+    ms = timer(run, iters=10)
+    plain = timer(run_plain, iters=2, warmup=1)
+    kw = w.packed.shape[-1]
+    groups = len(ref.plane_groups(a_bits)) * len(ref.plane_groups(w_bits))
+    n_bytes = (a_bits * m + w_bits * n) * kw * 4 + (m + n) * 4 + m * n * 2
+    b_ms, b_by = bound_ms(n_bytes, groups * 2 * m * n * k, INT8_OPS_PER_S)
+    wb = torch.randn((n, k), generator=g, device="cuda").to(torch.bfloat16)
+    mm = timer(lambda: torch.matmul(x, wb.T), iters=10)
+    mi = max(m, 32)               # torch._int_mm takes M > 16 on the card
+    xi = torch.randint(-127, 128, (mi, k), device="cuda", dtype=torch.int8)
+    wi = torch.randint(-127, 128, (n, k), device="cuda", dtype=torch.int8)
+    im = timer(lambda: torch._int_mm(xi, wi.t()), iters=10)
+    del wb, xi, wi
+    print(f"K5 apmm_packed {name} M={m} N={n} K={k} Kw={kw} a{a_bits}w"
+          f"{w_bits}: raw int32 and f32/bf16 dequant bit-exact; {ms:.4f} ms "
+          f"(bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of "
+          f"bound), plain {plain:.4f} ms; yardsticks (not the same "
+          f"function): torch.matmul bf16 {mm:.4f} ms, torch._int_mm int8 "
+          f"M={mi} {im:.4f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def _unfused_vs_fused(torch, g, name, m, n, k):
+    """``ap_linear`` (K3 + K5) against ``ap_linear_fused`` (K1) on the
+    same bf16 inputs: bit-exact at act=none and with a residual; the
+    SwiGLU composed from two unfused linears within 1 bf16 ulp of K1's
+    dual SiLU epilogue."""
+    from repro_torch.kernels import ops, ref
+    w, w2 = (ops.pack_weight(torch.randn((n, k), generator=g,
+                                         device="cuda"), 2) for _ in (0, 1))
+    x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
+    res = torch.randn((m, n), generator=g, device="cuda").to(torch.bfloat16)
+    if not torch.equal(ops.ap_linear(x, w, a_bits=8),
+                       ops.ap_linear_fused(x, w, a_bits=8)):
+        raise AssertionError(f"K3+K5 vs K1 {name}: act=none differs")
+    if not torch.equal(ops.ap_linear(x, w, a_bits=8) + res,
+                       ops.ap_linear_fused(x, w, a_bits=8, residual=res)):
+        raise AssertionError(f"K3+K5 vs K1 {name}: residual differs")
+    h = (ref.silu_f32(ops.ap_linear(x, w, a_bits=8).float())
+         * ops.ap_linear(x, w2, a_bits=8).float()).to(torch.bfloat16)
+    ulps = int(bf16_ulps(h, ops.ap_linear_fused(x, w, w2=w2, a_bits=8,
+                                                act="silu")).max())
+    if ulps > 1:
+        raise AssertionError(f"K3+K5 vs K1 {name}: SwiGLU {ulps} ulps")
+    print(f"ap_linear (K3+K5) vs ap_linear_fused (K1) {name} M={m} N={n} "
+          f"K={k}: act=none and +residual bit-exact, SwiGLU {ulps} bf16 "
+          f"ulps (tol 1)", flush=True)
+
+
+def k5_phase(torch, timer, seed, results):
+    g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    cases = [("decode q", 4, 4096, 4096, {}),
+             ("decode gate", 4, 14336, 4096, {}),
+             ("decode down", 4, 4096, 14336, {}),
+             ("decode lm_head", 4, 128256, 4096, {}),
+             ("chunk q", 1024, 4096, 4096, {}),
+             ("chunk gate", 1024, 14336, 4096, {}),
+             ("odd, unequal Kw", 5, 1000, 1000, dict(extra_b_words=3))]
+    for name, m, n, k, kw in cases:
+        r = _k5_case(torch, timer, g, name, m, n, k, **kw)
+        if name == "decode gate":
+            results["apmm_packed"] = r
+        torch.cuda.empty_cache()
+    for name, m, n, k in (("decode gate", 4, 14336, 4096),
+                          ("decode down", 4, 4096, 14336),
+                          ("chunk q", 1024, 4096, 4096),
+                          ("odd", 5, 1000, 1000)):
+        _unfused_vs_fused(torch, g, name, m, n, k)
+    torch.cuda.empty_cache()
+
+
+def _within(got, want):
+    """Elements within 1 bf16 ulp or 1e-5 absolute; returns (ok, max
+    |err|, max ulps among elements more than 1e-5 apart -- near zero a
+    sign flip spans many ulps and the 1e-5 rule holds)."""
+    diff = (got.float() - want.float()).abs()
+    ulps = bf16_ulps(got, want)
+    far = diff > 1e-5
+    ok = not bool((far & (ulps > 1)).any())
+    return ok, diff.max().item(), int(ulps[far].max()) if far.any() else 0
+
+
+def _ring_case(torch, g, *, b, t, live, s, h=8, group=4, d=128, n_bits=8,
+               prefill=False):
+    """One contiguous ring per batch row, ``live`` slots valid (positions
+    0..live-1); ``s`` query tokens per row, the GQA group folded in.
+    Decode: the last ``s`` positions; prefill: positions 0..live-1 then
+    pads (-1) up to ``s`` -- the bucketed prompt."""
+    from repro_torch.kernels import ops
+    kv = torch.randn((2, b, t, h, d), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    kq, ks = ops.quantize_kv(kv[0], n_bits)
+    vq, vs = ops.quantize_kv(kv[1], n_bits)
+    pos = torch.full((b, t), -1, dtype=torch.int32, device="cuda")
+    pos[:, :live] = torch.arange(live, dtype=torch.int32, device="cuda")
+    if prefill:
+        tok = torch.full((s,), -1, dtype=torch.int32, device="cuda")
+        tok[:live] = torch.arange(live, dtype=torch.int32, device="cuda")
+    else:
+        tok = torch.arange(live - s, live, dtype=torch.int32, device="cuda")
+    q_pos = tok[None, None, :].expand(b, group, s).reshape(
+        b, group * s).contiguous()
+    q = torch.randn((b, h, group * s, d), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    return q, kv, (kq, ks, vq, vs), pos, q_pos
+
+
+def _attn_bound(torch, q_pos, kv_pos, h, d, kv_slot_bytes, io_bytes,
+                window=None):
+    """Bytes: each live KV slot once (``kv_slot_bytes`` per (row, slot,
+    head)) plus q, out and positions; operations: 4 d f32 flops per
+    visible (query, slot) pair -- what this run's data needs."""
+    from repro_torch.kernels import ref
+    live = int((kv_pos >= 0).sum()) * h
+    pairs = int(ref.position_mask(q_pos[:, :, None], kv_pos[:, None, :],
+                                  True, window).sum()) * h
+    return bound_ms(live * kv_slot_bytes + io_bytes, 4 * d * pairs,
+                    F32_FLOPS_PER_S)
+
+
+def k6_k7_phase(torch, timer, seed, results):
+    """K6 over a contiguous packed ring and K7 over the same K/V in
+    bf16, at llama3-8b's shapes (8 kv heads, GQA group 4, d 128): decode
+    (4 rows, ring 1024 with 632 live slots), the bucketed prefill of the
+    600-token prompt (4 x 1024 query rows, T 1024), a 256-slot window,
+    and a fully masked query row; K6 against K2 on the same K/V."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    h, d, n_bits = 8, 128, 8
+    cases = [("decode", dict(b=4, t=1024, live=632, s=1), None),
+             ("prefill", dict(b=1, t=1024, live=600, s=1024,
+                              prefill=True), None),
+             ("decode window 256", dict(b=4, t=1024, live=632, s=1), 256)]
+    for name, kw, window in cases:
+        q, kv, planes, pos, q_pos7 = _ring_case(torch, g, h=h, d=d,
+                                                n_bits=n_bits, **kw)
+        q_pos = q_pos7
+        if name == "decode":
+            q_pos = q_pos7.clone()
+            q_pos[3, 0] = -1                  # a fully masked query row
+        b, sq = q.shape[0], q.shape[2]
+        args = (q, *planes, q_pos, pos)
+
+        def run():
+            return flash_attention.flash_attention_quantized(
+                *args, d=d, window=window)
+
+        def run_plain():
+            return ref.kv_cache_attention(*args, d=d, window=window)
+
+        got, want = run(), run_plain()
+        ok, err, ulps = _within(got, want)
+        if not ok:
+            raise AssertionError(f"K6 {name}: beyond 1 bf16 ulp and 1e-5 "
+                                 f"(max |err| {err})")
+        if name == "decode" and got[3, :, 0].abs().max() != 0:
+            raise AssertionError("K6: a fully masked row is not 0")
+        ms = timer(run, iters=20)
+        plain = timer(run_plain, iters=3, warmup=1)
+        io = 2 * q.numel() * 2 + q_pos.numel() * 4 + pos.numel() * 4
+        b_ms, b_by = _attn_bound(torch, q_pos, pos, h, d,
+                                 2 * (n_bits * d // 8 + 4), io, window)
+        print(f"K6 flash_attention_quantized {name} B={b} H={h} Sq={sq} "
+              f"T={pos.shape[1]} live={int((pos[0] >= 0).sum())} d={d} "
+              f"kv{n_bits}: max|err| {err:.3g}, max {ulps} bf16 ulps beyond 1e-5 "
+              f"(tol 1); {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+              f"{100 * b_ms / ms:.1f}% of bound), plain {plain:.4f} ms",
+              flush=True)
+        if name == "decode":
+            results["flash_attention_quantized"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+            _k6_vs_k2(torch, q, planes, pos, q_pos, d)
+        # K7 on the same K/V in bf16, folded (B*H, T, d); its decode
+        # queries have no fully masked row (the prefill's pads do)
+        qf = q.reshape(b * h, sq, d)
+        kf, vf = (ref.fold_kv_heads(x) for x in (kv[0], kv[1]))
+        qpf = q_pos7.repeat_interleave(h, 0)
+        kpf = pos.repeat_interleave(h, 0)
+
+        def run7():
+            return flash_attention.flash_attention(qf, kf, vf, qpf, kpf,
+                                                   window=window)
+
+        def run7_plain():
+            return ref.flash_attention(qf, kf, vf, qpf, kpf, window=window)
+
+        got, want = run7(), run7_plain()
+        ok, err, ulps = _within(got, want)
+        if not ok:
+            raise AssertionError(f"K7 {name}: beyond 1 bf16 ulp and 1e-5 "
+                                 f"(max |err| {err})")
+        ms = timer(run7, iters=20)
+        plain = timer(run7_plain, iters=3, warmup=1)
+        io = 2 * qf.numel() * 2 + qpf.numel() * 4 + kpf.numel() * 4
+        b_ms, b_by = _attn_bound(torch, qpf, kpf, 1, d, 2 * 2 * d, io,
+                                 window)
+        # the library yardstick: one SDPA call with the boolean position
+        # mask computes K7's function on query rows that see some slot
+        # (SDPA turns a fully masked row into NaN; K7 into 0)
+        seen = ref.position_mask(qpf[:, :, None], kpf[:, None, :], True,
+                                 window).any(-1).all(0)
+        qs, qps = qf[:, seen], qpf[:, seen]
+        mask = ref.position_mask(qps[:, :, None], kpf[:, None, :], True,
+                                 window)
+        lib = timer(lambda: F.scaled_dot_product_attention(
+            qs, kf, vf, attn_mask=mask), iters=20)
+        lib_err = (F.scaled_dot_product_attention(qs, kf, vf, attn_mask=mask)
+                   .float() - want[:, seen].float()).abs().max().item()
+        print(f"K7 flash_attention {name} BH={b * h} Sq={sq} T={kf.shape[1]} "
+              f"d={d} bf16: max|err| {err:.3g}, max {ulps} bf16 ulps beyond 1e-5 "
+              f"(tol 1); {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+              f"{100 * b_ms / ms:.1f}% of bound), plain {plain:.4f} ms; "
+              f"library: scaled_dot_product_attention with a boolean mask "
+              f"over the {qs.shape[1]} of {sq} query rows that see a slot "
+              f"{lib:.4f} ms (max|err| vs plain {lib_err:.3g})", flush=True)
+        if name == "decode":
+            results["flash_attention"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+        del q, kv, planes, args, got, want
+        torch.cuda.empty_cache()
+
+
+def _k6_vs_k2(torch, q, planes, pos, q_pos, d, bs=16):
+    """The same K/V written into pool blocks: K2 through the block
+    tables against K6 over the ring."""
+    from repro_torch.kernels import flash_attention
+    kq, ks, vq, vs = planes
+    b, t = pos.shape
+    nb = t // bs
+
+    def blocks(x):
+        pool = torch.zeros((1 + b * nb, bs) + tuple(x.shape[2:]),
+                           dtype=x.dtype, device="cuda")
+        pool[1:] = x.reshape((b * nb, bs) + tuple(x.shape[2:]))
+        return pool
+
+    pool_pos = blocks(pos)
+    pool_pos[0] = -1
+    tables = (1 + torch.arange(b * nb, dtype=torch.int32,
+                               device="cuda")).reshape(b, nb)
+    k2 = flash_attention.flash_attention_paged_quantized(
+        q, blocks(kq), blocks(ks), blocks(vq), blocks(vs), pool_pos, tables,
+        q_pos, d=d)
+    k6 = flash_attention.flash_attention_quantized(q, kq, ks, vq, vs, q_pos,
+                                                   pos, d=d)
+    ok, err, ulps = _within(k6, k2)
+    if not ok:
+        raise AssertionError(f"K6 vs K2: beyond 1 bf16 ulp and 1e-5 "
+                             f"(max |err| {err})")
+    print(f"K6 vs K2 on the same K/V (ring vs 16-slot pool blocks): max|err| "
+          f"{err:.3g}, max {ulps} bf16 ulps beyond 1e-5 (tol 1)", flush=True)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: full width, shallow, card vs CPU
 # ---------------------------------------------------------------------------
@@ -490,10 +792,11 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
-def shallow_phase(torch, seed, arch, n_layers, s):
+def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False):
     """One full-width forward of ``s`` tokens at depth ``n_layers`` on the
-    card, then on the CPU; MoE layers record each token's top-k experts
-    on both devices."""
+    card, then on the CPU, through the paged pool with the fused linear
+    or (``contiguous``) a contiguous cache with the unfused linear; MoE
+    layers record each token's top-k experts on both devices."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
@@ -503,7 +806,10 @@ def shallow_phase(torch, seed, arch, n_layers, s):
     from repro_torch.serving import engine as E
     from repro_torch.serving.paged_cache import PagedKVPool
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
-    quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8)
+    quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8,
+                        fused_linear=not contiguous)
+    path = "contiguous cache, unfused linear" if contiguous else \
+        "paged pool, fused linear"
     params = M.init_params(cfg, seed=seed, device="cuda", quant=quant)
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (1, s), dtype=np.int32)
@@ -530,16 +836,20 @@ def shallow_phase(torch, seed, arch, n_layers, s):
                 p = _to_cpu(params)
                 del params
                 torch.cuda.empty_cache()
-            pool = PagedKVPool(cfg, nb + 1, 16, quant=quant, device=dev)
+            if contiguous:
+                caches = M.init_caches(cfg, 1, nb * 16, quant=quant,
+                                       device=dev)
+            else:
+                caches = PagedKVPool(cfg, nb + 1, 16, quant=quant,
+                                     device=dev).step_caches(tables, lens)
             batch = {k: torch.as_tensor(v, device=dev)
                      for k, v in batch_np.items()}
             t0 = time.time()
-            logits, _ = E.prefill_step_bucketed(
-                p, batch, pool.step_caches(tables, lens), cfg, quant)
+            logits, _ = E.prefill_step_bucketed(p, batch, caches, cfg, quant)
             out[dev] = logits.float().cpu()
-            print(f"{arch} full width depth {n_layers}: forward on {dev} in "
-                  f"{time.time() - t0:.2f} s", flush=True)
-            del p, pool
+            print(f"{arch} full width depth {n_layers} ({path}): forward on "
+                  f"{dev} in {time.time() - t0:.2f} s", flush=True)
+            del p, caches
     finally:
         L.moe_apply = moe_apply
     a, b = out["cuda"], out["cpu"]
@@ -557,8 +867,9 @@ def shallow_phase(torch, seed, arch, n_layers, s):
         routed = (f"; {100 * same:.1f}% of {rc.shape[0] * rc.shape[1]} "
                   f"token-layer routings pick the same top-{cfg.top_k} "
                   f"experts on the card and the CPU")
-    print(f"{arch} full width depth {n_layers} (d_model {cfg.d_model}, vocab "
-          f"{cfg.vocab}, {s} tokens): card vs CPU logits max|err| {err:.4g} "
+    print(f"{arch} full width depth {n_layers} ({path}; d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {s} tokens): card vs CPU "
+          f"logits max|err| {err:.4g} "
           f"(tol 5% of max|logit| {scale:.4g}), argmax card "
           f"{int(a.argmax())} cpu {int(b.argmax())}{routed}", flush=True)
     torch.cuda.empty_cache()
@@ -567,6 +878,16 @@ def shallow_phase(torch, seed, arch, n_layers, s):
 # ---------------------------------------------------------------------------
 # phase 5: end to end
 # ---------------------------------------------------------------------------
+
+def fresh_memory(torch) -> float:
+    """Free what an earlier phase left (its engine and parameters sit in
+    reference cycles until the collector runs), reset the peak counter,
+    and return the GiB still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated() / 2**30
+
 
 def profile_steps(torch, eng, n_steps: int) -> str:
     """``torch.profiler`` over ``n_steps`` engine steps: device time by
@@ -630,7 +951,7 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
         n_dispatch[0] += 1
         return forward(*a, **kw)
 
-    torch.cuda.reset_peak_memory_stats()
+    resident = fresh_memory(torch)
     M.forward = counting_forward
     # --- the main path: counters zeroed just before, read just after ---
     pack.LAUNCHES = apmm.LAUNCHES = flash_attention.LAUNCHES = 0
@@ -724,10 +1045,142 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
           f"prefill steps mean {np.mean(pre):.1f} ms, {len(dec)} decode "
           f"steps mean {np.mean(dec):.1f} ms (median {np.median(dec):.1f} "
           f"ms); max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({resident:.2f} "
+          f"GiB allocated before the load)", flush=True)
     del eng, params
     torch.cuda.empty_cache()
-    return counts
+    return counts, [list(r.out) for r in reqs]
+
+
+def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
+                           n_pack):
+    """llama3-8b at full width served by ``Engine(paged=False, n_slots=4,
+    max_len=1024)`` with the unfused linear (K3 + K5) and K6 reading the
+    packed rings, the prompts of the paged llama path (600, 100, 300,
+    then 200 once the first has emitted), 32 greedy tokens each.  The
+    launch counters are zeroed just before and read just after; every
+    forward dispatch must launch each kernel ``per_dispatch[name]`` times
+    (K3 also ``n_pack`` times at load), and K1, K2, K4 never.  Prints
+    the share of tokens equal to the paged fused path's (``paged_tokens``;
+    K2 and K6 sum in different orders, so it is not asserted)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import apmm, flash_attention, moe, pack
+    from repro_torch.models import model as M
+    from repro_torch.models.config import QuantConfig
+    from repro_torch.serving import engine as E
+    cfg = get_config("llama3-8b")
+    quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8, fused_linear=False)
+    forward, n_dispatch = M.forward, [0]
+
+    def counting_forward(*a, **kw):
+        n_dispatch[0] += 1
+        return forward(*a, **kw)
+
+    def counters():
+        return {"quantize_pack_rows": pack.LAUNCHES,
+                "apmm_fused_linear": apmm.LAUNCHES,
+                "apmm_packed": apmm.PACKED_LAUNCHES,
+                "paged_attention": flash_attention.LAUNCHES,
+                "flash_attention_quantized":
+                    flash_attention.QUANTIZED_LAUNCHES,
+                "flash_attention": flash_attention.FLOAT_LAUNCHES,
+                "moe_expert_linear": moe.LAUNCHES}
+
+    resident = fresh_memory(torch)
+    M.forward = counting_forward
+    # --- the main path: counters zeroed just before, read just after ---
+    pack.LAUNCHES = apmm.LAUNCHES = apmm.PACKED_LAUNCHES = 0
+    flash_attention.LAUNCHES = flash_attention.QUANTIZED_LAUNCHES = 0
+    flash_attention.FLOAT_LAUNCHES = moe.LAUNCHES = 0
+    try:
+        t0 = time.time()
+        params = M.init_params(cfg, seed=seed, device="cuda", quant=quant)
+        torch.cuda.synchronize()
+        t_load = time.time() - t0
+        n_load_pack = pack.LAUNCHES
+        eng = E.Engine(params, cfg, n_slots=4, max_len=1024, quant=quant,
+                       paged=False)
+        rng = np.random.default_rng(seed)      # the paged path's prompts
+        shared = rng.integers(0, cfg.vocab, (128,), dtype=np.int32)
+
+        def prompt(n, with_prefix):
+            body = rng.integers(0, cfg.vocab, (n,), dtype=np.int32)
+            return np.concatenate([shared, body[128:]]) if with_prefix \
+                else body
+
+        reqs = [E.Request(prompt=prompt(n, i == 0), max_new_tokens=32)
+                for i, n in enumerate((600, 100, 300))]
+        late = E.Request(prompt=prompt(200, True), max_new_tokens=32)
+        reqs.append(late)
+        for r in reqs[:-1]:
+            eng.submit(r)
+        step_ms = {"prefill": [], "decode": []}
+        prof, t_prof, tok_prof = None, 0.0, 0
+        t_serve = time.time()
+        while eng._has_work() or not late.done:
+            if reqs[0].out and getattr(late, "_engine", None) is None:
+                eng.submit(late)
+            kind = "prefill" if eng.queue else "decode"
+            traced = kind == "decode" and prof is None \
+                and len(step_ms["decode"]) == 8
+            if traced:
+                n0, tp = sum(len(r.out) for r in reqs), time.time()
+                prof = profile_steps(torch, eng, 3)
+                t_prof = time.time() - tp
+                tok_prof = sum(len(r.out) for r in reqs) - n0
+                continue
+            ts = time.time()
+            if not eng.step():
+                break
+            torch.cuda.synchronize()
+            step_ms[kind].append((time.time() - ts) * 1e3)
+        t_serve = time.time() - t_serve - t_prof
+        counts = counters()
+    finally:
+        M.forward = forward
+    # --- end of the main path ---
+    for r in reqs:
+        if r.finish_reason != "length" or len(r.out) != 32:
+            raise AssertionError(f"request finished {r.finish_reason!r} "
+                                 f"with {len(r.out)} tokens")
+        if not all(0 <= t < cfg.vocab for t in r.out):
+            raise AssertionError("token outside the vocab")
+    rep = eng.report()
+    if rep["running"] or rep["waiting"]:
+        raise AssertionError(f"lanes did not drain: {rep}")
+    nd = n_dispatch[0]
+    for name, per in per_dispatch.items():
+        want = per * nd + (n_load_pack if name == "quantize_pack_rows" else 0)
+        if counts[name] != want or (per and counts[name] <= 0):
+            raise AssertionError(f"contiguous: kernel {name} launched "
+                                 f"{counts[name]} times in {nd} dispatches, "
+                                 f"not {per} per dispatch")
+    if n_load_pack != n_pack:
+        raise AssertionError(f"contiguous: K3 launched {n_load_pack} times "
+                             f"at load, not {n_pack}")
+    same = sum(a == b for ra, rb in zip(reqs, paged_tokens)
+               for a, b in zip(ra.out, rb))
+    total = sum(len(r.out) for r in reqs)
+    n_tok = total - tok_prof
+    pre, dec = step_ms["prefill"], step_ms["decode"]
+    print(f"end to end llama3-8b-contiguous-unfused {cfg.n_layers}L "
+          f"w2/a8/kv8 contiguous n_slots=4 max_len=1024: load+quantize "
+          f"{t_load:.2f} s; {len(reqs)} requests (prompts "
+          f"{[len(r.prompt) for r in reqs]}), {nd} forward dispatches, "
+          f"launches {counts}; {n_tok} tokens outside the traced steps in "
+          f"{t_serve:.2f} s = {n_tok / t_serve:.2f} tok/s; {len(pre)} "
+          f"admitting steps (prefills + a decode) mean {np.mean(pre):.1f} ms, "
+          f"{len(dec)} decode steps mean {np.mean(dec):.1f} ms (median "
+          f"{np.median(dec):.1f} ms); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({resident:.2f} "
+          f"GiB allocated before the load); {same} of "
+          f"{total} tokens ({100 * same / total:.1f}%) equal the paged "
+          f"fused path's at the same index", flush=True)
+    del eng, params
+    torch.cuda.empty_cache()
+    return {k: v for k, v in counts.items() if per_dispatch.get(k)
+            or k == "quantize_pack_rows"}
 
 
 def main() -> int:
@@ -764,24 +1217,38 @@ def main() -> int:
     k1_phase(torch, timer, args.seed, results)
     k2_phase(torch, timer, args.seed, results)
     k4_phase(torch, timer, args.seed, results)
+    k5_phase(torch, timer, args.seed, results)
+    from repro_torch.kernels import flash_attention
+    k7_before = flash_attention.FLOAT_LAUNCHES
+    k6_k7_phase(torch, timer, args.seed, results)
+    k7_launches = flash_attention.FLOAT_LAUNCHES - k7_before
     del timer
     torch.cuda.empty_cache()
     shallow_phase(torch, args.seed, "llama3-8b", n_layers=2, s=24)
+    shallow_phase(torch, args.seed, "llama3-8b", n_layers=2, s=24,
+                  contiguous=True)
     shallow_phase(torch, args.seed, "mixtral-8x7b", n_layers=1, s=8)
-    paths = {
-        "llama3-8b": serve_phase(
-            torch, args.seed, "llama3-8b", prompt_lens=(600, 100, 300),
-            prefix=128, max_len=1024, n_blocks=257,
-            per_dispatch={"apmm_fused_linear": 193, "paged_attention": 32},
-            n_pack=225),
-        "mixtral-8x7b": serve_phase(
-            torch, args.seed, "mixtral-8x7b",
-            prompt_lens=(600, 100, 300, 4300), prefix=128, max_len=4352,
-            n_blocks=512,
-            per_dispatch={"apmm_fused_linear": 129, "paged_attention": 32,
-                          "moe_expert_linear": 64},
-            n_pack=897),
-    }
+    llama, llama_tokens = serve_phase(
+        torch, args.seed, "llama3-8b", prompt_lens=(600, 100, 300),
+        prefix=128, max_len=1024, n_blocks=257,
+        per_dispatch={"apmm_fused_linear": 193, "paged_attention": 32},
+        n_pack=225)
+    mixtral, _ = serve_phase(
+        torch, args.seed, "mixtral-8x7b",
+        prompt_lens=(600, 100, 300, 4300), prefix=128, max_len=4352,
+        n_blocks=512,
+        per_dispatch={"apmm_fused_linear": 129, "paged_attention": 32,
+                      "moe_expert_linear": 64},
+        n_pack=897)
+    contiguous = serve_contiguous_phase(
+        torch, args.seed, llama_tokens,
+        per_dispatch={"apmm_packed": 225, "flash_attention_quantized": 32,
+                      "quantize_pack_rows": 225, "apmm_fused_linear": 0,
+                      "paged_attention": 0, "moe_expert_linear": 0,
+                      "flash_attention": 0},
+        n_pack=225)
+    paths = {"llama3-8b": llama, "mixtral-8x7b": mixtral,
+             "llama3-8b-contiguous-unfused": contiguous}
     for arch, c in paths.items():
         print(f"kernels ({arch} path): "
               + ", ".join(f"{k}={v}" for k, v in c.items()), flush=True)
@@ -794,22 +1261,32 @@ def main() -> int:
                             "src/repro/kernels/flash_attention.py:400"),
         "moe_expert_linear": ("src/repro_torch/csrc/moe_expert_linear.cu",
                               "src/repro/kernels/moe.py:273"),
+        "apmm_packed": ("src/repro_torch/csrc/apmm_packed.cu",
+                        "src/repro/kernels/apmm.py:422"),
+        "flash_attention_quantized": (
+            "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:234"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:124"),
     }
-    # one entry per (path, kernel): ``launches`` is that path's own count
-    kernels = []
-    for arch, counts in paths.items():
-        for k, (source, replaces) in meta.items():
-            if not counts[k]:
-                continue             # not on this path (K4 on llama)
-            r = results[k]
-            kernels.append(dict(name=k, path=arch, route="cuda",
-                                source=source, replaces=replaces,
-                                launches=counts[k],
-                                max_abs_err=r["max_abs_err"], ms=r["ms"],
-                                plain_ms=r["plain_ms"],
-                                bound_ms=r["bound_ms"],
-                                bound_by=r["bound_by"],
-                                library_ms=r["library_ms"]))
+
+    def entry(k, launches, **extra):
+        source, replaces = meta[k]
+        r = results[k]
+        return dict(name=k, **extra, route="cuda", source=source,
+                    replaces=replaces, launches=launches,
+                    max_abs_err=r["max_abs_err"], ms=r["ms"],
+                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], library_ms=r["library_ms"])
+
+    # one entry per (path, kernel): ``launches`` is that path's own count;
+    # K7 is on no path (as in the reference): its launches are phase 3's
+    kernels = [entry(k, counts[k], path=arch)
+               for arch, counts in paths.items() for k in meta
+               if counts.get(k)]
+    kernels.append(entry("flash_attention", k7_launches, path=None))
+    if {e["name"] for e in kernels} != set(meta):
+        raise AssertionError("a kernel is missing from the kernels line")
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -16,6 +16,10 @@ on ``device``:
 * bfloat16 arrays (numpy's ``bfloat16`` extension dtype) are viewed bit
   for bit as ``torch.bfloat16``.
 
+:func:`caches_from_numpy` and :func:`caches_to_numpy` carry the
+reference's contiguous decode-cache tree (``prelude`` list, stacked
+``blocks``, uint32 planes) to the port's per-layer list and back.
+
 It never imports jax: the tests hand it numpy arrays.
 """
 
@@ -82,16 +86,58 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The reference parameter tree (numpy leaves) -> the port's params."""
     check_supported(cfg)
     dev = resolve_device(device)
+    params = {"embed": from_numpy_tree(tree["embed"], dev),
+              "final_norm": from_numpy_tree(tree["final_norm"], dev),
+              "layers": _layers_from_tree(tree, cfg, dev)}
+    if "lm_head" in tree:
+        params["lm_head"] = from_numpy_tree(tree["lm_head"], dev)
+    return params
+
+
+def _layers_from_tree(tree: dict, cfg: ModelConfig, dev) -> list:
+    """The prelude entries, then each scanned unit's entries, as one
+    list in layer order (the order of ``params["layers"]``)."""
     prelude, unit, n_units = plan_split(cfg)
     pre = tree.get("prelude", [])
     assert len(pre) == len(prelude), (len(pre), len(prelude))
     blocks = tree["blocks"]
     assert len(blocks) == len(unit), (len(blocks), len(unit))
-    params = {"embed": from_numpy_tree(tree["embed"], dev),
-              "final_norm": from_numpy_tree(tree["final_norm"], dev),
-              "layers": [from_numpy_tree(p, dev) for p in pre]
-              + [from_numpy_tree(_unit(blocks[i], u), dev)
-                 for u in range(n_units) for i in range(len(unit))]}
-    if "lm_head" in tree:
-        params["lm_head"] = from_numpy_tree(tree["lm_head"], dev)
-    return params
+    return [from_numpy_tree(p, dev) for p in pre] \
+        + [from_numpy_tree(_unit(blocks[i], u), dev)
+           for u in range(n_units) for i in range(len(unit))]
+
+
+def caches_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """The reference's contiguous cache tree (numpy leaves: ``prelude``
+    layer dicts, ``blocks`` dicts whose leaves lead with the unit axis)
+    -> the port's ``{"layers": [one dict per layer]}``."""
+    check_supported(cfg)
+    return {"layers": _layers_from_tree(tree, cfg, resolve_device(device))}
+
+
+def _to_numpy(key: str, t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.float().numpy()         # exact: bf16 values are f32 values
+    out = t.numpy()
+    if key in ("k", "v") and out.dtype == np.int32:
+        return out.view(np.uint32)       # packed planes: the same bits
+    return out
+
+
+def caches_to_numpy(caches: dict, cfg: ModelConfig) -> dict:
+    """The port's per-layer caches -> the reference's tree layout with
+    numpy leaves: ``prelude`` dicts and ``blocks`` dicts stacked over the
+    units, planes as uint32, bfloat16 K/V as float32 (exactly)."""
+    check_supported(cfg)
+    prelude, unit, n_units = plan_split(cfg)
+    layers = [{k: _to_numpy(k, v) for k, v in c.items()}
+              for c in caches["layers"]]
+    fd, ul = len(prelude), len(unit)
+    out = {"blocks": [
+        {k: np.stack([layers[fd + u * ul + i][k] for u in range(n_units)])
+         for k in layers[fd + i]}
+        for i in range(ul)]}
+    if fd:
+        out["prelude"] = layers[:fd]
+    return out

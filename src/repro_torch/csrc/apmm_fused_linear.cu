@@ -67,9 +67,10 @@ template <typename TO> __device__ __forceinline__ float cast_f32(float v) {
   return to_f32(from_f32<TO>(v));
 }
 
+// silu as y * logistic(y) (the plain version's form); gelu, tanh form
 __device__ __forceinline__ float act_fn(float y, int act) {
-  if (act == 1) {                       // silu
-    return __fdiv_rn(y, __fadd_rn(1.0f, expf(-y)));
+  if (act == 1) {
+    return __fmul_rn(y, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y))));
   }
   if (act == 2) {                       // gelu, tanh form
     float inner = 0.7978845608028654f * (y + 0.044715f * y * y * y);

@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # contract multiply-adds into FMAs (their f32 bits are held bit-exact
 # against the plain versions); intrinsics pin them too
 EXTRA_FLAGS = {"apmm_fused_linear": ("-fmad=false",),
+               "apmm_packed": ("-fmad=false",),
                "moe_expert_linear": ("-fmad=false",),
                "pack": ("-fmad=false",)}
 

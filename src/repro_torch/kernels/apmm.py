@@ -1,10 +1,14 @@
-"""K1 wrapper: one-kernel fused quantized linear
-(``csrc/apmm_fused_linear.cu``).
+"""K1 and K5 wrappers: the one-kernel fused quantized linear
+(``csrc/apmm_fused_linear.cu``) and the packed x packed GEMM of the
+unfused linear (``csrc/apmm_packed.cu``).
 
-Port of the TPU kernel ``repro/kernels/apmm.py::apmm_fused_linear``
-(``fused`` variant).  The device decides: CPU tensors run the plain
-version (:func:`repro_torch.kernels.ref.ap_linear_fused_ref`), CUDA
-tensors launch the kernel or raise.
+Ports of the TPU kernels ``repro/kernels/apmm.py::apmm_fused_linear``
+and ``::apmm_packed`` (``fused`` variant).  The device decides: CPU
+tensors run the plain versions
+(:func:`repro_torch.kernels.ref.ap_linear_fused_ref`,
+:func:`~repro_torch.kernels.ref.apmm_packed` and
+:func:`~repro_torch.kernels.ref.apmm_dequant`), CUDA tensors launch the
+kernel or raise.
 """
 
 from __future__ import annotations
@@ -16,11 +20,13 @@ import torch
 from repro_torch.core.bipolar import BipolarTensor
 from repro_torch.kernels import _build, ref
 
-LAUNCHES = 0          # kernel launches since the last reset (chip_smoke)
+LAUNCHES = 0          # K1 launches since the last reset (chip_smoke)
+PACKED_LAUNCHES = 0   # K5 launches since the last reset
 
 apmm_fused_linear_plain = ref.ap_linear_fused_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_RAW = 2              # K5's out dtype code for the raw int32 product
 _ACTS = {"none": 0, "silu": 1, "gelu": 2}
 
 
@@ -104,4 +110,73 @@ def apmm_fused_linear(x2: torch.Tensor, a_scale: torch.Tensor,
              _DTYPES[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "apmm_fused_linear")
     LAUNCHES += 1
+    return out
+
+
+def _packed_lib():
+    lib = _build.load("apmm_packed")
+    fn = lib.repro_apmm_packed
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def apmm_packed_plain(a: BipolarTensor, b: BipolarTensor, *,
+                      variant: str = "fused", out_dtype=None):
+    """Plain version of :func:`apmm_packed`."""
+    if out_dtype is None:
+        return ref.apmm_packed(a, b, variant=variant)
+    return ref.apmm_dequant(a, b, variant=variant, out_dtype=out_dtype)
+
+
+def apmm_packed(a: BipolarTensor, b: BipolarTensor, *,
+                variant: str = "fused", out_dtype=None) -> torch.Tensor:
+    """``Y (M, N) = A (M, K) @ B (N, K)^T`` of two packed operands of one
+    word width (A pad bit 0, B pad bit 1): the exact int32 product when
+    ``out_dtype`` is None, else ``(y * a_scale) * b_scale`` in f32 cast
+    to ``out_dtype`` (f32 or bf16)."""
+    if a.packed.device.type == "cpu":
+        return apmm_packed_plain(a, b, variant=variant, out_dtype=out_dtype)
+    if a.packed.device.type != "cuda":
+        raise ValueError(f"apmm_packed: unsupported device {a.device}")
+    if variant != "fused":
+        raise NotImplementedError(
+            "apmm_packed: the bitserial variant has no CUDA kernel yet "
+            "(ROADMAP queue 2, the K1/K5 b1 XOR-popc mma follow-up)")
+    global PACKED_LAUNCHES
+    (m, k), (n, k2) = a.shape, b.shape
+    n_a, m_, kw = a.packed.shape
+    n_b, n_, kw2 = b.packed.shape
+    if k != k2 or (m_, n_) != (m, n) or (n_a, n_b) != (a.n_bits, b.n_bits):
+        raise ValueError(f"apmm_packed: A {a.shape}/{tuple(a.packed.shape)}"
+                         f" does not match B {b.shape}/"
+                         f"{tuple(b.packed.shape)}")
+    if kw != kw2 or kw * 32 < k:
+        raise ValueError(f"apmm_packed: word widths {kw}, {kw2} for K={k} "
+                         f"(pad to a common width first)")
+    if out_dtype is not None and out_dtype not in _DTYPES:
+        raise TypeError(f"apmm_packed: out dtype {out_dtype}")
+    if a.packed.dtype != torch.int32 or b.packed.dtype != torch.int32:
+        raise TypeError("apmm_packed: packed planes must be int32 words")
+    if b.packed.device != a.packed.device:
+        raise ValueError("apmm_packed: operands on different devices")
+    dev = a.packed.device
+    ap, bp = a.packed.contiguous(), b.packed.contiguous()
+    a_s = b_s = None
+    if out_dtype is not None:
+        a_s = a.scale.reshape(m).to(torch.float32).contiguous()
+        b_s = b.scale.reshape(n).to(torch.float32).contiguous()
+        if a_s.device != dev or b_s.device != dev:
+            raise ValueError("apmm_packed: scales on another device")
+    out = torch.empty((m, n), device=dev,
+                      dtype=torch.int32 if out_dtype is None else out_dtype)
+    err = _packed_lib()(
+        ap.data_ptr(), bp.data_ptr(), _ptr(a_s), _ptr(b_s), out.data_ptr(),
+        m, n, k, kw, n_a, n_b,
+        _RAW if out_dtype is None else _DTYPES[out_dtype],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "apmm_packed")
+    PACKED_LAUNCHES += 1
     return out

@@ -20,6 +20,21 @@ Ops on the dense serving path:
 * ``paged_kv_cache_attention`` -- attention over the paged KV pool (K2,
   :mod:`repro_torch.kernels.flash_attention`).
 
+On the contiguous engine's path and the unfused baseline:
+
+* ``ap_matmul`` -- the packed x packed NT GEMM (K5,
+  :mod:`repro_torch.kernels.apmm`), raw int32 or dequantized, operands
+  of different word widths padded to the common one, ``b_bits`` nested
+  slicing;
+* ``ap_linear`` -- the unfused quantized linear: K3 packs the
+  activations, then K5 multiplies (the fused path's bit-exactness
+  oracle);
+* ``kv_cache_attention`` -- attention over a contiguous packed KV cache
+  in the reference's folded ``(BH, ...)`` layout, and
+  ``ring_kv_cache_attention``, the same function over the cache's own
+  ``(B, T, H, ...)`` layout, which the serving path reads without
+  copying (both K6, :mod:`repro_torch.kernels.flash_attention`).
+
 On the MoE path:
 
 * ``ap_moe_expert_linear`` -- the grouped expert GEMM over the capacity
@@ -29,6 +44,8 @@ On the MoE path:
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -75,6 +92,71 @@ def pack_weight(w: torch.Tensor, n_bits: int) -> BipolarTensor:
     """Offline weight preprocessing: ``W (d_out, d_in)`` -> packed, with
     the per-row MSE clip search (once, at load)."""
     return quantize_rows(w, n_bits, pad_bit=1, scale_search=True)
+
+
+# ---------------------------------------------------------------------------
+# Packed x packed GEMM and the unfused quantized linear
+# ---------------------------------------------------------------------------
+
+_ALL_ONES = -1            # the word 0xFFFFFFFF in int32 storage
+
+
+def _pad_words(packed: torch.Tensor, kw: int, word: int) -> torch.Tensor:
+    pad = kw - packed.shape[-1]
+    if pad <= 0:
+        return packed
+    return torch.cat([packed, torch.full(packed.shape[:-1] + (pad,), word,
+                                         dtype=packed.dtype,
+                                         device=packed.device)], -1)
+
+
+def _normalize_packed_kw(a: BipolarTensor, b: BipolarTensor) -> tuple:
+    """Pad operands packed to different K word widths to the common one.
+
+    Both describe the same logical K.  A pads with all-zero words (its
+    pad bit 0), B with all-one words (pad bit 1): the pad conventions
+    the closed-form K-pad correction accounts for, so the product is
+    unchanged."""
+    assert a.shape[-1] == b.shape[-1], \
+        f"reduction dims differ: {a.shape} vs {b.shape}"
+    kw = max(a.packed.shape[-1], b.packed.shape[-1])
+    if a.packed.shape[-1] < kw:
+        a = dataclasses.replace(a, packed=_pad_words(a.packed, kw, 0))
+    if b.packed.shape[-1] < kw:
+        b = dataclasses.replace(b, packed=_pad_words(b.packed, kw,
+                                                     _ALL_ONES))
+    return a, b
+
+
+def ap_matmul(a: BipolarTensor, b: BipolarTensor, *,
+              variant: str = "fused", out_dtype=torch.float32,
+              raw: bool = False, b_bits: int | None = None) -> torch.Tensor:
+    """NT GEMM of packed tensors: ``Y (M, N) = A (M, K) @ B (N, K)^T``.
+
+    ``raw=True`` returns the exact int32 product of the bipolar integer
+    values (no scale dequant).  ``b_bits`` serves a nested B operand at a
+    lower width: only its top ``b_bits`` planes reach the kernel."""
+    if b_bits is not None:
+        b = bipolar.nested_slice(b, b_bits)
+    a, b = _normalize_packed_kw(a, b)
+    return apmm_kernel.apmm_packed(a, b, variant=variant,
+                                   out_dtype=None if raw else out_dtype)
+
+
+def ap_linear(x: torch.Tensor, w: BipolarTensor, *, a_bits: int,
+              variant: str = "fused", out_dtype=None,
+              w_bits: int | None = None) -> torch.Tensor:
+    """Unfused quantized linear ``y (..., N) = x (..., K) @ W (N, K)^T``:
+    the activations are quantized per row (absmax in the input dtype)
+    and packed by K3, then K5 multiplies the two packed operands and
+    dequantizes.  ``w_bits`` serves a nested weight at a lower width."""
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    xq = quantize_rows(x.reshape(-1, k), a_bits, pad_bit=0)
+    y = ap_matmul(xq, w, variant=variant, out_dtype=out_dtype,
+                  b_bits=w_bits)
+    return y.reshape(*lead, w.shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +270,39 @@ def quantize_kv(x: torch.Tensor, kv_bits: int):
     planes = bipolar.pad_for_packing(bipolar.decompose(q, kv_bits), -1, 0)
     packed = bipolar.pack_planes(planes, -1)            # (kv_bits, ..., Dw)
     return torch.movedim(packed, 0, -2), scale
+
+
+def kv_cache_attention(q: torch.Tensor,
+                       k_packed: torch.Tensor, k_scale: torch.Tensor,
+                       v_packed: torch.Tensor, v_scale: torch.Tensor,
+                       q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                       d: int, causal: bool = True,
+                       window=None) -> torch.Tensor:
+    """Attention over a packed bipolar KV cache, folded ``(BH, ...)``
+    layout: ``q (BH, Sq, d)``; ``k_packed``/``v_packed`` ``(BH, T,
+    n_bits, Dw)`` int32 words; ``k_scale``/``v_scale`` ``(BH, T, 1)``
+    f32; ``q_pos (BH, Sq)``, ``kv_pos (BH, T)`` int32, negative = empty
+    slot.  The head dim pads to the word boundary inside the kernel."""
+    return flash_kernel.flash_attention_quantized(
+        q[:, None], k_packed[:, :, None], k_scale[:, :, None],
+        v_packed[:, :, None], v_scale[:, :, None], q_pos, kv_pos, d=d,
+        causal=causal, window=window)[:, 0]
+
+
+def ring_kv_cache_attention(qg: torch.Tensor,
+                            k_packed: torch.Tensor, k_scale: torch.Tensor,
+                            v_packed: torch.Tensor, v_scale: torch.Tensor,
+                            q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
+                            d: int, causal: bool = True,
+                            window=None) -> torch.Tensor:
+    """:func:`kv_cache_attention` of grouped queries ``qg (B, H, G, d)``
+    over a contiguous cache in its own layout -- planes ``(B, T, H,
+    n_bits, Dw)``, scales ``(B, T, H, 1)``, ``q_pos (B, G)``, ``kv_pos
+    (B, T)`` -- which equals folding the heads into the batch first,
+    without the copy the fold would make.  Returns ``(B, H, G, d)``."""
+    return flash_kernel.flash_attention_quantized(
+        qg, k_packed, k_scale, v_packed, v_scale, q_pos, kv_pos, d=d,
+        causal=causal, window=window)
 
 
 def paged_kv_cache_attention(q: torch.Tensor,

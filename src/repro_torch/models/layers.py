@@ -1,6 +1,6 @@
 """Layers of the dense and MoE decoders, in torch: linear, embedding,
-norm, RoPE, paged GQA attention over the bipolar KV pool, SwiGLU/GELU
-MLP, and the top-k capacity-dispatched MoE.
+norm, RoPE, GQA attention over the paged pool or a contiguous cache,
+SwiGLU/GELU MLP, and the top-k capacity-dispatched MoE.
 
 A port of the attention, MLP and MoE layers of the reference
 ``repro.models.layers``, with
@@ -8,11 +8,16 @@ the same functional shape: ``<layer>_init(...) -> params`` and
 ``<layer>_apply(params, x, ...) -> y`` over plain dicts.  Linear weights
 are stored ``(d_out, d_in)``; serving-time quantization replaces a weight
 leaf with a :class:`BipolarTensor` and ``linear_apply`` dispatches on it
-to the fused quantized linear (:func:`repro_torch.kernels.ops.ap_linear_fused`).
+to the fused quantized linear (:func:`repro_torch.kernels.ops.ap_linear_fused`)
+or, with ``QuantConfig.fused_linear=False``, the unfused one
+(:func:`repro_torch.kernels.ops.ap_linear`: a K3 pack, then a K5 GEMM).
 
-Attention runs on the paged block pool only (the serving engine's path):
-new K/V are quantized to bipolar planes, scattered into the request's
-blocks, and read back through :func:`repro_torch.kernels.ops.paged_kv_cache_attention`.
+Attention runs on the paged block pool (new K/V quantized to bipolar
+planes, scattered into the request's blocks and read back through
+:func:`repro_torch.kernels.ops.paged_kv_cache_attention`), on a
+contiguous per-row ring cache (packed planes read through
+:func:`repro_torch.kernels.ops.ring_kv_cache_attention`, or float K/V
+through :func:`_attn_core`), or on the sequence itself with no cache.
 Quantized experts run through the grouped expert GEMM
 (:func:`repro_torch.kernels.ops.ap_moe_expert_linear`, two launches per
 MoE layer).
@@ -32,6 +37,10 @@ from repro_torch.core.bipolar import BipolarTensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import apply_act, silu_f32
 from repro_torch.models.config import ModelConfig
+
+# attention switches to online-softmax KV chunking above this length
+ATTN_CHUNK_THRESHOLD = 4096
+ATTN_KV_CHUNK = 1024
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -71,8 +80,10 @@ def _use_fused_linear(w, quant) -> bool:
 
 def linear_apply(params: dict, x: torch.Tensor, *, quant=None,
                  act: str = "none", residual=None) -> torch.Tensor:
-    """``y (..., N) = epi(x (..., K) @ W (N, K)^T)`` -- bf16, or the fused
-    quantized linear when the weight leaf is a :class:`BipolarTensor`."""
+    """``y (..., N) = epi(x (..., K) @ W (N, K)^T)`` -- bf16, or the
+    quantized linear when the weight leaf is a :class:`BipolarTensor`:
+    the fused one-kernel linear (``quant.fused_linear``) or the unfused
+    pack + GEMM with the epilogue here.  Both give the same bits."""
     w = params["w"]
     if _use_fused_linear(w, quant):
         return ops.ap_linear_fused(x, w, a_bits=quant.a_bits, act=act,
@@ -80,10 +91,11 @@ def linear_apply(params: dict, x: torch.Tensor, *, quant=None,
                                    out_dtype=x.dtype,
                                    w_bits=quant.nested_bits)
     if isinstance(w, BipolarTensor):
-        raise NotImplementedError(
-            "the unfused quantized linear (QuantConfig.fused_linear=False) "
-            "is not ported yet (ROADMAP queue 1, item 8)")
-    y = torch.matmul(x, w.to(x.dtype).T)
+        assert quant is not None and quant.enabled
+        y = ops.ap_linear(x, w, a_bits=quant.a_bits, variant=quant.variant,
+                          out_dtype=x.dtype, w_bits=quant.nested_bits)
+    else:
+        y = torch.matmul(x, w.to(x.dtype).T)
     return _epilogue(y, act, residual, x.dtype)
 
 
@@ -163,7 +175,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Attention over the paged bipolar KV pool
+# Attention (GQA, causal, sliding-window; paged, contiguous ring, none)
 # ---------------------------------------------------------------------------
 
 def attention_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -177,10 +189,68 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
     }
 
 
-def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                    positions: torch.Tensor, cache: dict, quant=None,
-                    residual: Optional[torch.Tensor] = None):
-    """GQA attention of ``x (B, S, d_model)`` through the paged KV pool.
+def _attn_core(q, k, v, q_pos, kv_pos, *, causal: bool,
+               window: Optional[int], chunked: bool,
+               score_bf16: bool = False):
+    """Online-softmax GQA core over float K/V, in plain torch (the
+    reference keeps it in jnp, outside any kernel).
+
+    q: (B, Hkv, Sq, D) with Sq = groups*S folded; k/v: (B, Hkv, T, D);
+    q_pos: (B, Sq) absolute positions; kv_pos: (B, T), negative =
+    invalid.  ``chunked`` walks the KV axis in ``ATTN_KV_CHUNK`` slots
+    with a running max and denominator.  Returns f32 (B, Hkv, Sq, D)."""
+    b, hk, sq, d = q.shape
+    t = k.shape[2]
+    qf = q.float() * (1.0 / np.sqrt(d))
+
+    def mask_for(kp):  # kp: (B, Tc) -> (B, 1, Sq, Tc) additive mask
+        valid = kp[:, None, None, :] >= 0
+        if causal:
+            valid = valid & (kp[:, None, None, :] <= q_pos[:, None, :, None])
+        if window is not None:
+            valid = valid & (kp[:, None, None, :]
+                             > q_pos[:, None, :, None] - window)
+        return torch.where(valid, 0.0, -math.inf)
+
+    if not chunked:
+        s = torch.einsum("bhqd,bhtd->bhqt", qf, k.float())
+        s = s + mask_for(kv_pos)
+        m = torch.clamp(s.amax(-1, keepdim=True), min=-1e30)
+        p = torch.exp(s - m)          # fully-masked rows stay finite
+        o = torch.einsum("bhqt,bhtd->bhqd", p, v.float())
+        return o / torch.clamp(p.sum(-1, keepdim=True), min=1e-20)
+
+    nc = -(-t // ATTN_KV_CHUNK)
+    pad = nc * ATTN_KV_CHUNK - t
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+        kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+    m = torch.full((b, hk, sq, 1), -1e30, dtype=torch.float32,
+                   device=q.device)
+    lsum = torch.zeros((b, hk, sq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hk, sq, d), dtype=torch.float32, device=q.device)
+    for c in range(nc):
+        sl = slice(c * ATTN_KV_CHUNK, (c + 1) * ATTN_KV_CHUNK)
+        s = torch.einsum("bhqd,bhtd->bhqt", qf, k[:, :, sl].float())
+        s = s + mask_for(kv_pos[:, sl])
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        if score_bf16:      # halve probability-tensor traffic; m/l stay f32
+            p = p.to(torch.bfloat16)
+        alpha = torch.exp(m - m_new)
+        lsum = lsum * alpha + p.sum(-1, keepdim=True).float()
+        acc = acc * alpha + torch.einsum(
+            "bhqt,bhtd->bhqd", p.float(), v[:, :, sl].to(p.dtype).float())
+        m = m_new
+    return acc / torch.clamp(lsum, min=1e-20)
+
+
+def _paged_write_and_read(cache, qg, qp, k, v, pos2d, cfg: ModelConfig):
+    """The paged branch: scatter the step's K/V into the block pool and
+    attend through the block table with the grouped queries ``qg (B, Hk,
+    G*s, d)`` at ``qp (B, G*s)``.  Returns ``(o (B, Hk, G*s, d),
+    cache)``.
 
     ``cache`` is one layer's pool (``k``/``v`` ``(n_blocks, bs, H,
     kv_bits, Dw)`` int32 planes, ``k_scale``/``v_scale`` ``(n_blocks, bs,
@@ -191,32 +261,15 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     rolling window when leading blocks were reclaimed.  Pad tokens
     (position -1) are dropped at the scatter.  The pool tensors are
     updated IN PLACE (the reference returns new arrays; here the pool is
-    the one copy on the device).  ``residual`` (the block input) is fused
-    into the output projection's epilogue.  Returns ``(out, cache)``.
-    """
-    if cache is None or "block_tables" not in cache:
-        raise NotImplementedError(
-            "repro_torch attention runs on the paged pool only; the "
-            "contiguous and cache-free paths are not ported yet (ROADMAP "
-            "queue 1, items 3 and 8)")
-    b, s, _ = x.shape
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = h // hk
-    pos2d = positions
-
-    q = linear_apply(params["wq"], x, quant=quant).reshape(b, s, h, dh)
-    k = linear_apply(params["wk"], x, quant=quant).reshape(b, s, hk, dh)
-    v = linear_apply(params["wv"], x, quant=quant).reshape(b, s, hk, dh)
-    q = apply_rope(q, pos2d, cfg)
-    k = apply_rope(k, pos2d, cfg)
-
+    the one copy on the device)."""
+    b, s = pos2d.shape
     kv_bits = cache["k"].shape[-2]
-    n_blocks, blk = cache["k"].shape[0], cache["k"].shape[1]
+    blk = cache["k"].shape[1]
     bt, ln = cache["block_tables"], cache["length"]
     k_q, k_s = ops.quantize_kv(k, kv_bits)
     v_q, v_s = ops.quantize_kv(v, kv_bits)
     slot = ln[:, None] + torch.arange(s, dtype=torch.int32,
-                                      device=x.device)[None, :]
+                                      device=pos2d.device)[None, :]
     valid = pos2d >= 0
     logical = torch.where(valid, torch.div(slot, blk, rounding_mode="floor"),
                           torch.zeros_like(slot))
@@ -244,41 +297,166 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     write("v", v_q)
     write("v_scale", v_s)
     write("pos", pos2d)
+    o = ops.paged_kv_cache_attention(
+        qg, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
+        cache["pos"], bt, qp, d=cfg.head_dim, causal=cfg.causal,
+        window=cfg.window)
+    return o, cache
 
+
+def _ring_write(cache: dict, key: str, new: torch.Tensor,
+                idx: torch.Tensor) -> None:
+    """Write ``new (B, s, ...)`` into ``cache[key] (B, L, ...)`` at each
+    row's ring index, in place.  As ``lax.dynamic_update_slice`` does, a
+    start past ``L - s`` is clamped so the rows fit."""
+    buf = cache[key]
+    b, s = new.shape[:2]
+    start = torch.clamp(idx, max=buf.shape[1] - s).long()
+    cols = start[:, None] + torch.arange(s, device=buf.device)[None, :]
+    rows = torch.arange(b, device=buf.device)[:, None]
+    buf[rows, cols] = new.to(buf.dtype)
+
+
+def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor, cache: Optional[dict] = None,
+                    quant=None, residual: Optional[torch.Tensor] = None):
+    """GQA attention of ``x (B, S, d_model)`` at ``positions (B, S)``.
+
+    * paged (``cache`` holds ``block_tables``): the step's K/V land in
+      the block pool and attention reads through the table
+      (:func:`_paged_write_and_read`);
+    * contiguous (``cache`` = one layer's ring ``k``/``v`` ``(B, L, H,
+      ...)``, packed planes + scales or float, ``pos (B, L)`` and a
+      per-row write ``index (B,)``): the new K/V are written at each
+      row's ring index, which advances by ``S`` modulo ``L``; a prompt
+      longer than the ring (sliding-window prefill) attends over its own
+      K/V and stores only its last ``L`` entries, index 0.  Packed
+      caches are read through K6, float ones through :func:`_attn_core`;
+    * no cache: self-attention over the sequence.
+
+    Caches are updated in place (the reference returns new arrays); the
+    returned dict carries the new ``index``.  ``residual`` (the block
+    input) is fused into the output projection's epilogue.  Returns
+    ``(out, cache)``."""
+    b, s, _ = x.shape
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = h // hk
+    pos2d = positions
+
+    q = linear_apply(params["wq"], x, quant=quant).reshape(b, s, h, dh)
+    k = linear_apply(params["wk"], x, quant=quant).reshape(b, s, hk, dh)
+    v = linear_apply(params["wv"], x, quant=quant).reshape(b, s, hk, dh)
+    q = apply_rope(q, pos2d, cfg)
+    k = apply_rope(k, pos2d, cfg)
+    # fold the GQA group into the query-sequence axis: (B, Hkv, G*S, D)
     qg = q.reshape(b, s, hk, g, dh).permute(0, 2, 3, 1, 4).reshape(
         b, hk, g * s, dh)
     qp = pos2d[:, None, :].expand(b, g, s).reshape(b, g * s)
-    o = ops.paged_kv_cache_attention(
-        qg, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
-        cache["pos"], bt, qp, d=dh, causal=cfg.causal, window=cfg.window)
+
+    new_cache = None
+    quant_kv = None
+    if cache is not None and "block_tables" in cache:
+        o, new_cache = _paged_write_and_read(cache, qg, qp, k, v, pos2d,
+                                             cfg)
+    else:
+        if cache is not None:
+            kv_bits = cache["k"].shape[-2] if "k_scale" in cache else None
+            cache_len = cache["k"].shape[1]
+            if s > cache_len:
+                # SWA prefill longer than the ring: attend over the
+                # in-sequence K/V directly, then store only the last
+                # cache_len entries (slot order is irrelevant -- masking
+                # is by absolute position)
+                tail_k, tail_v = k[:, -cache_len:], v[:, -cache_len:]
+                if kv_bits:
+                    for key, src in (("k", tail_k), ("v", tail_v)):
+                        planes, scale = ops.quantize_kv(src, kv_bits)
+                        cache[key].copy_(planes)
+                        cache[key + "_scale"].copy_(scale)
+                else:
+                    cache["k"].copy_(tail_k)
+                    cache["v"].copy_(tail_v)
+                cache["pos"].copy_(pos2d[:, -cache_len:])
+                new_cache = dict(cache,
+                                 index=torch.zeros_like(cache["index"]))
+                kv_pos = pos2d
+            else:
+                # write the new K/V at per-row ring positions (continuous
+                # batching: each batch row advances independently)
+                idx = cache["index"]
+                if kv_bits:
+                    for key, src in (("k", k), ("v", v)):
+                        planes, scale = ops.quantize_kv(src, kv_bits)
+                        _ring_write(cache, key, planes, idx)
+                        _ring_write(cache, key + "_scale", scale, idx)
+                    quant_kv = (cache["k"], cache["k_scale"], cache["v"],
+                                cache["v_scale"])
+                else:
+                    _ring_write(cache, "k", k, idx)
+                    _ring_write(cache, "v", v, idx)
+                    k, v = cache["k"], cache["v"]
+                _ring_write(cache, "pos", pos2d, idx)
+                new_cache = dict(cache, index=(idx + s) % cache_len)
+                kv_pos = cache["pos"]
+        else:
+            kv_pos = pos2d
+        if quant_kv is not None:
+            # the reference folds the heads into the batch and calls
+            # ops.kv_cache_attention; the ring op computes the same on the
+            # cache's own layout, so no step copies the ring
+            o = ops.ring_kv_cache_attention(
+                qg, *quant_kv, qp, kv_pos, d=dh, causal=cfg.causal,
+                window=cfg.window)
+        else:
+            # decode (s == 1) is a skinny GEMV -- direct; long prefill
+            # sequences use the KV-chunked online softmax to bound the
+            # score transient
+            chunked = s > 1 and k.shape[1] > ATTN_CHUNK_THRESHOLD
+            o = _attn_core(qg, k.transpose(1, 2), v.transpose(1, 2), qp,
+                           kv_pos, causal=cfg.causal, window=cfg.window,
+                           chunked=chunked, score_bf16=cfg.attn_score_bf16)
     o = o.reshape(b, hk, g, s, dh).permute(0, 3, 1, 2, 4).reshape(
         b, s, h * dh).to(x.dtype)
     return linear_apply(params["wo"], o, quant=quant,
-                        residual=residual), cache
+                        residual=residual), new_cache
 
 
-def make_kv_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
-                  kv_bits: int, device) -> dict:
-    """One layer's paged KV pool: ``(n_blocks, block_size)`` leading dims
-    (physical block, in-block slot), packed bipolar planes ``(..., H,
-    kv_bits, ceil(D/32))`` int32 + per-(token, head) scales, positions
-    -1 (empty)."""
-    if not kv_bits:
-        raise ValueError("the paged pool stores packed bipolar planes: "
-                         "set kv_bits")
-    assert 1 <= kv_bits <= 8, f"kv_bits={kv_bits} outside 1..8"
-    shape = (n_blocks, block_size, cfg.n_kv_heads)
-    packed = shape + (kv_bits, bipolar.packed_words(cfg.head_dim))
-    return {
-        "pos": torch.full((n_blocks, block_size), -1, dtype=torch.int32,
+def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
+                  kv_bits: Optional[int] = None, device="cuda") -> dict:
+    """One layer's KV cache; for SWA archs a ring of ``min(max_len,
+    window)`` slots.
+
+    The contiguous engine keeps ``batch`` request rows of ``max_len``
+    slots with a per-row write ``index``; the paged pool calls this with
+    ``batch=n_blocks, max_len=block_size`` (leading dims: physical
+    block, in-block slot).  With ``kv_bits`` (default ``cfg.kv_bits``;
+    ``model.init_caches`` passes ``QuantConfig.kv_bits`` over it) the
+    cache stores packed bipolar planes ``(batch, L, H, kv_bits,
+    ceil(D/32))`` int32 + per-(token, head) f32 scales; otherwise K/V in
+    the model's dtype.  Positions start at -1 (empty)."""
+    kv_bits = cfg.kv_bits if kv_bits is None else kv_bits
+    length = min(max_len, cfg.window) if cfg.window else max_len
+    shape = (batch, length, cfg.n_kv_heads)
+    cache = {
+        "pos": torch.full((batch, length), -1, dtype=torch.int32,
                           device=device),
-        "k": torch.zeros(packed, dtype=torch.int32, device=device),
-        "v": torch.zeros(packed, dtype=torch.int32, device=device),
-        "k_scale": torch.zeros(shape + (1,), dtype=torch.float32,
-                               device=device),
-        "v_scale": torch.zeros(shape + (1,), dtype=torch.float32,
-                               device=device),
+        "index": torch.zeros((batch,), dtype=torch.int32, device=device),
     }
+    if kv_bits:
+        assert 1 <= kv_bits <= 8, f"kv_bits={kv_bits} outside 1..8"
+        packed = shape + (kv_bits, bipolar.packed_words(cfg.head_dim))
+        cache["k"] = torch.zeros(packed, dtype=torch.int32, device=device)
+        cache["v"] = torch.zeros(packed, dtype=torch.int32, device=device)
+        cache["k_scale"] = torch.zeros(shape + (1,), dtype=torch.float32,
+                                       device=device)
+        cache["v_scale"] = torch.zeros(shape + (1,), dtype=torch.float32,
+                                       device=device)
+    else:
+        cache["k"] = torch.zeros(shape + (cfg.head_dim,), dtype=_dtype(cfg),
+                                 device=device)
+        cache["v"] = torch.zeros(shape + (cfg.head_dim,), dtype=_dtype(cfg),
+                                 device=device)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -299,9 +477,12 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, device,
 
 def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, quant=None,
               residual: Optional[torch.Tensor] = None):
-    """SwiGLU / GELU MLP.  Quantized: gate and up run as ONE dual-GEMM
-    fused-linear launch (``silu(gate) * up`` in its epilogue) and the down
-    projection fuses the block residual."""
+    """SwiGLU / GELU MLP.  Quantized with ``fused_linear``: gate and up
+    run as ONE dual-GEMM fused-linear launch (``silu(gate) * up`` in its
+    epilogue) and the down projection fuses the block residual.
+    Otherwise gate and up are two linears and ``silu(gate) * up`` runs
+    in f32 with one cast -- the same SiLU form as the fused epilogue's
+    plain version, so both give the same bits."""
     if cfg.act == "silu":
         if _use_fused_linear(params["w_up"]["w"], quant):
             h = ops.ap_linear_fused(
@@ -311,7 +492,7 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, quant=None,
         else:
             up = linear_apply(params["w_up"], x, quant=quant)
             gate = linear_apply(params["w_gate"], x, quant=quant)
-            h = (F.silu(gate.float()) * up.float()).to(x.dtype)
+            h = (silu_f32(gate.float()) * up.float()).to(x.dtype)
     else:
         h = linear_apply(params["w_up"], x, quant=quant, act="gelu")
     return linear_apply(params["w_down"], h, quant=quant, residual=residual)

@@ -3,9 +3,10 @@
 A port of the attention-decoder path of the reference
 ``repro.models.model``: the layer plan, parameter init, the block
 (pre-norm attention + a dense MLP, with the residual fused into the
-quantized linears' epilogues, or a MoE), the paged-pool caches, the
-forward pass as a Python loop over layers, the logits, and serving-time
-quantization (:func:`quantize_params`).
+quantized linears' epilogues, or a MoE), the decode caches, the
+forward pass over the paged pool or a contiguous cache as a Python loop
+over layers, the logits, and serving-time quantization
+(:func:`quantize_params`).
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``layers`` (a
 list with one dict per layer, the prelude's leading dense layers first;
@@ -161,16 +162,22 @@ def _apply_block(p, x, cfg: ModelConfig, ffn_kind: str, *, positions,
     return x, new_cache, None
 
 
-def init_caches(cfg: ModelConfig, n_blocks: int, block_size: int,
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 quant: Optional[QuantConfig] = None, device="cuda") -> dict:
-    """The paged KV pool: ``{"layers": [one pool per layer]}`` (prelude
-    layers first, as in ``params["layers"]``), each of ``n_blocks``
-    blocks of ``block_size`` tokens (block 0 is the null block).
-    ``quant.kv_bits`` (over ``cfg.kv_bits``) sets the planes."""
+    """Decode caches: ``{"layers": [one KV cache per layer]}`` (prelude
+    layers first, as in ``params["layers"]``), each from
+    :func:`repro_torch.models.layers.make_kv_cache`.  ``quant.kv_bits``
+    (over ``cfg.kv_bits``) selects packed bipolar planes; without either
+    the cache holds K/V in the model's dtype.
+
+    The contiguous engine keeps ``batch`` request rows of ``max_len``
+    slots (a ring of the window for SWA archs); the paged pool reuses
+    this layout with ``batch=n_blocks, max_len=block_size`` (block 0 is
+    its null block)."""
     check_supported(cfg)
     dev = resolve_device(device)
     kvb = effective_kv_bits(cfg, quant)
-    return {"layers": [L.make_kv_cache(cfg, n_blocks, block_size, kvb, dev)
+    return {"layers": [L.make_kv_cache(cfg, batch, max_len, kvb, dev)
                        for _ in range(cfg.n_layers)]}
 
 
@@ -179,9 +186,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             quant: Optional[QuantConfig] = None,
             logits_mode: str = "none", collect_moe_stats: bool = False):
     """Run the stack over ``tokens (B, S)`` at ``positions (B, S)`` (-1 =
-    pad) through the paged ``caches`` (from
-    :meth:`repro_torch.serving.paged_cache.PagedKVPool.step_caches`).
-    Returns ``(hidden | last-position logits, caches)``.
+    pad) through ``caches``: the paged pool's step caches (from
+    :meth:`repro_torch.serving.paged_cache.PagedKVPool.step_caches`) or
+    the contiguous ones of :func:`init_caches`.  Returns ``(hidden |
+    last-position logits, caches)``.
 
     ``collect_moe_stats=True`` appends a third element: the per-MoE-layer
     capacity telemetry ``{"load": (L_moe, E), "dropped": (L_moe,),

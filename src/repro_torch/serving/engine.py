@@ -1,35 +1,43 @@
-"""Serving runtime of the port: the paged continuous-batching engine.
+"""Serving runtime of the port: the contiguous and the paged
+continuous-batching engines.
 
-A port of the paged path of the reference ``repro.serving.engine``.
-Requests share a refcounted copy-on-write block pool of packed
-bipolar-INT KV planes (:mod:`repro_torch.serving.paged_cache`) addressed
-through per-request block tables and scheduled by
-:mod:`repro_torch.serving.scheduler` -- FCFS admission gated on free
-blocks, decode batches bucketed to powers of two, preemption with warm
-restart when the pool runs dry, and the prefix cache: admission acquires
-the cached blocks of a common prompt prefix and prefills only the
-suffix, directly through the block table.
+A port of the reference ``repro.serving.engine``, in two memory regimes:
 
-**Chunked prefill** (``chunk_tokens``): a prompt streams through the step
-loop ``chunk_tokens`` at a time, fused with the decode batch into one
-bucketed ``(B, S)`` dispatch (:meth:`Engine._fused_dispatch`) whose pad
-rows are position-masked; running decodes emit a token every step while
-a long prompt trickles in.
+* **contiguous** (``paged=False``, the default): a fixed decode batch of
+  ``n_slots`` lanes, each lane owning one request's ``(max_len,)`` KV
+  ring (a ring of the window for sliding-window archs); a request
+  prefills alone at B=1 with its prompt bucketed to a power of two, its
+  cache rows are copied into a free lane, and decode advances every
+  lane in lock-step.
+* **paged** (``paged=True``): requests share a refcounted copy-on-write
+  block pool of packed bipolar-INT KV planes
+  (:mod:`repro_torch.serving.paged_cache`) addressed through per-request
+  block tables and scheduled by :mod:`repro_torch.serving.scheduler` --
+  FCFS admission gated on free blocks, decode batches bucketed to powers
+  of two, preemption with warm restart when the pool runs dry, and the
+  prefix cache: admission acquires the cached blocks of a common prompt
+  prefix and prefills only the suffix, directly through the block table.
+
+**Chunked prefill** (``chunk_tokens``, paged only): a prompt streams
+through the step loop ``chunk_tokens`` at a time, fused with the decode
+batch into one bucketed ``(B, S)`` dispatch (:meth:`Engine._fused_dispatch`)
+whose pad rows are position-masked; running decodes emit a token every
+step while a long prompt trickles in.
 
 The submit/stream API (:class:`StreamHandle`, ``on_token`` callbacks,
 deadlines, cancellation), the observability hooks (``metrics=``, default
-the no-op ``NULL_OBS``; MoE stacks report their capacity telemetry
+the no-op ``NULL_OBS``; paged MoE stacks report their capacity telemetry
 through ``obs.on_moe`` when metrics are on), fault containment
-(``faults=``) and nested-precision lanes (``Request.precision``) are the
-reference's, unchanged.  Backpressure
-(``max_queue=``) and the pool watchdog (``validate_every=``) are not
-ported yet (ROADMAP queue 1, item 9).
+(``faults=``) and nested-precision lanes (``Request.precision``, paged)
+are the reference's, unchanged.  Backpressure (``max_queue=``) and the
+pool watchdog (``validate_every=``) are not ported yet (ROADMAP queue 1,
+item 9).
 
 Where the reference jit-compiles one program per bucket, the port runs
-eagerly: :func:`prefill_step_bucketed` and :func:`serve_step` are plain
-functions, and every quantized linear, every attention read and every
-weight pack on the card is one launch of a hand-written kernel.  The
-contiguous engine (``paged=False``) is not ported yet.
+eagerly: :func:`prefill_step`, :func:`prefill_step_bucketed` and
+:func:`serve_step` are plain functions, and every quantized linear,
+every attention read over packed KV and every weight pack on the card
+is a launch of a hand-written kernel.
 """
 
 from __future__ import annotations
@@ -49,6 +57,15 @@ from repro_torch.serving.faults import NULL_FAULTS, RequestFault
 # ---------------------------------------------------------------------------
 # Steps
 # ---------------------------------------------------------------------------
+
+def prefill_step(params, batch: dict, caches, cfg: ModelConfig,
+                 quant: Optional[QuantConfig] = None):
+    """Process a full prompt ``batch`` = tokens (B, S), positions (B, S),
+    filling the caches.  Returns ``(last_logits (B, V), caches)``."""
+    return M.forward(params, batch["tokens"], cfg,
+                     positions=batch["positions"], caches=caches,
+                     quant=quant, logits_mode="last")
+
 
 def prefill_step_bucketed(params, batch: dict, caches, cfg: ModelConfig,
                           quant: Optional[QuantConfig] = None,
@@ -228,9 +245,27 @@ class StreamHandle:
         return self.req
 
 
+def _tree_write_slot(batched: dict, single: dict, slot: int) -> dict:
+    """Copy a B=1 cache tree into row ``slot`` of the batched one, in
+    place (the reference returns a new tree; here each layer's cache is
+    the one copy on the device).  Both trees are ``{"layers": [one dict
+    per layer]}`` with every leaf's batch dim first."""
+    for cb, cs in zip(batched["layers"], single["layers"]):
+        for key, leaf in cb.items():
+            leaf[slot] = cs[key][0]
+    return batched
+
+
 class Engine:
-    """Continuous batching over the paged pool (``paged=True``, requires
-    ``kv_bits``): requests share a
+    """Continuous batching, contiguous or paged.
+
+    Contiguous (default): each of the ``n_slots`` decode lanes owns one
+    request at a time; prefill runs per request at B=1 (bucketed, see
+    :func:`prefill_bucket`) and the filled cache rows are copied into
+    the lane's row of the batched cache; decode advances all active
+    lanes in lock-step.
+
+    Paged (``paged=True``, requires ``kv_bits``): requests share a
     :class:`~repro_torch.serving.paged_cache.PagedKVPool` of ``n_blocks``
     blocks x ``block_size`` tokens on the parameters' device, run under
     the :class:`~repro_torch.serving.scheduler.Scheduler`, and the decode
@@ -239,14 +274,13 @@ class Engine:
     pool blocks whose prompt-chain hash matches the head of the request
     and prefills only the suffix; block aliasing is refcounted with
     copy-on-write, so sharing changes memory management, not math:
-    greedy decode stays token-identical to ``prefix_cache=False``.
-    ``paged`` defaults to True and ``paged=False`` raises (the contiguous
-    engine is not ported).
+    greedy decode stays token-identical to the contiguous engine (and to
+    ``prefix_cache=False``) at equal ``kv_bits``.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, n_slots: int = 4,
                  max_len: int = 256, quant: Optional[QuantConfig] = None,
-                 paged: bool = True, block_size: int = 16,
+                 paged: bool = False, block_size: int = 16,
                  n_blocks: Optional[int] = None,
                  max_batch: Optional[int] = None,
                  prefix_cache: bool = True,
@@ -257,6 +291,7 @@ class Engine:
                  validate_every: Optional[int] = None):
         self.params, self.cfg, self.quant = params, cfg, quant
         self.n_slots, self.max_len = n_slots, max_len
+        self.paged = paged
         self.steps = 0
         # per-width QuantConfig cache (nested-precision serving)
         self._quant_cache: dict = {}
@@ -300,42 +335,49 @@ class Engine:
             self.obs.enabled
             and any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers)))
         self.chunk_tokens_processed = 0
-        if not paged:
-            raise NotImplementedError(
-                "Engine(paged=False): the contiguous engine is not ported "
-                "yet (ROADMAP queue 1, item 8); use paged=True")
+        if chunk_tokens is not None and not paged:
+            raise ValueError("chunk_tokens requires paged=True (chunked "
+                             "prefill writes through the block pool)")
         M.check_supported(cfg)
         self.chunk_tokens = chunk_tokens
-        from repro_torch.serving.paged_cache import PagedKVPool
-        from repro_torch.serving.scheduler import Scheduler
-        assert max_len % block_size == 0, (max_len, block_size)
-        if n_blocks is None:
-            # the token capacity of n_slots max_len slabs, plus the
-            # reserved null block
-            n_blocks = n_slots * (max_len // block_size) + 1
-        self.max_batch = max_batch or 2 * n_slots
         self.device = params["embed"]["w"].device
-        # NULL_OBS.registry is None -> the pool keeps a private registry,
-        # so report() snapshots work with metrics off
-        self.pool = PagedKVPool(
-            cfg, n_blocks, block_size, quant=quant,
-            prefix_cache=prefix_cache, device=self.device,
-            metrics=self.obs.registry, faults=self.faults)
-        # nested-precision serving needs packed weights to slice; without
-        # w_bits every lane runs the configured quant and the scheduler
-        # stays unsalted
-        tiered = quant is not None and quant.w_bits is not None
-        self.scheduler = Scheduler(self.pool, max_len=max_len,
-                                   max_batch=self.max_batch,
-                                   chunk_tokens=self.chunk_tokens,
-                                   obs=self.obs,
-                                   precision_policy=(
-                                       self._tier_policy if tiered
-                                       else None))
-        self.n_batch_blocks = max_len // block_size   # table width
-        # robustness counters live in the pool's registry, so render()
-        # scrapes faults and quarantines next to the serving counters
-        reg = self.pool.metrics
+        if paged:
+            from repro_torch.serving.paged_cache import PagedKVPool
+            from repro_torch.serving.scheduler import Scheduler
+            assert max_len % block_size == 0, (max_len, block_size)
+            if n_blocks is None:
+                # the token capacity of n_slots contiguous lanes, plus
+                # the reserved null block
+                n_blocks = n_slots * (max_len // block_size) + 1
+            self.max_batch = max_batch or 2 * n_slots
+            # NULL_OBS.registry is None -> the pool keeps a private
+            # registry, so report() snapshots work with metrics off
+            self.pool = PagedKVPool(
+                cfg, n_blocks, block_size, quant=quant,
+                prefix_cache=prefix_cache, device=self.device,
+                metrics=self.obs.registry, faults=self.faults)
+            # nested-precision serving needs packed weights to slice;
+            # without w_bits every lane runs the configured quant and the
+            # scheduler stays unsalted
+            tiered = quant is not None and quant.w_bits is not None
+            self.scheduler = Scheduler(self.pool, max_len=max_len,
+                                       max_batch=self.max_batch,
+                                       chunk_tokens=self.chunk_tokens,
+                                       obs=self.obs,
+                                       precision_policy=(
+                                           self._tier_policy if tiered
+                                           else None))
+            self.n_batch_blocks = max_len // block_size   # table width
+        else:
+            self.caches = M.init_caches(cfg, n_slots, max_len, quant=quant,
+                                        device=self.device)
+            self.slot_req: list = [None] * n_slots   # SequenceState per lane
+            self.queue: list = []
+        # robustness counters: in the pool's registry (paged) or the obs
+        # registry / a private one (contiguous), so render() scrapes
+        # faults and quarantines next to the serving counters
+        reg = self.pool.metrics if paged \
+            else (self.obs.registry or MetricsRegistry())
         self._c_fault_requests = reg.counter(
             "repro_engine_fault_requests",
             "requests quarantined by step-level containment, by fault "
@@ -372,7 +414,10 @@ class Engine:
         # trace starts BEFORE scheduler.submit so an immediate
         # rejection still closes a balanced span tree
         self.obs.on_submit(req)
-        self.scheduler.submit(req)
+        if self.paged:
+            self.scheduler.submit(req)
+        else:
+            self.queue.append(req)
         return StreamHandle(self, req)
 
     # -- nested-precision lanes --------------------------------------------
@@ -414,12 +459,26 @@ class Engine:
 
     def cancel(self, req: Request) -> bool:
         """Abort ``req``: no further tokens are emitted and no further
-        ``on_token`` callbacks fire; the request releases its blocks through the scheduler's refcount path
-        (mid-prefill included).  Returns False if the request already
+        ``on_token`` callbacks fire; paged requests release their blocks
+        through the scheduler's refcount path (mid-prefill included), a
+        contiguous lane is vacated.  Returns False if the request already
         finished or is unknown to this engine."""
         if req.done:
             return False
-        return self.scheduler.cancel(req)
+        if self.paged:
+            return self.scheduler.cancel(req)
+        if req in self.queue:
+            self.queue.remove(req)
+        else:
+            for i, seq in enumerate(self.slot_req):
+                if seq is not None and seq.req is req:
+                    self.slot_req[i] = None
+                    break
+            else:
+                return False
+        req.done, req.finish_reason = True, "cancelled"
+        self.obs.on_finish(req, "cancelled")
+        return True
 
     def _expire(self) -> None:
         """Finish every request whose deadline has passed: a clean
@@ -433,11 +492,22 @@ class Engine:
             dl = getattr(req, "deadline", None)
             return dl is not None and now >= dl and not req.done
 
-        sch = self.scheduler
-        stale = [r for r in list(sch.waiting) if expired(r)]
-        stale += [s.req for s in list(sch.running) if expired(s.req)]
-        for req in stale:
-            sch.cancel(req, reason="timeout")
+        if self.paged:
+            sch = self.scheduler
+            stale = [r for r in list(sch.waiting) if expired(r)]
+            stale += [s.req for s in list(sch.running) if expired(s.req)]
+            for req in stale:
+                sch.cancel(req, reason="timeout")
+            return
+        for req in [r for r in self.queue if expired(r)]:
+            self.queue.remove(req)
+            req.done, req.finish_reason = True, "timeout"
+            self.obs.on_finish(req, "timeout")
+        for i, seq in enumerate(self.slot_req):
+            if seq is not None and expired(seq.req):
+                self.slot_req[i] = None
+                seq.req.done, seq.req.finish_reason = True, "timeout"
+                self.obs.on_finish(seq.req, "timeout", seq=seq)
 
     def _emit(self, seq, tok: int) -> None:
         """Append an output token and fire ``on_token``: emission order
@@ -490,8 +560,9 @@ class Engine:
     def _quarantine(self, seq, exc: Exception) -> None:
         """Step-level containment: retire exactly the offending
         sequence with ``finish_reason='error'``, surfacing the cause on
-        ``req.error``; its blocks return through
-        the scheduler's refcount path.  The rest of the batch never notices."""
+        ``req.error``; paged blocks return through the scheduler's
+        refcount path, a contiguous lane is simply vacated.  The rest of
+        the batch never notices."""
         kind = getattr(exc, "kind", "exception")
         req = seq.req
         if req.error is None:
@@ -501,9 +572,14 @@ class Engine:
             child = self._c_fault_requests.labels(kind=kind)
             self._fault_children[kind] = child
         child.inc()
-        if seq in self.scheduler.running:
+        if self.paged and seq in self.scheduler.running:
             self.scheduler.finish(seq, reason="error")
             return
+        if not self.paged:
+            for i, s in enumerate(self.slot_req):
+                if s is seq:
+                    self.slot_req[i] = None
+                    break
         req.done = True
         req.finish_reason = "error"
         self.obs.on_finish(req, "error", seq=seq)
@@ -547,6 +623,123 @@ class Engine:
         u = seq.sample_rng(len(seq.req.out)).random()
         return int(min(np.searchsorted(np.cumsum(probs), u),
                        len(probs) - 1))
+
+    # -- contiguous path -----------------------------------------------------
+    def _admit(self):
+        for slot in range(self.n_slots):
+            if self.slot_req[slot] is None and self.queue:
+                req = self.queue.pop(0)
+                self._prefill_into(req, slot)
+
+    def _bucketed_prefill(self, prompt: np.ndarray):
+        """Prefill one prompt at B=1 with length bucketing.
+
+        Returns ``(logits (1, V) at the last real token, filled B=1
+        cache)``.  Pad tokens carry position -1: they are masked out of
+        every attention read and land in the cache as invalid slots that
+        decode overwrites (the ring index is rewound to the real length
+        below).  Every stack the port runs masks by position; SSM
+        recurrences, which would consume the pads and must prefill at
+        exact length, are not ported."""
+        s = len(prompt)
+        ring = min(self.max_len, self.cfg.window) if self.cfg.window \
+            else self.max_len
+        p = prefill_bucket(s, ring)
+        one = M.init_caches(self.cfg, 1, self.max_len, quant=self.quant,
+                            device=self.device)
+        toks = np.zeros(p, np.int32)
+        toks[:s] = np.asarray(prompt, np.int32)
+        pos = np.full(p, -1, np.int32)
+        pos[:s] = np.arange(s)
+        batch = {"tokens": self._dev(toks[None]),
+                 "positions": self._dev(pos[None]),
+                 "last_idx": self._dev(np.asarray([s - 1], np.int32))}
+        logits, one = prefill_step_bucketed(self.params, batch, one,
+                                            self.cfg, self.quant)
+        return logits, self._rewind_ring_index(one, s, p)
+
+    @staticmethod
+    def _rewind_ring_index(caches, s: int, p: int):
+        """Point each KV ring's write index at the first *pad* slot.
+
+        The prefill write advanced ``index`` by the padded length ``p``;
+        left alone, decode would skip the ``p - s`` pad slots (wasting
+        ring capacity) or -- when ``p`` wraps the ring -- overwrite live
+        prompt KV.  The first pad sits at ``s`` (normal write) or
+        ``s - (p - ring)`` (the sliding-window tail store keeps the last
+        ``ring`` entries), i.e. ``(s - max(0, p - ring)) % ring``."""
+        def fix(c):
+            ring = c["pos"].shape[-1]
+            idx = (s - max(0, p - ring)) % ring
+            return dict(c, index=torch.full_like(c["index"], idx))
+
+        return dict(caches, layers=[fix(c) for c in caches["layers"]])
+
+    def _prefill_into(self, req: Request, slot: int):
+        from repro_torch.serving.scheduler import SequenceState
+        obs = self.obs
+        seq = SequenceState(req=req, length=len(req.prompt))
+        obs.on_admit(seq, prefilling=True)
+        t0 = obs.t() if obs.enabled else 0.0
+        logits, one = self._bucketed_prefill(req.prompt)
+        self.caches = _tree_write_slot(self.caches, one, slot)
+        if obs.enabled:
+            obs.on_chunk(seq, len(req.prompt), t0, obs.t())
+        obs.on_decode_begin(seq)
+        try:
+            seq.last_tok = self._sample_checked(self._host(logits)[0], seq)
+            self._emit(seq, seq.last_tok)
+        except RequestFault as e:
+            self._quarantine(seq, e)   # lane stays free for the next admit
+            return
+        self.slot_req[slot] = seq
+
+    def _contiguous_step(self) -> bool:
+        obs = self.obs
+        t0 = obs.t() if obs.enabled else 0.0
+        self._expire()
+        self._admit()
+        active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        if not active:
+            return False
+        if obs.enabled:
+            obs.on_dispatch(live=len(active), lanes=self.n_slots,
+                            tok_live=len(active), tok_lanes=self.n_slots)
+        # idle lanes decode token 0 at position 0 into their own rows,
+        # which the next admission overwrites whole
+        toks = np.zeros(self.n_slots, np.int32)
+        pos = np.zeros(self.n_slots, np.int32)
+        for slot, seq in enumerate(self.slot_req):
+            if seq is not None:
+                toks[slot], pos[slot] = seq.last_tok, seq.length
+        batch = {"tokens": self._dev(toks[:, None]),
+                 "positions": self._dev(pos[:, None])}
+        logits, self.caches = serve_step(self.params, batch, self.caches,
+                                         self.cfg, self.quant)
+        logits = self._host(logits)
+        self.steps += 1
+        for slot in active:
+            seq = self.slot_req[slot]
+            if seq is None or seq.req.done:   # cancelled by a callback
+                continue
+            try:
+                seq.last_tok = self._sample_checked(logits[slot], seq)
+                self._emit(seq, seq.last_tok)
+            except RequestFault as e:
+                self._quarantine(seq, e)
+                continue
+            seq.length += 1
+            if len(seq.req.out) >= seq.req.max_new_tokens \
+                    or seq.length >= self.max_len - 1:
+                seq.req.done = True
+                seq.req.finish_reason = "length"
+                self.slot_req[slot] = None
+                self.obs.on_finish(seq.req, "length", seq=seq)
+        if obs.enabled:
+            obs.on_step(
+                t0, waiting=len(self.queue),
+                running=sum(r is not None for r in self.slot_req))
+        return True
 
     # -- paged path ----------------------------------------------------------
     def _paged_prefill(self, seq, tokens: np.ndarray):
@@ -848,7 +1041,7 @@ class Engine:
     # -- decode loop --------------------------------------------------------
     def step(self) -> bool:
         """One batched decode step across all active requests."""
-        return self._paged_step()
+        return self._paged_step() if self.paged else self._contiguous_step()
 
     def run(self, max_steps: int = 10_000):
         while self.steps < max_steps and self._has_work():
@@ -856,16 +1049,25 @@ class Engine:
                 break
 
     def _has_work(self) -> bool:
-        return self.scheduler.has_work
+        if self.paged:
+            return self.scheduler.has_work
+        return bool(self.queue) or any(r is not None for r in self.slot_req)
 
     def report(self) -> dict:
-        """Occupancy snapshot: the pool's accounting plus the queue."""
-        rep = self.pool.report(
-            tokens_resident=self.scheduler.tokens_resident())
-        rep.update(running=len(self.scheduler.running),
-                   waiting=len(self.scheduler.waiting),
-                   preemptions=self.scheduler.n_preemptions,
-                   rejections=self.scheduler.n_rejections,
-                   chunk_tokens=self.chunk_tokens,
-                   chunk_tokens_processed=self.chunk_tokens_processed)
-        return rep
+        """Occupancy snapshot (paged: pool accounting; contiguous: lanes)."""
+        if self.paged:
+            rep = self.pool.report(
+                tokens_resident=self.scheduler.tokens_resident())
+            rep.update(running=len(self.scheduler.running),
+                       waiting=len(self.scheduler.waiting),
+                       preemptions=self.scheduler.n_preemptions,
+                       rejections=self.scheduler.n_rejections,
+                       chunk_tokens=self.chunk_tokens,
+                       chunk_tokens_processed=self.chunk_tokens_processed)
+            return rep
+        active = sum(r is not None for r in self.slot_req)
+        return dict(n_slots=self.n_slots, running=active,
+                    waiting=len(self.queue),
+                    pool_bytes=kv_cache_bytes(self.caches),
+                    tokens_resident=sum(r.length for r in self.slot_req
+                                        if r is not None))

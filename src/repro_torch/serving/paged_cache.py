@@ -239,8 +239,8 @@ class PagedKVPool:
         self.n_blocks, self.block_size = n_blocks, block_size
         self.prefix_cache = prefix_cache
         self.slots = None           # state-slot pool: not ported
-        self.caches = M.init_caches(cfg, n_blocks, block_size, quant=quant,
-                                    device=device)
+        self.caches = M.init_caches(cfg, batch=n_blocks, max_len=block_size,
+                                    quant=quant, device=device)
         self.device = self.caches["layers"][0]["pos"].device
         # LIFO free list, block 0 reserved as the null block
         self._free = list(range(n_blocks - 1, 0, -1))

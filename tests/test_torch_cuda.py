@@ -11,7 +11,12 @@ within 1.6e-2 relative (tanh); K2 within 1 bf16 ulp per element, or
 1e-5 absolute near zero (f32 sum order and exp).  K4: the integer core
 of each weight and the bf16 ``act="none"`` output bit-exact, the dual
 SiLU output within 1 bf16 ulp, dead rows exactly 0, the live map equal
-to the analytic one.
+to the analytic one.  K5 (the packed x packed GEMM): the raw int32
+product and the f32/bf16 dequant bit-exact; the unfused linear (K3 +
+K5) equal to the fused one (K1) bit for bit at ``act="none"`` and with a
+residual, and within K1's 1-ulp SiLU rule through the SwiGLU.  K6 and
+K7 (contiguous attention, packed and float K/V): within 1 bf16 ulp per
+element, or 1e-5 absolute, of the plain version.
 """
 
 import numpy as np
@@ -345,3 +350,225 @@ def test_moe_engine_on_card_matches_engine_on_cpu(device):
         if kk is not None:
             top = np.sort(ec.rows[(id(a), kk)])
             assert top[-1] - top[-2] < 0.05, (kk, a.out, b.out)
+
+
+def _packed_operand(rng, dev, rows, k, bits, pad_bit, extra_words=0):
+    x = _rand(rng, (rows, k), dev) * 2
+    t = ops.quantize_rows(x, bits, pad_bit=pad_bit)
+    if extra_words:
+        import dataclasses
+        fill = torch.full((bits, rows, extra_words), -pad_bit,
+                          dtype=torch.int32, device=dev)
+        t = dataclasses.replace(t, packed=torch.cat([t.packed, fill], -1))
+    return t
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 300, 256), (5, 70, 100),
+                                   (67, 130, 300), (130, 64, 45)])
+@pytest.mark.parametrize("a_bits,w_bits", [(8, 2), (8, 8), (3, 5), (1, 1)])
+def test_apmm_packed_kernel_bit_exact(device, m, n, k, a_bits, w_bits):
+    rng = np.random.default_rng(m + n + k + a_bits * 10 + w_bits)
+    a = _packed_operand(rng, device, m, k, a_bits, 0)
+    b = _packed_operand(rng, device, n, k, w_bits, 1)
+    before = apmm.PACKED_LAUNCHES
+    got = apmm.apmm_packed(a, b)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32
+    assert torch.equal(got, apmm.apmm_packed_plain(a, b))
+    for od in (torch.float32, torch.bfloat16):
+        got = apmm.apmm_packed(a, b, out_dtype=od)
+        assert torch.equal(got, apmm.apmm_packed_plain(a, b, out_dtype=od))
+    assert apmm.PACKED_LAUNCHES == before + 3
+    with pytest.raises(NotImplementedError, match="bitserial"):
+        apmm.apmm_packed(a, b, variant="bitserial")
+
+
+def test_ap_matmul_kernel_unequal_word_widths_and_nested(device):
+    rng = np.random.default_rng(3)
+    a = _packed_operand(rng, device, 9, 67, 8, 0, extra_words=1)
+    b = _packed_operand(rng, device, 33, 67, 4, 1, extra_words=3)
+    got = ops.ap_matmul(a, b, raw=True)
+    want = ref.apmm_packed(*ops._normalize_packed_kw(a.to("cpu"),
+                                                     b.to("cpu")))
+    assert torch.equal(got.cpu(), want)
+    w = ops.pack_weight(_rand(rng, (40, 67), device), 6)
+    for bits in (1, 3, 6):
+        got = ops.ap_matmul(a, w, b_bits=bits)
+        want = ref.apmm_dequant(*ops._normalize_packed_kw(
+            a, bipolar.nested_slice(w, bits)))
+        assert torch.equal(got, want), bits
+
+
+@pytest.mark.parametrize("m,n,k", [(4, 256, 4096), (5, 70, 100),
+                                   (67, 200, 256)])
+def test_unfused_linear_equals_fused_linear_on_card(device, m, n, k):
+    """K3 + K5 and K1 on the same inputs: the same bits at act="none"
+    and with a residual; the SwiGLU within 1 bf16 ulp (K1's SiLU runs in
+    the kernel, the unfused one in torch)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.config import QuantConfig
+    rng = np.random.default_rng(m * n)
+    w, w2 = (ops.pack_weight(_rand(rng, (n, k), device), 2)
+             for _ in range(2))
+    x = _rand(rng, (m, k), device, torch.bfloat16)
+    res = _rand(rng, (m, n), device, torch.bfloat16)
+    before = (pack.LAUNCHES, apmm.PACKED_LAUNCHES, apmm.LAUNCHES)
+    assert torch.equal(ops.ap_linear(x, w, a_bits=8),
+                       ops.ap_linear_fused(x, w, a_bits=8))
+    assert torch.equal(ops.ap_linear(x, w, a_bits=8) + res,
+                       ops.ap_linear_fused(x, w, a_bits=8, residual=res))
+    assert (pack.LAUNCHES, apmm.PACKED_LAUNCHES, apmm.LAUNCHES) == \
+        (before[0] + 2, before[1] + 2, before[2] + 2)
+    h = {}
+    for fused in (True, False):
+        q = QuantConfig(w_bits=2, a_bits=8, fused_linear=fused)
+        gate = L.linear_apply({"w": w}, x, quant=q)
+        h[fused] = (ops.ap_linear_fused(x, w, w2=w2, a_bits=8, act="silu")
+                    if fused else
+                    (ref.silu_f32(gate.float())
+                     * L.linear_apply({"w": w2}, x, quant=q).float()
+                     ).to(torch.bfloat16))
+    assert int(_bf16_ulps(h[True], h[False]).max()) <= 1
+
+
+def _ring(rng, dev, b, t, h, n_bits, d, live):
+    """A contiguous ring: K/V quantized per (row, slot, head), ``live[i]``
+    slots of row i valid (positions 0..live-1), the rest empty."""
+    kv = _rand(rng, (2, b, t, h, d), dev)
+    kq, ks = ops.quantize_kv(kv[0], n_bits)
+    vq, vs = ops.quantize_kv(kv[1], n_bits)
+    pos = torch.full((b, t), -1, dtype=torch.int32, device=dev)
+    for i, n_live in enumerate(live):
+        pos[i, :n_live] = torch.arange(n_live, dtype=torch.int32)
+    return kv, kq, ks, vq, vs, pos
+
+
+def _within_one_ulp_or(got, want, atol=1e-5):
+    near = (got.float() - want.float()).abs() <= atol
+    if got.dtype == torch.bfloat16:
+        return bool(torch.all((_bf16_ulps(got, want) <= 1) | near))
+    return bool(torch.all(near | ((got.float() - want.float()).abs()
+                                  <= 1e-6 * want.float().abs())))
+
+
+@pytest.mark.parametrize("b,t,sq,d,window", [(4, 256, 4, 128, None),
+                                             (2, 100, 37, 48, 24),
+                                             (3, 64, 3, 32, None)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_contiguous_attention_kernels_match_plain(device, b, t, sq, d,
+                                                  window, dtype):
+    rng = np.random.default_rng(b * t + sq + d)
+    h, n_bits = 2, 8
+    live = [t, t // 2, 0, 5][:b]          # row 2 (if any): an empty ring
+    kv, kq, ks, vq, vs, pos = _ring(rng, device, b, t, h, n_bits, d, live)
+    q = _rand(rng, (b, h, sq, d), device, getattr(torch, dtype))
+    q_pos = torch.stack([torch.arange(max(n_live - sq, 0),
+                                      max(n_live - sq, 0) + sq)
+                         for n_live in live]).to(device, torch.int32)
+    q_pos[0, 0] = -1                       # a padded query row
+    args = (q, kq, ks, vq, vs, q_pos, pos)
+    before = flash_attention.QUANTIZED_LAUNCHES
+    got = flash_attention.flash_attention_quantized(*args, d=d,
+                                                    window=window)
+    torch.cuda.synchronize()
+    want = ref.kv_cache_attention(*args, d=d, window=window)
+    assert _within_one_ulp_or(got, want)
+    assert torch.all(got[0, :, 0] == 0)
+    if b > 2:
+        assert torch.all(got[2] == 0)
+    assert flash_attention.QUANTIZED_LAUNCHES == before + 1
+    # K7 over the float K/V, folded (BH, T, D)
+    kf = ref.fold_kv_heads(kv[0].to(q.dtype))
+    vf = ref.fold_kv_heads(kv[1].to(q.dtype))
+    qf = q.reshape(b * h, sq, d)
+    qpf = q_pos.repeat_interleave(h, 0)
+    kpf = pos.repeat_interleave(h, 0)
+    got = flash_attention.flash_attention(qf, kf, vf, qpf, kpf,
+                                          window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention(qf, kf, vf, qpf, kpf, window=window)
+    assert _within_one_ulp_or(got, want)
+    assert flash_attention.FLOAT_LAUNCHES >= 1
+
+
+def test_contiguous_attention_matches_paged_attention(device):
+    """The same K/V written into a contiguous ring and into pool blocks:
+    K6 and K2 agree within 1 bf16 ulp or 1e-5."""
+    rng = np.random.default_rng(11)
+    b, t, h, n_bits, d, bs, g = 2, 64, 2, 8, 128, 16, 4
+    _, kq, ks, vq, vs, pos = _ring(rng, device, b, t, h, n_bits, d,
+                                   [50, 64])
+    nb = t // bs
+    k_pool = torch.zeros((1 + b * nb, bs, h, n_bits, d // 32),
+                         dtype=torch.int32, device=device)
+    v_pool = torch.zeros_like(k_pool)
+    k_sc = torch.zeros((1 + b * nb, bs, h, 1), device=device)
+    v_sc = torch.zeros_like(k_sc)
+    pool_pos = torch.full((1 + b * nb, bs), -1, dtype=torch.int32,
+                          device=device)
+    tables = (1 + torch.arange(b * nb, dtype=torch.int32,
+                               device=device)).reshape(b, nb)
+    for src, dst in ((kq, k_pool), (vq, v_pool), (ks, k_sc), (vs, v_sc)):
+        dst[1:] = src.reshape((b * nb, bs) + tuple(src.shape[2:]))
+    pool_pos[1:] = pos.reshape(b * nb, bs)
+    q = _rand(rng, (b, h, g, d), device, torch.bfloat16)
+    q_pos = torch.tensor([[49] * g, [63] * g], dtype=torch.int32,
+                         device=device)
+    k6 = flash_attention.flash_attention_quantized(q, kq, ks, vq, vs, q_pos,
+                                                   pos, d=d)
+    k2 = flash_attention.flash_attention_paged_quantized(
+        q, k_pool, k_sc, v_pool, v_sc, pool_pos, tables, q_pos, d=d)
+    torch.cuda.synchronize()
+    assert _within_one_ulp_or(k6, k2)
+
+
+def test_unfused_contiguous_engine_on_card_matches_cpu(device):
+    """Reduced llama3-8b at w2/a8/kv8 with the unfused linear, served by
+    ``Engine(paged=False)`` on the card (K3, K5, K6) and on the CPU
+    (plain versions): greedy tokens agree wherever the CPU run's
+    top-1/top-2 margin exceeds 0.05 (the kernels' exp and f32 summation
+    order differ from torch's); K1, K2 and K4 never launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.config import QuantConfig
+    from repro_torch.serving import engine as E
+
+    class CpuEngine(_RecordingEngine, E.Engine):
+        pass
+
+    cfg = get_config("llama3-8b").reduced(n_layers=2, d_head=32, vocab=256)
+    q = QuantConfig(w_bits=2, a_bits=8, kv_bits=8, fused_linear=False)
+    params = M.init_params(cfg, seed=1, device="cpu", quant=q)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 256, (5 + 7 * i,), dtype=np.int32)
+               for i in range(3)]
+    outs = {}
+    for dev, cls in (("cpu", CpuEngine), ("cuda", E.Engine)):
+        p = params if dev == "cpu" else _to(params, device)
+        before = (apmm.LAUNCHES, apmm.PACKED_LAUNCHES, moe.LAUNCHES,
+                  flash_attention.LAUNCHES,
+                  flash_attention.QUANTIZED_LAUNCHES)
+        eng = cls(p, cfg, n_slots=2, max_len=48, quant=q)
+        reqs = [E.Request(prompt=pr.copy(), max_new_tokens=8)
+                for pr in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        after = (apmm.LAUNCHES, apmm.PACKED_LAUNCHES, moe.LAUNCHES,
+                 flash_attention.LAUNCHES,
+                 flash_attention.QUANTIZED_LAUNCHES)
+        launched = [a - b_ for a, b_ in zip(after, before)]
+        if dev == "cuda":
+            assert launched[0] == launched[2] == launched[3] == 0
+            assert launched[1] > 0 and launched[4] > 0
+        else:
+            assert launched == [0] * 5
+        outs[dev] = (reqs, eng)
+    (rc, ec), (rg, _) = outs["cpu"], outs["cuda"]
+    for a, b_ in zip(rc, rg):
+        assert len(b_.out) == 8
+        kk = next((i for i, (x, y) in enumerate(zip(a.out, b_.out))
+                   if x != y), None)
+        if kk is not None:
+            top = np.sort(ec.rows[(id(a), kk)])
+            assert top[-1] - top[-2] < 0.05, (kk, a.out, b_.out)

@@ -214,7 +214,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TM.init_params(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        TM.init_caches(cfg, 4, 8, QuantConfig(kv_bits=8))
+        TM.init_caches(cfg, batch=4, max_len=8, quant=QuantConfig(kv_bits=8))
 
 
 def test_unported_configs_and_paths_raise():
@@ -222,10 +222,12 @@ def test_unported_configs_and_paths_raise():
         get_config("mamba2-130m")
     cfg = get_config("llama3-8b").reduced(n_layers=1)
     p = TM.init_params(cfg, device="cpu")
-    for kw in (dict(paged=False), dict(max_queue=4),
-               dict(validate_every=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            TE.Engine(p, cfg, quant=QuantConfig(kv_bits=8), **kw)
+    for kw in (dict(max_queue=4), dict(validate_every=1)):
+        for paged in (False, True):
+            with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+                TE.Engine(p, cfg, quant=QuantConfig(kv_bits=8), paged=paged,
+                          **kw)
     eng = TE.Engine(p, cfg, quant=QuantConfig(kv_bits=8), max_len=32,
-                    block_size=8)              # paged is the default
+                    block_size=8, paged=True)
     assert eng.pool.n_usable == 4 * 32 // 8
+    assert not TE.Engine(p, cfg, max_len=32).paged   # the default
