@@ -18,10 +18,15 @@ exit and no result line):
    exactly 0 and its live map equal to the analytic one; the unfused
    linear (K3 + K5) equal to the fused one (K1) bit for bit, within 1
    ulp through the SwiGLU; K2, K6 and K7 outputs within 1 bf16 ulp or
-   1e-5, and K6 against K2 on the same K/V), with its time (CUDA events,
-   L2 flushed before every launch), its bound on this card, the plain
-   version's time and the yardsticks (K7: one
-   ``scaled_dot_product_attention`` call, the same function);
+   1e-5, and K6 against K2 on the same K/V; K7's fully masked rows 0),
+   with its time (CUDA events, L2 flushed before every launch), its
+   bound on this card (K7's operations at the bf16 tensor-core rate),
+   the plain version's time and the yardsticks (K7: one
+   ``scaled_dot_product_attention`` call, the same function); K1's
+   decode cases must run its small-M route and its chunk cases the tile
+   kernel (``apmm.SMALL_M_LAUNCHES`` against the library's own
+   ``apmm.small_m_max()``), and K1 and K7 print their time beside the
+   time PERF.md recorded before their redesign;
 4. full width, shallow -- one forward of llama3-8b (depth 2, paged pool
    and fused linear; then a contiguous cache and the unfused linear) and
    of mixtral-8x7b (depth 1) on the card, then the same forward with the
@@ -35,7 +40,9 @@ exit and no result line):
    tokens that attends through the rolling 4,096-token window), each
    served by ``Engine(paged=True, block_size=16, chunk_tokens=256)``
    with the fused linear, where every forward dispatch launches K1 193
-   (mixtral 129) times, K2 32 times and K4 64 times on mixtral; then
+   (mixtral 129) times, K2 32 times and K4 64 times on mixtral (and
+   exactly the K1 launches whose M is at most ``apmm.small_m_max()``
+   take its small-M route); then
    llama3-8b served by ``Engine(paged=False, n_slots=4, max_len=1024)``
    with the unfused linear (``llama3-8b-contiguous-unfused``), where
    every dispatch launches K5 and K3 225 times and K6 32 times, and K1,
@@ -65,6 +72,18 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989.4e12     # dense tensor-core rate (K7's bf16 route)
+
+# the redesigned kernels' times before the redesign, as PERF.md section 6
+# records them (this Timer, NVIDIA H100 80GB HBM3 at 700 W); None: not
+# recorded
+PREV_MS = {
+    "K1 decode q": 0.2685, "K1 decode gate/up": 0.8167,
+    "K1 decode down": None, "K1 decode lm_head": 3.5601,
+    "K1 chunk q": None, "K1 chunk gate/up": 13.7831, "K1 chunk down": None,
+    "K1 odd": None,
+    "K7 decode": 0.8197, "K7 prefill": 1.4612, "K7 decode window 256": 0.4318,
+}
 
 
 def fail(msg: str) -> int:
@@ -126,6 +145,16 @@ def bf16_ulps(a, b):
 def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
     tb, to = n_bytes / HBM_BYTES_PER_S, n_ops / ops_rate
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def versus_prev(key: str, b_ms: float) -> str:
+    """The time recorded before the redesign, with its share of the
+    bound."""
+    prev = PREV_MS.get(key)
+    if prev is None:
+        return "before the redesign not recorded"
+    return (f"before the redesign {prev:.4f} ms ({100 * b_ms / prev:.1f}% "
+            f"of bound)")
 
 
 # ---------------------------------------------------------------------------
@@ -202,7 +231,12 @@ def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
                                        a_bits=a_bits, act=act,
                                        out_dtype=torch.bfloat16)
 
+    small = apmm.SMALL_M_LAUNCHES
     got, want = run(), run_plain()
+    route = "small-M" if apmm.SMALL_M_LAUNCHES - small == 1 else "tile"
+    if (route == "small-M") != (m <= apmm.small_m_max()):
+        raise AssertionError(f"K1 {name} M={m}: ran the {route} route, "
+                             f"threshold {apmm.small_m_max()}")
     err = (got.float() - want.float()).abs().max().item()
     ulps = int(bf16_ulps(got, want).max())
     # act=none is bit-exact; SiLU differs only by expf, rounded once to
@@ -231,9 +265,12 @@ def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
     del wb, xi, wi
     print(f"K1 apmm_fused_linear {name} M={m} N={n} K={k}"
           f"{' dual' if dual else ''}{' +res' if residual else ''}"
-          f" act={act}: core bit-exact, out max|err| {err:.3g}, {ulps} "
-          f"bf16 ulps (tol {0 if act == 'none' else 1}); {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-          f"{100 * b_ms / ms:.1f}% of bound), plain {plain:.4f} ms; "
+          f" act={act}, {route} route: core bit-exact, out max|err| "
+          f"{err:.3g}, {ulps} bf16 ulps (tol {0 if act == 'none' else 1}); "
+          f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+          f"{100 * b_ms / ms:.1f}% of bound; "
+          f"{versus_prev('K1 ' + name, b_ms)}), plain "
+          f"{plain:.4f} ms; "
           f"yardsticks (paper's cuBLAS/CUTLASS class, not the same "
           f"function): torch.matmul bf16 {mm:.4f} ms, torch._int_mm int8 "
           f"M={mi} {im:.4f} ms", flush=True)
@@ -629,16 +666,16 @@ def _ring_case(torch, g, *, b, t, live, s, h=8, group=4, d=128, n_bits=8,
 
 
 def _attn_bound(torch, q_pos, kv_pos, h, d, kv_slot_bytes, io_bytes,
-                window=None):
+                rate, window=None):
     """Bytes: each live KV slot once (``kv_slot_bytes`` per (row, slot,
-    head)) plus q, out and positions; operations: 4 d f32 flops per
-    visible (query, slot) pair -- what this run's data needs."""
+    head)) plus q, out and positions; operations: 4 d flops per visible
+    (query, slot) pair at ``rate`` (K6: f32; K7: the bf16 tensor-core
+    rate) -- what this run's data needs."""
     from repro_torch.kernels import ref
     live = int((kv_pos >= 0).sum()) * h
     pairs = int(ref.position_mask(q_pos[:, :, None], kv_pos[:, None, :],
                                   True, window).sum()) * h
-    return bound_ms(live * kv_slot_bytes + io_bytes, 4 * d * pairs,
-                    F32_FLOPS_PER_S)
+    return bound_ms(live * kv_slot_bytes + io_bytes, 4 * d * pairs, rate)
 
 
 def k6_k7_phase(torch, timer, seed, results):
@@ -683,7 +720,8 @@ def k6_k7_phase(torch, timer, seed, results):
         plain = timer(run_plain, iters=3, warmup=1)
         io = 2 * q.numel() * 2 + q_pos.numel() * 4 + pos.numel() * 4
         b_ms, b_by = _attn_bound(torch, q_pos, pos, h, d,
-                                 2 * (n_bits * d // 8 + 4), io, window)
+                                 2 * (n_bits * d // 8 + 4), io,
+                                 F32_FLOPS_PER_S, window)
         print(f"K6 flash_attention_quantized {name} B={b} H={h} Sq={sq} "
               f"T={pos.shape[1]} live={int((pos[0] >= 0).sum())} d={d} "
               f"kv{n_bits}: max|err| {err:.3g}, max {ulps} bf16 ulps beyond 1e-5 "
@@ -714,11 +752,14 @@ def k6_k7_phase(torch, timer, seed, results):
         if not ok:
             raise AssertionError(f"K7 {name}: beyond 1 bf16 ulp and 1e-5 "
                                  f"(max |err| {err})")
+        pads = qpf < 0                        # the prefill's padded rows
+        if pads.any() and got[pads].abs().max() != 0:
+            raise AssertionError(f"K7 {name}: a fully masked row is not 0")
         ms = timer(run7, iters=20)
         plain = timer(run7_plain, iters=3, warmup=1)
         io = 2 * qf.numel() * 2 + qpf.numel() * 4 + kpf.numel() * 4
         b_ms, b_by = _attn_bound(torch, qpf, kpf, 1, d, 2 * 2 * d, io,
-                                 window)
+                                 BF16_FLOPS_PER_S, window)
         # the library yardstick: one SDPA call with the boolean position
         # mask computes K7's function on query rows that see some slot
         # (SDPA turns a fully masked row into NaN; K7 into 0)
@@ -731,10 +772,15 @@ def k6_k7_phase(torch, timer, seed, results):
             qs, kf, vf, attn_mask=mask), iters=20)
         lib_err = (F.scaled_dot_product_attention(qs, kf, vf, attn_mask=mask)
                    .float() - want[:, seen].float()).abs().max().item()
+        n_split = flash_attention.float_splits(b * h, sq, kf.shape[1],
+                                               qf.dtype)
         print(f"K7 flash_attention {name} BH={b * h} Sq={sq} T={kf.shape[1]} "
-              f"d={d} bf16: max|err| {err:.3g}, max {ulps} bf16 ulps beyond 1e-5 "
-              f"(tol 1); {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-              f"{100 * b_ms / ms:.1f}% of bound), plain {plain:.4f} ms; "
+              f"d={d} bf16, mma route, {n_split} T range(s): max|err| "
+              f"{err:.3g}, max {ulps} bf16 ulps beyond 1e-5 (tol 1); "
+              f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+              f"{100 * b_ms / ms:.1f}% of bound; "
+              f"{versus_prev('K7 ' + name, b_ms)}), plain "
+              f"{plain:.4f} ms; "
               f"library: scaled_dot_product_attention with a boolean mask "
               f"over the {qs.shape[1]} of {sq} query rows that see a slot "
               f"{lib:.4f} ms (max|err| vs plain {lib_err:.3g})", flush=True)
@@ -936,7 +982,10 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     has emitted, so its prefix is indexed), 32 greedy tokens each.  The
     launch counters are zeroed just before and read just after.  Every
     forward dispatch must launch each kernel ``per_dispatch[name]``
-    times (K3 ``n_pack`` times in all, at load).  Returns the counts."""
+    times (K3 ``n_pack`` times in all, at load), and exactly the K1
+    launches at M <= ``apmm.small_m_max()`` must take K1's small-M route
+    (each dispatch of ``tokens (B, S)`` runs its linears at M = B·S and
+    its lm_head at M = B).  Returns the counts."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import apmm, flash_attention, moe, pack
@@ -945,17 +994,20 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     from repro_torch.serving import engine as E
     cfg = get_config(arch)
     quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8)
-    forward, n_dispatch = M.forward, [0]
+    forward, n_dispatch, n_small = M.forward, [0], [0]
+    thr, n_body = apmm.small_m_max(), per_dispatch["apmm_fused_linear"] - 1
 
-    def counting_forward(*a, **kw):
+    def counting_forward(params, tokens, *a, **kw):
         n_dispatch[0] += 1
-        return forward(*a, **kw)
+        n_small[0] += n_body * (tokens.numel() <= thr) \
+            + (tokens.shape[0] <= thr)
+        return forward(params, tokens, *a, **kw)
 
     resident = fresh_memory(torch)
     M.forward = counting_forward
     # --- the main path: counters zeroed just before, read just after ---
     pack.LAUNCHES = apmm.LAUNCHES = flash_attention.LAUNCHES = 0
-    moe.LAUNCHES = 0
+    moe.LAUNCHES = apmm.SMALL_M_LAUNCHES = 0
     try:
         t0 = time.time()
         params = M.init_params(cfg, seed=seed, device="cuda", quant=quant)
@@ -1006,6 +1058,7 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
                   "apmm_fused_linear": apmm.LAUNCHES,
                   "paged_attention": flash_attention.LAUNCHES,
                   "moe_expert_linear": moe.LAUNCHES}
+        small_m = apmm.SMALL_M_LAUNCHES
     finally:
         M.forward = forward
     # --- end of the main path ---
@@ -1029,6 +1082,11 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
             raise AssertionError(f"{arch}: kernel {name} launched "
                                  f"{counts[name]} times in {nd} dispatches, "
                                  f"not {per} per dispatch")
+    if small_m != n_small[0] or not 0 < small_m < counts["apmm_fused_linear"]:
+        raise AssertionError(f"{arch}: {small_m} of "
+                             f"{counts['apmm_fused_linear']} K1 launches on "
+                             f"the small-M route, not the {n_small[0]} at "
+                             f"M <= {thr}")
     if n_pack is not None and counts["quantize_pack_rows"] != n_pack:
         raise AssertionError(f"{arch}: K3 launched "
                              f"{counts['quantize_pack_rows']} times at load, "
@@ -1040,7 +1098,8 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
           f"(prompts {[len(r.prompt) for r in reqs]}, prefix hit tokens "
           f"{rep['prefix_hit_tokens']}, window-reclaimed blocks "
           f"{rep['window_reclaimed']}), {nd} forward dispatches, launches "
-          f"{counts}; {n_tok} tokens outside the traced steps in "
+          f"{counts} (K1 small-M route {small_m}); {n_tok} tokens outside "
+          f"the traced steps in "
           f"{t_serve:.2f} s = {n_tok / t_serve:.2f} tok/s; {len(pre)} "
           f"prefill steps mean {np.mean(pre):.1f} ms, {len(dec)} decode "
           f"steps mean {np.mean(dec):.1f} ms (median {np.median(dec):.1f} "

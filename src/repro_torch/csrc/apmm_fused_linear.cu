@@ -26,13 +26,16 @@
 // Bound on Hopper.  At decode (M <= 2 * batch) the kernel is bound by
 // bytes: the packed weight planes dominate (n_b bits per weight element).
 // At a prefill chunk (M ~ 1024) it is bound by operations: int8 multiply-
-// adds, n_groups_a * n_groups_b per weight element and row.  Design: a
-// (64 x 64) output tile per block, streaming K in tiles of 128 so shared
-// memory stays ~50 KB whatever K is (the TPU kernel's whole-K row block of
-// X would not fit at K = 14336); the X tile is quantized once per block and
-// K tile and reused against every weight and group; each thread owns a 4 x
-// 4 micro-tile of int32 accumulators.  Tensor cores (mma int8 / wgmma),
-// TMA and a pipelined K loop are later work.
+// adds, n_groups_a * n_groups_b per weight element and row.  The C entry
+// routes by M: M <= SMALL_M_MAX takes the small-M weight-streaming route
+// (below, after the tile kernel), every larger M the tile kernel.
+// Tile kernel: a (64 x 64) output tile per block, streaming K in tiles of
+// 128 so shared memory stays ~50 KB whatever K is (the TPU kernel's
+// whole-K row block of X would not fit at K = 14336); the X tile is
+// quantized once per block and K tile and reused against every weight and
+// group; each thread owns a 4 x 4 micro-tile of int32 accumulators.
+// Tensor cores (mma int8 / wgmma), TMA and a pipelined K loop are later
+// work.
 //
 // Built with -fmad=false; the epilogue also uses __fmul_rn / __fadd_rn, so
 // at act = none its f32 bits equal the plain version's.
@@ -90,6 +93,56 @@ __device__ __forceinline__ void plane_group(int n_bits, int g, int* lo,
   *size = base + (g < extra ? 1 : 0);
 }
 
+// x -> u = (q + max_a) / 2 of its bipolar value q = clip(round_to_odd(x /
+// s)), in the plain version's f32 steps; both routes quantize with it
+__device__ __forceinline__ int quantize_u(float xv, float s, int max_a) {
+  float t = __fmul_rn(__fsub_rn(__fdiv_rn(xv, s), 1.0f), 0.5f);
+  float q = __fadd_rn(__fmul_rn(2.0f, rintf(t)), 1.0f);
+  q = fminf(fmaxf(q, (float)(-max_a)), (float)max_a);
+  return ((int)q + max_a) >> 1;
+}
+
+// 4 values' group (lo, sz) as int8x4: ((u >> lo) & mask) * 2 - mask, 0
+// where not live
+__device__ __forceinline__ uint32_t group_word(const int* u, const bool* live,
+                                               int lo, int sz) {
+  const int mask = (1 << sz) - 1;
+  uint32_t word = 0u;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    int v = live[e] ? ((((u[e] >> lo) & mask) << 1) - mask) : 0;
+    word |= ((uint32_t)(uint8_t)(int8_t)v) << (8 * e);
+  }
+  return word;
+}
+
+// the epilogue of one output (row, col) from its int32 sum(s); both routes
+// run it, so they round at the same points
+template <typename TO>
+__device__ __forceinline__ void epilogue(int acc1, int acc2, int row,
+                                         int col, int n,
+                                         const float* __restrict__ a_scale,
+                                         const float* __restrict__ b_scale,
+                                         const float* __restrict__ b2_scale,
+                                         const float* __restrict__ bias,
+                                         const TO* __restrict__ residual,
+                                         bool dual, int act,
+                                         TO* __restrict__ out) {
+  const float as = a_scale[row];
+  float yf = __fmul_rn(__fmul_rn((float)acc1, as), b_scale[col]);
+  if (bias != nullptr) yf = __fadd_rn(yf, bias[col]);
+  float yo = cast_f32<TO>(yf);
+  if (dual) {
+    float y2 = __fmul_rn(__fmul_rn((float)acc2, as), b2_scale[col]);
+    yo = cast_f32<TO>(__fmul_rn(act_fn(yo, act), cast_f32<TO>(y2)));
+  } else if (act != 0) {
+    yo = cast_f32<TO>(act_fn(yo, act));
+  }
+  const long long o = (long long)row * n + col;
+  if (residual != nullptr) yo = __fadd_rn(yo, to_f32(residual[o]));
+  out[o] = from_f32<TO>(yo);
+}
+
 template <typename TX, typename TO>
 __global__ void __launch_bounds__(THREADS)
 apmm_fused_linear_kernel(const TX* __restrict__ x,
@@ -143,26 +196,14 @@ apmm_fused_linear_kernel(const TX* __restrict__ x,
         int col = k0 + k4 * 4 + e;
         live[e] = row < m && col < k;
         u[e] = 0;
-        if (live[e]) {
-          float xv = to_f32(x[(long long)row * k + col]);
-          float t = __fmul_rn(__fsub_rn(__fdiv_rn(xv, s), 1.0f), 0.5f);
-          float q = __fadd_rn(__fmul_rn(2.0f, rintf(t)), 1.0f);
-          q = fminf(fmaxf(q, (float)(-max_a)), (float)max_a);
-          u[e] = ((int)q + max_a) >> 1;
-        }
+        if (live[e]) u[e] = quantize_u(to_f32(x[(long long)row * k + col]),
+                                       s, max_a);
       }
 #pragma unroll
       for (int g = 0; g < 2; ++g) {
         if (g >= nga) break;
-        int mask = (1 << sz_a[g]) - 1;
-        uint32_t word = 0u;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          int v = live[e] ? ((((u[e] >> lo_a[g]) & mask) << 1) - mask) : 0;
-          word |= ((uint32_t)(uint8_t)(int8_t)v) << (8 * e);
-        }
         *reinterpret_cast<uint32_t*>(s_a + (g * BM + r) * LDS + k4 * 4) =
-            word;
+            group_word(u, live, lo_a[g], sz_a[g]);
       }
     }
     // -- weights: recombine each group's planes into int8 values --------
@@ -254,33 +295,315 @@ apmm_fused_linear_kernel(const TX* __restrict__ x,
   for (int i = 0; i < 4; ++i) {
     int row = m0 + ty + 16 * i;
     if (row >= m) continue;
-    float as = a_scale[row];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       int col = n0 + tx + 16 * j;
       if (col >= n) continue;
-      float yf = __fmul_rn(__fmul_rn((float)acc[0][i][j], as), b_scale[col]);
-      if (bias != nullptr) yf = __fadd_rn(yf, bias[col]);
-      float yo = cast_f32<TO>(yf);
-      if (bp2 != nullptr) {
-        float y2 = __fmul_rn(__fmul_rn((float)acc[1][i][j], as),
-                             b2_scale[col]);
-        yo = cast_f32<TO>(__fmul_rn(act_fn(yo, act), cast_f32<TO>(y2)));
-      } else if (act != 0) {
-        yo = cast_f32<TO>(act_fn(yo, act));
-      }
-      long long o = (long long)row * n + col;
-      if (residual != nullptr) yo = __fadd_rn(yo, to_f32(residual[o]));
-      out[o] = from_f32<TO>(yo);
+      epilogue<TO>(acc[0][i][j], acc[1][i][j], row, col, n, a_scale,
+                   b_scale, b2_scale, bias, residual, bp2 != nullptr, act,
+                   out);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Small-M route (decode: M <= SMALL_M_MAX rows).  The 64 x 64 tile above
+// computes 64 rows of products for the few live ones and puts only N / 64
+// blocks on the card; at decode the weight planes are all that must move.
+// SMALL_M_MAX is the tile's own row height: on the H100 this route is the
+// faster one at every llama3-8b decode shape up to M = 96 (PERF.md, timed
+// by tools/k1_small_m_threshold.py).  So:
+//   1. quantize_x_kernel quantizes X once per launch into int8 plane-group
+//      values, xq [nga][M][Kp] (pad columns 0), a workspace of the wrapper,
+//      in a bit-sliced order: byte e of int32 j of a 32-element word holds
+//      element 8 e + j, so that bits j, j + 8, j + 16, j + 24 of a weight
+//      plane word are the weight bits of those 4 elements;
+//   2. small_m_kernel: a block takes MR rows (blockIdx.y: row group; the
+//      groups of one column tile run side by side, so the second reads its
+//      planes from L2) and each thread owns K words (word kwi = tid, tid +
+//      blockDim, ...: at most 256 threads, so that even K = 14336 puts two
+//      blocks on each SM).  A block walks column
+//      tiles of NC columns (NW weights x NC columns x NGB weight groups =
+//      4 weight slots per thread): it streams each slot's plane words
+//      coalesced (lanes on consecutive words of one plane row; the next
+//      tile's words are loaded while this one computes), turns each word
+//      into int8x4 of u = sum_i b_i << (i - lo) with a shift and a mask per
+//      plane and int32 (v = 2 u - maxv: the -maxv term is maxv * sum(x),
+//      taken once per row from the X values), and runs __dp4a against the
+//      X values of that word, held in 8 registers per (row, group) and
+//      reused by all 4 slots (X stays in L1: each block reads the same xq
+//      for every tile).  Each (slot, row) sum is reduced over the warp by
+//      shuffles and over the block's warps in shared memory (exact int32,
+//      one barrier per tile), then the epilogue above runs once per (row,
+//      column).
+// ---------------------------------------------------------------------------
+
+constexpr int SMALL_M_MAX = 64;   // rows the small-M route takes
+constexpr int MR = 8;             // rows per block (a row group)
+constexpr int SLOTS = 4;          // weight slots (weight x column x group)
+constexpr int MAX_WARPS = 8;      // block of at most 256 threads
+
+// one int32 of xq per thread: (row, word kwi, j), its bytes e = 0..3 the
+// group values of elements kwi * 32 + 8 e + j
+template <typename TX>
+__global__ void quantize_x_kernel(const TX* __restrict__ x,
+                                  const float* __restrict__ a_scale,
+                                  int8_t* __restrict__ xq, int m, int k,
+                                  int kp, int n_a) {
+  const int nga = (n_a + 6) / 7;
+  const int max_a = (1 << n_a) - 1;
+  const int k4n = kp / 4;
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= m * k4n) return;
+  const int row = item / k4n, k4 = item % k4n;
+  const int kwi = k4 / 8, j = k4 % 8;
+  const float s = a_scale[row];
+  int u[4];
+  bool live[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    int col = kwi * 32 + 8 * e + j;
+    live[e] = col < k;
+    u[e] = 0;
+    if (live[e]) u[e] = quantize_u(to_f32(x[(long long)row * k + col]), s,
+                                   max_a);
+  }
+  for (int g = 0; g < nga; ++g) {
+    int lo, sz;
+    plane_group(n_a, g, &lo, &sz);
+    *reinterpret_cast<uint32_t*>(xq + ((long long)g * m + row) * kp +
+                                 k4 * 4) = group_word(u, live, lo, sz);
+  }
+}
+
+// NW weights (1, or 2 for dual gate/up), NGB weight plane groups, NBM >=
+// n_b planes (2, 4 or 8: the plane loops' static bound)
+template <typename TO, int NW, int NGB, int NBM>
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+small_m_kernel(const int8_t* __restrict__ xq,
+               const float* __restrict__ a_scale,
+               const uint32_t* __restrict__ bp,
+               const float* __restrict__ b_scale,
+               const uint32_t* __restrict__ bp2,
+               const float* __restrict__ b2_scale,
+               const float* __restrict__ bias,
+               const TO* __restrict__ residual, TO* __restrict__ out, int m,
+               int n, int kw, int n_a, int n_b, int act) {
+  constexpr int NC = SLOTS / (NW * NGB);          // columns per tile
+  constexpr int NS = NW * NC;                     // (weight, column) slots
+  constexpr int NV = NS * MR;                     // sums per tile
+  // per-warp sums, two buffers: tile t + 1 fills one while tile t's
+  // epilogue reads the other, so a tile needs one barrier
+  __shared__ int s_red[2][MAX_WARPS][NV];
+  __shared__ int s_xsum[2][MR];                   // sum of X per group, row
+  const int nga = (n_a + 6) / 7;
+  const int r0 = blockIdx.y * MR;                 // this block's rows
+  const int mr = m - r0 < MR ? m - r0 : MR;
+  const int kp = kw * 32;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n_warps = blockDim.x / 32;
+  const int n_tiles = (n + NC - 1) / NC;
+  constexpr uint32_t BIT0 = 0x01010101u;
+
+  int lo_a[2], sz_a[2], lo_b[2], sz_b[2];
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    plane_group(n_a, g < nga ? g : 0, &lo_a[g], &sz_a[g]);
+    plane_group(n_b, g < NGB ? g : 0, &lo_b[g], &sz_b[g]);
+  }
+
+  // the plane words of one (tile, word) step, for every slot
+  auto load_planes = [&](int tile, int kwi, uint32_t (&p)[NS][NBM]) {
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int col = tile * NC + s % NC;
+      const uint32_t* planes = s / NC == 0 ? bp : bp2;
+#pragma unroll
+      for (int i = 0; i < NBM; ++i)
+        p[s][i] = (tile < n_tiles && kwi < kw && col < n && i < n_b)
+                      ? planes[((long long)i * n + col) * kw + kwi] : 0u;
+    }
+  };
+  // software pipeline over this thread's (tile, word) steps: the next
+  // step's plane words are in flight while this one computes and reduces
+  uint32_t p_next[NS][NBM];
+  load_planes(blockIdx.x, tid, p_next);
+
+  // sum(x) of each (group, row) over K, once per block (exact int32)
+  if (tid < 2 * MR) s_xsum[tid / MR][tid % MR] = 0;
+  __syncthreads();
+  for (int r = 0; r < mr; ++r)
+    for (int ga = 0; ga < nga; ++ga) {
+      int v = 0;
+      for (int kwi = tid; kwi < kw; kwi += blockDim.x) {
+        const int4* xp = reinterpret_cast<const int4*>(
+            xq + ((long long)ga * m + r0 + r) * kp + kwi * 32);
+        const int4 x0 = xp[0], x1 = xp[1];
+        v = __dp4a(x0.x, (int)BIT0, v); v = __dp4a(x0.y, (int)BIT0, v);
+        v = __dp4a(x0.z, (int)BIT0, v); v = __dp4a(x0.w, (int)BIT0, v);
+        v = __dp4a(x1.x, (int)BIT0, v); v = __dp4a(x1.y, (int)BIT0, v);
+        v = __dp4a(x1.z, (int)BIT0, v); v = __dp4a(x1.w, (int)BIT0, v);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane == 0) atomicAdd(&s_xsum[ga][r], v);
+    }
+  __syncthreads();
+  // the -maxv term of every weight value: the same for every column
+  int corr = 0;
+  if (tid < NC * mr) {
+    const int row = tid % mr;
+    for (int ga = 0; ga < nga; ++ga)
+#pragma unroll
+      for (int gb = 0; gb < NGB; ++gb)
+        corr += (((1 << sz_b[gb]) - 1) * s_xsum[ga][row])
+                << (lo_a[ga] + lo_b[gb]);
+  }
+
+  int buf = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int n0 = tile * NC;
+    int acc[NS][MR];
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int r = 0; r < MR; ++r) acc[s][r] = 0;
+
+    for (int kwi = tid; kwi < kw; kwi += blockDim.x) {
+      uint32_t p[NS][NBM];
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int i = 0; i < NBM; ++i) p[s][i] = p_next[s][i];
+      if (kwi + (int)blockDim.x < kw)
+        load_planes(tile, kwi + blockDim.x, p_next);
+      else
+        load_planes(tile + gridDim.x, tid, p_next);
+      // u of each slot: 32 int8 in 8 int32 (bit-sliced, as xq)
+      int bv[SLOTS][8];
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+#pragma unroll
+        for (int gb = 0; gb < NGB; ++gb)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            uint32_t word = 0u;
+#pragma unroll
+            for (int i = 0; i < NBM; ++i)   // static indices: p[] in registers
+              if (i >= lo_b[gb] && i < lo_b[gb] + sz_b[gb])
+                word |= ((p[s][i] >> j) & BIT0) << (i - lo_b[gb]);
+            bv[s * NGB + gb][j] = (int)word;
+          }
+      // products against each (row, group) of X, 8 registers at a time
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+        if (r >= mr) break;
+#pragma unroll
+        for (int ga = 0; ga < 2; ++ga) {
+          if (ga >= nga) break;
+          const int4* xp = reinterpret_cast<const int4*>(
+              xq + ((long long)ga * m + r0 + r) * kp + kwi * 32);
+          const int4 x0 = xp[0], x1 = xp[1];
+          const int xv[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+#pragma unroll
+            for (int gb = 0; gb < NGB; ++gb) {
+              int t = 0;
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                t = __dp4a(xv[j], bv[s * NGB + gb][j], t);
+              acc[s][r] += t << (lo_a[ga] + lo_b[gb] + 1);   // 2 u x
+            }
+        }
+      }
+    }
+
+    // exact int32 reduction: warp shuffles, then the block's warps
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+        if (r >= mr) break;
+        int v = acc[s][r];
+#pragma unroll
+        for (int off = 16; off > 0; off /= 2)
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0) s_red[buf][warp][s * MR + r] = v;
+      }
+    __syncthreads();
+    if (tid < NC * mr) {
+      const int c = tid / mr, row = tid % mr, col = n0 + c;
+      int y1 = -corr, y2 = -corr;
+      for (int w = 0; w < n_warps; ++w) {
+        y1 += s_red[buf][w][c * MR + row];
+        if (NW == 2) y2 += s_red[buf][w][(NC + c) * MR + row];
+      }
+      if (col < n)
+        epilogue<TO>(y1, y2, r0 + row, col, n, a_scale, b_scale, b2_scale, bias,
+                     residual, NW == 2, act, out);
+    }
+    buf ^= 1;
   }
 }
 
 template <typename TX, typename TO>
 int launch(const void* x, const void* a_scale, const void* bp,
            const void* b_scale, const void* bp2, const void* b2_scale,
-           const void* bias, const void* residual, void* out, int m, int n,
-           int k, int kw, int n_a, int n_b, int act, cudaStream_t stream) {
+           const void* bias, const void* residual, void* out, void* ws,
+           int m, int n, int k, int kw, int n_a, int n_b, int act,
+           cudaStream_t stream) {
+  if (m <= SMALL_M_MAX) {
+    // small-M route: quantize X once, then stream the weights
+    if (ws == nullptr) return (int)cudaErrorInvalidValue;
+    const int kp = kw * 32, items = m * kp / 4;
+    quantize_x_kernel<TX><<<(items + 255) / 256, 256, 0, stream>>>(
+        (const TX*)x, (const float*)a_scale, (int8_t*)ws, m, k, kp, n_a);
+    cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    static int n_sm = 0;
+    if (n_sm == 0) {
+      int dev = 0;
+      e = cudaGetDevice(&dev);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                   dev);
+      if (e != cudaSuccess) return (int)e;
+    }
+    // one K word per thread (the fewest words per thread that keep a
+    // block at MAX_WARPS warps or less), blocks enough for ~16 resident
+    // warps per SM (two at least), each walking several column tiles; the
+    // row groups share them
+    const int wpt = (kw + MAX_WARPS * 32 - 1) / (MAX_WARPS * 32);
+    const int threads = ((kw + wpt - 1) / wpt + 31) / 32 * 32;
+    const int per_sm = (2 * MAX_WARPS * 32) / threads;
+    const bool dual = bp2 != nullptr;
+    const int ngb = (n_b + 6) / 7;
+    const int nc = SLOTS / ((dual ? 2 : 1) * ngb);
+    const int n_tiles = (n + nc - 1) / nc;
+    const int n_rg = (m + MR - 1) / MR;
+    int gx = (n_sm * per_sm + n_rg - 1) / n_rg;
+    gx = n_tiles < gx ? n_tiles : gx;
+    const dim3 grid(gx, n_rg);
+#define REPRO_SMALL_M(NW, NGB, NBM)                                         \
+  small_m_kernel<TO, NW, NGB, NBM><<<grid, threads, 0, stream>>>(           \
+      (const int8_t*)ws, (const float*)a_scale, (const uint32_t*)bp,       \
+      (const float*)b_scale, (const uint32_t*)bp2, (const float*)b2_scale, \
+      (const float*)bias, (const TO*)residual, (TO*)out, m, n, kw, n_a,    \
+      n_b, act)
+    if (ngb == 2) {                           // n_b = 8
+      if (dual) REPRO_SMALL_M(2, 2, 8); else REPRO_SMALL_M(1, 2, 8);
+    } else if (n_b > 4) {
+      if (dual) REPRO_SMALL_M(2, 1, 8); else REPRO_SMALL_M(1, 1, 8);
+    } else if (n_b > 2) {
+      if (dual) REPRO_SMALL_M(2, 1, 4); else REPRO_SMALL_M(1, 1, 4);
+    } else {
+      if (dual) REPRO_SMALL_M(2, 1, 2); else REPRO_SMALL_M(1, 1, 2);
+    }
+#undef REPRO_SMALL_M
+    return (int)cudaGetLastError();
+  }
   int nga = (n_a + 6) / 7, ngb = (n_b + 6) / 7, nw = bp2 ? 2 : 1;
   int smem = (nga * BM + nw * ngb * BN) * LDS;
   static bool configured = false;
@@ -303,26 +626,32 @@ int launch(const void* x, const void* a_scale, const void* bp,
 
 }  // namespace
 
+// The largest M the small-M route takes; the wrapper sizes its workspace
+// (int8 X values, ceil(n_a / 7) x M x Kw * 32 bytes) from it.
+extern "C" int repro_apmm_small_m_max(void) { return SMALL_M_MAX; }
+
 // dtype codes: 0 = float32, 1 = bfloat16.  act: 0 none, 1 silu, 2 gelu.
+// ws: the small-M route's workspace (M <= repro_apmm_small_m_max()), else
+// unused.
 extern "C" int repro_apmm_fused_linear(
     const void* x, const void* a_scale, const void* bp, const void* b_scale,
     const void* bp2, const void* b2_scale, const void* bias,
-    const void* residual, void* out, int m, int n, int k, int kw, int n_a,
-    int n_b, int act, int x_dtype, int out_dtype, void* stream) {
+    const void* residual, void* out, void* ws, int m, int n, int k, int kw,
+    int n_a, int n_b, int act, int x_dtype, int out_dtype, void* stream) {
   if (m == 0 || n == 0) return 0;
   if (n_a < 1 || n_a > 8 || n_b < 1 || n_b > 8) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (x_dtype == 1 && out_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(x, a_scale, bp, b_scale, bp2,
-        b2_scale, bias, residual, out, m, n, k, kw, n_a, n_b, act, s);
+        b2_scale, bias, residual, out, ws, m, n, k, kw, n_a, n_b, act, s);
   if (x_dtype == 1 && out_dtype == 0)
     return launch<__nv_bfloat16, float>(x, a_scale, bp, b_scale, bp2,
-        b2_scale, bias, residual, out, m, n, k, kw, n_a, n_b, act, s);
+        b2_scale, bias, residual, out, ws, m, n, k, kw, n_a, n_b, act, s);
   if (x_dtype == 0 && out_dtype == 1)
     return launch<float, __nv_bfloat16>(x, a_scale, bp, b_scale, bp2,
-        b2_scale, bias, residual, out, m, n, k, kw, n_a, n_b, act, s);
+        b2_scale, bias, residual, out, ws, m, n, k, kw, n_a, n_b, act, s);
   if (x_dtype == 0 && out_dtype == 0)
     return launch<float, float>(x, a_scale, bp, b_scale, bp2, b2_scale, bias,
-        residual, out, m, n, k, kw, n_a, n_b, act, s);
+        residual, out, ws, m, n, k, kw, n_a, n_b, act, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,6 +14,7 @@ kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -21,6 +22,7 @@ from repro_torch.core.bipolar import BipolarTensor
 from repro_torch.kernels import _build, ref
 
 LAUNCHES = 0          # K1 launches since the last reset (chip_smoke)
+SMALL_M_LAUNCHES = 0  # of those, on the small-M route (M <= small_m_max())
 PACKED_LAUNCHES = 0   # K5 launches since the last reset
 
 apmm_fused_linear_plain = ref.ap_linear_fused_ref
@@ -34,10 +36,17 @@ def _lib():
     lib = _build.load("apmm_fused_linear")
     fn = lib.repro_apmm_fused_linear
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def small_m_max() -> int:
+    """The largest M that K1's C entry routes to its small-M kernel (the
+    library's own threshold; builds the library)."""
+    return int(_build.load("apmm_fused_linear").repro_apmm_small_m_max())
 
 
 def _ptr(t):
@@ -65,7 +74,7 @@ def apmm_fused_linear(x2: torch.Tensor, a_scale: torch.Tensor,
             "apmm_fused_linear: the bitserial variant has no CUDA kernel "
             "yet (ROADMAP queue 2, K1 follow-up: the b1 XOR-popc mma "
             "kernel)")
-    global LAUNCHES
+    global LAUNCHES, SMALL_M_LAUNCHES
     m, k = x2.shape
     n_b, n, kw = w.packed.shape
     if w.shape != (n, k) or n_b != w.n_bits:
@@ -104,12 +113,18 @@ def apmm_fused_linear(x2: torch.Tensor, a_scale: torch.Tensor,
         if residual is not None else None
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     fn = _lib()
+    small = m <= small_m_max()
+    # the small-M route's workspace: X quantized once, int8 per plane group
+    xq = torch.empty((len(ref.plane_groups(a_bits)), m, kw * 32),
+                     dtype=torch.int8, device=dev) if small else None
     err = fn(xs.data_ptr(), a_s.data_ptr(), wp.data_ptr(), ws.data_ptr(),
              _ptr(w2p), _ptr(w2s), _ptr(bs_), _ptr(res), out.data_ptr(),
-             m, n, k, kw, a_bits, w.n_bits, _ACTS[act], _DTYPES[x2.dtype],
-             _DTYPES[out_dtype], torch.cuda.current_stream(dev).cuda_stream)
+             _ptr(xq), m, n, k, kw, a_bits, w.n_bits, _ACTS[act],
+             _DTYPES[x2.dtype], _DTYPES[out_dtype],
+             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "apmm_fused_linear")
     LAUNCHES += 1
+    SMALL_M_LAUNCHES += small
     return out
 
 

@@ -9,7 +9,9 @@ decides: CPU tensors run the plain versions
 (:func:`repro_torch.kernels.ref.paged_attention`,
 :func:`~repro_torch.kernels.ref.kv_cache_attention`,
 :func:`~repro_torch.kernels.ref.flash_attention`), CUDA tensors launch
-the kernel or raise.
+the kernel or raise.  K7's C entry splits T across blocks for bf16
+inputs when the grid would not fill the card; :func:`float_splits`
+reports its choice, and the wrapper allocates the partials' workspace.
 """
 
 from __future__ import annotations
@@ -101,12 +103,22 @@ def _contiguous_lib(name: str):
     lib = _build.load("flash_attention")
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        n_ptr = 8 if name == "repro_flash_attention_quantized" else 6
+        n_ptr = 8 if name == "repro_flash_attention_quantized" else 7
         n_int = 9 if name == "repro_flash_attention_quantized" else 7
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def float_splits(bh: int, sq: int, t: int, dtype) -> int:
+    """How many ranges of T K7's C entry splits this shape into (its own
+    choice, from BH and T; 1 for f32 inputs)."""
+    fn = _build.load("flash_attention").repro_flash_attention_splits
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_int
+    return int(fn(bh, 1, sq, t, _DTYPES[dtype]))
 
 
 def _check_positions(q_pos, kv_pos, b, sq, t, dev):
@@ -194,9 +206,14 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     qp, kp = _check_positions(q_pos, kv_pos, bh, sq, t, dev)
     qs, ks, vs = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((bh, sq, d), dtype=q.dtype, device=dev)
+    n_split = float_splits(bh, sq, t, q.dtype)
+    # split-KV partials: (m, l) and acc of every row, per range of T
+    ws = torch.empty(n_split * bh * sq * (d + 2), dtype=torch.float32,
+                     device=dev) if n_split > 1 else None
     err = _contiguous_lib("repro_flash_attention")(
         qs.data_ptr(), ks.data_ptr(), vs.data_ptr(), qp.data_ptr(),
-        kp.data_ptr(), out.data_ptr(), bh, 1, sq, t, d, int(causal),
+        kp.data_ptr(), out.data_ptr(), 0 if ws is None else ws.data_ptr(),
+        bh, 1, sq, t, d, int(causal),
         int(window) if window is not None else 0,
         float(1.0 / math.sqrt(d)), _DTYPES[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)

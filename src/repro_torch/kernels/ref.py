@@ -306,6 +306,36 @@ def attention_reference(q, k, v, q_pos, kv_pos, *, causal=True,
     return o.to(q.dtype)
 
 
+def flash_attention_split(q, k, v, q_pos, kv_pos, *, splits: int,
+                          causal=True, window=None):
+    """Plain version of K7's split-KV decomposition (flash-decoding), in
+    the folded ``(BH, S, D)`` layout: T cut into ranges of ``ceil(T /
+    splits)`` slots, each range's f32 partials ``(m, l, acc)`` -- a range
+    that no query row may see gives ``(-1e30, 0, 0)`` -- then the combine
+    ``m = max m_s``, ``l = sum l_s e^(m_s - m)``, ``acc = sum acc_s e^(m_s
+    - m)``, ``acc / max(l, 1e-20)``: a fully masked row returns 0.  The
+    tests hold it against :func:`attention_reference`."""
+    d, t = q.shape[-1], k.shape[1]
+    s = torch.einsum("bqd,btd->bqt", q.float(), k.float()) / math.sqrt(d)
+    valid = position_mask(q_pos[:, :, None], kv_pos[:, None, :], causal,
+                          window)
+    s = torch.where(valid, s, torch.full_like(s, -1e30))
+    size = -(-t // splits)
+    parts = []
+    for lo in range(0, t, size):
+        sv, ok = s[..., lo:lo + size], valid[..., lo:lo + size]
+        m_s = torch.clamp(torch.amax(sv, -1, keepdim=True), min=-1e30)
+        p = torch.where(ok, torch.exp(sv - m_s), torch.zeros_like(sv))
+        parts.append((m_s, p.sum(-1, keepdim=True),
+                      torch.einsum("bqt,btd->bqd", p,
+                                   v[:, lo:lo + size].float())))
+    m = torch.amax(torch.cat([m_s for m_s, _, _ in parts], -1), -1,
+                   keepdim=True)
+    l = sum(l_s * torch.exp(m_s - m) for m_s, l_s, _ in parts)
+    acc = sum(a_s * torch.exp(m_s - m) for m_s, _, a_s in parts)
+    return (acc / torch.clamp(l, min=1e-20)).to(q.dtype)
+
+
 def fold_kv_heads(a: torch.Tensor) -> torch.Tensor:
     """``(B, T, H, ...) -> (BH, T, ...)``."""
     b, t, h = a.shape[:3]

@@ -16,7 +16,11 @@ product and the f32/bf16 dequant bit-exact; the unfused linear (K3 +
 K5) equal to the fused one (K1) bit for bit at ``act="none"`` and with a
 residual, and within K1's 1-ulp SiLU rule through the SwiGLU.  K6 and
 K7 (contiguous attention, packed and float K/V): within 1 bf16 ulp per
-element, or 1e-5 absolute, of the plain version.
+element, or 1e-5 absolute, of the plain version; K7's bf16 route also
+where its C entry splits T (some ranges seen by no query row) and
+against ``ref.flash_attention_split``.  K1's small-M route (M up to
+``apmm.small_m_max()``): the integer core bit-exact on both sides of the
+threshold, the dual SiLU within 1 bf16 ulp, bias and residual bit-exact.
 """
 
 import numpy as np
@@ -103,6 +107,65 @@ def test_apmm_kernel_bf16_dual_silu_residual(device, m, n, k):
     want = ref.ap_linear_fused_ref(x, a_s, w, w2=w2, a_bits=8, act="silu",
                                    out_dtype=torch.bfloat16)
     assert int(_bf16_ulps(got, want).max()) <= 1
+
+
+def _small_m(m_case):
+    """M of a small-M case: a number (12 and 20 end in a partial group of
+    8 rows), or the route's threshold (+1)."""
+    t = apmm.small_m_max()
+    return {"threshold": t, "threshold+1": t + 1}.get(m_case, m_case)
+
+
+@pytest.mark.parametrize("m_case", [1, 4, 8, 12, 20, "threshold",
+                                    "threshold+1"])
+@pytest.mark.parametrize("n", [70, 4096])
+@pytest.mark.parametrize("k", [100, 4096, 14336])
+@pytest.mark.parametrize("a_bits,w_bits", [(8, 2), (8, 8), (4, 3), (1, 1)])
+def test_apmm_kernel_small_m_integer_core_bit_exact(device, m_case, n, k,
+                                                    a_bits, w_bits):
+    """K1's decode shapes: M <= small_m_max() runs the small-M route (its
+    launch counter moves), M above it the tile kernel; the integer core
+    is bit-exact on both sides of the threshold."""
+    m = _small_m(m_case)
+    assert apmm.small_m_max() >= 8
+    rng = np.random.default_rng(m * 7 + n + k + a_bits * 10 + w_bits)
+    w = ops.pack_weight(_rand(rng, (n, k), device), w_bits)
+    x = _rand(rng, (m, k), device, torch.bfloat16)
+    a_s = bipolar.absmax_scale(x, a_bits, axis=-1).float()
+    before = apmm.SMALL_M_LAUNCHES
+    got = apmm.apmm_fused_linear(x, a_s, w, a_bits=a_bits,
+                                 out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert apmm.SMALL_M_LAUNCHES - before == int(m <= apmm.small_m_max())
+    want = ref.ap_linear_fused_ref(x, a_s, w, a_bits=a_bits,
+                                   out_dtype=torch.float32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m_case", [1, 4, 8, 12, 20, "threshold",
+                                    "threshold+1"])
+@pytest.mark.parametrize("n,k", [(70, 100), (4096, 4096), (70, 14336)])
+def test_apmm_kernel_small_m_dual_silu_residual(device, m_case, n, k):
+    """Dual gate/up with SiLU within 1 bf16 ulp, the residual output and
+    a bias bit-exact, at the small-M shapes."""
+    m = _small_m(m_case)
+    rng = np.random.default_rng(m * 13 + n + k)
+    w = ops.pack_weight(_rand(rng, (n, k), device), 2)
+    w2 = ops.pack_weight(_rand(rng, (n, k), device), 2)
+    x = _rand(rng, (m, k), device, torch.bfloat16)
+    res = _rand(rng, (m, n), device, torch.bfloat16)
+    bias = _rand(rng, (n,), device)
+    a_s = bipolar.absmax_scale(x, 8, axis=-1).float()
+    got = apmm.apmm_fused_linear(x, a_s, w, w2=w2, a_bits=8, act="silu",
+                                 out_dtype=torch.bfloat16)
+    want = ref.ap_linear_fused_ref(x, a_s, w, w2=w2, a_bits=8, act="silu",
+                                   out_dtype=torch.bfloat16)
+    assert int(_bf16_ulps(got, want).max()) <= 1
+    got = apmm.apmm_fused_linear(x, a_s, w, residual=res, bias=bias,
+                                 a_bits=8, out_dtype=torch.bfloat16)
+    want = ref.ap_linear_fused_ref(x, a_s, w, residual=res, bias=bias,
+                                   a_bits=8, out_dtype=torch.bfloat16)
+    assert torch.equal(got, want)
 
 
 def _pool(rng, dev, n_blocks, bs, h, n_bits, d):
@@ -489,6 +552,43 @@ def test_contiguous_attention_kernels_match_plain(device, b, t, sq, d,
     want = ref.flash_attention(qf, kf, vf, qpf, kpf, window=window)
     assert _within_one_ulp_or(got, want)
     assert flash_attention.FLOAT_LAUNCHES >= 1
+
+
+@pytest.mark.parametrize("bh,sq,t,live,d,window", [
+    (32, 4, 1024, 300, 128, None),      # decode: most T ranges see nothing
+    (32, 4, 1024, 300, 128, 64),        # decode, sliding window
+    (6, 1, 700, 700, 48, None),         # T not a multiple of the tile
+    (4, 200, 256, 180, 32, None),       # prefill rows, 20 pads first
+    (2, 70, 130, 130, 40, 33)])         # head dim without 16-byte rows
+def test_float_attention_kernel_split_kv(device, bh, sq, t, live, d, window):
+    """K7's bf16 route on shapes where its C entry splits T (decode) and
+    where it does not (prefill): within 1 bf16 ulp or 1e-5 of the plain
+    version, fully masked rows exactly 0, including ranges of T that no
+    query row may see."""
+    rng = np.random.default_rng(bh * sq + t + d)
+    q, k, v = (_rand(rng, (bh, n_, d), device, torch.bfloat16)
+               for n_ in (sq, t, t))
+    kv_pos = torch.full((bh, t), -1, dtype=torch.int32)
+    kv_pos[:, :live] = torch.arange(live, dtype=torch.int32)
+    q_pos = torch.arange(live - sq, live, dtype=torch.int32).clamp(
+        min=-1).repeat(bh, 1)
+    q_pos[0, 0] = -1                       # a padded query row
+    q_pos[1] = -1                          # a fully masked head
+    q_pos, kv_pos = q_pos.to(device), kv_pos.to(device)
+    n_split = flash_attention.float_splits(bh, sq, t, torch.bfloat16)
+    if sq <= 4:
+        assert n_split > 1
+    before = flash_attention.FLOAT_LAUNCHES
+    got = flash_attention.flash_attention(q, k, v, q_pos, kv_pos,
+                                          window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.FLOAT_LAUNCHES == before + 1
+    want = ref.flash_attention(q, k, v, q_pos, kv_pos, window=window)
+    assert _within_one_ulp_or(got, want)
+    assert torch.all(got[0, 0] == 0) and torch.all(got[1] == 0)
+    split = ref.flash_attention_split(q, k, v, q_pos, kv_pos,
+                                      splits=n_split, window=window)
+    assert _within_one_ulp_or(got, split)
 
 
 def test_contiguous_attention_matches_paged_attention(device):
