@@ -26,9 +26,19 @@ exit and no result line):
    decode cases must run its small-M route and its chunk cases the tile
    kernel (``apmm.SMALL_M_LAUNCHES`` against the library's own
    ``apmm.small_m_max()``), and K1 and K7 print their time beside the
-   time PERF.md recorded before their redesign;
-4. full width, shallow -- one forward of llama3-8b (depth 2, paged pool
-   and fused linear; then a contiguous cache and the unfused linear) and
+   time PERF.md recorded before their redesign; the ``bitserial``
+   variants of K1, K4 and K5 (the b1 tensor-core core) at the same cases
+   (K5 also at the width pairs a2w8, a8w8, a1w1, a3w5, odd M/N/K):
+   integer cores bit-exact to their plain versions and to the fused
+   kernels, outputs equal to the fused kernels' bit for bit and within
+   their tolerance of plain, K4's live map and dead rows as the fused
+   kernel's, each timed beside the fused kernel with the fused row's
+   bound (the same function and work);
+4. the norm -- ``norm_apply`` on the card at llama3-8b's width gives
+   the CPU's bits (it reproduces XLA's f32 steps in torch ops), and its
+   time; then full width, shallow -- one forward of llama3-8b (depth 2,
+   paged pool and fused linear; then a contiguous cache and the unfused
+   linear) and
    of mixtral-8x7b (depth 1) on the card, then the same forward with the
    parameters moved to the CPU (the plain versions run there because
    the device decides), logits compared and, for mixtral, the share of
@@ -46,7 +56,13 @@ exit and no result line):
    llama3-8b served by ``Engine(paged=False, n_slots=4, max_len=1024)``
    with the unfused linear (``llama3-8b-contiguous-unfused``), where
    every dispatch launches K5 and K3 225 times and K6 32 times, and K1,
-   K2, K4 never;
+   K2, K4 never; each path is followed by its bit-serial twin
+   (``QuantConfig(variant="bitserial")``: the same weights, prompts and
+   engine), whose dispatches launch the bitserial kernels as often as
+   the twin launched the fused ones (``apmm.BITSERIAL_LAUNCHES``,
+   ``apmm.PACKED_BITSERIAL_LAUNCHES``, ``moe.BITSERIAL_LAUNCHES``), the
+   fused kernels never, and whose greedy tokens equal the twin's, all of
+   them;
 6. the launch counts of each path, the JSON kernels line (one entry per
    path and kernel of that path, ``launches`` that path's own count; K7,
    on no path, with its phase-3 launches), the ``nvidia-smi`` line and,
@@ -253,6 +269,13 @@ def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
         + (m * n * 2 if residual else 0) + m * n * 2
     n_ops = nw * groups * 2 * m * n * k
     b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+    # the bitserial kernel on the same inputs: its integer cores equal the
+    # plain bitserial version's and the fused kernel's, its output the
+    # fused kernel's bit for bit (same epilogue code) and the plain
+    # version's within the fused kernel's tolerance; the same bound (the
+    # same function and work)
+    bs = _k1_bitserial(torch, timer, name, x, a_s, w, w2, res, a_bits, act,
+                       got, want, ms, b_ms, b_by)
     # yardsticks (not the same function; the port never calls them)
     wb = torch.randn((nw * n, k), generator=g, device="cuda").to(
         torch.bfloat16)
@@ -275,7 +298,67 @@ def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
           f"function): torch.matmul bf16 {mm:.4f} ms, torch._int_mm int8 "
           f"M={mi} {im:.4f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None), bs
+
+
+def _k1_bitserial(torch, timer, name, x, a_s, w, w2, res, a_bits, act,
+                  fused_out, plain_fused, fused_ms, b_ms, b_by):
+    """K1's bitserial kernel at one phase-3 case (see ``_k1_case``)."""
+    from repro_torch.kernels import apmm, ref
+    before = (apmm.BITSERIAL_LAUNCHES, apmm.LAUNCHES)
+    for wt in (w, w2) if w2 is not None else (w,):
+        core = apmm.apmm_fused_linear(x, a_s, wt, a_bits=a_bits,
+                                      variant="bitserial",
+                                      out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        core_ref = ref.ap_linear_fused_ref(x, a_s, wt, a_bits=a_bits,
+                                           variant="bitserial",
+                                           out_dtype=torch.float32)
+        fused = apmm.apmm_fused_linear(x, a_s, wt, a_bits=a_bits,
+                                       out_dtype=torch.float32)
+        if not (torch.equal(core, core_ref) and torch.equal(core, fused)):
+            raise AssertionError(f"K1 bitserial {name}: integer core "
+                                 f"differs from plain or from fused")
+        del core, core_ref, fused
+
+    def run():
+        return apmm.apmm_fused_linear(x, a_s, w, w2=w2, residual=res,
+                                      a_bits=a_bits, act=act,
+                                      variant="bitserial",
+                                      out_dtype=torch.bfloat16)
+
+    def run_plain():
+        return ref.ap_linear_fused_ref(x, a_s, w, w2=w2, residual=res,
+                                       a_bits=a_bits, act=act,
+                                       variant="bitserial",
+                                       out_dtype=torch.bfloat16)
+
+    got, want = run(), run_plain()
+    if not torch.equal(got, fused_out):
+        raise AssertionError(f"K1 bitserial {name}: output differs from the "
+                             f"fused kernel's")
+    if not torch.equal(want, plain_fused):
+        raise AssertionError(f"K1 bitserial {name}: plain bitserial differs "
+                             f"from plain fused")
+    err = (got.float() - want.float()).abs().max().item()
+    ulps = int(bf16_ulps(got, want).max())
+    if ulps > (0 if act == "none" else 1):
+        raise AssertionError(f"K1 bitserial {name} act={act}: {ulps} ulps "
+                             f"from plain")
+    if apmm.BITSERIAL_LAUNCHES - before[0] != (3 if w2 is not None else 2) \
+            or apmm.LAUNCHES - before[1] != (2 if w2 is not None else 1):
+        raise AssertionError(f"K1 bitserial {name}: launch counters")
+    ms = timer(run, iters=10)
+    plain = timer(run_plain, iters=2, warmup=1)
+    print(f"K1 apmm_fused_linear_bitserial {name} M={x.shape[0]} "
+          f"N={w.shape[0]} K={x.shape[1]} act={act}: cores bit-exact to "
+          f"plain and fused, out equal to the fused kernel's, max|err| "
+          f"{err:.3g}, {ulps} bf16 ulps (tol {0 if act == 'none' else 1}); "
+          f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, the fused row's; "
+          f"{100 * b_ms / ms:.1f}% of bound), fused kernel {fused_ms:.4f} "
+          f"ms in this run, plain {plain:.4f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, fused_ms=fused_ms)
 
 
 def k1_phase(torch, timer, seed, results):
@@ -292,9 +375,10 @@ def k1_phase(torch, timer, seed, results):
         ("odd", 5, 1000, 1000, {}),
     ]
     for name, m, n, k, kw in cases:
-        r = _k1_case(torch, timer, g, name, m, n, k, cache=cache, **kw)
+        r, bs = _k1_case(torch, timer, g, name, m, n, k, cache=cache, **kw)
         if name == "decode gate/up":
             results["apmm_fused_linear"] = r
+            results["apmm_fused_linear_bitserial"] = bs
         if name == "decode lm_head":
             cache.pop((n, k, False), None)
     cache.clear()
@@ -478,6 +562,8 @@ def _k4_case(torch, timer, g_, name, *, e, groups, seg, k, n, counts,
         + live_experts * nw * (w_bits * n * kw * 4 + n * 4) + e * c * n * 2
     n_ops = nw * groups_ab * 2 * n_live * n * k
     b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+    bs = _k4_bitserial(torch, timer, name, x, a_s, counts, w, w2, a_bits,
+                       act, bc, live_rows, got, want, ms, b_ms, b_by)
     # yardstick (not the same function; the port never calls it)
     wb = torch.randn((e, k, nw * n), generator=g_, device="cuda").to(
         torch.bfloat16)
@@ -492,7 +578,69 @@ def _k4_case(torch, timer, g_, name, *, e, groups, seg, k, n, counts,
           f"yardstick (not the same function): torch.bmm bf16 {mm:.4f} ms",
           flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None), bs
+
+
+def _k4_bitserial(torch, timer, name, x, a_s, counts, w, w2, a_bits, act,
+                  bc, live_rows, fused_out, plain_fused, fused_ms, b_ms,
+                  b_by):
+    """K4's bitserial kernel at one phase-3 case (see ``_k4_case``): the
+    integer core of each weight bit-exact to the plain bitserial version
+    and to the fused kernel, the live map equal, dead rows 0, the output
+    equal to the fused kernel's and within its tolerance of plain."""
+    from repro_torch.kernels import moe, ref
+    before = moe.BITSERIAL_LAUNCHES
+    for wt in (w, w2) if w2 is not None else (w,):
+        core, live = moe.moe_expert_linear(x, a_s, counts, wt, a_bits=a_bits,
+                                           variant="bitserial",
+                                           out_dtype=torch.float32, bc=bc)
+        torch.cuda.synchronize()
+        core_ref, live_ref = moe.moe_expert_linear_plain(
+            x, a_s, counts, wt, a_bits=a_bits, variant="bitserial",
+            out_dtype=torch.float32, bc=bc)
+        fused, live_f = moe.moe_expert_linear(x, a_s, counts, wt,
+                                              a_bits=a_bits,
+                                              out_dtype=torch.float32, bc=bc)
+        if not (torch.equal(core, core_ref) and torch.equal(core, fused)):
+            raise AssertionError(f"K4 bitserial {name}: integer core differs "
+                                 f"from plain or from fused")
+        if not (torch.equal(live, live_ref) and torch.equal(live, live_f)):
+            raise AssertionError(f"K4 bitserial {name}: live map differs")
+        if (~live_rows).any() and core[~live_rows].abs().max() != 0:
+            raise AssertionError(f"K4 bitserial {name}: dead rows not zero")
+        del core, core_ref, fused
+
+    def run():
+        return moe.moe_expert_linear(x, a_s, counts, w, w2=w2, a_bits=a_bits,
+                                     act=act, variant="bitserial",
+                                     out_dtype=torch.bfloat16, bc=bc)[0]
+
+    def run_plain():
+        return ref.ap_moe_expert_linear_ref(x, a_s, counts, w, w2=w2,
+                                            a_bits=a_bits, act=act,
+                                            variant="bitserial",
+                                            out_dtype=torch.bfloat16)
+
+    got, want = run(), run_plain()
+    if not torch.equal(got, fused_out) or not torch.equal(want, plain_fused):
+        raise AssertionError(f"K4 bitserial {name}: output differs from the "
+                             f"fused kernel's or plain from plain")
+    err = (got.float() - want.float()).abs().max().item()
+    ulps = int(bf16_ulps(got, want).max())
+    if ulps > (1 if w2 is not None else 0):
+        raise AssertionError(f"K4 bitserial {name}: {ulps} ulps from plain")
+    if moe.BITSERIAL_LAUNCHES - before != (3 if w2 is not None else 2):
+        raise AssertionError(f"K4 bitserial {name}: launch counter")
+    ms = timer(run, iters=10)
+    plain = timer(run_plain, iters=2, warmup=1)
+    print(f"K4 moe_expert_linear_bitserial {name}: cores bit-exact to plain "
+          f"and fused, live map equal, dead rows 0, out equal to the fused "
+          f"kernel's, max|err| {err:.3g}, {ulps} bf16 ulps; {ms:.4f} ms "
+          f"(bound {b_ms:.4f} ms by {b_by}, the fused row's; "
+          f"{100 * b_ms / ms:.1f}% of bound), fused kernel {fused_ms:.4f} "
+          f"ms in this run, plain {plain:.4f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, fused_ms=fused_ms)
 
 
 def k4_phase(torch, timer, seed, results):
@@ -517,9 +665,10 @@ def k4_phase(torch, timer, seed, results):
                      dual=True)),
     ]
     for name, kw in cases:
-        r = _k4_case(torch, timer, g_, name, **kw)
+        r, bs = _k4_case(torch, timer, g_, name, **kw)
         if name == "decode gate/up":
             results["moe_expert_linear"] = r
+            results["moe_expert_linear_bitserial"] = bs
         torch.cuda.empty_cache()
 
 
@@ -563,11 +712,13 @@ def _k5_case(torch, timer, g, name, m, n, k, *, a_bits=8, w_bits=2,
     groups = len(ref.plane_groups(a_bits)) * len(ref.plane_groups(w_bits))
     n_bytes = (a_bits * m + w_bits * n) * kw * 4 + (m + n) * 4 + m * n * 2
     b_ms, b_by = bound_ms(n_bytes, groups * 2 * m * n * k, INT8_OPS_PER_S)
+    bs = _k5_bitserial(torch, timer, name, a, w, ms, b_ms, b_by)
     wb = torch.randn((n, k), generator=g, device="cuda").to(torch.bfloat16)
     mm = timer(lambda: torch.matmul(x, wb.T), iters=10)
     mi = max(m, 32)               # torch._int_mm takes M > 16 on the card
-    xi = torch.randint(-127, 128, (mi, k), device="cuda", dtype=torch.int8)
-    wi = torch.randint(-127, 128, (n, k), device="cuda", dtype=torch.int8)
+    ki, ni = -(-k // 8) * 8, -(-n // 8) * 8   # and N, K multiples of 8
+    xi = torch.randint(-127, 128, (mi, ki), device="cuda", dtype=torch.int8)
+    wi = torch.randint(-127, 128, (ni, ki), device="cuda", dtype=torch.int8)
     im = timer(lambda: torch._int_mm(xi, wi.t()), iters=10)
     del wb, xi, wi
     print(f"K5 apmm_packed {name} M={m} N={n} K={k} Kw={kw} a{a_bits}w"
@@ -575,9 +726,43 @@ def _k5_case(torch, timer, g, name, m, n, k, *, a_bits=8, w_bits=2,
           f"(bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of "
           f"bound), plain {plain:.4f} ms; yardsticks (not the same "
           f"function): torch.matmul bf16 {mm:.4f} ms, torch._int_mm int8 "
-          f"M={mi} {im:.4f} ms", flush=True)
+          f"M={mi} N={ni} K={ki} {im:.4f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+                bound_by=b_by, library_ms=None), bs
+
+
+def _k5_bitserial(torch, timer, name, a, w, fused_ms, b_ms, b_by):
+    """K5's bitserial kernel on one case's packed operands: raw int32 and
+    f32/bf16 dequant bit-exact to the plain bitserial version and to the
+    fused kernel; timed at bf16 out beside the fused kernel."""
+    from repro_torch.kernels import apmm
+    before = apmm.PACKED_BITSERIAL_LAUNCHES
+    for od in (None, torch.float32, torch.bfloat16):
+        got = apmm.apmm_packed(a, w, variant="bitserial", out_dtype=od)
+        torch.cuda.synchronize()
+        want = apmm.apmm_packed_plain(a, w, variant="bitserial",
+                                      out_dtype=od)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K5 bitserial {name} out {od}: differs "
+                                 f"from plain")
+        if not torch.equal(got, apmm.apmm_packed(a, w, out_dtype=od)):
+            raise AssertionError(f"K5 bitserial {name} out {od}: differs "
+                                 f"from the fused kernel")
+    err = (got.float() - want.float()).abs().max().item()
+    if apmm.PACKED_BITSERIAL_LAUNCHES - before != 3:
+        raise AssertionError(f"K5 bitserial {name}: launch counter")
+    ms = timer(lambda: apmm.apmm_packed(a, w, variant="bitserial",
+                                        out_dtype=torch.bfloat16), iters=10)
+    plain = timer(lambda: apmm.apmm_packed_plain(
+        a, w, variant="bitserial", out_dtype=torch.bfloat16), iters=2,
+        warmup=1)
+    print(f"K5 apmm_packed_bitserial {name} a{a.n_bits}w{w.n_bits}: raw "
+          f"int32 and f32/bf16 dequant bit-exact to plain and fused; "
+          f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, the fused row's; "
+          f"{100 * b_ms / ms:.1f}% of bound), fused kernel {fused_ms:.4f} "
+          f"ms in this run, plain {plain:.4f} ms", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, fused_ms=fused_ms)
 
 
 def _unfused_vs_fused(torch, g, name, m, n, k):
@@ -609,17 +794,24 @@ def _unfused_vs_fused(torch, g, name, m, n, k):
 
 def k5_phase(torch, timer, seed, results):
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
+    odd = dict(extra_b_words=3)
     cases = [("decode q", 4, 4096, 4096, {}),
              ("decode gate", 4, 14336, 4096, {}),
              ("decode down", 4, 4096, 14336, {}),
              ("decode lm_head", 4, 128256, 4096, {}),
              ("chunk q", 1024, 4096, 4096, {}),
              ("chunk gate", 1024, 14336, 4096, {}),
-             ("odd, unequal Kw", 5, 1000, 1000, dict(extra_b_words=3))]
+             ("odd, unequal Kw", 5, 1000, 1000, odd),
+             # the bitserial variant's width pairs at odd M/N/K
+             ("odd a2w8", 5, 999, 1001, dict(a_bits=2, w_bits=8, **odd)),
+             ("odd a8w8", 37, 999, 1001, dict(a_bits=8, w_bits=8, **odd)),
+             ("odd a1w1", 5, 999, 1001, dict(a_bits=1, w_bits=1, **odd)),
+             ("odd a3w5", 67, 999, 1001, dict(a_bits=3, w_bits=5, **odd))]
     for name, m, n, k, kw in cases:
-        r = _k5_case(torch, timer, g, name, m, n, k, **kw)
+        r, bs = _k5_case(torch, timer, g, name, m, n, k, **kw)
         if name == "decode gate":
             results["apmm_packed"] = r
+            results["apmm_packed_bitserial"] = bs
         torch.cuda.empty_cache()
     for name, m, n, k in (("decode gate", 4, 14336, 4096),
                           ("decode down", 4, 4096, 14336),
@@ -838,6 +1030,39 @@ def _to_cpu(tree):
     return tree.cpu()
 
 
+def norm_phase(torch, timer, seed):
+    """``layers.norm_apply`` on the card: its output stays on the card
+    and equals the CPU's bits (the same torch ops: serial f32 sums, the
+    rsqrt estimate and Newton steps, f64 products for the FMAs), at
+    llama3-8b's width, decode and chunk rows, rmsnorm and layernorm; the
+    decode call's time is its launches' (about 90 small ops)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("llama3-8b")
+    g = torch.Generator(device="cuda").manual_seed(seed + 6)
+    for norm in ("rmsnorm", "layernorm"):
+        c = dataclasses.replace(cfg, norm_type=norm)
+        p = {"scale": torch.rand((cfg.d_model,), generator=g,
+                                 device="cuda") + 0.5,
+             "bias": torch.rand((cfg.d_model,), generator=g,
+                                device="cuda") - 0.5}
+        for rows in (4, 256):
+            x = (3 * torch.randn((rows, cfg.d_model), generator=g,
+                                 device="cuda")).to(torch.bfloat16)
+            y = L.norm_apply(p, x, c)
+            if y.device.type != "cuda":
+                raise AssertionError("norm_apply left the card")
+            cpu = L.norm_apply({k: v.cpu() for k, v in p.items()}, x.cpu(), c)
+            if not torch.equal(y.cpu(), cpu):
+                raise AssertionError(f"norm_apply {norm} rows={rows}: card "
+                                     f"bits differ from the CPU's")
+        ms = timer(lambda: L.norm_apply(p, x[:4], c), iters=20)
+        print(f"norm_apply {norm} d={cfg.d_model} bf16 on the card: bits "
+              f"equal the CPU's at 4 and 256 rows; 4 rows {ms:.4f} ms",
+              flush=True)
+
+
 def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False):
     """One full-width forward of ``s`` tokens at depth ``n_layers`` on the
     card, then on the CPU, through the paged pool with the fused linear
@@ -974,8 +1199,53 @@ def profile_steps(torch, eng, n_steps: int) -> str:
     return prof
 
 
+GEMMS = ("apmm_fused_linear", "apmm_fused_linear_bitserial", "apmm_packed",
+         "apmm_packed_bitserial", "moe_expert_linear",
+         "moe_expert_linear_bitserial")
+
+
+def counters() -> dict:
+    """Every kernel's launch counter, by the kernels line's names."""
+    from repro_torch.kernels import apmm, flash_attention, moe, pack
+    return {"quantize_pack_rows": pack.LAUNCHES,
+            "apmm_fused_linear": apmm.LAUNCHES,
+            "apmm_fused_linear_bitserial": apmm.BITSERIAL_LAUNCHES,
+            "apmm_packed": apmm.PACKED_LAUNCHES,
+            "apmm_packed_bitserial": apmm.PACKED_BITSERIAL_LAUNCHES,
+            "paged_attention": flash_attention.LAUNCHES,
+            "flash_attention_quantized": flash_attention.QUANTIZED_LAUNCHES,
+            "flash_attention": flash_attention.FLOAT_LAUNCHES,
+            "moe_expert_linear": moe.LAUNCHES,
+            "moe_expert_linear_bitserial": moe.BITSERIAL_LAUNCHES}
+
+
+def zero_counters() -> None:
+    from repro_torch.kernels import apmm, flash_attention, moe, pack
+    pack.LAUNCHES = apmm.LAUNCHES = apmm.SMALL_M_LAUNCHES = 0
+    apmm.BITSERIAL_LAUNCHES = apmm.PACKED_LAUNCHES = 0
+    apmm.PACKED_BITSERIAL_LAUNCHES = 0
+    flash_attention.LAUNCHES = flash_attention.QUANTIZED_LAUNCHES = 0
+    flash_attention.FLOAT_LAUNCHES = 0
+    moe.LAUNCHES = moe.BITSERIAL_LAUNCHES = 0
+
+
+def same_tokens(label, reqs, twin_tokens) -> None:
+    """A bit-serial path's greedy tokens against its fused twin's (same
+    weights, prompts and engine): the integer cores are exact and the
+    epilogues the same code, so they must be equal token for token."""
+    got = [list(r.out) for r in reqs]
+    if got != twin_tokens:
+        bad = [(i, next(j for j, (a, b) in enumerate(zip(x, y)) if a != b))
+               for i, (x, y) in enumerate(zip(got, twin_tokens)) if x != y]
+        raise AssertionError(f"{label}: tokens differ from the fused twin's "
+                             f"(request, first index) {bad}")
+    print(f"{label}: all {sum(map(len, got))} greedy tokens equal the fused "
+          f"twin's", flush=True)
+
+
 def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
-                n_blocks, per_dispatch, n_pack=None):
+                n_blocks, per_dispatch, n_pack=None, variant="fused",
+                twin_tokens=None):
     """Serve ``arch`` at full width, end to end: load and quantize on the
     card, then requests of ``prompt_lens`` tokens (the first and the last
     share a ``prefix``-token head; the last is submitted once the first
@@ -985,17 +1255,26 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     times (K3 ``n_pack`` times in all, at load), and exactly the K1
     launches at M <= ``apmm.small_m_max()`` must take K1's small-M route
     (each dispatch of ``tokens (B, S)`` runs its linears at M = B·S and
-    its lm_head at M = B).  Returns the counts."""
+    its lm_head at M = B).  ``variant="bitserial"`` serves the same
+    weights through the bitserial kernels: the fused GEMM counters must
+    stay 0 and the tokens must equal ``twin_tokens``, the fused run's.
+    Every GEMM counter not in ``per_dispatch`` must stay 0.  Returns the
+    counts and the tokens."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import apmm, flash_attention, moe, pack
+    from repro_torch.kernels import apmm
     from repro_torch.models import model as M
     from repro_torch.models.config import QuantConfig
     from repro_torch.serving import engine as E
     cfg = get_config(arch)
-    quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8)
+    quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8, variant=variant)
+    label = arch if variant == "fused" else f"{arch}-{variant}"
+    k1 = "apmm_fused_linear" if variant == "fused" \
+        else "apmm_fused_linear_bitserial"
     forward, n_dispatch, n_small = M.forward, [0], [0]
-    thr, n_body = apmm.small_m_max(), per_dispatch["apmm_fused_linear"] - 1
+    # K1's small-M route is the fused variant's
+    thr = apmm.small_m_max() if variant == "fused" else 0
+    n_body = per_dispatch[k1] - 1
 
     def counting_forward(params, tokens, *a, **kw):
         n_dispatch[0] += 1
@@ -1006,8 +1285,7 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     resident = fresh_memory(torch)
     M.forward = counting_forward
     # --- the main path: counters zeroed just before, read just after ---
-    pack.LAUNCHES = apmm.LAUNCHES = flash_attention.LAUNCHES = 0
-    moe.LAUNCHES = apmm.SMALL_M_LAUNCHES = 0
+    zero_counters()
     try:
         t0 = time.time()
         params = M.init_params(cfg, seed=seed, device="cuda", quant=quant)
@@ -1054,10 +1332,7 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
             torch.cuda.synchronize()
             step_ms[kind].append((time.time() - ts) * 1e3)
         t_serve = time.time() - t_serve - t_prof     # traced steps left out
-        counts = {"quantize_pack_rows": pack.LAUNCHES,
-                  "apmm_fused_linear": apmm.LAUNCHES,
-                  "paged_attention": flash_attention.LAUNCHES,
-                  "moe_expert_linear": moe.LAUNCHES}
+        counts = counters()
         small_m = apmm.SMALL_M_LAUNCHES
     finally:
         M.forward = forward
@@ -1079,21 +1354,28 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     nd = n_dispatch[0]
     for name, per in per_dispatch.items():
         if counts[name] != per * nd or counts[name] <= 0:
-            raise AssertionError(f"{arch}: kernel {name} launched "
+            raise AssertionError(f"{label}: kernel {name} launched "
                                  f"{counts[name]} times in {nd} dispatches, "
                                  f"not {per} per dispatch")
-    if small_m != n_small[0] or not 0 < small_m < counts["apmm_fused_linear"]:
-        raise AssertionError(f"{arch}: {small_m} of "
-                             f"{counts['apmm_fused_linear']} K1 launches on "
-                             f"the small-M route, not the {n_small[0]} at "
-                             f"M <= {thr}")
+    for name in GEMMS:
+        if name not in per_dispatch and counts[name]:
+            raise AssertionError(f"{label}: kernel {name} launched "
+                                 f"{counts[name]} times, not 0")
+    if small_m != n_small[0] or (variant == "fused" and not
+                                 0 < small_m < counts[k1]):
+        raise AssertionError(f"{label}: {small_m} of {counts[k1]} K1 "
+                             f"launches on the small-M route, not the "
+                             f"{n_small[0]} at M <= {thr}")
     if n_pack is not None and counts["quantize_pack_rows"] != n_pack:
         raise AssertionError(f"{arch}: K3 launched "
                              f"{counts['quantize_pack_rows']} times at load, "
                              f"not {n_pack}")
+    if twin_tokens is not None:
+        same_tokens(label, reqs, twin_tokens)
     n_tok = sum(len(r.out) for r in reqs) - tok_prof
     pre, dec = step_ms["prefill"], step_ms["decode"]
-    print(f"end to end {arch} {cfg.n_layers}L w2/a8/kv8 paged bs=16 "
+    counts = {k: v for k, v in counts.items() if v}
+    print(f"end to end {label} {cfg.n_layers}L w2/a8/kv8 paged bs=16 "
           f"chunk=256: load+quantize {t_load:.2f} s; {len(reqs)} requests "
           f"(prompts {[len(r.prompt) for r in reqs]}, prefix hit tokens "
           f"{rep['prefix_hit_tokens']}, window-reclaimed blocks "
@@ -1112,7 +1394,7 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
 
 
 def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
-                           n_pack):
+                           n_pack, variant="fused", twin_tokens=None):
     """llama3-8b at full width served by ``Engine(paged=False, n_slots=4,
     max_len=1024)`` with the unfused linear (K3 + K5) and K6 reading the
     packed rings, the prompts of the paged llama path (600, 100, 300,
@@ -1121,43 +1403,37 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
     forward dispatch must launch each kernel ``per_dispatch[name]`` times
     (K3 also ``n_pack`` times at load), and K1, K2, K4 never.  Prints
     the share of tokens equal to the paged fused path's (``paged_tokens``;
-    K2 and K6 sum in different orders, so it is not asserted)."""
+    K2 and K6 sum in different orders, so it is not asserted).
+    ``variant="bitserial"`` serves through K5's bitserial kernel; its
+    tokens must equal ``twin_tokens``, the fused run's.  Every counter
+    not in ``per_dispatch`` must stay 0.  Returns the counts and the
+    tokens."""
     import numpy as np
     from repro_torch.configs import get_config
-    from repro_torch.kernels import apmm, flash_attention, moe, pack
     from repro_torch.models import model as M
     from repro_torch.models.config import QuantConfig
     from repro_torch.serving import engine as E
     cfg = get_config("llama3-8b")
-    quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8, fused_linear=False)
+    quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8, fused_linear=False,
+                        variant=variant)
+    label = "llama3-8b-contiguous-unfused" + (
+        "" if variant == "fused" else f"-{variant}")
     forward, n_dispatch = M.forward, [0]
 
     def counting_forward(*a, **kw):
         n_dispatch[0] += 1
         return forward(*a, **kw)
 
-    def counters():
-        return {"quantize_pack_rows": pack.LAUNCHES,
-                "apmm_fused_linear": apmm.LAUNCHES,
-                "apmm_packed": apmm.PACKED_LAUNCHES,
-                "paged_attention": flash_attention.LAUNCHES,
-                "flash_attention_quantized":
-                    flash_attention.QUANTIZED_LAUNCHES,
-                "flash_attention": flash_attention.FLOAT_LAUNCHES,
-                "moe_expert_linear": moe.LAUNCHES}
-
     resident = fresh_memory(torch)
     M.forward = counting_forward
     # --- the main path: counters zeroed just before, read just after ---
-    pack.LAUNCHES = apmm.LAUNCHES = apmm.PACKED_LAUNCHES = 0
-    flash_attention.LAUNCHES = flash_attention.QUANTIZED_LAUNCHES = 0
-    flash_attention.FLOAT_LAUNCHES = moe.LAUNCHES = 0
+    zero_counters()
     try:
         t0 = time.time()
         params = M.init_params(cfg, seed=seed, device="cuda", quant=quant)
         torch.cuda.synchronize()
         t_load = time.time() - t0
-        n_load_pack = pack.LAUNCHES
+        n_load_pack = counters()["quantize_pack_rows"]
         eng = E.Engine(params, cfg, n_slots=4, max_len=1024, quant=quant,
                        paged=False)
         rng = np.random.default_rng(seed)      # the paged path's prompts
@@ -1209,21 +1485,25 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
     if rep["running"] or rep["waiting"]:
         raise AssertionError(f"lanes did not drain: {rep}")
     nd = n_dispatch[0]
-    for name, per in per_dispatch.items():
+    for name in counts:
+        per = per_dispatch.get(name, 0)
         want = per * nd + (n_load_pack if name == "quantize_pack_rows" else 0)
         if counts[name] != want or (per and counts[name] <= 0):
-            raise AssertionError(f"contiguous: kernel {name} launched "
+            raise AssertionError(f"{label}: kernel {name} launched "
                                  f"{counts[name]} times in {nd} dispatches, "
                                  f"not {per} per dispatch")
     if n_load_pack != n_pack:
-        raise AssertionError(f"contiguous: K3 launched {n_load_pack} times "
+        raise AssertionError(f"{label}: K3 launched {n_load_pack} times "
                              f"at load, not {n_pack}")
+    if twin_tokens is not None:
+        same_tokens(label, reqs, twin_tokens)
     same = sum(a == b for ra, rb in zip(reqs, paged_tokens)
                for a, b in zip(ra.out, rb))
     total = sum(len(r.out) for r in reqs)
     n_tok = total - tok_prof
     pre, dec = step_ms["prefill"], step_ms["decode"]
-    print(f"end to end llama3-8b-contiguous-unfused {cfg.n_layers}L "
+    counts = {k: v for k, v in counts.items() if v}
+    print(f"end to end {label} {cfg.n_layers}L "
           f"w2/a8/kv8 contiguous n_slots=4 max_len=1024: load+quantize "
           f"{t_load:.2f} s; {len(reqs)} requests (prompts "
           f"{[len(r.prompt) for r in reqs]}), {nd} forward dispatches, "
@@ -1238,8 +1518,7 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
           f"fused path's at the same index", flush=True)
     del eng, params
     torch.cuda.empty_cache()
-    return {k: v for k, v in counts.items() if per_dispatch.get(k)
-            or k == "quantize_pack_rows"}
+    return counts, [list(r.out) for r in reqs]
 
 
 def main() -> int:
@@ -1281,33 +1560,51 @@ def main() -> int:
     k7_before = flash_attention.FLOAT_LAUNCHES
     k6_k7_phase(torch, timer, args.seed, results)
     k7_launches = flash_attention.FLOAT_LAUNCHES - k7_before
+    norm_phase(torch, timer, args.seed)
     del timer
     torch.cuda.empty_cache()
     shallow_phase(torch, args.seed, "llama3-8b", n_layers=2, s=24)
     shallow_phase(torch, args.seed, "llama3-8b", n_layers=2, s=24,
                   contiguous=True)
     shallow_phase(torch, args.seed, "mixtral-8x7b", n_layers=1, s=8)
-    llama, llama_tokens = serve_phase(
-        torch, args.seed, "llama3-8b", prompt_lens=(600, 100, 300),
-        prefix=128, max_len=1024, n_blocks=257,
+    # each path, then its bit-serial twin: the same weights (the same
+    # seed), prompts and engine, through the bitserial kernels
+    paths = {}
+    llama_kw = dict(prompt_lens=(600, 100, 300), prefix=128, max_len=1024,
+                    n_blocks=257, n_pack=225)
+    paths["llama3-8b"], llama_tokens = serve_phase(
+        torch, args.seed, "llama3-8b",
         per_dispatch={"apmm_fused_linear": 193, "paged_attention": 32},
-        n_pack=225)
-    mixtral, _ = serve_phase(
+        **llama_kw)
+    paths["llama3-8b-bitserial"], _ = serve_phase(
+        torch, args.seed, "llama3-8b", variant="bitserial",
+        twin_tokens=llama_tokens,
+        per_dispatch={"apmm_fused_linear_bitserial": 193,
+                      "paged_attention": 32}, **llama_kw)
+    mixtral_kw = dict(prompt_lens=(600, 100, 300, 4300), prefix=128,
+                      max_len=4352, n_blocks=512, n_pack=897)
+    paths["mixtral-8x7b"], mixtral_tokens = serve_phase(
         torch, args.seed, "mixtral-8x7b",
-        prompt_lens=(600, 100, 300, 4300), prefix=128, max_len=4352,
-        n_blocks=512,
         per_dispatch={"apmm_fused_linear": 129, "paged_attention": 32,
-                      "moe_expert_linear": 64},
-        n_pack=897)
-    contiguous = serve_contiguous_phase(
-        torch, args.seed, llama_tokens,
-        per_dispatch={"apmm_packed": 225, "flash_attention_quantized": 32,
-                      "quantize_pack_rows": 225, "apmm_fused_linear": 0,
-                      "paged_attention": 0, "moe_expert_linear": 0,
-                      "flash_attention": 0},
-        n_pack=225)
-    paths = {"llama3-8b": llama, "mixtral-8x7b": mixtral,
-             "llama3-8b-contiguous-unfused": contiguous}
+                      "moe_expert_linear": 64}, **mixtral_kw)
+    paths["mixtral-8x7b-bitserial"], _ = serve_phase(
+        torch, args.seed, "mixtral-8x7b", variant="bitserial",
+        twin_tokens=mixtral_tokens,
+        per_dispatch={"apmm_fused_linear_bitserial": 129,
+                      "paged_attention": 32,
+                      "moe_expert_linear_bitserial": 64}, **mixtral_kw)
+    paths["llama3-8b-contiguous-unfused"], contiguous_tokens = \
+        serve_contiguous_phase(
+            torch, args.seed, llama_tokens, n_pack=225,
+            per_dispatch={"apmm_packed": 225, "flash_attention_quantized": 32,
+                          "quantize_pack_rows": 225})
+    paths["llama3-8b-contiguous-unfused-bitserial"], _ = \
+        serve_contiguous_phase(
+            torch, args.seed, llama_tokens, n_pack=225, variant="bitserial",
+            twin_tokens=contiguous_tokens,
+            per_dispatch={"apmm_packed_bitserial": 225,
+                          "flash_attention_quantized": 32,
+                          "quantize_pack_rows": 225})
     for arch, c in paths.items():
         print(f"kernels ({arch} path): "
               + ", ".join(f"{k}={v}" for k, v in c.items()), flush=True)
@@ -1327,11 +1624,22 @@ def main() -> int:
             "src/repro/kernels/flash_attention.py:234"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:124"),
+        # the bitserial variants: the same pallas_call, their own kernels
+        "apmm_fused_linear_bitserial": (
+            "src/repro_torch/csrc/apmm_fused_linear.cu",
+            "src/repro/kernels/apmm.py:355"),
+        "apmm_packed_bitserial": ("src/repro_torch/csrc/apmm_packed.cu",
+                                  "src/repro/kernels/apmm.py:422"),
+        "moe_expert_linear_bitserial": (
+            "src/repro_torch/csrc/moe_expert_linear.cu",
+            "src/repro/kernels/moe.py:273"),
     }
 
     def entry(k, launches, **extra):
         source, replaces = meta[k]
         r = results[k]
+        if "fused_ms" in r:           # the fused kernel's time, this run
+            extra["fused_ms"] = r["fused_ms"]
         return dict(name=k, **extra, route="cuda", source=source,
                     replaces=replaces, launches=launches,
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

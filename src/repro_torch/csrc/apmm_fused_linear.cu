@@ -39,10 +39,25 @@
 //
 // Built with -fmad=false; the epilogue also uses __fmul_rn / __fadd_rn, so
 // at act = none its f32 bits equal the plain version's.
+//
+// `bitserial` variant (the TPU body's per-bit-pair branch, apmm.py:219-221,
+// :237-243 and the shift-add at :250-256): apmm_fused_linear_bitserial_kernel
+// at the end of this file.  Its prologue quantizes the X tile with the same
+// quantize_u and packs each activation plane into b1 words in shared
+// memory: one lane per K element, __ballot_sync((u >> i) & 1) is plane i's
+// word in the packed bit order (element 32 w + lane at bit lane); K-pad
+// columns are u = 0 (-maxA), as the TPU kernel's _quantize_tile.  The
+// weight planes are staged as they lie, the b1 core (bitserial_core.cuh)
+// multiplies, and the same epilogue function finishes, so its outputs
+// equal the fused variant's bit for bit.  Its bound is the fused
+// variant's (same function, same work).  Tiles: 16 x 64 outputs a block
+// up to M = 32, 64 x 64 above; one route for every M.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bitserial_core.cuh"
 
 namespace {
 
@@ -624,6 +639,121 @@ int launch(const void* x, const void* a_scale, const void* bp,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// `bitserial` variant: quantize + ballot-pack prologue, b1 core, K1 epilogue
+// ---------------------------------------------------------------------------
+
+template <typename TX, typename TO, int WM, int NJ, int NW>
+__global__ void __launch_bounds__(bitserial::THREADS)
+apmm_fused_linear_bitserial_kernel(const TX* __restrict__ x,
+                                   const float* __restrict__ a_scale,
+                                   const uint32_t* __restrict__ bp,
+                                   const float* __restrict__ b_scale,
+                                   const uint32_t* __restrict__ bp2,
+                                   const float* __restrict__ b2_scale,
+                                   const float* __restrict__ bias,
+                                   const TO* __restrict__ residual,
+                                   TO* __restrict__ out, int m, int n, int k,
+                                   int kw, int n_a, int n_b, int act,
+                                   uint32_t c0) {
+  using namespace bitserial;
+  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
+  extern __shared__ __align__(16) uint32_t smem_b1[];
+  uint32_t* sa = smem_b1;                        // [n_a][BM][KSTEP]
+  const uint32_t* sb[NW];                        // [n_b][BN][KSTEP] each
+  uint32_t* sb_w[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    sb_w[w] = sa + (n_a * BM + w * n_b * BN) * KSTEP;
+    sb[w] = sb_w[w];
+  }
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr0 = 16 * (warp % WM), wc0 = 8 * NJ * (warp / WM);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int max_a = (1 << n_a) - 1;
+
+  uint32_t acc[NW][NJ][4] = {};
+  for (int kw0 = 0; kw0 < kw; kw0 += KSTEP) {
+    // -- prologue: quantize, then one ballot per activation plane --------
+    ballot_pack<BM>(sa, n_a, kw0, lane, warp, [&](int r, int col) {
+      const int row = m0 + r;
+      return row < m && col < k
+                 ? quantize_u(to_f32(x[(long long)row * k + col]),
+                              a_scale[row], max_a)
+                 : 0;                                // pad: -maxA
+    });
+    // -- weights: the planes as they lie --------------------------------
+    stage_planes<BN>(sb_w[0], bp, (long long)n * kw, kw, n, n0, kw0, n_b,
+                     tid);
+    if (NW == 2)
+      stage_planes<BN>(sb_w[NW - 1], bp2, (long long)n * kw, kw, n, n0, kw0,
+                       n_b, tid);
+    __syncthreads();
+    kstep<BM, BN, NJ, NW>(sa, sb, n_a, n_b, wr0, wc0, lane, acc);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      int row, col;
+      frag_coords(lane, wr0, wc0, jn, r, &row, &col);
+      row += m0;
+      col += n0;
+      if (row >= m || col >= n) continue;
+      epilogue<TO>(recover(c0, acc[0][jn][r]),
+                   recover(c0, acc[NW - 1][jn][r]), row, col, n, a_scale,
+                   b_scale, b2_scale, bias, residual, NW == 2, act, out);
+    }
+}
+
+template <typename TX, typename TO, int WM, int NJ, int NW>
+int launch_bitserial_tile(const void* x, const void* a_scale, const void* bp,
+                          const void* b_scale, const void* bp2,
+                          const void* b2_scale, const void* bias,
+                          const void* residual, void* out, int m, int n,
+                          int k, int kw, int n_a, int n_b, int act,
+                          uint32_t c0, cudaStream_t stream) {
+  using namespace bitserial;
+  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
+  auto kernel = apmm_fused_linear_bitserial_kernel<TX, TO, WM, NJ, NW>;
+  const int smem = (n_a * BM + NW * n_b * BN) * KSTEP * 4;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (8 * BM + NW * 8 * BN) * KSTEP * 4);
+    if (e != cudaSuccess) return (int)e;
+    configured = true;
+  }
+  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  kernel<<<grid, bitserial::THREADS, smem, stream>>>(
+      (const TX*)x, (const float*)a_scale, (const uint32_t*)bp,
+      (const float*)b_scale, (const uint32_t*)bp2, (const float*)b2_scale,
+      (const float*)bias, (const TO*)residual, (TO*)out, m, n, k, kw, n_a,
+      n_b, act, c0);
+  return (int)cudaGetLastError();
+}
+
+// 16-row tiles up to M = 32 (decode), 64-row tiles above; one or two
+// weights
+template <typename TX, typename TO>
+int launch_bitserial(const void* x, const void* a_scale, const void* bp,
+                     const void* b_scale, const void* bp2,
+                     const void* b2_scale, const void* bias,
+                     const void* residual, void* out, int m, int n, int k,
+                     int kw, int n_a, int n_b, int act, cudaStream_t s) {
+  const uint32_t c0 = bitserial::c0_of(k, kw, n_a, n_b);
+#define REPRO_BITSERIAL(WM, NJ, NW)                                         \
+  launch_bitserial_tile<TX, TO, WM, NJ, NW>(x, a_scale, bp, b_scale, bp2,   \
+      b2_scale, bias, residual, out, m, n, k, kw, n_a, n_b, act, c0, s)
+  const bool dual = bp2 != nullptr;
+  if (m <= 32) return dual ? REPRO_BITSERIAL(1, 1, 2) : REPRO_BITSERIAL(1, 1, 1);
+  return dual ? REPRO_BITSERIAL(4, 4, 2) : REPRO_BITSERIAL(4, 4, 1);
+#undef REPRO_BITSERIAL
+}
+
 }  // namespace
 
 // The largest M the small-M route takes; the wrapper sizes its workspace
@@ -632,15 +762,33 @@ extern "C" int repro_apmm_small_m_max(void) { return SMALL_M_MAX; }
 
 // dtype codes: 0 = float32, 1 = bfloat16.  act: 0 none, 1 silu, 2 gelu.
 // ws: the small-M route's workspace (M <= repro_apmm_small_m_max()), else
-// unused.
+// unused.  variant: 0 = fused (the small-M route or the dp4a tile), 1 =
+// bitserial (the b1 core; ws unused).
 extern "C" int repro_apmm_fused_linear(
     const void* x, const void* a_scale, const void* bp, const void* b_scale,
     const void* bp2, const void* b2_scale, const void* bias,
     const void* residual, void* out, void* ws, int m, int n, int k, int kw,
-    int n_a, int n_b, int act, int x_dtype, int out_dtype, void* stream) {
+    int n_a, int n_b, int act, int x_dtype, int out_dtype, int variant,
+    void* stream) {
   if (m == 0 || n == 0) return 0;
-  if (n_a < 1 || n_a > 8 || n_b < 1 || n_b > 8) return (int)cudaErrorInvalidValue;
+  if (n_a < 1 || n_a > 8 || n_b < 1 || n_b > 8 || variant < 0 ||
+      variant > 1 || k > kw * 32)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 1) {
+#define REPRO_BITSERIAL_DT(TX, TO)                                          \
+    launch_bitserial<TX, TO>(x, a_scale, bp, b_scale, bp2, b2_scale, bias,  \
+                             residual, out, m, n, k, kw, n_a, n_b, act, s)
+    if (x_dtype == 1 && out_dtype == 1)
+      return REPRO_BITSERIAL_DT(__nv_bfloat16, __nv_bfloat16);
+    if (x_dtype == 1 && out_dtype == 0)
+      return REPRO_BITSERIAL_DT(__nv_bfloat16, float);
+    if (x_dtype == 0 && out_dtype == 1)
+      return REPRO_BITSERIAL_DT(float, __nv_bfloat16);
+    if (x_dtype == 0 && out_dtype == 0) return REPRO_BITSERIAL_DT(float, float);
+#undef REPRO_BITSERIAL_DT
+    return (int)cudaErrorInvalidValue;
+  }
   if (x_dtype == 1 && out_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(x, a_scale, bp, b_scale, bp2,
         b2_scale, bias, residual, out, ws, m, n, k, kw, n_a, n_b, act, s);

@@ -33,10 +33,22 @@
 //
 // Built with -fmad=false; the dequant also uses __fmul_rn, so its f32 bits
 // equal the plain version's.
+//
+// `bitserial` variant (the TPU body's per-bit-pair branch, apmm.py:137-150
+// and the shift-add at :155-162): apmm_packed_bitserial_kernel below runs
+// the shared b1 core (bitserial_core.cuh) on both operands' planes as
+// they lie in device memory -- no unpacking at all -- and the same
+// from_acc output.  Its bound is the fused variant's, since the function
+// and its work are the same: bytes at decode, operations (counted as the
+// fused variant's int8 plane-group products) at a chunk.  Tiles: 16 x 64
+// outputs a block up to M = 32, 64 x 64 above; each K step stages n_a + n_b
+// planes x 8 words per row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bitserial_core.cuh"
 
 namespace {
 
@@ -249,19 +261,119 @@ int launch(const void* ap, const void* bp, const void* a_scale,
                                        kw, n_a, n_b, preload, s);
 }
 
+// ---------------------------------------------------------------------------
+// `bitserial` variant: the b1 core on the packed planes (header note)
+// ---------------------------------------------------------------------------
+
+template <typename TO, int WM, int NJ>
+__global__ void __launch_bounds__(bitserial::THREADS)
+apmm_packed_bitserial_kernel(const uint32_t* __restrict__ ap,
+                             const uint32_t* __restrict__ bp,
+                             const float* __restrict__ a_scale,
+                             const float* __restrict__ b_scale,
+                             TO* __restrict__ out, int m, int n, int kw,
+                             int n_a, int n_b, uint32_t c0) {
+  using namespace bitserial;
+  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
+  extern __shared__ __align__(16) uint32_t smem_b1[];
+  uint32_t* sa = smem_b1;                        // [n_a][BM][KSTEP]
+  uint32_t* sb0 = sa + n_a * BM * KSTEP;         // [n_b][BN][KSTEP]
+  const uint32_t* sb[1] = {sb0};
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wr0 = 16 * (warp % WM), wc0 = 8 * NJ * (warp / WM);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+
+  uint32_t acc[1][NJ][4] = {};
+  for (int kw0 = 0; kw0 < kw; kw0 += KSTEP) {
+    stage_planes<BM>(sa, ap, (long long)m * kw, kw, m, m0, kw0, n_a, tid);
+    stage_planes<BN>(sb0, bp, (long long)n * kw, kw, n, n0, kw0, n_b, tid);
+    __syncthreads();
+    kstep<BM, BN, NJ, 1>(sa, sb, n_a, n_b, wr0, wc0, lane, acc);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      int row, col;
+      frag_coords(lane, wr0, wc0, jn, r, &row, &col);
+      row += m0;
+      col += n0;
+      if (row >= m || col >= n) continue;
+      const float as = a_scale != nullptr ? a_scale[row] : 1.0f;
+      const float bs = b_scale != nullptr ? b_scale[col] : 1.0f;
+      out[(long long)row * n + col] =
+          from_acc<TO>(bitserial::recover(c0, acc[0][jn][r]), as, bs);
+    }
+}
+
+template <typename TO, int WM, int NJ>
+int launch_bitserial_tile(const void* ap, const void* bp, const void* a_scale,
+                          const void* b_scale, void* out, int m, int n,
+                          int kw, int n_a, int n_b, uint32_t c0,
+                          cudaStream_t stream) {
+  using namespace bitserial;
+  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
+  auto kernel = apmm_packed_bitserial_kernel<TO, WM, NJ>;
+  const int smem = (n_a * BM + n_b * BN) * KSTEP * 4;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (8 * BM + 8 * BN) * KSTEP * 4);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  kernel<<<grid, bitserial::THREADS, smem, stream>>>(
+      (const uint32_t*)ap, (const uint32_t*)bp, (const float*)a_scale,
+      (const float*)b_scale, (TO*)out, m, n, kw, n_a, n_b, c0);
+  return (int)cudaGetLastError();
+}
+
+// 16-row tiles up to M = 32 (decode), 64-row tiles above
+template <typename TO>
+int launch_bitserial(const void* ap, const void* bp, const void* a_scale,
+                     const void* b_scale, void* out, int m, int n, int k,
+                     int kw, int n_a, int n_b, cudaStream_t s) {
+  const uint32_t c0 = bitserial::c0_of(k, kw, n_a, n_b);
+  if (m <= 32)
+    return launch_bitserial_tile<TO, 1, 1>(ap, bp, a_scale, b_scale, out, m,
+                                           n, kw, n_a, n_b, c0, s);
+  return launch_bitserial_tile<TO, 4, 4>(ap, bp, a_scale, b_scale, out, m, n,
+                                         kw, n_a, n_b, c0, s);
+}
+
 }  // namespace
 
 // out dtype codes: 0 = float32, 1 = bfloat16, 2 = raw int32 (scales
 // ignored).  ap (n_a, m, kw), bp (n_b, n, kw), a_scale (m), b_scale (n),
-// out (m, n); k is the unpadded reduction length (k <= 32 kw).
+// out (m, n); k is the unpadded reduction length (k <= 32 kw).  variant:
+// 0 = fused (the dp4a tile), 1 = bitserial (the b1 core).
 extern "C" int repro_apmm_packed(const void* ap, const void* bp,
                                  const void* a_scale, const void* b_scale,
                                  void* out, int m, int n, int k, int kw,
-                                 int n_a, int n_b, int out_dtype,
+                                 int n_a, int n_b, int out_dtype, int variant,
                                  void* stream) {
   if (m == 0 || n == 0) return 0;
-  if (n_a < 1 || n_a > 8 || n_b < 1 || n_b > 8 || k > kw * 32 || k < 0)
+  if (n_a < 1 || n_a > 8 || n_b < 1 || n_b > 8 || k > kw * 32 || k < 0 ||
+      variant < 0 || variant > 1)
     return (int)cudaErrorInvalidValue;
+  if (variant == 1) {
+    cudaStream_t s = (cudaStream_t)stream;
+    if (out_dtype == 2)
+      return launch_bitserial<int>(ap, bp, nullptr, nullptr, out, m, n, k,
+                                   kw, n_a, n_b, s);
+    if (a_scale == nullptr || b_scale == nullptr)
+      return (int)cudaErrorInvalidValue;
+    if (out_dtype == 0)
+      return launch_bitserial<float>(ap, bp, a_scale, b_scale, out, m, n, k,
+                                     kw, n_a, n_b, s);
+    if (out_dtype == 1)
+      return launch_bitserial<__nv_bfloat16>(ap, bp, a_scale, b_scale, out,
+                                             m, n, k, kw, n_a, n_b, s);
+    return (int)cudaErrorInvalidValue;
+  }
   // closed-form K-pad correction: each pad column's product is -maxA*maxB
   int preload = (kw * 32 - k) * ((1 << n_a) - 1) * ((1 << n_b) - 1);
   cudaStream_t s = (cudaStream_t)stream;

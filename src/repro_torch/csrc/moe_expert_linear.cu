@@ -51,10 +51,25 @@
 //
 // Built with -fmad=false; the epilogue also uses __fmul_rn / __fadd_rn,
 // so at act = none its f32 bits equal the plain version's.
+//
+// `bitserial` variant (the TPU body's per-bit-pair branch, moe.py:112, :133
+// and the shift-add at :156; its accumulator is (n_a * n_b, bc, bn),
+// moe.py:258): moe_expert_linear_bitserial_kernel at the end of this file.
+// The same grid over (segment, row tile, column tile), the same dead-tile
+// skip (zeros, no reads), the same live map and the same f32 epilogue with
+// one cast (moe_epilogue, shared); its prologue quantizes the live rows
+// with the same quantize_u and packs each activation plane into b1 words
+// by one __ballot_sync per plane (K-pad columns and dead rows u = 0), the
+// expert's weight planes are staged as they lie, and the b1 core
+// (bitserial_core.cuh) multiplies.  Its bound is the fused variant's.
+// Tiles: 16 x 64 outputs a block for segments up to 32 rows (decode), 64 x
+// 64 above; the live map is written by each segment's first block.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bitserial_core.cuh"
 
 namespace {
 
@@ -101,6 +116,30 @@ __device__ __forceinline__ void plane_group(int n_bits, int g, int* lo,
 // bits 0..3 of n to bit 0 of bytes 0..3
 __device__ __forceinline__ uint32_t spread4(uint32_t n) {
   return (n * 0x00204081u) & 0x01010101u;
+}
+
+// x -> u = (q + max_a) / 2 of its bipolar value q = clip(round_to_odd(x /
+// s)), in the plain version's f32 steps (IEEE division)
+__device__ __forceinline__ int quantize_u(float xv, float s, int max_a) {
+  float t = __fmul_rn(__fsub_rn(__fdiv_rn(xv, s), 1.0f), 0.5f);
+  float q = __fadd_rn(__fmul_rn(2.0f, rintf(t)), 1.0f);
+  q = fminf(fmaxf(q, (float)(-max_a)), (float)max_a);
+  return ((int)q + max_a) >> 1;
+}
+
+// the f32 epilogue of one live output from its int32 sum(s): (acc * a_s) *
+// b_s as two separate multiplies; dual: act(Y1) * Y2; the caller casts once
+__device__ __forceinline__ float moe_epilogue(int acc1, int acc2, float as,
+                                              float ws, float ws2, bool dual,
+                                              int act) {
+  float yf = __fmul_rn(__fmul_rn((float)acc1, as), ws);
+  if (dual) {
+    float y2 = __fmul_rn(__fmul_rn((float)acc2, as), ws2);
+    yf = __fmul_rn(act_fn(yf, act), y2);
+  } else if (act != 0) {
+    yf = act_fn(yf, act);
+  }
+  return yf;
 }
 
 // BM x BN output tile, each of the 256 threads an RM x RN micro-tile of
@@ -184,13 +223,9 @@ moe_expert_linear_kernel(const TX* __restrict__ x,
         int col = k0 + k4 * 4 + q4;
         live[q4] = row_live && col < k;
         u[q4] = 0;
-        if (live[q4]) {
-          float xv = to_f32(x[(seg_row0 + row) * k + col]);
-          float t = __fmul_rn(__fsub_rn(__fdiv_rn(xv, s), 1.0f), 0.5f);
-          float q = __fadd_rn(__fmul_rn(2.0f, rintf(t)), 1.0f);
-          q = fminf(fmaxf(q, (float)(-max_a)), (float)max_a);
-          u[q4] = ((int)q + max_a) >> 1;
-        }
+        if (live[q4])
+          u[q4] = quantize_u(to_f32(x[(seg_row0 + row) * k + col]), s,
+                             max_a);
       }
 #pragma unroll
       for (int g = 0; g < 2; ++g) {
@@ -302,16 +337,10 @@ moe_expert_linear_kernel(const TX* __restrict__ x,
       int col = n0 + tx + TX_ * j;
       if (col >= n) continue;
       float yo = 0.0f;
-      if (row < lim) {
-        float yf = __fmul_rn(__fmul_rn((float)acc[0][i][j], as), ws[col]);
-        if (bp2 != nullptr) {
-          float y2 = __fmul_rn(__fmul_rn((float)acc[1][i][j], as), ws2[col]);
-          yf = __fmul_rn(act_fn(yf, act), y2);
-        } else if (act != 0) {
-          yf = act_fn(yf, act);
-        }
-        yo = yf;
-      }
+      if (row < lim)
+        yo = moe_epilogue(acc[0][i][j], acc[1][i][j], as, ws[col],
+                          ws2 != nullptr ? ws2[col] : 0.0f, bp2 != nullptr,
+                          act);
       out[(seg_row0 + row) * n + col] = from_f32<TO>(yo);
     }
   }
@@ -372,23 +401,188 @@ int launch(const void* x, const void* a_scale, const void* counts,
       act, bc, n_ci, s);
 }
 
+// ---------------------------------------------------------------------------
+// `bitserial` variant: quantize + ballot-pack prologue, b1 core, f32
+// epilogue with one cast
+// ---------------------------------------------------------------------------
+
+template <typename TX, typename TO, int WM, int NJ, int NW>
+__global__ void __launch_bounds__(bitserial::THREADS)
+moe_expert_linear_bitserial_kernel(const TX* __restrict__ x,
+                                   const float* __restrict__ a_scale,
+                                   const int* __restrict__ counts,
+                                   const uint32_t* __restrict__ bp,
+                                   const float* __restrict__ b_scale,
+                                   const uint32_t* __restrict__ bp2,
+                                   const float* __restrict__ b2_scale,
+                                   TO* __restrict__ out,
+                                   int* __restrict__ live_map, int n_exp,
+                                   int groups, int seg, int n, int k, int kw,
+                                   int n_a, int n_b, int act, int bc,
+                                   int n_ci, uint32_t c0) {
+  using namespace bitserial;
+  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
+  extern __shared__ __align__(16) uint32_t smem_b1[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int eg = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int e = eg / groups;
+  const int cnt = counts[eg];
+  const long long seg_row0 = (long long)eg * seg;   // first row of segment
+
+  if (blockIdx.x == 0 && blockIdx.y == 0)
+    for (int ci = tid; ci < n_ci; ci += bitserial::THREADS)
+      live_map[eg * n_ci + ci] = cnt > ci * bc ? 1 : 0;
+
+  if (m0 >= cnt) {                       // dead tile: zeros, no reads
+    for (int item = tid; item < BM * BN; item += bitserial::THREADS) {
+      int r = m0 + item / BN, c = n0 + item % BN;
+      if (r < seg && c < n) out[(seg_row0 + r) * n + c] = from_f32<TO>(0.0f);
+    }
+    return;
+  }
+
+  const int lim = cnt < seg ? cnt : seg;  // live rows of this segment
+  uint32_t* sa = smem_b1;                        // [n_a][BM][KSTEP]
+  const uint32_t* sb[NW];                        // [n_b][BN][KSTEP] each
+  uint32_t* sb_w[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    sb_w[w] = sa + (n_a * BM + w * n_b * BN) * KSTEP;
+    sb[w] = sb_w[w];
+  }
+  const int wr0 = 16 * (warp % WM), wc0 = 8 * NJ * (warp / WM);
+  const int max_a = (1 << n_a) - 1;
+  const long long plane_stride = (long long)n_exp * n * kw;
+  const uint32_t* wbase = bp + (long long)e * n * kw;
+  const uint32_t* wbase2 = bp2 != nullptr ? bp2 + (long long)e * n * kw
+                                          : nullptr;
+
+  uint32_t acc[NW][NJ][4] = {};
+  for (int kw0 = 0; kw0 < kw; kw0 += KSTEP) {
+    // -- prologue: quantize the live rows, one ballot per plane ----------
+    ballot_pack<BM>(sa, n_a, kw0, lane, warp, [&](int r, int col) {
+      const int row = m0 + r;
+      return row < lim && col < k
+                 ? quantize_u(to_f32(x[(seg_row0 + row) * k + col]),
+                              a_scale[seg_row0 + row], max_a)
+                 : 0;                                // pad, dead row: -maxA
+    });
+    // -- the expert's weight planes as they lie --------------------------
+    stage_planes<BN>(sb_w[0], wbase, plane_stride, kw, n, n0, kw0, n_b, tid);
+    if (NW == 2)
+      stage_planes<BN>(sb_w[NW - 1], wbase2, plane_stride, kw, n, n0, kw0,
+                       n_b, tid);
+    __syncthreads();
+    kstep<BM, BN, NJ, NW>(sa, sb, n_a, n_b, wr0, wc0, lane, acc);
+    __syncthreads();
+  }
+
+  // -- epilogue: f32, one cast, dead rows exact zeros ---------------------
+  const float* ws = b_scale + (long long)e * n;
+  const float* ws2 = b2_scale != nullptr ? b2_scale + (long long)e * n
+                                         : nullptr;
+#pragma unroll
+  for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      int row, col;
+      frag_coords(lane, wr0, wc0, jn, r, &row, &col);
+      row += m0;
+      col += n0;
+      if (row >= seg || col >= n) continue;
+      float yo = 0.0f;
+      if (row < lim)
+        yo = moe_epilogue(recover(c0, acc[0][jn][r]),
+                          recover(c0, acc[NW - 1][jn][r]),
+                          a_scale[seg_row0 + row], ws[col],
+                          ws2 != nullptr ? ws2[col] : 0.0f, NW == 2, act);
+      out[(seg_row0 + row) * n + col] = from_f32<TO>(yo);
+    }
+}
+
+template <typename TX, typename TO, int WM, int NJ, int NW>
+int launch_bitserial_tile(const void* x, const void* a_scale,
+                          const void* counts, const void* bp,
+                          const void* b_scale, const void* bp2,
+                          const void* b2_scale, void* out, void* live,
+                          int n_eg, int n_exp, int groups, int seg, int n,
+                          int k, int kw, int n_a, int n_b, int act, int bc,
+                          int n_ci, uint32_t c0, cudaStream_t stream) {
+  using namespace bitserial;
+  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
+  auto kernel = moe_expert_linear_bitserial_kernel<TX, TO, WM, NJ, NW>;
+  const int smem = (n_a * BM + NW * n_b * BN) * KSTEP * 4;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (8 * BM + NW * 8 * BN) * KSTEP * 4);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  dim3 grid((n + BN - 1) / BN, (seg + BM - 1) / BM, n_eg);
+  kernel<<<grid, bitserial::THREADS, smem, stream>>>(
+      (const TX*)x, (const float*)a_scale, (const int*)counts,
+      (const uint32_t*)bp, (const float*)b_scale, (const uint32_t*)bp2,
+      (const float*)b2_scale, (TO*)out, (int*)live, n_exp, groups, seg, n,
+      k, kw, n_a, n_b, act, bc, n_ci, c0);
+  return (int)cudaGetLastError();
+}
+
+// 16-row tiles for segments up to 32 rows (decode), 64-row tiles above
+template <typename TX, typename TO>
+int launch_bitserial(const void* x, const void* a_scale, const void* counts,
+                     const void* bp, const void* b_scale, const void* bp2,
+                     const void* b2_scale, void* out, void* live, int n_eg,
+                     int n_exp, int groups, int seg, int n, int k, int kw,
+                     int n_a, int n_b, int act, int bc, int n_ci,
+                     cudaStream_t s) {
+  const uint32_t c0 = bitserial::c0_of(k, kw, n_a, n_b);
+#define REPRO_BITSERIAL(WM, NJ, NW)                                          \
+  launch_bitserial_tile<TX, TO, WM, NJ, NW>(x, a_scale, counts, bp, b_scale, \
+      bp2, b2_scale, out, live, n_eg, n_exp, groups, seg, n, k, kw, n_a,     \
+      n_b, act, bc, n_ci, c0, s)
+  const bool dual = bp2 != nullptr;
+  if (seg <= 32)
+    return dual ? REPRO_BITSERIAL(1, 1, 2) : REPRO_BITSERIAL(1, 1, 1);
+  return dual ? REPRO_BITSERIAL(4, 4, 2) : REPRO_BITSERIAL(4, 4, 1);
+#undef REPRO_BITSERIAL
+}
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  act: 0 none, 1 silu, 2 gelu.
 // x (n_eg, seg, k), a_scale (n_eg * seg), counts (n_eg), planes (n_b,
 // n_exp, n, kw), scales (n_exp, n), out (n_eg, seg, n), live (n_eg, n_ci);
 // n_eg = n_exp * groups and segment eg belongs to expert eg / groups.
+// variant: 0 = fused (the dp4a tile), 1 = bitserial (the b1 core).
 extern "C" int repro_moe_expert_linear(
     const void* x, const void* a_scale, const void* counts, const void* bp,
     const void* b_scale, const void* bp2, const void* b2_scale, void* out,
     void* live, int n_eg, int n_exp, int groups, int seg, int n, int k,
     int kw, int n_a, int n_b, int act, int bc, int n_ci, int x_dtype,
-    int out_dtype, void* stream) {
+    int out_dtype, int variant, void* stream) {
   if (n_eg == 0 || seg == 0 || n == 0) return 0;
   if (n_a < 1 || n_a > 8 || n_b < 1 || n_b > 8 || n_exp * groups != n_eg ||
-      bc < 1 || kw * 32 < k)
+      bc < 1 || kw * 32 < k || variant < 0 || variant > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  if (variant == 1) {
+#define REPRO_BITSERIAL_DT(TX, TO)                                           \
+    launch_bitserial<TX, TO>(x, a_scale, counts, bp, b_scale, bp2, b2_scale, \
+                             out, live, n_eg, n_exp, groups, seg, n, k, kw,  \
+                             n_a, n_b, act, bc, n_ci, s)
+    if (x_dtype == 1 && out_dtype == 1)
+      return REPRO_BITSERIAL_DT(__nv_bfloat16, __nv_bfloat16);
+    if (x_dtype == 1 && out_dtype == 0)
+      return REPRO_BITSERIAL_DT(__nv_bfloat16, float);
+    if (x_dtype == 0 && out_dtype == 1)
+      return REPRO_BITSERIAL_DT(float, __nv_bfloat16);
+    if (x_dtype == 0 && out_dtype == 0) return REPRO_BITSERIAL_DT(float, float);
+#undef REPRO_BITSERIAL_DT
+    return (int)cudaErrorInvalidValue;
+  }
   if (x_dtype == 1 && out_dtype == 1)
     return launch<__nv_bfloat16, __nv_bfloat16>(x, a_scale, counts, bp,
         b_scale, bp2, b2_scale, out, live, n_eg, n_exp, groups, seg, n, k,

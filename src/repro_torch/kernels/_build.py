@@ -4,7 +4,10 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use, by ``nvcc`` alone, into its own shared library under
 ``build/kernels/`` at the repository root, then loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds).  Libraries are cached by
-a hash of their source and flags: an unchanged source is never rebuilt.
+a hash of their source, the ``csrc/*.cuh`` headers it includes (the
+shared b1 core, ``bitserial_core.cuh``) and the flags: an unchanged
+source is never rebuilt, and an edited header rebuilds every source that
+includes it.
 :func:`build_all` starts one ``nvcc`` per source at once.  A failed
 build raises with the compiler's output; the ``-Xptxas -v`` report
 (registers, shared memory, spills per kernel) is printed once per build
@@ -20,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -54,11 +58,31 @@ def _nvcc() -> str:
                        "toolkit (set $NVCC or put nvcc on PATH)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources_of(src: str) -> list:
+    """``src`` and every ``csrc/`` header it includes, directly or through
+    another header, in the order they are first met."""
+    seen, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                todo.append(os.path.join(_CSRC, inc.decode()))
+    return seen
+
+
 def _target(name: str):
     src = os.path.join(_CSRC, f"{name}.cu")
     flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for path in _sources_of(src):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + b"\0" + f.read())
     so = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
     return src, flags, so
 

@@ -3,8 +3,10 @@
 unfused linear (``csrc/apmm_packed.cu``).
 
 Ports of the TPU kernels ``repro/kernels/apmm.py::apmm_fused_linear``
-and ``::apmm_packed`` (``fused`` variant).  The device decides: CPU
-tensors run the plain versions
+and ``::apmm_packed``, both variants: ``fused`` (int8 plane groups) and
+``bitserial`` (one b1 tensor-core GEMM per bit pair, the shared core of
+``csrc/bitserial_core.cuh``).  The device decides: CPU tensors run the
+plain versions
 (:func:`repro_torch.kernels.ref.ap_linear_fused_ref`,
 :func:`~repro_torch.kernels.ref.apmm_packed` and
 :func:`~repro_torch.kernels.ref.apmm_dequant`), CUDA tensors launch the
@@ -21,22 +23,25 @@ import torch
 from repro_torch.core.bipolar import BipolarTensor
 from repro_torch.kernels import _build, ref
 
-LAUNCHES = 0          # K1 launches since the last reset (chip_smoke)
+LAUNCHES = 0          # K1 `fused` launches since the last reset (chip_smoke)
 SMALL_M_LAUNCHES = 0  # of those, on the small-M route (M <= small_m_max())
-PACKED_LAUNCHES = 0   # K5 launches since the last reset
+PACKED_LAUNCHES = 0   # K5 `fused` launches since the last reset
+BITSERIAL_LAUNCHES = 0         # K1 `bitserial` launches
+PACKED_BITSERIAL_LAUNCHES = 0  # K5 `bitserial` launches
 
 apmm_fused_linear_plain = ref.ap_linear_fused_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _RAW = 2              # K5's out dtype code for the raw int32 product
 _ACTS = {"none": 0, "silu": 1, "gelu": 2}
+_VARIANTS = {"fused": 0, "bitserial": 1}
 
 
 def _lib():
     lib = _build.load("apmm_fused_linear")
     fn = lib.repro_apmm_fused_linear
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -69,12 +74,9 @@ def apmm_fused_linear(x2: torch.Tensor, a_scale: torch.Tensor,
             a_bits=a_bits, variant=variant, act=act, out_dtype=out_dtype)
     if x2.device.type != "cuda":
         raise ValueError(f"apmm_fused_linear: unsupported device {x2.device}")
-    if variant != "fused":
-        raise NotImplementedError(
-            "apmm_fused_linear: the bitserial variant has no CUDA kernel "
-            "yet (ROADMAP queue 2, K1 follow-up: the b1 XOR-popc mma "
-            "kernel)")
-    global LAUNCHES, SMALL_M_LAUNCHES
+    if variant not in _VARIANTS:
+        raise ValueError(f"apmm_fused_linear: variant {variant!r}")
+    global LAUNCHES, SMALL_M_LAUNCHES, BITSERIAL_LAUNCHES
     m, k = x2.shape
     n_b, n, kw = w.packed.shape
     if w.shape != (n, k) or n_b != w.n_bits:
@@ -113,18 +115,22 @@ def apmm_fused_linear(x2: torch.Tensor, a_scale: torch.Tensor,
         if residual is not None else None
     out = torch.empty((m, n), dtype=out_dtype, device=dev)
     fn = _lib()
-    small = m <= small_m_max()
+    fused = variant == "fused"
+    small = fused and m <= small_m_max()
     # the small-M route's workspace: X quantized once, int8 per plane group
     xq = torch.empty((len(ref.plane_groups(a_bits)), m, kw * 32),
                      dtype=torch.int8, device=dev) if small else None
     err = fn(xs.data_ptr(), a_s.data_ptr(), wp.data_ptr(), ws.data_ptr(),
              _ptr(w2p), _ptr(w2s), _ptr(bs_), _ptr(res), out.data_ptr(),
              _ptr(xq), m, n, k, kw, a_bits, w.n_bits, _ACTS[act],
-             _DTYPES[x2.dtype], _DTYPES[out_dtype],
+             _DTYPES[x2.dtype], _DTYPES[out_dtype], _VARIANTS[variant],
              torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "apmm_fused_linear")
-    LAUNCHES += 1
-    SMALL_M_LAUNCHES += small
+    _build.check(err, f"apmm_fused_linear ({variant})")
+    if fused:
+        LAUNCHES += 1
+        SMALL_M_LAUNCHES += small
+    else:
+        BITSERIAL_LAUNCHES += 1
     return out
 
 
@@ -132,7 +138,7 @@ def _packed_lib():
     lib = _build.load("apmm_packed")
     fn = lib.repro_apmm_packed
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -156,11 +162,9 @@ def apmm_packed(a: BipolarTensor, b: BipolarTensor, *,
         return apmm_packed_plain(a, b, variant=variant, out_dtype=out_dtype)
     if a.packed.device.type != "cuda":
         raise ValueError(f"apmm_packed: unsupported device {a.device}")
-    if variant != "fused":
-        raise NotImplementedError(
-            "apmm_packed: the bitserial variant has no CUDA kernel yet "
-            "(ROADMAP queue 2, the K1/K5 b1 XOR-popc mma follow-up)")
-    global PACKED_LAUNCHES
+    if variant not in _VARIANTS:
+        raise ValueError(f"apmm_packed: variant {variant!r}")
+    global PACKED_LAUNCHES, PACKED_BITSERIAL_LAUNCHES
     (m, k), (n, k2) = a.shape, b.shape
     n_a, m_, kw = a.packed.shape
     n_b, n_, kw2 = b.packed.shape
@@ -191,7 +195,10 @@ def apmm_packed(a: BipolarTensor, b: BipolarTensor, *,
         ap.data_ptr(), bp.data_ptr(), _ptr(a_s), _ptr(b_s), out.data_ptr(),
         m, n, k, kw, n_a, n_b,
         _RAW if out_dtype is None else _DTYPES[out_dtype],
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "apmm_packed")
-    PACKED_LAUNCHES += 1
+        _VARIANTS[variant], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"apmm_packed ({variant})")
+    if variant == "fused":
+        PACKED_LAUNCHES += 1
+    else:
+        PACKED_BITSERIAL_LAUNCHES += 1
     return out

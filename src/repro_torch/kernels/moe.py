@@ -1,9 +1,11 @@
 """K4 wrapper: grouped quantized MoE expert GEMM, one launch for all
 experts (``csrc/moe_expert_linear.cu``).
 
-Port of the TPU kernel ``repro/kernels/moe.py::moe_expert_linear``
-(``fused`` variant).  The device decides: CPU tensors run the plain
-version (:func:`repro_torch.kernels.ref.ap_moe_expert_linear_ref` and the
+Port of the TPU kernel ``repro/kernels/moe.py::moe_expert_linear``, both
+variants: ``fused`` (int8 plane groups) and ``bitserial`` (the b1
+tensor-core core of ``csrc/bitserial_core.cuh``).  The device decides:
+CPU tensors run the plain version
+(:func:`repro_torch.kernels.ref.ap_moe_expert_linear_ref` and the
 analytic live map), CUDA tensors launch the kernel or raise.
 """
 
@@ -16,17 +18,19 @@ import torch
 from repro_torch.core.bipolar import BipolarTensor
 from repro_torch.kernels import _build, ref
 
-LAUNCHES = 0          # kernel launches since the last reset (chip_smoke)
+LAUNCHES = 0            # `fused` launches since the last reset (chip_smoke)
+BITSERIAL_LAUNCHES = 0  # `bitserial` launches
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ACTS = {"none": 0, "silu": 1, "gelu": 2}
+_VARIANTS = {"fused": 0, "bitserial": 1}
 
 
 def _lib():
     lib = _build.load("moe_expert_linear")
     fn = lib.repro_moe_expert_linear
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 14 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 15 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -61,12 +65,9 @@ def moe_expert_linear(x: torch.Tensor, a_scale: torch.Tensor,
             act=act, out_dtype=out_dtype, bc=bc)
     if x.device.type != "cuda":
         raise ValueError(f"moe_expert_linear: unsupported device {x.device}")
-    if variant != "fused":
-        raise NotImplementedError(
-            "moe_expert_linear: the bitserial variant has no CUDA kernel "
-            "yet (ROADMAP queue 2, K4 follow-up 6, with K1's b1 XOR-popc "
-            "mma kernel)")
-    global LAUNCHES
+    if variant not in _VARIANTS:
+        raise ValueError(f"moe_expert_linear: variant {variant!r}")
+    global LAUNCHES, BITSERIAL_LAUNCHES
     e, c, k = x.shape
     n_b, e_w, n, kw = w.packed.shape
     g = counts.shape[1]
@@ -114,7 +115,10 @@ def moe_expert_linear(x: torch.Tensor, a_scale: torch.Tensor,
              0 if w2s is None else w2s.data_ptr(), out.data_ptr(),
              live.data_ptr(), e * g, e, g, seg, n, k, kw, a_bits, w.n_bits,
              _ACTS[act], bc, n_ci, _DTYPES[x.dtype], _DTYPES[out_dtype],
-             torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "moe_expert_linear")
-    LAUNCHES += 1
+             _VARIANTS[variant], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"moe_expert_linear ({variant})")
+    if variant == "fused":
+        LAUNCHES += 1
+    else:
+        BITSERIAL_LAUNCHES += 1
     return out, live

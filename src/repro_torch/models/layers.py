@@ -115,16 +115,95 @@ def norm_init(d: int, cfg: ModelConfig, device) -> dict:
     return p
 
 
+# The norm reproduces the f32 bits of the reference's jitted norm on the
+# CPU, where XLA (1) rewrites a row reduction wider than 32 into a tree of
+# reduce-windows of 32 (the padding split between both ends), each summed
+# serially, (2) turns the mean's division by d into a multiply by the f32
+# reciprocal, (3) lowers rsqrt to the AVX estimate `rsqrtps` refined by two
+# Newton-Raphson steps, and (4) contracts a multiply feeding an add into an
+# FMA.  torch.mean/var sum in another order and torch.rsqrt rounds
+# otherwise: at d = 4096, 3% of bf16 rows differed.  Rows no wider than 32
+# (no model's width) take another XLA fusion and are not reproduced.  The
+# card runs the same torch ops.
+
+def _serial_sum(t: torch.Tensor) -> torch.Tensor:
+    """f32 sum over the last axis, one element after another."""
+    acc = t[..., 0] + 0.0                  # 0 + t_0, as XLA's init value
+    for i in range(1, t.shape[-1]):
+        acc = acc + t[..., i]
+    return acc
+
+
+def _row_sum(t: torch.Tensor) -> torch.Tensor:
+    """f32 row sums over the last axis (keepdim) in XLA:CPU's order."""
+    while t.shape[-1] > 32:
+        pad = -t.shape[-1] % 32
+        if pad:
+            t = F.pad(t, (pad // 2, pad - pad // 2))
+        t = _serial_sum(t.unflatten(-1, (-1, 32)))
+    return _serial_sum(t)[..., None]
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once: the f32 product is exact in f64;
+    the f64 sum rounds before the f32 cast only where its exact value
+    needs more than 53 bits, and then lands on an f32 midpoint in ~2^-29
+    of such cases."""
+    a64 = a.double()
+    b64 = b.double() if torch.is_tensor(b) else b
+    c64 = c.double() if torch.is_tensor(c) else c
+    return (a64 * b64 + c64).float()
+
+
+def _f32(v: float) -> float:
+    return torch.tensor(v, dtype=torch.float32).item()
+
+
+_RSQRT_EST: dict = {}
+
+
+def _rsqrt_estimate(v: torch.Tensor) -> torch.Tensor:
+    """``rsqrtps`` of positive normal f32 ``v``: 12 bits, from the top 10
+    mantissa bits and the exponent's parity, ``round(2^13 / sqrt(mid)) /
+    2^13`` at the midpoint ``mid`` of the input's 10-bit bucket (in [1, 2)
+    for an odd biased exponent, in [2, 4) for an even one), scaled by the
+    exponent's half."""
+    table = _RSQRT_EST.get(v.device)
+    if table is None:
+        mid = 1.0 + (torch.arange(1024, dtype=torch.float64) + 0.5) / 1024
+        table = (torch.cat([torch.round(8192.0 / torch.sqrt(2.0 * mid)),
+                            torch.round(8192.0 / torch.sqrt(mid))])
+                 / 8192.0).float().to(v.device)
+        _RSQRT_EST[v.device] = table
+    bits = v.view(torch.int32)
+    e = bits >> 23
+    odd = e & 1
+    est = table[odd * 1024 + ((bits >> 13) & 1023)]       # in [0.5, 1)
+    return (est.view(torch.int32) + (((128 - odd - e) >> 1) << 23)).view(
+        torch.float32)
+
+
+def _rsqrt(v: torch.Tensor) -> torch.Tensor:
+    """f32 ``1 / sqrt(v)`` of positive normal ``v`` (a mean square plus
+    eps) as XLA:CPU lowers ``lax.rsqrt``: the estimate, then twice ``y +=
+    (-y / 2) * (v y y - 1)`` with FMAs."""
+    y = _rsqrt_estimate(v)
+    for _ in range(2):
+        y = _fma(y * -0.5, _fma(v * y, y, -1.0), y)
+    return y
+
+
 def norm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig):
     xf = x.float()
+    inv_d = _f32(1.0 / xf.shape[-1])
+    eps = _f32(cfg.norm_eps)
     if cfg.norm_type == "layernorm":
-        mu = xf.mean(-1, keepdim=True)
-        var = xf.var(-1, keepdim=True, unbiased=False)
-        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
-        y = y * params["scale"] + params["bias"]
+        xc = xf - _row_sum(xf) * inv_d
+        var = _fma(_row_sum(torch.square(xc)), inv_d, eps)
+        y = _fma(xc * _rsqrt(var), params["scale"], params["bias"])
     else:
-        ms = torch.mean(torch.square(xf), -1, keepdim=True)
-        y = xf * torch.rsqrt(ms + cfg.norm_eps) * params["scale"]
+        ms = _fma(_row_sum(torch.square(xf)), inv_d, eps)
+        y = xf * _rsqrt(ms) * params["scale"]
     return y.to(x.dtype)
 
 

@@ -292,9 +292,34 @@ def test_moe_kernel_matches_plain(device, e, g, seg, k, n, a_bits, w_bits):
     assert int(_bf16_ulps(got, want).max()) <= 1
     assert not got[dead].any()
     assert moe.LAUNCHES == before + 4
-    with pytest.raises(NotImplementedError, match="bitserial"):
-        ops.ap_moe_expert_linear(x, w, counts=counts, a_bits=a_bits,
-                                 variant="bitserial")
+    # the bitserial kernel: the same outputs and live map as the plain
+    # version and as the fused kernel, on its own counter
+    bs_before = moe.BITSERIAL_LAUNCHES
+    for wt in (w, w2):
+        got, live = moe.moe_expert_linear(x, a_s, counts, wt, a_bits=a_bits,
+                                          variant="bitserial",
+                                          out_dtype=torch.float32, bc=bc)
+        torch.cuda.synchronize()
+        want, live_ref = moe.moe_expert_linear_plain(
+            x, a_s, counts, wt, a_bits=a_bits, variant="bitserial",
+            out_dtype=torch.float32, bc=bc)
+        fused, _ = moe.moe_expert_linear(x, a_s, counts, wt, a_bits=a_bits,
+                                         out_dtype=torch.float32, bc=bc)
+        assert torch.equal(got, want) and torch.equal(got, fused)
+        assert torch.equal(live, live_ref)
+        assert not got[dead].any()
+    got = ops.ap_moe_expert_linear(x, w, w2=w2, counts=counts,
+                                   a_bits=a_bits, act="silu",
+                                   variant="bitserial")
+    fused = ops.ap_moe_expert_linear(x, w, w2=w2, counts=counts,
+                                     a_bits=a_bits, act="silu")
+    want = ref.ap_moe_expert_linear_ref(x, a_s, counts, w, w2=w2,
+                                        a_bits=a_bits, act="silu",
+                                        variant="bitserial")
+    assert torch.equal(got, fused)
+    assert int(_bf16_ulps(got, want).max()) <= 1
+    assert moe.BITSERIAL_LAUNCHES == bs_before + 3
+    assert moe.LAUNCHES == before + 7
     if w_bits == 8:                  # nested slices of the 8-bit weights
         got = ops.ap_moe_expert_linear(x, w, counts=counts, a_bits=a_bits,
                                        w_bits=3)
@@ -442,8 +467,155 @@ def test_apmm_packed_kernel_bit_exact(device, m, n, k, a_bits, w_bits):
         got = apmm.apmm_packed(a, b, out_dtype=od)
         assert torch.equal(got, apmm.apmm_packed_plain(a, b, out_dtype=od))
     assert apmm.PACKED_LAUNCHES == before + 3
-    with pytest.raises(NotImplementedError, match="bitserial"):
-        apmm.apmm_packed(a, b, variant="bitserial")
+    # the bitserial kernel: bit-exact to its plain version and to the
+    # fused kernel, raw and dequantized, on its own counter
+    bs_before = apmm.PACKED_BITSERIAL_LAUNCHES
+    for od in (None, torch.float32, torch.bfloat16):
+        got = apmm.apmm_packed(a, b, variant="bitserial", out_dtype=od)
+        torch.cuda.synchronize()
+        want = apmm.apmm_packed_plain(a, b, variant="bitserial",
+                                      out_dtype=od)
+        assert torch.equal(got, want)
+        assert torch.equal(got, apmm.apmm_packed(a, b, out_dtype=od))
+    assert apmm.PACKED_BITSERIAL_LAUNCHES == bs_before + 3
+    assert apmm.PACKED_LAUNCHES == before + 6
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 12, 33, 67, 130])
+@pytest.mark.parametrize("n,k", [(70, 100), (300, 4096), (130, 1000)])
+@pytest.mark.parametrize("a_bits,w_bits", [(8, 2), (2, 8), (8, 8), (1, 1),
+                                           (3, 5)])
+def test_apmm_bitserial_kernel_integer_core_bit_exact(device, m, n, k,
+                                                      a_bits, w_bits):
+    """K1's bitserial kernel: the integer core (f32 out, act none) equal to
+    the plain version's and to the fused kernel's, small M included."""
+    rng = np.random.default_rng(m * 7 + n + k + a_bits * 10 + w_bits)
+    w = ops.pack_weight(_rand(rng, (n, k), device), w_bits)
+    x = _rand(rng, (m, k), device)
+    a_s = bipolar.absmax_scale(x, a_bits, axis=-1).float()
+    before = (apmm.BITSERIAL_LAUNCHES, apmm.LAUNCHES)
+    got = apmm.apmm_fused_linear(x, a_s, w, a_bits=a_bits,
+                                 variant="bitserial",
+                                 out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = ref.ap_linear_fused_ref(x, a_s, w, a_bits=a_bits,
+                                   variant="bitserial",
+                                   out_dtype=torch.float32)
+    assert torch.equal(got, want)
+    assert apmm.BITSERIAL_LAUNCHES == before[0] + 1
+    assert apmm.LAUNCHES == before[1]
+    fused = apmm.apmm_fused_linear(x, a_s, w, a_bits=a_bits,
+                                   out_dtype=torch.float32)
+    assert torch.equal(got, fused)
+
+
+@pytest.mark.parametrize("m", [4, 5, 67])
+@pytest.mark.parametrize("n,k", [(70, 100), (4096, 4096), (200, 14336)])
+def test_apmm_bitserial_kernel_dual_silu_bias_residual(device, m, n, k):
+    """bf16 dual gate/up SiLU, bias, residual and nested weights: equal to
+    the fused kernel bit for bit (same integer core, same epilogue code),
+    and to the plain version within 1 bf16 ulp (SiLU) or bit for bit."""
+    rng = np.random.default_rng(m + n + k)
+    wg = ops.pack_weight(_rand(rng, (n, k), device), 2)
+    wu = ops.pack_weight(_rand(rng, (n, k), device), 2)
+    x = _rand(rng, (m, k), device, torch.bfloat16)
+    a_s = bipolar.absmax_scale(x, 8, axis=-1).float()
+    kw = dict(w2=wu, a_bits=8, act="silu", out_dtype=torch.bfloat16)
+    got = apmm.apmm_fused_linear(x, a_s, wg, variant="bitserial", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, apmm.apmm_fused_linear(x, a_s, wg, **kw))
+    want = ref.ap_linear_fused_ref(x, a_s, wg, variant="bitserial", **kw)
+    assert int(_bf16_ulps(got, want).max()) <= 1
+    w8 = ops.pack_weight(_rand(rng, (n, k), device), 8)
+    bias = _rand(rng, (n,), device)
+    res = _rand(rng, (m, n), device, torch.bfloat16)
+    for bits in (8, 3):
+        ws = bipolar.nested_slice(w8, bits)
+        kw = dict(bias=bias, residual=res, a_bits=8,
+                  out_dtype=torch.bfloat16)
+        got = apmm.apmm_fused_linear(x, a_s, ws, variant="bitserial", **kw)
+        assert torch.equal(got, ref.ap_linear_fused_ref(
+            x, a_s, ws, variant="bitserial", **kw))
+        assert torch.equal(got, apmm.apmm_fused_linear(x, a_s, ws, **kw))
+
+
+_BITSERIAL_PATHS = {
+    # name: (arch, first prompt length, QuantConfig extras, engine kwargs)
+    "llama-paged": ("llama3-8b", 5, {},
+                    dict(paged=True, block_size=8, chunk_tokens=8)),
+    "mixtral-paged": ("mixtral-8x7b", 70, {},
+                      dict(paged=True, block_size=8, chunk_tokens=8)),
+    "llama-contiguous-unfused": ("llama3-8b", 5, dict(fused_linear=False),
+                                 dict(paged=False)),
+}
+
+
+@pytest.mark.parametrize("path", list(_BITSERIAL_PATHS))
+def test_bitserial_engine_on_card_matches_cpu_and_fused(device, path):
+    """A reduced w2/a8/kv8 model served three times: bit-serially on the
+    CPU (plain versions), bit-serially on the card and with the fused
+    variant on the card.  The card's bit-serial tokens equal its fused
+    tokens (the integer cores are exact, the epilogues the same code),
+    and the CPU's wherever the CPU run's top-1/top-2 margin exceeds 0.05
+    (exp and f32 sum order differ, as for the fused engine).  The
+    bit-serial card run launches only the bitserial GEMM kernels, as
+    many as the fused run launches fused ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.config import QuantConfig
+    from repro_torch.serving import engine as E
+
+    class CpuEngine(_RecordingEngine, E.Engine):
+        pass
+
+    arch, first, qx, eng_kw = _BITSERIAL_PATHS[path]
+    cfg = get_config(arch).reduced(n_layers=2, d_head=32, vocab=256)
+    qb = QuantConfig(w_bits=2, a_bits=8, kv_bits=8, variant="bitserial",
+                     **qx)
+    qf = QuantConfig(w_bits=2, a_bits=8, kv_bits=8, **qx)
+    params = M.init_params(cfg, seed=1, device="cpu", quant=qb)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, (first + 7 * i,), dtype=np.int32)
+               for i in range(3)]
+
+    def counts():
+        return np.array([apmm.BITSERIAL_LAUNCHES,
+                         apmm.PACKED_BITSERIAL_LAUNCHES,
+                         moe.BITSERIAL_LAUNCHES, apmm.LAUNCHES,
+                         apmm.PACKED_LAUNCHES, moe.LAUNCHES])
+
+    outs, launched = [], []
+    for cls, p, q in ((CpuEngine, params, qb),
+                      (E.Engine, _to(params, device), qb),
+                      (E.Engine, _to(params, device), qf)):
+        before = counts()
+        eng = cls(p, cfg, n_slots=2, max_len=128, quant=q, **eng_kw)
+        reqs = [E.Request(prompt=pr.copy(), max_new_tokens=8)
+                for pr in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        if eng.paged:
+            assert eng.report()["free_blocks"] == eng.report()["n_usable"]
+        launched.append(counts() - before)
+        outs.append((reqs, eng))
+    cpu, bits, fused = launched
+    assert not cpu.any()
+    assert not bits[3:].any() and not fused[:3].any()
+    assert np.array_equal(bits[:3], fused[3:])
+    k4 = arch == "mixtral-8x7b"
+    assert (bits[0] > 0) == qx.get("fused_linear", True)
+    assert (bits[1] > 0) != qx.get("fused_linear", True)
+    assert (bits[2] > 0) == k4
+    (rc, ec), (rb, _), (rf, _) = outs
+    for a, b in zip(rb, rf):
+        assert len(a.out) == 8 and a.out == b.out
+    for a, b in zip(rc, rb):
+        kk = next((i for i, (x, y) in enumerate(zip(a.out, b.out))
+                   if x != y), None)
+        if kk is not None:
+            top = np.sort(ec.rows[(id(a), kk)])
+            assert top[-1] - top[-2] < 0.05, (kk, a.out, b.out)
 
 
 def test_ap_matmul_kernel_unequal_word_widths_and_nested(device):

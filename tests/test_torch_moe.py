@@ -112,7 +112,7 @@ def test_op_matches_reference_impl(bits, mode, dtype):
 
 
 INTERP = [(1, 1, "fused"), (3, 4, "fused"), (8, 8, "fused"),
-          (3, 4, "bitserial")]
+          (3, 4, "bitserial"), (8, 2, "bitserial"), (2, 8, "bitserial")]
 
 
 @pytest.mark.parametrize("a_bits,w_bits,variant", INTERP)
