@@ -33,7 +33,11 @@ exit and no result line):
    kernels, outputs equal to the fused kernels' bit for bit and within
    their tolerance of plain, K4's live map and dead rows as the fused
    kernel's, each timed beside the fused kernel with the fused row's
-   bound (the same function and work);
+   bound (the same function and work) and beside its time before the
+   redesign of the bit-serial core (``PREV_MS``), K1's and K4's with the
+   prologue's and the GEMM's device time apart (``torch.profiler``), and
+   each at the edge of the core's two routes (the stacked route's last
+   M or segment height and the rows route's first);
 4. the norm -- ``norm_apply`` on the card at llama3-8b's width gives
    the CPU's bits (it reproduces XLA's f32 steps in torch ops), and its
    time; then full width, shallow -- one forward of llama3-8b (depth 2,
@@ -62,7 +66,8 @@ exit and no result line):
    the twin launched the fused ones (``apmm.BITSERIAL_LAUNCHES``,
    ``apmm.PACKED_BITSERIAL_LAUNCHES``, ``moe.BITSERIAL_LAUNCHES``), the
    fused kernels never, and whose greedy tokens equal the twin's, all of
-   them;
+   them; each path profiles one chunk step (contiguous: one admitting
+   step) and three decode steps (device time by kernel, idle share);
 6. the launch counts of each path, the JSON kernels line (one entry per
    path and kernel of that path, ``launches`` that path's own count; K7,
    on no path, with its phase-3 launches), the ``nvidia-smi`` line and,
@@ -99,6 +104,19 @@ PREV_MS = {
     "K1 chunk q": None, "K1 chunk gate/up": 13.7831, "K1 chunk down": None,
     "K1 odd": None,
     "K7 decode": 0.8197, "K7 prefill": 1.4612, "K7 decode window 256": 0.4318,
+    # the bitserial kernels on the earlier b1 core (.xor.popc, X re-packed in
+    # every column block), before the .and / stacked / pipelined redesign
+    "K1-bs decode q": 0.2025, "K1-bs decode gate/up": 0.2387,
+    "K1-bs decode down": 0.5510, "K1-bs decode lm_head": 1.2413,
+    "K1-bs chunk q": 3.5084, "K1-bs chunk gate/up": 14.0798,
+    "K1-bs chunk down": 11.9667,
+    "K4-bs decode gate/up": 0.9255, "K4-bs decode down": 0.8463,
+    "K4-bs chunk gate/up": 34.0367, "K4-bs G=32 down": 123.8199,
+    "K5-bs decode q": 0.1162, "K5-bs decode gate": 0.1183,
+    "K5-bs decode down": 0.2986, "K5-bs decode lm_head": 0.5225,
+    "K5-bs chunk q": 0.8467, "K5-bs chunk gate": 2.7359,
+    "K5-bs odd a2w8": 0.0559, "K5-bs odd a8w8": 0.1700,
+    "K5-bs odd a1w1": 0.0622, "K5-bs odd a3w5": 0.0803,
 }
 
 
@@ -156,6 +174,49 @@ def bf16_ulps(a, b):
         i = t.contiguous().view(torch.int16).to(torch.int32)
         return torch.where(i < 0, -(i & 0x7FFF), i)
     return (ordinal(a) - ordinal(b)).abs()
+
+
+def device_split(torch, timer, fn, iters: int = 10) -> dict:
+    """Device ms per call of each kernel ``fn`` launches, by name
+    (``torch.profiler``; L2 flushed before each call, as the Timer does;
+    the flush's own kernel left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    flush = set()
+    with profile(activities=[ProfilerActivity.CUDA]) as p0:
+        timer.flush.zero_()
+        torch.cuda.synchronize()
+    for ev in p0.key_averages():
+        flush.add(ev.key)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or ev.key in flush:
+            continue
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0.0)
+        out[ev.key] = dev / iters / 1e3
+    return out
+
+
+def bitserial_split(torch, timer, fn) -> str:
+    """The bitserial prologue's (X packed once, with its SU clear) and the
+    GEMM's device time per call, apart: the breakdown ``ncu`` would
+    give."""
+    split = device_split(torch, timer, fn)
+    pro = sum(v for k, v in split.items()
+              if "pack_x" in k or "emset" in k)
+    gemm = sum(v for k, v in split.items() if "bitserial_" in k)
+    rest = sum(split.values()) - pro - gemm
+    return (f"device split: prologue {pro:.4f} ms, GEMM {gemm:.4f} ms"
+            + (f", other {rest:.4f} ms" if rest > 0 else ""))
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
@@ -350,18 +411,23 @@ def _k1_bitserial(torch, timer, name, x, a_s, w, w2, res, a_bits, act,
         raise AssertionError(f"K1 bitserial {name}: launch counters")
     ms = timer(run, iters=10)
     plain = timer(run_plain, iters=2, warmup=1)
-    print(f"K1 apmm_fused_linear_bitserial {name} M={x.shape[0]} "
-          f"N={w.shape[0]} K={x.shape[1]} act={act}: cores bit-exact to "
-          f"plain and fused, out equal to the fused kernel's, max|err| "
-          f"{err:.3g}, {ulps} bf16 ulps (tol {0 if act == 'none' else 1}); "
-          f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, the fused row's; "
-          f"{100 * b_ms / ms:.1f}% of bound), fused kernel {fused_ms:.4f} "
-          f"ms in this run, plain {plain:.4f} ms", flush=True)
+    m = x.shape[0]
+    route = "stacked" if m <= apmm.bitserial_stack_max() else "rows"
+    print(f"K1 apmm_fused_linear_bitserial {name} M={m} "
+          f"N={w.shape[0]} K={x.shape[1]} act={act}, {route} route: cores "
+          f"bit-exact to plain and fused, out equal to the fused kernel's, "
+          f"max|err| {err:.3g}, {ulps} bf16 ulps (tol "
+          f"{0 if act == 'none' else 1}); {ms:.4f} ms (bound {b_ms:.4f} ms "
+          f"by {b_by}, the fused row's; {100 * b_ms / ms:.1f}% of bound; "
+          f"{versus_prev('K1-bs ' + name, b_ms)}; "
+          f"{bitserial_split(torch, timer, run)}), fused kernel "
+          f"{fused_ms:.4f} ms in this run, plain {plain:.4f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, fused_ms=fused_ms)
 
 
 def k1_phase(torch, timer, seed, results):
+    from repro_torch.kernels import apmm
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     cache: dict = {}
     cases = [
@@ -374,6 +440,13 @@ def k1_phase(torch, timer, seed, results):
         ("chunk down", 1024, 4096, 14336, dict(residual=True)),
         ("odd", 5, 1000, 1000, {}),
     ]
+    # the bitserial variant's route edge: its stacked route's last M and
+    # the rows route's first, at the decode gate/up shape
+    edge = apmm.bitserial_stack_max()
+    cases += [("stack edge gate/up", edge, 14336, 4096,
+               dict(dual=True, act="silu")),
+              ("rows edge gate/up", edge + 1, 14336, 4096,
+               dict(dual=True, act="silu"))]
     for name, m, n, k, kw in cases:
         r, bs = _k1_case(torch, timer, g, name, m, n, k, cache=cache, **kw)
         if name == "decode gate/up":
@@ -633,12 +706,16 @@ def _k4_bitserial(torch, timer, name, x, a_s, counts, w, w2, a_bits, act,
         raise AssertionError(f"K4 bitserial {name}: launch counter")
     ms = timer(run, iters=10)
     plain = timer(run_plain, iters=2, warmup=1)
-    print(f"K4 moe_expert_linear_bitserial {name}: cores bit-exact to plain "
-          f"and fused, live map equal, dead rows 0, out equal to the fused "
-          f"kernel's, max|err| {err:.3g}, {ulps} bf16 ulps; {ms:.4f} ms "
-          f"(bound {b_ms:.4f} ms by {b_by}, the fused row's; "
-          f"{100 * b_ms / ms:.1f}% of bound), fused kernel {fused_ms:.4f} "
-          f"ms in this run, plain {plain:.4f} ms", flush=True)
+    seg = x.shape[1] // counts.shape[1]
+    route = "stacked" if seg <= moe.bitserial_stack_max() else "rows"
+    print(f"K4 moe_expert_linear_bitserial {name}, {route} route: cores "
+          f"bit-exact to plain and fused, live map equal, dead rows 0, out "
+          f"equal to the fused kernel's, max|err| {err:.3g}, {ulps} bf16 "
+          f"ulps; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, the fused "
+          f"row's; {100 * b_ms / ms:.1f}% of bound; "
+          f"{versus_prev('K4-bs ' + name, b_ms)}; "
+          f"{bitserial_split(torch, timer, run)}), fused kernel "
+          f"{fused_ms:.4f} ms in this run, plain {plain:.4f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, fused_ms=fused_ms)
 
@@ -664,6 +741,16 @@ def k4_phase(torch, timer, seed, results):
         ("odd", dict(e=4, groups=2, seg=4, k=1000, n=1000, counts=odd,
                      dual=True)),
     ]
+    # the bitserial variant's route edge: its stacked route's tallest
+    # segment and the rows route's first, at the gate/up shape
+    from repro_torch.kernels import moe
+    edge = moe.bitserial_stack_max()
+    for name, seg in (("stack edge gate/up", edge),
+                      ("rows edge gate/up", edge + 1)):
+        cases.append((name, dict(
+            e=8, groups=1, seg=seg, k=d, n=f, dual=True,
+            counts=routed_counts(torch, g_, e=8, g=1, tg=4 * seg,
+                                 cap=seg))))
     for name, kw in cases:
         r, bs = _k4_case(torch, timer, g_, name, **kw)
         if name == "decode gate/up":
@@ -759,8 +846,9 @@ def _k5_bitserial(torch, timer, name, a, w, fused_ms, b_ms, b_by):
     print(f"K5 apmm_packed_bitserial {name} a{a.n_bits}w{w.n_bits}: raw "
           f"int32 and f32/bf16 dequant bit-exact to plain and fused; "
           f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, the fused row's; "
-          f"{100 * b_ms / ms:.1f}% of bound), fused kernel {fused_ms:.4f} "
-          f"ms in this run, plain {plain:.4f} ms", flush=True)
+          f"{100 * b_ms / ms:.1f}% of bound; "
+          f"{versus_prev('K5-bs ' + name, b_ms)}), fused kernel "
+          f"{fused_ms:.4f} ms in this run, plain {plain:.4f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, fused_ms=fused_ms)
 
@@ -1160,11 +1248,12 @@ def fresh_memory(torch) -> float:
     return torch.cuda.memory_allocated() / 2**30
 
 
-def profile_steps(torch, eng, n_steps: int) -> str:
-    """``torch.profiler`` over ``n_steps`` engine steps: device time by
-    kernel name and the device's busy share of the window.  Only device
-    events count (kernels, copies): a host op's row repeats the device
-    time of the kernels it launched, which have rows of their own."""
+def profile_steps(torch, eng, n_steps: int, kind: str = "decode") -> str:
+    """``torch.profiler`` over ``n_steps`` engine steps of ``kind``:
+    device time by kernel name and the device's busy share of the
+    window.  Only device events count (kernels, copies): a host op's row
+    repeats the device time of the kernels it launched, which have rows
+    of their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1190,7 +1279,7 @@ def profile_steps(torch, eng, n_steps: int) -> str:
     if not rows:
         raise AssertionError("the profiler recorded no device time")
     rows.sort(reverse=True)
-    print(f"profile of {n_steps} decode steps: wall {wall_us / 1e3:.1f} ms, "
+    print(f"profile of {n_steps} {kind} steps: wall {wall_us / 1e3:.1f} ms, "
           f"device busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%, "
           f"idle {100 - 100 * busy / wall_us:.1f}%), {n_dev} device "
           f"kernels and copies", flush=True)
@@ -1309,22 +1398,29 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
         for r in reqs[:-1]:
             eng.submit(r)
         step_ms = {"prefill": [], "decode": []}
-        prof, t_prof, tok_prof = None, 0.0, 0
+        prof, t_prof, tok_prof, chunk_traced = None, 0.0, 0, False
         t_serve = time.time()
         while eng._has_work() or not late.done:
             if reqs[0].out and getattr(late, "_engine", None) is None:
                 eng.submit(late)      # after the shared prefix is indexed
             kind = "prefill" if (eng.scheduler.waiting or any(
                 s.prefilling for s in eng.scheduler.running)) else "decode"
-            # trace three decode steps in the middle of the run (their
-            # times are left out of the step statistics)
-            traced = kind == "decode" and prof is None \
-                and len(step_ms["decode"]) == 8
+            # trace one chunk step (the second) and three decode steps
+            # in the middle of the run (their times are left out of the
+            # step statistics)
+            traced = (kind == "decode" and prof is None
+                      and len(step_ms["decode"]) == 8) or (
+                kind == "prefill" and not chunk_traced
+                and len(step_ms["prefill"]) == 1)
             if traced:
                 n0, tp = sum(len(r.out) for r in reqs), time.time()
-                prof = profile_steps(torch, eng, 3)
-                t_prof = time.time() - tp
-                tok_prof = sum(len(r.out) for r in reqs) - n0
+                if kind == "prefill":
+                    profile_steps(torch, eng, 1, kind="chunk")
+                    chunk_traced = True
+                else:
+                    prof = profile_steps(torch, eng, 3)
+                t_prof += time.time() - tp
+                tok_prof += sum(len(r.out) for r in reqs) - n0
                 continue
             ts = time.time()
             if not eng.step():
@@ -1451,19 +1547,26 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
         for r in reqs[:-1]:
             eng.submit(r)
         step_ms = {"prefill": [], "decode": []}
-        prof, t_prof, tok_prof = None, 0.0, 0
+        prof, t_prof, tok_prof, admit_traced = None, 0.0, 0, False
         t_serve = time.time()
         while eng._has_work() or not late.done:
             if reqs[0].out and getattr(late, "_engine", None) is None:
                 eng.submit(late)
             kind = "prefill" if eng.queue else "decode"
-            traced = kind == "decode" and prof is None \
-                and len(step_ms["decode"]) == 8
+            # one admitting step (the second) and three decode steps
+            traced = (kind == "decode" and prof is None
+                      and len(step_ms["decode"]) == 8) or (
+                kind == "prefill" and not admit_traced
+                and len(step_ms["prefill"]) == 1)
             if traced:
                 n0, tp = sum(len(r.out) for r in reqs), time.time()
-                prof = profile_steps(torch, eng, 3)
-                t_prof = time.time() - tp
-                tok_prof = sum(len(r.out) for r in reqs) - n0
+                if kind == "prefill":
+                    profile_steps(torch, eng, 1, kind="admitting")
+                    admit_traced = True
+                else:
+                    prof = profile_steps(torch, eng, 3)
+                t_prof += time.time() - tp
+                tok_prof += sum(len(r.out) for r in reqs) - n0
                 continue
             ts = time.time()
             if not eng.step():

@@ -41,17 +41,23 @@
 // at act = none its f32 bits equal the plain version's.
 //
 // `bitserial` variant (the TPU body's per-bit-pair branch, apmm.py:219-221,
-// :237-243 and the shift-add at :250-256): apmm_fused_linear_bitserial_kernel
-// at the end of this file.  Its prologue quantizes the X tile with the same
-// quantize_u and packs each activation plane into b1 words in shared
-// memory: one lane per K element, __ballot_sync((u >> i) & 1) is plane i's
-// word in the packed bit order (element 32 w + lane at bit lane); K-pad
-// columns are u = 0 (-maxA), as the TPU kernel's _quantize_tile.  The
-// weight planes are staged as they lie, the b1 core (bitserial_core.cuh)
-// multiplies, and the same epilogue function finishes, so its outputs
-// equal the fused variant's bit for bit.  Its bound is the fused
-// variant's (same function, same work).  Tiles: 16 x 64 outputs a block
-// up to M = 32, 64 x 64 above; one route for every M.
+// :237-243 and the shift-add at :250-256), at the end of this file, on the
+// b1 core of bitserial_core.cuh (its header note has the design):
+//   prologue : bitserial::pack_x_kernel quantizes X once per launch with the
+//              same quantize_u (K-pad columns u = 0, -maxA, as the TPU
+//              kernel's _quantize_tile) into the wrapper's workspace: X's
+//              planes (n_a, M, Kw) in K5's packed layout and SU (M,)
+//   GEMM     : .and.popc; M <= STACK_MAX takes the stacked route (plane,
+//              row pairs in the MMA's rows: llama decode, M = 4 at a8, is
+//              two 16-row fragments; blocks of 8 nt columns, the widest
+//              that still fills the card), larger M the rows route (64 x
+//              64 tiles); STACK_MAX is where tools/b1_stack_threshold.py
+//              found the stacked route stop winning on the H100 (PERF.md)
+//   epilogue : the same epilogue function as the fused variant, so its
+//              outputs equal the fused variant's bit for bit
+// Its bound is the fused variant's (same function, same work): bytes at
+// decode, where the stacked route streams each weight word once through a
+// 3-stage cp.async ring; operations at a chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,10 +73,9 @@ constexpr int BK = 128;           // K elements per tile (4 words per plane)
 constexpr int LDS = BK + 4;       // padded smem row (bytes): no bank conflicts
 constexpr int THREADS = 256;      // 16 x 16, each a 4 x 4 micro-tile
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using bitserial::quantize_u;   // shared with the bitserial prologue
+using bitserial::to_f32;
+
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
@@ -106,15 +111,6 @@ __device__ __forceinline__ void plane_group(int n_bits, int g, int* lo,
   for (int i = 0; i < g; ++i) l += base + (i < extra ? 1 : 0);
   *lo = l;
   *size = base + (g < extra ? 1 : 0);
-}
-
-// x -> u = (q + max_a) / 2 of its bipolar value q = clip(round_to_odd(x /
-// s)), in the plain version's f32 steps; both routes quantize with it
-__device__ __forceinline__ int quantize_u(float xv, float s, int max_a) {
-  float t = __fmul_rn(__fsub_rn(__fdiv_rn(xv, s), 1.0f), 0.5f);
-  float q = __fadd_rn(__fmul_rn(2.0f, rintf(t)), 1.0f);
-  q = fminf(fmaxf(q, (float)(-max_a)), (float)max_a);
-  return ((int)q + max_a) >> 1;
 }
 
 // 4 values' group (lo, sz) as int8x4: ((u >> lo) & mask) * 2 - mask, 0
@@ -577,15 +573,9 @@ int launch(const void* x, const void* a_scale, const void* bp,
         (const TX*)x, (const float*)a_scale, (int8_t*)ws, m, k, kp, n_a);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    static int n_sm = 0;
-    if (n_sm == 0) {
-      int dev = 0;
-      e = cudaGetDevice(&dev);
-      if (e == cudaSuccess)
-        e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                   dev);
-      if (e != cudaSuccess) return (int)e;
-    }
+    int n_sm = 0;
+    if ((e = (cudaError_t)bitserial::sm_count(&n_sm)) != cudaSuccess)
+      return (int)e;
     // one K word per thread (the fewest words per thread that keep a
     // block at MAX_WARPS warps or less), blocks enough for ~16 resident
     // warps per SM (two at least), each walking several column tiles; the
@@ -639,119 +629,166 @@ int launch(const void* x, const void* a_scale, const void* bp,
   return (int)cudaGetLastError();
 }
 
+
 // ---------------------------------------------------------------------------
-// `bitserial` variant: quantize + ballot-pack prologue, b1 core, K1 epilogue
+// `bitserial` variant: X packed once (bitserial::pack_x_kernel), the b1
+// core's stacked route up to M = STACK_MAX rows and its rows route above,
+// the epilogue above
 // ---------------------------------------------------------------------------
 
-template <typename TX, typename TO, int WM, int NJ, int NW>
-__global__ void __launch_bounds__(bitserial::THREADS)
-apmm_fused_linear_bitserial_kernel(const TX* __restrict__ x,
-                                   const float* __restrict__ a_scale,
-                                   const uint32_t* __restrict__ bp,
-                                   const float* __restrict__ b_scale,
-                                   const uint32_t* __restrict__ bp2,
-                                   const float* __restrict__ b2_scale,
-                                   const float* __restrict__ bias,
-                                   const TO* __restrict__ residual,
-                                   TO* __restrict__ out, int m, int n, int k,
-                                   int kw, int n_a, int n_b, int act,
-                                   uint32_t c0) {
-  using namespace bitserial;
-  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
+constexpr int STACK_MAX = 32;     // rows the stacked route takes
+
+template <typename TO, int NW>
+__global__ void __launch_bounds__(bitserial::THREADS, 2)
+apmm_bitserial_stacked_kernel(const uint32_t* __restrict__ xp,
+                              const int* __restrict__ su,
+                              const uint32_t* __restrict__ bp,
+                              const float* __restrict__ b_scale,
+                              const uint32_t* __restrict__ bp2,
+                              const float* __restrict__ b2_scale,
+                              const float* __restrict__ bias,
+                              const float* __restrict__ a_scale,
+                              const TO* __restrict__ residual,
+                              TO* __restrict__ out, int m, int n, int kw,
+                              int n_a, int n_b, int act, uint32_t c0, int mr,
+                              int nf, int nt, int kstg, int vec) {
   extern __shared__ __align__(16) uint32_t smem_b1[];
-  uint32_t* sa = smem_b1;                        // [n_a][BM][KSTEP]
-  const uint32_t* sb[NW];                        // [n_b][BN][KSTEP] each
-  uint32_t* sb_w[NW];
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    sb_w[w] = sa + (n_a * BM + w * n_b * BN) * KSTEP;
-    sb[w] = sb_w[w];
-  }
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr0 = 16 * (warp % WM), wc0 = 8 * NJ * (warp / WM);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int max_a = (1 << n_a) - 1;
-
-  uint32_t acc[NW][NJ][4] = {};
-  for (int kw0 = 0; kw0 < kw; kw0 += KSTEP) {
-    // -- prologue: quantize, then one ballot per activation plane --------
-    ballot_pack<BM>(sa, n_a, kw0, lane, warp, [&](int r, int col) {
-      const int row = m0 + r;
-      return row < m && col < k
-                 ? quantize_u(to_f32(x[(long long)row * k + col]),
-                              a_scale[row], max_a)
-                 : 0;                                // pad: -maxA
-    });
-    // -- weights: the planes as they lie --------------------------------
-    stage_planes<BN>(sb_w[0], bp, (long long)n * kw, kw, n, n0, kw0, n_b,
-                     tid);
-    if (NW == 2)
-      stage_planes<BN>(sb_w[NW - 1], bp2, (long long)n * kw, kw, n, n0, kw0,
-                       n_b, tid);
-    __syncthreads();
-    kstep<BM, BN, NJ, NW>(sa, sb, n_a, n_b, wr0, wc0, lane, acc);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int jn = 0; jn < NJ; ++jn)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      int row, col;
-      frag_coords(lane, wr0, wc0, jn, r, &row, &col);
-      row += m0;
-      col += n0;
-      if (row >= m || col >= n) continue;
-      epilogue<TO>(recover(c0, acc[0][jn][r]),
-                   recover(c0, acc[NW - 1][jn][r]), row, col, n, a_scale,
-                   b_scale, b2_scale, bias, residual, NW == 2, act, out);
-    }
+  const int m0 = blockIdx.y * mr, n0 = blockIdx.x * 8 * nt;
+  bitserial::Args p;
+  p.a = xp + (long long)m0 * kw;
+  p.a_plane = (long long)m * kw;
+  p.a_lim = m - m0;
+  p.su = su + m0;
+  p.b[0] = bp + (long long)n0 * kw;
+  p.b[1] = NW == 2 ? bp2 + (long long)n0 * kw : nullptr;
+  p.b_plane = (long long)n * kw;
+  p.n_lim = n - n0;
+  p.kw = kw;
+  p.n_a = n_a;
+  p.n_b = n_b;
+  p.c0 = c0;
+  p.vec = vec != 0;
+  p.geo = bitserial::geo_of(kstg);
+  const int r_out = m - m0 < mr ? m - m0 : mr;
+  bitserial::gemm_stacked<NW>(
+      smem_b1, p, mr, nf, nt, r_out, [&](int r, int c, int y1, int y2) {
+        epilogue<TO>(y1, y2, m0 + r, n0 + c, n, a_scale, b_scale, b2_scale,
+                     bias, residual, NW == 2, act, out);
+      });
 }
 
-template <typename TX, typename TO, int WM, int NJ, int NW>
-int launch_bitserial_tile(const void* x, const void* a_scale, const void* bp,
-                          const void* b_scale, const void* bp2,
-                          const void* b2_scale, const void* bias,
+template <typename TO, int NW>
+__global__ void __launch_bounds__(bitserial::THREADS)
+apmm_bitserial_rows_kernel(const uint32_t* __restrict__ xp,
+                           const int* __restrict__ su,
+                           const uint32_t* __restrict__ bp,
+                           const float* __restrict__ b_scale,
+                           const uint32_t* __restrict__ bp2,
+                           const float* __restrict__ b2_scale,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ a_scale,
+                           const TO* __restrict__ residual,
+                           TO* __restrict__ out, int m, int n, int kw,
+                           int n_a, int n_b, int act, uint32_t c0, int kstg,
+                           int vec) {
+  constexpr int WM = 4, NJ = 4;                  // 64 x 64 outputs a block
+  extern __shared__ __align__(16) uint32_t smem_b1[];
+  const int m0 = blockIdx.y * 16 * WM, n0 = blockIdx.x * 8 * NJ * 2;
+  bitserial::Args p;
+  p.a = xp + (long long)m0 * kw;
+  p.a_plane = (long long)m * kw;
+  p.a_lim = m - m0;
+  p.su = su + m0;
+  p.b[0] = bp + (long long)n0 * kw;
+  p.b[1] = NW == 2 ? bp2 + (long long)n0 * kw : nullptr;
+  p.b_plane = (long long)n * kw;
+  p.n_lim = n - n0;
+  p.kw = kw;
+  p.n_a = n_a;
+  p.n_b = n_b;
+  p.c0 = c0;
+  p.vec = vec != 0;
+  p.geo = bitserial::geo_of(kstg);
+  bitserial::gemm_rows<WM, NJ, NW, false>(
+      smem_b1, p, m - m0, [&](int r, int c, int y1, int y2) {
+        epilogue<TO>(y1, y2, m0 + r, n0 + c, n, a_scale, b_scale, b2_scale,
+                     bias, residual, NW == 2, act, out);
+      });
+}
+
+// the GEMM on a packed workspace (planes, then SU): the stacked route at
+// M <= STACK_MAX, the rows route above
+template <typename TO, int NW>
+int launch_bitserial_gemm(const void* ws, const void* bp, const void* b_scale,
+                          const void* bp2, const void* b2_scale,
+                          const void* bias, const void* a_scale,
                           const void* residual, void* out, int m, int n,
                           int k, int kw, int n_a, int n_b, int act,
-                          uint32_t c0, cudaStream_t stream) {
+                          cudaStream_t s) {
   using namespace bitserial;
-  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
-  auto kernel = apmm_fused_linear_bitserial_kernel<TX, TO, WM, NJ, NW>;
-  const int smem = (n_a * BM + NW * n_b * BN) * KSTEP * 4;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (8 * BM + NW * 8 * BN) * KSTEP * 4);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
+  const uint32_t* xp = (const uint32_t*)ws;
+  const int* su = (const int*)(xp + (long long)n_a * m * kw);
+  const uint32_t c0 = c0_of(k, kw, n_a, n_b);
+  const int vec = kw % 4 == 0 && aligned16(ws) && aligned16(bp) &&
+                  aligned16(bp2);
+  const int n_steps = (kw + KSTEP - 1) / KSTEP;
+  if (m <= STACK_MAX) {
+    // blocks of 8 nt columns, at least one on every SM
+    int n_sm = 0, e = sm_count(&n_sm);
+    if (e != 0) return e;
+    const int mr = stacked_rows(m, n_a), nf = stacked_frags(mr, n_a);
+    const int n_rg = (m + mr - 1) / mr;
+    const int nt = stacked_nt(n_rg, n, n_sm);
+    const int rows = 16 * nf + NW * n_b * 8 * nt;
+    const int kstg = kstg_for(rows, n_steps);
+    const int ring = ring_bytes(rows, kstg);
+    const int red = NW * (16 * nf + 1) * 8 * nt * 4;
+    const int smem = ring > red ? ring : red;
+    auto kernel = apmm_bitserial_stacked_kernel<TO, NW>;
+    static bool configured = false;
+    e = allow_smem(kernel, &configured);
+    if (e != 0) return e;
+    const dim3 grid((n + 8 * nt - 1) / (8 * nt), n_rg);
+    kernel<<<grid, THREADS, smem, s>>>(
+        xp, su, (const uint32_t*)bp, (const float*)b_scale,
+        (const uint32_t*)bp2, (const float*)b2_scale, (const float*)bias,
+        (const float*)a_scale, (const TO*)residual, (TO*)out, m, n, kw, n_a,
+        n_b, act, c0, mr, nf, nt, kstg, vec);
+    return (int)cudaGetLastError();
   }
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kernel<<<grid, bitserial::THREADS, smem, stream>>>(
-      (const TX*)x, (const float*)a_scale, (const uint32_t*)bp,
-      (const float*)b_scale, (const uint32_t*)bp2, (const float*)b2_scale,
-      (const float*)bias, (const TO*)residual, (TO*)out, m, n, k, kw, n_a,
-      n_b, act, c0);
+  const int rows = n_a * 64 + NW * n_b * 64;
+  const int kstg = kstg_for(rows, n_steps);
+  auto kernel = apmm_bitserial_rows_kernel<TO, NW>;
+  static bool configured = false;
+  int e = allow_smem(kernel, &configured);
+  if (e != 0) return e;
+  const dim3 grid((n + 63) / 64, (m + 63) / 64);
+  kernel<<<grid, THREADS, ring_bytes(rows, kstg), s>>>(
+      xp, su, (const uint32_t*)bp, (const float*)b_scale,
+      (const uint32_t*)bp2, (const float*)b2_scale, (const float*)bias,
+      (const float*)a_scale, (const TO*)residual, (TO*)out, m, n, kw, n_a,
+      n_b, act, c0, kstg, vec);
   return (int)cudaGetLastError();
 }
 
-// 16-row tiles up to M = 32 (decode), 64-row tiles above; one or two
-// weights
 template <typename TX, typename TO>
 int launch_bitserial(const void* x, const void* a_scale, const void* bp,
                      const void* b_scale, const void* bp2,
                      const void* b2_scale, const void* bias,
-                     const void* residual, void* out, int m, int n, int k,
-                     int kw, int n_a, int n_b, int act, cudaStream_t s) {
-  const uint32_t c0 = bitserial::c0_of(k, kw, n_a, n_b);
-#define REPRO_BITSERIAL(WM, NJ, NW)                                         \
-  launch_bitserial_tile<TX, TO, WM, NJ, NW>(x, a_scale, bp, b_scale, bp2,   \
-      b2_scale, bias, residual, out, m, n, k, kw, n_a, n_b, act, c0, s)
-  const bool dual = bp2 != nullptr;
-  if (m <= 32) return dual ? REPRO_BITSERIAL(1, 1, 2) : REPRO_BITSERIAL(1, 1, 1);
-  return dual ? REPRO_BITSERIAL(4, 4, 2) : REPRO_BITSERIAL(4, 4, 1);
-#undef REPRO_BITSERIAL
+                     const void* residual, void* out, void* ws, int m, int n,
+                     int k, int kw, int n_a, int n_b, int act,
+                     cudaStream_t s) {
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  int e = bitserial::launch_pack_x<TX>(x, a_scale, nullptr, 1, ws, m, k, kw,
+                                       n_a, s);
+  if (e != 0) return e;
+  if (bp2 != nullptr)
+    return launch_bitserial_gemm<TO, 2>(ws, bp, b_scale, bp2, b2_scale, bias,
+                                        a_scale, residual, out, m, n, k, kw,
+                                        n_a, n_b, act, s);
+  return launch_bitserial_gemm<TO, 1>(ws, bp, b_scale, bp2, b2_scale, bias,
+                                      a_scale, residual, out, m, n, k, kw,
+                                      n_a, n_b, act, s);
 }
 
 }  // namespace
@@ -760,10 +797,34 @@ int launch_bitserial(const void* x, const void* a_scale, const void* bp,
 // (int8 X values, ceil(n_a / 7) x M x Kw * 32 bytes) from it.
 extern "C" int repro_apmm_small_m_max(void) { return SMALL_M_MAX; }
 
+// The largest M the bitserial variant's stacked route takes.
+extern "C" int repro_apmm_bitserial_stack_max(void) { return STACK_MAX; }
+
+// The bitserial prologue alone (the kernels' own; for the tests): X (m,
+// k) quantized with a_scale into ws = planes (n_a, m, kw) words, then SU
+// (m,) int32.
+extern "C" int repro_apmm_bitserial_pack_x(const void* x, const void* a_scale,
+                                           void* ws, int m, int k, int kw,
+                                           int n_a, int x_dtype,
+                                           void* stream) {
+  if (m == 0) return 0;
+  if (n_a < 1 || n_a > 8 || k > kw * 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (x_dtype == 1)
+    return bitserial::launch_pack_x<__nv_bfloat16>(x, a_scale, nullptr, 1,
+                                                   ws, m, k, kw, n_a, s);
+  if (x_dtype == 0)
+    return bitserial::launch_pack_x<float>(x, a_scale, nullptr, 1, ws, m, k,
+                                           kw, n_a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16.  act: 0 none, 1 silu, 2 gelu.
-// ws: the small-M route's workspace (M <= repro_apmm_small_m_max()), else
-// unused.  variant: 0 = fused (the small-M route or the dp4a tile), 1 =
-// bitserial (the b1 core; ws unused).
+// ws: variant 0, the small-M route's workspace (M <=
+// repro_apmm_small_m_max()), else unused; variant 1, the bitserial
+// workspace, n_a * M * Kw + M 32-bit words (the packed X, then SU).
+// variant: 0 = fused (the small-M route or the dp4a tile), 1 = bitserial
+// (the prologue, then the b1 core).
 extern "C" int repro_apmm_fused_linear(
     const void* x, const void* a_scale, const void* bp, const void* b_scale,
     const void* bp2, const void* b2_scale, const void* bias,
@@ -778,7 +839,8 @@ extern "C" int repro_apmm_fused_linear(
   if (variant == 1) {
 #define REPRO_BITSERIAL_DT(TX, TO)                                          \
     launch_bitserial<TX, TO>(x, a_scale, bp, b_scale, bp2, b2_scale, bias,  \
-                             residual, out, m, n, k, kw, n_a, n_b, act, s)
+                             residual, out, ws, m, n, k, kw, n_a, n_b, act, \
+                             s)
     if (x_dtype == 1 && out_dtype == 1)
       return REPRO_BITSERIAL_DT(__nv_bfloat16, __nv_bfloat16);
     if (x_dtype == 1 && out_dtype == 0)

@@ -36,13 +36,15 @@
 //
 // `bitserial` variant (the TPU body's per-bit-pair branch, apmm.py:137-150
 // and the shift-add at :155-162): apmm_packed_bitserial_kernel below runs
-// the shared b1 core (bitserial_core.cuh) on both operands' planes as
-// they lie in device memory -- no unpacking at all -- and the same
-// from_acc output.  Its bound is the fused variant's, since the function
-// and its work are the same: bytes at decode, operations (counted as the
-// fused variant's int8 plane-group products) at a chunk.  Tiles: 16 x 64
-// outputs a block up to M = 32, 64 x 64 above; each K step stages n_a + n_b
-// planes x 8 words per row.
+// the shared b1 core (bitserial_core.cuh: .and.popc, cp.async staging) on
+// both operands' planes as they lie in device memory -- no unpacking at
+// all -- with the core's rows route, SU from its packed A planes (an MMA
+// of each A fragment against an all-ones B fragment) and SW from the
+// weight words, and the same from_acc output.  Its bound is the fused
+// variant's, since the function and its work are the same: bytes at
+// decode, operations (counted as the fused variant's int8 plane-group
+// products) at a chunk.  Tiles: 16 x 64 outputs a block up to M = 32, 64 x
+// 64 above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -272,39 +274,33 @@ apmm_packed_bitserial_kernel(const uint32_t* __restrict__ ap,
                              const float* __restrict__ a_scale,
                              const float* __restrict__ b_scale,
                              TO* __restrict__ out, int m, int n, int kw,
-                             int n_a, int n_b, uint32_t c0) {
-  using namespace bitserial;
-  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
+                             int n_a, int n_b, uint32_t c0, int kstg,
+                             int vec) {
+  constexpr int BM = 16 * WM, BN = 8 * NJ * (bitserial::WARPS / WM);
   extern __shared__ __align__(16) uint32_t smem_b1[];
-  uint32_t* sa = smem_b1;                        // [n_a][BM][KSTEP]
-  uint32_t* sb0 = sa + n_a * BM * KSTEP;         // [n_b][BN][KSTEP]
-  const uint32_t* sb[1] = {sb0};
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wr0 = 16 * (warp % WM), wc0 = 8 * NJ * (warp / WM);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  uint32_t acc[1][NJ][4] = {};
-  for (int kw0 = 0; kw0 < kw; kw0 += KSTEP) {
-    stage_planes<BM>(sa, ap, (long long)m * kw, kw, m, m0, kw0, n_a, tid);
-    stage_planes<BN>(sb0, bp, (long long)n * kw, kw, n, n0, kw0, n_b, tid);
-    __syncthreads();
-    kstep<BM, BN, NJ, 1>(sa, sb, n_a, n_b, wr0, wc0, lane, acc);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int jn = 0; jn < NJ; ++jn)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      int row, col;
-      frag_coords(lane, wr0, wc0, jn, r, &row, &col);
-      row += m0;
-      col += n0;
-      if (row >= m || col >= n) continue;
-      const float as = a_scale != nullptr ? a_scale[row] : 1.0f;
-      const float bs = b_scale != nullptr ? b_scale[col] : 1.0f;
-      out[(long long)row * n + col] =
-          from_acc<TO>(bitserial::recover(c0, acc[0][jn][r]), as, bs);
-    }
+  bitserial::Args p;
+  p.a = ap + (long long)m0 * kw;
+  p.a_plane = (long long)m * kw;
+  p.a_lim = m - m0;
+  p.su = nullptr;                   // SU from the A planes (an MMA)
+  p.b[0] = bp + (long long)n0 * kw;
+  p.b[1] = nullptr;
+  p.b_plane = (long long)n * kw;
+  p.n_lim = n - n0;
+  p.kw = kw;
+  p.n_a = n_a;
+  p.n_b = n_b;
+  p.c0 = c0;
+  p.vec = vec != 0;
+  p.geo = bitserial::geo_of(kstg);
+  bitserial::gemm_rows<WM, NJ, 1, true>(
+      smem_b1, p, m - m0, [&](int r, int c, int y, int) {
+        const int row = m0 + r, col = n0 + c;
+        const float as = a_scale != nullptr ? a_scale[row] : 1.0f;
+        const float bs = b_scale != nullptr ? b_scale[col] : 1.0f;
+        out[(long long)row * n + col] = from_acc<TO>(y, as, bs);
+      });
 }
 
 template <typename TO, int WM, int NJ>
@@ -315,19 +311,16 @@ int launch_bitserial_tile(const void* ap, const void* bp, const void* a_scale,
   using namespace bitserial;
   constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
   auto kernel = apmm_packed_bitserial_kernel<TO, WM, NJ>;
-  const int smem = (n_a * BM + n_b * BN) * KSTEP * 4;
   static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (8 * BM + 8 * BN) * KSTEP * 4);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
+  int e = allow_smem(kernel, &configured);
+  if (e != 0) return e;
+  const int rows = n_a * BM + n_b * BN;
+  const int kstg = kstg_for(rows, (kw + KSTEP - 1) / KSTEP);
+  const int vec = kw % 4 == 0 && aligned16(ap) && aligned16(bp);
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kernel<<<grid, bitserial::THREADS, smem, stream>>>(
+  kernel<<<grid, THREADS, ring_bytes(rows, kstg), stream>>>(
       (const uint32_t*)ap, (const uint32_t*)bp, (const float*)a_scale,
-      (const float*)b_scale, (TO*)out, m, n, kw, n_a, n_b, c0);
+      (const float*)b_scale, (TO*)out, m, n, kw, n_a, n_b, c0, kstg, vec);
   return (int)cudaGetLastError();
 }
 

@@ -54,16 +54,17 @@
 //
 // `bitserial` variant (the TPU body's per-bit-pair branch, moe.py:112, :133
 // and the shift-add at :156; its accumulator is (n_a * n_b, bc, bn),
-// moe.py:258): moe_expert_linear_bitserial_kernel at the end of this file.
-// The same grid over (segment, row tile, column tile), the same dead-tile
-// skip (zeros, no reads), the same live map and the same f32 epilogue with
-// one cast (moe_epilogue, shared); its prologue quantizes the live rows
-// with the same quantize_u and packs each activation plane into b1 words
-// by one __ballot_sync per plane (K-pad columns and dead rows u = 0), the
-// expert's weight planes are staged as they lie, and the b1 core
-// (bitserial_core.cuh) multiplies.  Its bound is the fused variant's.
-// Tiles: 16 x 64 outputs a block for segments up to 32 rows (decode), 64 x
-// 64 above; the live map is written by each segment's first block.
+// moe.py:258), at the end of this file, on the b1 core of
+// bitserial_core.cuh (its header note has the design).  The prologue
+// (bitserial::pack_x_kernel) quantizes and packs only the live rows of
+// each segment, once per launch, into the wrapper's workspace (planes
+// (n_a, E*C, Kw) and SU); the GEMM takes the core's stacked route for
+// segments up to STACK_MAX rows (decode, seg = 2 at a8: the 8 planes x 2
+// rows fill one 16-row fragment) and its rows route (64 x 64) above
+// (tools/b1_stack_threshold.py).  The same grid over (segment, row tile,
+// column tile), the same dead-tile skip (zeros, no reads: a dead tile's
+// rows are not even packed), the same live map and the same f32 epilogue
+// with one cast (moe_epilogue, shared).  Its bound is the fused variant's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,10 +78,9 @@ constexpr int BK = 128;           // K elements per tile (4 words per plane)
 constexpr int LDS = BK + 4;       // padded smem row (bytes)
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
+using bitserial::quantize_u;   // shared with the bitserial prologue
+using bitserial::to_f32;
+
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
@@ -116,15 +116,6 @@ __device__ __forceinline__ void plane_group(int n_bits, int g, int* lo,
 // bits 0..3 of n to bit 0 of bytes 0..3
 __device__ __forceinline__ uint32_t spread4(uint32_t n) {
   return (n * 0x00204081u) & 0x01010101u;
-}
-
-// x -> u = (q + max_a) / 2 of its bipolar value q = clip(round_to_odd(x /
-// s)), in the plain version's f32 steps (IEEE division)
-__device__ __forceinline__ int quantize_u(float xv, float s, int max_a) {
-  float t = __fmul_rn(__fsub_rn(__fdiv_rn(xv, s), 1.0f), 0.5f);
-  float q = __fadd_rn(__fmul_rn(2.0f, rintf(t)), 1.0f);
-  q = fminf(fmaxf(q, (float)(-max_a)), (float)max_a);
-  return ((int)q + max_a) >> 1;
 }
 
 // the f32 epilogue of one live output from its int32 sum(s): (acc * a_s) *
@@ -402,166 +393,265 @@ int launch(const void* x, const void* a_scale, const void* counts,
 }
 
 // ---------------------------------------------------------------------------
-// `bitserial` variant: quantize + ballot-pack prologue, b1 core, f32
-// epilogue with one cast
+// `bitserial` variant: the live rows of X packed once
+// (bitserial::pack_x_kernel), the b1 core's stacked route for segments of
+// up to STACK_MAX rows and its rows route above, the f32 epilogue with one
+// cast; the fused variant's grid, dead-tile skip and live map
 // ---------------------------------------------------------------------------
 
-template <typename TX, typename TO, int WM, int NJ, int NW>
-__global__ void __launch_bounds__(bitserial::THREADS)
-moe_expert_linear_bitserial_kernel(const TX* __restrict__ x,
-                                   const float* __restrict__ a_scale,
-                                   const int* __restrict__ counts,
-                                   const uint32_t* __restrict__ bp,
-                                   const float* __restrict__ b_scale,
-                                   const uint32_t* __restrict__ bp2,
-                                   const float* __restrict__ b2_scale,
-                                   TO* __restrict__ out,
-                                   int* __restrict__ live_map, int n_exp,
-                                   int groups, int seg, int n, int k, int kw,
-                                   int n_a, int n_b, int act, int bc,
-                                   int n_ci, uint32_t c0) {
-  using namespace bitserial;
-  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
-  extern __shared__ __align__(16) uint32_t smem_b1[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int eg = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int e = eg / groups;
-  const int cnt = counts[eg];
-  const long long seg_row0 = (long long)eg * seg;   // first row of segment
+constexpr int STACK_MAX = 32;     // segment rows the stacked route takes
 
+// the live map: the segment's first block writes it
+__device__ __forceinline__ void moe_write_live(int cnt, int eg, int bc,
+                                               int n_ci, int* live_map) {
   if (blockIdx.x == 0 && blockIdx.y == 0)
-    for (int ci = tid; ci < n_ci; ci += bitserial::THREADS)
+    for (int ci = threadIdx.x; ci < n_ci; ci += bitserial::THREADS)
       live_map[eg * n_ci + ci] = cnt > ci * bc ? 1 : 0;
+}
 
+// a dead tile (rows m0.., columns n0..): zeros, no reads
+template <typename TO>
+__device__ __forceinline__ void moe_zero_tile(int eg, int m0, int rows,
+                                              int n0, int bn, int seg,
+                                              int n, TO* out) {
+  for (int item = threadIdx.x; item < rows * bn;
+       item += bitserial::THREADS) {
+    const int r = m0 + item / bn, c = n0 + item % bn;
+    if (r < seg && c < n)
+      out[((long long)eg * seg + r) * n + c] = from_f32<TO>(0.0f);
+  }
+}
+
+template <typename TO, int NW>
+__device__ __forceinline__ bitserial::Args moe_args(
+    const uint32_t* xp, const int* su, const uint32_t* bp,
+    const uint32_t* bp2, int n_eg, int n_exp, int groups, int seg, int n,
+    int kw, int n_a, int n_b, int eg, int lim, int m0, int n0, uint32_t c0,
+    int kstg, int vec) {
+  const int e = eg / groups;
+  const long long row0 = (long long)eg * seg + m0;
+  bitserial::Args p;
+  p.a = xp + row0 * kw;
+  p.a_plane = (long long)n_eg * seg * kw;
+  p.a_lim = lim - m0;
+  p.su = su + row0;
+  p.b[0] = bp + ((long long)e * n + n0) * kw;
+  p.b[1] = NW == 2 ? bp2 + ((long long)e * n + n0) * kw : nullptr;
+  p.b_plane = (long long)n_exp * n * kw;
+  p.n_lim = n - n0;
+  p.kw = kw;
+  p.n_a = n_a;
+  p.n_b = n_b;
+  p.c0 = c0;
+  p.vec = vec != 0;
+  p.geo = bitserial::geo_of(kstg);
+  return p;
+}
+
+template <typename TO, int NW>
+__global__ void __launch_bounds__(bitserial::THREADS, 2)
+moe_bitserial_stacked_kernel(const uint32_t* __restrict__ xp,
+                             const int* __restrict__ su,
+                             const float* __restrict__ a_scale,
+                             const int* __restrict__ counts,
+                             const uint32_t* __restrict__ bp,
+                             const float* __restrict__ b_scale,
+                             const uint32_t* __restrict__ bp2,
+                             const float* __restrict__ b2_scale,
+                             TO* __restrict__ out, int* __restrict__ live_map,
+                             int n_eg, int n_exp, int groups, int seg, int n,
+                             int kw, int n_a, int n_b, int act, int bc,
+                             int n_ci, uint32_t c0, int mr, int nf, int nt,
+                             int kstg, int vec) {
+  extern __shared__ __align__(16) uint32_t smem_b1[];
+  const int eg = blockIdx.z, e = eg / groups;
+  const int m0 = blockIdx.y * mr, n0 = blockIdx.x * 8 * nt;
+  const int cnt = counts[eg];
+  moe_write_live(cnt, eg, bc, n_ci, live_map);
   if (m0 >= cnt) {                       // dead tile: zeros, no reads
-    for (int item = tid; item < BM * BN; item += bitserial::THREADS) {
-      int r = m0 + item / BN, c = n0 + item % BN;
-      if (r < seg && c < n) out[(seg_row0 + r) * n + c] = from_f32<TO>(0.0f);
-    }
+    moe_zero_tile<TO>(eg, m0, mr, n0, 8 * nt, seg, n, out);
     return;
   }
-
   const int lim = cnt < seg ? cnt : seg;  // live rows of this segment
-  uint32_t* sa = smem_b1;                        // [n_a][BM][KSTEP]
-  const uint32_t* sb[NW];                        // [n_b][BN][KSTEP] each
-  uint32_t* sb_w[NW];
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    sb_w[w] = sa + (n_a * BM + w * n_b * BN) * KSTEP;
-    sb[w] = sb_w[w];
-  }
-  const int wr0 = 16 * (warp % WM), wc0 = 8 * NJ * (warp / WM);
-  const int max_a = (1 << n_a) - 1;
-  const long long plane_stride = (long long)n_exp * n * kw;
-  const uint32_t* wbase = bp + (long long)e * n * kw;
-  const uint32_t* wbase2 = bp2 != nullptr ? bp2 + (long long)e * n * kw
-                                          : nullptr;
-
-  uint32_t acc[NW][NJ][4] = {};
-  for (int kw0 = 0; kw0 < kw; kw0 += KSTEP) {
-    // -- prologue: quantize the live rows, one ballot per plane ----------
-    ballot_pack<BM>(sa, n_a, kw0, lane, warp, [&](int r, int col) {
-      const int row = m0 + r;
-      return row < lim && col < k
-                 ? quantize_u(to_f32(x[(seg_row0 + row) * k + col]),
-                              a_scale[seg_row0 + row], max_a)
-                 : 0;                                // pad, dead row: -maxA
-    });
-    // -- the expert's weight planes as they lie --------------------------
-    stage_planes<BN>(sb_w[0], wbase, plane_stride, kw, n, n0, kw0, n_b, tid);
-    if (NW == 2)
-      stage_planes<BN>(sb_w[NW - 1], wbase2, plane_stride, kw, n, n0, kw0,
-                       n_b, tid);
-    __syncthreads();
-    kstep<BM, BN, NJ, NW>(sa, sb, n_a, n_b, wr0, wc0, lane, acc);
-    __syncthreads();
-  }
-
-  // -- epilogue: f32, one cast, dead rows exact zeros ---------------------
+  const bitserial::Args p = moe_args<TO, NW>(
+      xp, su, bp, bp2, n_eg, n_exp, groups, seg, n, kw, n_a, n_b, eg, lim,
+      m0, n0, c0, kstg, vec);
+  const long long seg_row0 = (long long)eg * seg;
   const float* ws = b_scale + (long long)e * n;
   const float* ws2 = b2_scale != nullptr ? b2_scale + (long long)e * n
                                          : nullptr;
-#pragma unroll
-  for (int jn = 0; jn < NJ; ++jn)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      int row, col;
-      frag_coords(lane, wr0, wc0, jn, r, &row, &col);
-      row += m0;
-      col += n0;
-      if (row >= seg || col >= n) continue;
-      float yo = 0.0f;
-      if (row < lim)
-        yo = moe_epilogue(recover(c0, acc[0][jn][r]),
-                          recover(c0, acc[NW - 1][jn][r]),
-                          a_scale[seg_row0 + row], ws[col],
-                          ws2 != nullptr ? ws2[col] : 0.0f, NW == 2, act);
-      out[(seg_row0 + row) * n + col] = from_f32<TO>(yo);
-    }
+  const int r_out = seg - m0 < mr ? seg - m0 : mr;
+  bitserial::gemm_stacked<NW>(
+      smem_b1, p, mr, nf, nt, r_out, [&](int r, int c, int y1, int y2) {
+        const int row = m0 + r, col = n0 + c;
+        float yo = 0.0f;                  // dead rows: exact zeros
+        if (row < lim)
+          yo = moe_epilogue(y1, y2, a_scale[seg_row0 + row], ws[col],
+                            ws2 != nullptr ? ws2[col] : 0.0f, NW == 2, act);
+        out[(seg_row0 + row) * n + col] = from_f32<TO>(yo);
+      });
 }
 
-template <typename TX, typename TO, int WM, int NJ, int NW>
-int launch_bitserial_tile(const void* x, const void* a_scale,
+template <typename TO, int NW>
+__global__ void __launch_bounds__(bitserial::THREADS)
+moe_bitserial_rows_kernel(const uint32_t* __restrict__ xp,
+                          const int* __restrict__ su,
+                          const float* __restrict__ a_scale,
+                          const int* __restrict__ counts,
+                          const uint32_t* __restrict__ bp,
+                          const float* __restrict__ b_scale,
+                          const uint32_t* __restrict__ bp2,
+                          const float* __restrict__ b2_scale,
+                          TO* __restrict__ out, int* __restrict__ live_map,
+                          int n_eg, int n_exp, int groups, int seg, int n,
+                          int kw, int n_a, int n_b, int act, int bc,
+                          int n_ci, uint32_t c0, int kstg, int vec) {
+  constexpr int WM = 4, NJ = 4, BM = 64, BN = 64;
+  extern __shared__ __align__(16) uint32_t smem_b1[];
+  const int eg = blockIdx.z, e = eg / groups;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int cnt = counts[eg];
+  moe_write_live(cnt, eg, bc, n_ci, live_map);
+  if (m0 >= cnt) {                       // dead tile: zeros, no reads
+    moe_zero_tile<TO>(eg, m0, BM, n0, BN, seg, n, out);
+    return;
+  }
+  const int lim = cnt < seg ? cnt : seg;
+  const bitserial::Args p = moe_args<TO, NW>(
+      xp, su, bp, bp2, n_eg, n_exp, groups, seg, n, kw, n_a, n_b, eg, lim,
+      m0, n0, c0, kstg, vec);
+  const long long seg_row0 = (long long)eg * seg;
+  const float* ws = b_scale + (long long)e * n;
+  const float* ws2 = b2_scale != nullptr ? b2_scale + (long long)e * n
+                                         : nullptr;
+  bitserial::gemm_rows<WM, NJ, NW, false>(
+      smem_b1, p, seg - m0, [&](int r, int c, int y1, int y2) {
+        const int row = m0 + r, col = n0 + c;
+        float yo = 0.0f;
+        if (row < lim)
+          yo = moe_epilogue(y1, y2, a_scale[seg_row0 + row], ws[col],
+                            ws2 != nullptr ? ws2[col] : 0.0f, NW == 2, act);
+        out[(seg_row0 + row) * n + col] = from_f32<TO>(yo);
+      });
+}
+
+// the GEMM on a packed workspace: stacked route for segments up to
+// STACK_MAX rows, rows route above
+template <typename TO, int NW>
+int launch_bitserial_gemm(const void* ws, const void* a_scale,
                           const void* counts, const void* bp,
                           const void* b_scale, const void* bp2,
                           const void* b2_scale, void* out, void* live,
                           int n_eg, int n_exp, int groups, int seg, int n,
                           int k, int kw, int n_a, int n_b, int act, int bc,
-                          int n_ci, uint32_t c0, cudaStream_t stream) {
+                          int n_ci, cudaStream_t s) {
   using namespace bitserial;
-  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
-  auto kernel = moe_expert_linear_bitserial_kernel<TX, TO, WM, NJ, NW>;
-  const int smem = (n_a * BM + NW * n_b * BN) * KSTEP * 4;
-  static bool configured = false;
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (8 * BM + NW * 8 * BN) * KSTEP * 4);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
+  const uint32_t* xp = (const uint32_t*)ws;
+  const int* su = (const int*)(xp + (long long)n_a * n_eg * seg * kw);
+  const uint32_t c0 = c0_of(k, kw, n_a, n_b);
+  const int vec = kw % 4 == 0 && aligned16(ws) && aligned16(bp) &&
+                  aligned16(bp2);
+  const int n_steps = (kw + KSTEP - 1) / KSTEP;
+  if (seg <= STACK_MAX) {
+    // blocks of 8 nt columns, at least two on every SM (dead segments'
+    // blocks only write zeros)
+    int n_sm = 0, e = sm_count(&n_sm);
+    if (e != 0) return e;
+    const int mr = stacked_rows(seg, n_a), nf = stacked_frags(mr, n_a);
+    const int n_rg = (seg + mr - 1) / mr;
+    const int nt = stacked_nt((long long)n_rg * n_eg, n, 2LL * n_sm);
+    const int rows = 16 * nf + NW * n_b * 8 * nt;
+    const int kstg = kstg_for(rows, n_steps);
+    const int ring = ring_bytes(rows, kstg);
+    const int red = NW * (16 * nf + 1) * 8 * nt * 4;
+    const int smem = ring > red ? ring : red;
+    auto kernel = moe_bitserial_stacked_kernel<TO, NW>;
+    static bool configured = false;
+    e = allow_smem(kernel, &configured);
+    if (e != 0) return e;
+    const dim3 grid((n + 8 * nt - 1) / (8 * nt), n_rg, n_eg);
+    kernel<<<grid, THREADS, smem, s>>>(
+        xp, su, (const float*)a_scale, (const int*)counts,
+        (const uint32_t*)bp, (const float*)b_scale, (const uint32_t*)bp2,
+        (const float*)b2_scale, (TO*)out, (int*)live, n_eg, n_exp, groups,
+        seg, n, kw, n_a, n_b, act, bc, n_ci, c0, mr, nf, nt, kstg, vec);
+    return (int)cudaGetLastError();
   }
-  dim3 grid((n + BN - 1) / BN, (seg + BM - 1) / BM, n_eg);
-  kernel<<<grid, bitserial::THREADS, smem, stream>>>(
-      (const TX*)x, (const float*)a_scale, (const int*)counts,
-      (const uint32_t*)bp, (const float*)b_scale, (const uint32_t*)bp2,
-      (const float*)b2_scale, (TO*)out, (int*)live, n_exp, groups, seg, n,
-      k, kw, n_a, n_b, act, bc, n_ci, c0);
+  const int rows = n_a * 64 + NW * n_b * 64;
+  const int kstg = kstg_for(rows, n_steps);
+  auto kernel = moe_bitserial_rows_kernel<TO, NW>;
+  static bool configured = false;
+  int e = allow_smem(kernel, &configured);
+  if (e != 0) return e;
+  const dim3 grid((n + 63) / 64, (seg + 63) / 64, n_eg);
+  kernel<<<grid, THREADS, ring_bytes(rows, kstg), s>>>(
+      xp, su, (const float*)a_scale, (const int*)counts, (const uint32_t*)bp,
+      (const float*)b_scale, (const uint32_t*)bp2, (const float*)b2_scale,
+      (TO*)out, (int*)live, n_eg, n_exp, groups, seg, n, kw, n_a, n_b, act,
+      bc, n_ci, c0, kstg, vec);
   return (int)cudaGetLastError();
 }
 
-// 16-row tiles for segments up to 32 rows (decode), 64-row tiles above
 template <typename TX, typename TO>
 int launch_bitserial(const void* x, const void* a_scale, const void* counts,
                      const void* bp, const void* b_scale, const void* bp2,
-                     const void* b2_scale, void* out, void* live, int n_eg,
-                     int n_exp, int groups, int seg, int n, int k, int kw,
-                     int n_a, int n_b, int act, int bc, int n_ci,
+                     const void* b2_scale, void* out, void* live, void* ws,
+                     int n_eg, int n_exp, int groups, int seg, int n, int k,
+                     int kw, int n_a, int n_b, int act, int bc, int n_ci,
                      cudaStream_t s) {
-  const uint32_t c0 = bitserial::c0_of(k, kw, n_a, n_b);
-#define REPRO_BITSERIAL(WM, NJ, NW)                                          \
-  launch_bitserial_tile<TX, TO, WM, NJ, NW>(x, a_scale, counts, bp, b_scale, \
-      bp2, b2_scale, out, live, n_eg, n_exp, groups, seg, n, k, kw, n_a,     \
-      n_b, act, bc, n_ci, c0, s)
-  const bool dual = bp2 != nullptr;
-  if (seg <= 32)
-    return dual ? REPRO_BITSERIAL(1, 1, 2) : REPRO_BITSERIAL(1, 1, 1);
-  return dual ? REPRO_BITSERIAL(4, 4, 2) : REPRO_BITSERIAL(4, 4, 1);
-#undef REPRO_BITSERIAL
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  int e = bitserial::launch_pack_x<TX>(x, a_scale, counts, seg, ws,
+                                       n_eg * seg, k, kw, n_a, s);
+  if (e != 0) return e;
+  if (bp2 != nullptr)
+    return launch_bitserial_gemm<TO, 2>(ws, a_scale, counts, bp, b_scale,
+                                        bp2, b2_scale, out, live, n_eg,
+                                        n_exp, groups, seg, n, k, kw, n_a,
+                                        n_b, act, bc, n_ci, s);
+  return launch_bitserial_gemm<TO, 1>(ws, a_scale, counts, bp, b_scale, bp2,
+                                      b2_scale, out, live, n_eg, n_exp,
+                                      groups, seg, n, k, kw, n_a, n_b, act,
+                                      bc, n_ci, s);
 }
 
 }  // namespace
+
+// The largest segment the bitserial variant's stacked route takes.
+extern "C" int repro_moe_bitserial_stack_max(void) { return STACK_MAX; }
+
+// The bitserial prologue alone (the kernel's own; for the tests): the live
+// rows of x (n_eg * seg, k) quantized into ws = planes (n_a, n_eg * seg,
+// kw) words, then SU (n_eg * seg,) int32 (0 for dead rows).
+extern "C" int repro_moe_bitserial_pack_x(const void* x, const void* a_scale,
+                                          const void* counts, void* ws,
+                                          int n_eg, int seg, int k, int kw,
+                                          int n_a, int x_dtype,
+                                          void* stream) {
+  if (n_eg == 0 || seg == 0) return 0;
+  if (n_a < 1 || n_a > 8 || k > kw * 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (x_dtype == 1)
+    return bitserial::launch_pack_x<__nv_bfloat16>(x, a_scale, counts, seg,
+                                                   ws, n_eg * seg, k, kw,
+                                                   n_a, s);
+  if (x_dtype == 0)
+    return bitserial::launch_pack_x<float>(x, a_scale, counts, seg, ws,
+                                           n_eg * seg, k, kw, n_a, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype codes: 0 = float32, 1 = bfloat16.  act: 0 none, 1 silu, 2 gelu.
 // x (n_eg, seg, k), a_scale (n_eg * seg), counts (n_eg), planes (n_b,
 // n_exp, n, kw), scales (n_exp, n), out (n_eg, seg, n), live (n_eg, n_ci);
 // n_eg = n_exp * groups and segment eg belongs to expert eg / groups.
-// variant: 0 = fused (the dp4a tile), 1 = bitserial (the b1 core).
+// variant: 0 = fused (the dp4a tile; ws unused), 1 = bitserial (the
+// prologue into ws, n_a * n_eg * seg * kw + n_eg * seg 32-bit words, then
+// the b1 core).
 extern "C" int repro_moe_expert_linear(
     const void* x, const void* a_scale, const void* counts, const void* bp,
     const void* b_scale, const void* bp2, const void* b2_scale, void* out,
-    void* live, int n_eg, int n_exp, int groups, int seg, int n, int k,
-    int kw, int n_a, int n_b, int act, int bc, int n_ci, int x_dtype,
+    void* live, void* ws, int n_eg, int n_exp, int groups, int seg, int n,
+    int k, int kw, int n_a, int n_b, int act, int bc, int n_ci, int x_dtype,
     int out_dtype, int variant, void* stream) {
   if (n_eg == 0 || seg == 0 || n == 0) return 0;
   if (n_a < 1 || n_a > 8 || n_b < 1 || n_b > 8 || n_exp * groups != n_eg ||
@@ -571,8 +661,8 @@ extern "C" int repro_moe_expert_linear(
   if (variant == 1) {
 #define REPRO_BITSERIAL_DT(TX, TO)                                           \
     launch_bitserial<TX, TO>(x, a_scale, counts, bp, b_scale, bp2, b2_scale, \
-                             out, live, n_eg, n_exp, groups, seg, n, k, kw,  \
-                             n_a, n_b, act, bc, n_ci, s)
+                             out, live, ws, n_eg, n_exp, groups, seg, n, k,  \
+                             kw, n_a, n_b, act, bc, n_ci, s)
     if (x_dtype == 1 && out_dtype == 1)
       return REPRO_BITSERIAL_DT(__nv_bfloat16, __nv_bfloat16);
     if (x_dtype == 1 && out_dtype == 0)

@@ -54,8 +54,47 @@ def small_m_max() -> int:
     return int(_build.load("apmm_fused_linear").repro_apmm_small_m_max())
 
 
+@functools.cache
+def bitserial_stack_max() -> int:
+    """The largest M that K1's C entry sends to the bitserial variant's
+    stacked route (the library's own threshold; builds the library)."""
+    return int(_build.load("apmm_fused_linear")
+               .repro_apmm_bitserial_stack_max())
+
+
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
+
+
+def _bitserial_workspace(a_bits: int, rows: int, kw: int, dev):
+    """The bitserial prologue's workspace: the packed activation planes
+    ``(a_bits, rows, kw)`` words, then SU ``(rows,)`` int32."""
+    return torch.empty(a_bits * rows * kw + rows, dtype=torch.int32,
+                       device=dev)
+
+
+def bitserial_pack_x(x2: torch.Tensor, a_scale: torch.Tensor, *,
+                     a_bits: int, kw: int):
+    """K1's bitserial prologue alone, on the card: ``x2 (M, K)`` quantized
+    with ``a_scale (M, 1)`` into its packed planes ``(a_bits, M, kw)``
+    int32 (K3's words, pad bit 0) and ``SU (M,)`` int32, the sum of each
+    row's unsigned bipolar fields.  Not counted as a K1 launch."""
+    m, k = x2.shape
+    if x2.device.type != "cuda" or x2.dtype not in _DTYPES:
+        raise ValueError("bitserial_pack_x: a CUDA f32 or bf16 tensor")
+    xs = x2.contiguous()
+    a_s = a_scale.reshape(m).to(torch.float32).contiguous()
+    ws = _bitserial_workspace(a_bits, m, kw, x2.device)
+    fn = _build.load("apmm_fused_linear").repro_apmm_bitserial_pack_x
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(xs.data_ptr(), a_s.data_ptr(), ws.data_ptr(), m, k, kw,
+                    a_bits, _DTYPES[x2.dtype],
+                    torch.cuda.current_stream(x2.device).cuda_stream),
+                 "bitserial pack_x")
+    n = a_bits * m * kw
+    return ws[:n].view(a_bits, m, kw), ws[n:]
 
 
 def apmm_fused_linear(x2: torch.Tensor, a_scale: torch.Tensor,
@@ -117,9 +156,13 @@ def apmm_fused_linear(x2: torch.Tensor, a_scale: torch.Tensor,
     fn = _lib()
     fused = variant == "fused"
     small = fused and m <= small_m_max()
-    # the small-M route's workspace: X quantized once, int8 per plane group
-    xq = torch.empty((len(ref.plane_groups(a_bits)), m, kw * 32),
-                     dtype=torch.int8, device=dev) if small else None
+    if small:     # the small-M route's: X quantized once, int8 per group
+        xq = torch.empty((len(ref.plane_groups(a_bits)), m, kw * 32),
+                         dtype=torch.int8, device=dev)
+    elif not fused:   # the bitserial prologue's: X's planes, then SU
+        xq = _bitserial_workspace(a_bits, m, kw, dev)
+    else:
+        xq = None
     err = fn(xs.data_ptr(), a_s.data_ptr(), wp.data_ptr(), ws.data_ptr(),
              _ptr(w2p), _ptr(w2s), _ptr(bs_), _ptr(res), out.data_ptr(),
              _ptr(xq), m, n, k, kw, a_bits, w.n_bits, _ACTS[act],

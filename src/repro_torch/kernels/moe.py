@@ -12,11 +12,12 @@ analytic live map), CUDA tensors launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.bipolar import BipolarTensor
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, apmm, ref
 
 LAUNCHES = 0            # `fused` launches since the last reset (chip_smoke)
 BITSERIAL_LAUNCHES = 0  # `bitserial` launches
@@ -30,10 +31,46 @@ def _lib():
     lib = _build.load("moe_expert_linear")
     fn = lib.repro_moe_expert_linear
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 15 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def bitserial_stack_max() -> int:
+    """The largest segment that K4's C entry sends to the bitserial
+    variant's stacked route (the library's own threshold)."""
+    return int(_build.load("moe_expert_linear")
+               .repro_moe_bitserial_stack_max())
+
+
+def bitserial_pack_x(x: torch.Tensor, a_scale: torch.Tensor,
+                     counts: torch.Tensor, *, a_bits: int, kw: int):
+    """K4's bitserial prologue alone, on the card: the live rows of ``x
+    (E, C, K)`` (``counts (E, G)``, segments of ``C / G`` rows) quantized
+    with ``a_scale (E, C, 1)`` into their packed planes ``(a_bits, E*C,
+    kw)`` int32 (K3's words, pad bit 0) and ``SU (E*C,)`` int32; dead
+    rows' words are left unwritten and their SU is 0.  Not counted as a
+    K4 launch."""
+    e, c, k = x.shape
+    g = counts.shape[1]
+    if x.device.type != "cuda" or x.dtype not in _DTYPES:
+        raise ValueError("bitserial_pack_x: a CUDA f32 or bf16 tensor")
+    ws = apmm._bitserial_workspace(a_bits, e * c, kw, x.device)
+    fn = _build.load("moe_expert_linear").repro_moe_bitserial_pack_x
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    _build.check(fn(x.contiguous().data_ptr(),
+                    a_scale.to(torch.float32).contiguous().data_ptr(),
+                    counts.to(torch.int32).contiguous().data_ptr(),
+                    ws.data_ptr(), e * g, c // g, k, kw, a_bits,
+                    _DTYPES[x.dtype],
+                    torch.cuda.current_stream(x.device).cuda_stream),
+                 "bitserial pack_x (moe)")
+    n = a_bits * e * c * kw
+    return ws[:n].view(a_bits, e * c, kw), ws[n:]
 
 
 def moe_expert_linear_plain(x, a_scale, counts, w, *, w2=None, a_bits: int,
@@ -108,12 +145,16 @@ def moe_expert_linear(x: torch.Tensor, a_scale: torch.Tensor,
     n_ci = -(-seg // bc)
     out = torch.empty((e, c, n), dtype=out_dtype, device=dev)
     live = torch.empty((e * g, n_ci), dtype=torch.int32, device=dev)
+    # the bitserial prologue's workspace: X's planes, then SU
+    xp = apmm._bitserial_workspace(a_bits, e * c, kw, dev) \
+        if variant == "bitserial" else None
     fn = _lib()
     err = fn(x.data_ptr(), a_scale.data_ptr(), counts.data_ptr(),
              w.packed.data_ptr(), ws.data_ptr(),
              0 if w2 is None else w2.packed.data_ptr(),
              0 if w2s is None else w2s.data_ptr(), out.data_ptr(),
-             live.data_ptr(), e * g, e, g, seg, n, k, kw, a_bits, w.n_bits,
+             live.data_ptr(), 0 if xp is None else xp.data_ptr(), e * g, e,
+             g, seg, n, k, kw, a_bits, w.n_bits,
              _ACTS[act], bc, n_ci, _DTYPES[x.dtype], _DTYPES[out_dtype],
              _VARIANTS[variant], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"moe_expert_linear ({variant})")

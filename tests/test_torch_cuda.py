@@ -21,6 +21,11 @@ where its C entry splits T (some ranges seen by no query row) and
 against ``ref.flash_attention_split``.  K1's small-M route (M up to
 ``apmm.small_m_max()``): the integer core bit-exact on both sides of the
 threshold, the dual SiLU within 1 bf16 ulp, bias and residual bit-exact.
+The bitserial variants of K1 and K4 on both sides of the b1 core's
+stacked-route threshold (``apmm.bitserial_stack_max()``,
+``moe.bitserial_stack_max()``): integer cores bit-exact to the plain
+versions and to the fused kernels, outputs equal to the fused kernels';
+their prologue's packed words equal K3's and its SU the rows' sums.
 """
 
 import numpy as np
@@ -844,3 +849,164 @@ def test_unfused_contiguous_engine_on_card_matches_cpu(device):
         if kk is not None:
             top = np.sort(ec.rows[(id(a), kk)])
             assert top[-1] - top[-2] < 0.05, (kk, a.out, b_.out)
+
+
+# ---------------------------------------------------------------------------
+# The bit-serial core's routes (K1-bs, K4-bs): the stacked route up to the
+# library's threshold, the rows route above; the prologue's words and SU
+# ---------------------------------------------------------------------------
+
+_BS_PAIRS = [(8, 2), (2, 8), (8, 8), (1, 1), (3, 5)]
+_BS_ROWS = [1, 2, 4, 5, 16, 17, 32, 33, 64, 65, 256, "max", "max+1"]
+
+
+def _rows_case(rows, threshold):
+    if rows == "max":
+        return threshold
+    if rows == "max+1":
+        return threshold + 1
+    return rows
+
+
+@pytest.mark.parametrize("m_case", _BS_ROWS)
+@pytest.mark.parametrize("n,k", [(77, 1001), (300, 4096)])
+@pytest.mark.parametrize("a_bits,w_bits", _BS_PAIRS)
+def test_k1_bitserial_route_boundaries(device, m_case, n, k, a_bits,
+                                       w_bits):
+    """K1-bs on both sides of its stacked route's threshold: the integer
+    core (f32 out, act none) of each weight equal to the plain bitserial
+    version's and to the fused kernel's; the bf16 dual SiLU with bias and
+    residual equal to the fused kernel's bit for bit and within 1 ulp of
+    plain."""
+    m = _rows_case(m_case, apmm.bitserial_stack_max())
+    rng = np.random.default_rng(m * 31 + n + k + a_bits * 10 + w_bits)
+    wg = ops.pack_weight(_rand(rng, (n, k), device), w_bits)
+    wu = ops.pack_weight(_rand(rng, (n, k), device), w_bits)
+    x = _rand(rng, (m, k), device, torch.bfloat16)
+    a_s = bipolar.absmax_scale(x, a_bits, axis=-1).float()
+    before = apmm.BITSERIAL_LAUNCHES
+    for w in (wg, wu):
+        got = apmm.apmm_fused_linear(x, a_s, w, a_bits=a_bits,
+                                     variant="bitserial",
+                                     out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.ap_linear_fused_ref(
+            x, a_s, w, a_bits=a_bits, variant="bitserial",
+            out_dtype=torch.float32))
+        assert torch.equal(got, apmm.apmm_fused_linear(
+            x, a_s, w, a_bits=a_bits, out_dtype=torch.float32))
+    bias = _rand(rng, (n,), device)
+    res = _rand(rng, (m, n), device, torch.bfloat16)
+    kw = dict(w2=wu, bias=bias, residual=res, a_bits=a_bits, act="silu",
+              out_dtype=torch.bfloat16)
+    got = apmm.apmm_fused_linear(x, a_s, wg, variant="bitserial", **kw)
+    assert torch.equal(got, apmm.apmm_fused_linear(x, a_s, wg, **kw))
+    want = ref.ap_linear_fused_ref(x, a_s, wg, variant="bitserial", **kw)
+    assert int(_bf16_ulps(got, want).max()) <= 1
+    assert apmm.BITSERIAL_LAUNCHES == before + 3
+
+
+@pytest.mark.parametrize("seg_case", _BS_ROWS)
+@pytest.mark.parametrize("a_bits,w_bits", _BS_PAIRS)
+def test_k4_bitserial_route_boundaries(device, seg_case, a_bits, w_bits):
+    """K4-bs on both sides of its stacked route's threshold, at odd N and
+    K, with an empty expert (count 0), a full one and two dispatch
+    groups: the integer core of each weight, the live map and the dead
+    rows' zeros equal to the plain bitserial version's and the fused
+    kernel's; the bf16 dual SiLU equal to the fused kernel's bit for bit
+    and within 1 ulp of plain."""
+    seg = _rows_case(seg_case, moe.bitserial_stack_max())
+    e, g, n, k = 4, 2, 77, 1001
+    rng = np.random.default_rng(seg * 13 + a_bits * 10 + w_bits)
+    w = _expert_weight(rng, device, e, n, k, w_bits)
+    w2 = _expert_weight(rng, device, e, n, k, w_bits)
+    counts = torch.from_numpy(rng.integers(0, seg + 1, (e, g))
+                              .astype(np.int32))
+    counts[1] = 0                                     # an empty expert
+    counts[2] = seg                                   # a full one
+    counts = counts.to(device)
+    x = _rand(rng, (e, g * seg, k), device, torch.bfloat16)
+    bc = ops.moe_row_tile(seg)
+    a_s = bipolar.absmax_scale(x.float(), a_bits, axis=-1)
+    rows = torch.arange(g * seg, device=device)
+    dead = (rows % seg)[None, :] >= counts[:, rows // seg]
+    before = moe.BITSERIAL_LAUNCHES
+    for wt in (w, w2):
+        got, live = moe.moe_expert_linear(x, a_s, counts, wt, a_bits=a_bits,
+                                          variant="bitserial",
+                                          out_dtype=torch.float32, bc=bc)
+        torch.cuda.synchronize()
+        want, live_ref = moe.moe_expert_linear_plain(
+            x, a_s, counts, wt, a_bits=a_bits, variant="bitserial",
+            out_dtype=torch.float32, bc=bc)
+        fused, live_f = moe.moe_expert_linear(x, a_s, counts, wt,
+                                              a_bits=a_bits,
+                                              out_dtype=torch.float32, bc=bc)
+        assert torch.equal(got, want) and torch.equal(got, fused)
+        assert torch.equal(live, live_ref) and torch.equal(live, live_f)
+        assert not got[dead].any()
+    got, _ = moe.moe_expert_linear(x, a_s, counts, w, w2=w2, a_bits=a_bits,
+                                   act="silu", variant="bitserial",
+                                   out_dtype=torch.bfloat16, bc=bc)
+    fused, _ = moe.moe_expert_linear(x, a_s, counts, w, w2=w2,
+                                     a_bits=a_bits, act="silu",
+                                     out_dtype=torch.bfloat16, bc=bc)
+    want = ref.ap_moe_expert_linear_ref(x, a_s, counts, w, w2=w2,
+                                        a_bits=a_bits, act="silu",
+                                        variant="bitserial",
+                                        out_dtype=torch.bfloat16)
+    assert torch.equal(got, fused)
+    assert int(_bf16_ulps(got, want).max()) <= 1
+    assert moe.BITSERIAL_LAUNCHES == before + 3
+
+
+def _su_of(x, a_s, a_bits):
+    """Each row's sum of its unsigned bipolar fields U = (q + maxA) / 2."""
+    q = bipolar.quantize_values(x.float(), a_bits, a_s)
+    return ((q + bipolar.max_value(a_bits)) // 2).sum(-1).to(torch.int32)
+
+
+@pytest.mark.parametrize("m,k", [(1, 32), (4, 4096), (5, 1001), (70, 14336)])
+@pytest.mark.parametrize("a_bits", [1, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bitserial_prologue_words_equal_pack(device, m, k, a_bits, dtype):
+    """K1-bs's prologue: its packed planes equal K3's words (``ref``'s
+    pack, pad bit 0) of the same X and scales, and its SU each row's sum
+    of the unsigned bipolar fields."""
+    rng = np.random.default_rng(m + k + a_bits)
+    x = _rand(rng, (m, k), device, dtype)
+    a_s = bipolar.absmax_scale(x.float(), a_bits, axis=-1).float()
+    kw = bipolar.packed_words(k)
+    before = apmm.BITSERIAL_LAUNCHES
+    planes, su = apmm.bitserial_pack_x(x, a_s, a_bits=a_bits, kw=kw)
+    torch.cuda.synchronize()
+    assert torch.equal(planes, ref.quantize_pack_rows(x, a_s, n_bits=a_bits,
+                                                      pad_bit=0))
+    assert torch.equal(su, _su_of(x, a_s, a_bits))
+    assert apmm.BITSERIAL_LAUNCHES == before
+
+
+@pytest.mark.parametrize("seg,k", [(2, 4096), (5, 1001), (40, 14336)])
+@pytest.mark.parametrize("a_bits", [2, 8])
+def test_moe_bitserial_prologue_words_equal_pack(device, seg, k, a_bits):
+    """K4-bs's prologue: the live rows' planes equal K3's words of the same
+    rows and scales, their SU the sum of U; dead rows' SU is 0."""
+    e, g = 4, 2
+    rng = np.random.default_rng(seg + k + a_bits)
+    x = _rand(rng, (e, g * seg, k), device, torch.bfloat16)
+    a_s = bipolar.absmax_scale(x.float(), a_bits, axis=-1)
+    counts = torch.from_numpy(rng.integers(0, seg + 1, (e, g))
+                              .astype(np.int32))
+    counts[0] = 0
+    counts[3] = seg
+    counts = counts.to(device)
+    kw = bipolar.packed_words(k)
+    planes, su = moe.bitserial_pack_x(x, a_s, counts, a_bits=a_bits, kw=kw)
+    torch.cuda.synchronize()
+    rows = torch.arange(g * seg, device=device)
+    live = ((rows % seg)[None, :] < counts[:, rows // seg]).reshape(-1)
+    xf, sf = x.reshape(e * g * seg, k), a_s.reshape(e * g * seg, 1)
+    want = ref.quantize_pack_rows(xf, sf, n_bits=a_bits, pad_bit=0)
+    assert torch.equal(planes[:, live], want[:, live])
+    assert torch.equal(su[live], _su_of(xf, sf, a_bits)[live])
+    assert not su[~live].any()

@@ -1,14 +1,16 @@
 """The two forms of the H100's 1-bit tensor-core MMA, on the card.
 
 ``csrc/bitserial_core.cuh`` multiplies bit planes with
-``mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.<op>.popc``, where
-``<op>`` is ``xor`` or ``and``.  For each op this script builds a small
-CUDA program with ``nvcc`` for sm_90a (into ``build/b1_mma_rate/``) that
+``mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc``; the other
+form is ``.xor.popc``.  For each op this script builds a small CUDA
+program with ``nvcc`` for sm_90a (into ``build/b1_mma_rate/``) that
 
-1. runs one MMA on one tile, with the fragment order the core uses
-   (thread ``(g, t) = (lane / 4, lane % 4)`` holds words ``t`` and ``t + 4``
-   of A rows ``g`` and ``g + 8`` and of B row ``g``), and counts the
-   outputs that differ from the popcounts computed on the host;
+1. runs one MMA on one tile, with the PTX fragment order (thread ``(g, t)
+   = (lane / 4, lane % 4)`` holds the slots of words ``t`` and ``t + 4``
+   of A rows ``g`` and ``g + 8`` and of B row ``g``; the core fills them
+   with words ``2t`` and ``2t + 1`` of both operands, the same order of
+   K on both sides), and counts the outputs that differ from the
+   popcounts computed on the host;
 2. issues 4 independent MMA chains from every warp of 8 blocks of 256
    threads per SM, 20,000 iterations each, and prints the rate in b1
    operations per second (2 per bit multiply-add).
