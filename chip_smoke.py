@@ -25,8 +25,16 @@ exit and no result line):
    ``scaled_dot_product_attention`` call, the same function); K1's
    decode cases must run its small-M route and its chunk cases the tile
    kernel (``apmm.SMALL_M_LAUNCHES`` against the library's own
-   ``apmm.small_m_max()``), and K1 and K7 print their time beside the
-   time PERF.md recorded before their redesign; the ``bitserial``
+   ``apmm.small_m_max()``), and K1, K4 and K7 print their time beside
+   the time PERF.md recorded before their redesign; fused K4 also prints
+   the route each case took, read off the kernels that ran, which must
+   be the one its threshold gives (its decode route up to segments of
+   ``moe.fused_route_max()`` rows, its int8 tensor-core chunk route
+   above), its prologue's and GEMM's device time apart, and runs at the
+   edge of its two routes and at the shapes phase 5's traced mixtral
+   steps give it (``K4_STEP_SEGS``: a chunk step's 256 tokens, segments
+   of 80 rows; a decode step's 5 lanes bucketed to 8, 3 rows); the
+   ``bitserial``
    variants of K1, K4 and K5 (the b1 tensor-core core) at the same cases
    (K5 also at the width pairs a2w8, a8w8, a1w1, a3w5, odd M/N/K):
    integer cores bit-exact to their plain versions and to the fused
@@ -67,7 +75,10 @@ exit and no result line):
    ``apmm.PACKED_BITSERIAL_LAUNCHES``, ``moe.BITSERIAL_LAUNCHES``), the
    fused kernels never, and whose greedy tokens equal the twin's, all of
    them; each path profiles one chunk step (contiguous: one admitting
-   step) and three decode steps (device time by kernel, idle share);
+   step) and three decode steps (device time by kernel, idle share); the
+   MoE paths print K4's live rows against its capacity rows and its
+   segment heights in both, and fail if phase 3's case for that step
+   (``K4_STEP_SEGS``) is not among those heights;
 6. the launch counts of each path, the JSON kernels line (one entry per
    path and kernel of that path, ``launches`` that path's own count; K7,
    on no path, with its phase-3 launches), the ``nvidia-smi`` line and,
@@ -79,6 +90,7 @@ It imports nothing of JAX and nothing of the reference package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -95,6 +107,14 @@ INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989.4e12     # dense tensor-core rate (K7's bf16 route)
 
+# (tokens, segment height) of mixtral's K4 calls in phase 5's traced steps
+# (layers.moe_apply: top 2, G = 1, capacity ceil(2 T 1.25 / 8) rows): a
+# chunk step runs one 256-token chunk; a decode step runs the (B, 1) batch
+# of the 5 requests bucketed to 8 lanes (Engine.max_batch = 2 n_slots),
+# the pad lanes routed too.  Phase 3 times K4 at these shapes; phase 5
+# fails if its traced steps gave K4 no such call.
+K4_STEP_SEGS = {"chunk": (256, 80), "decode": (8, 3)}
+
 # the redesigned kernels' times before the redesign, as PERF.md section 6
 # records them (this Timer, NVIDIA H100 80GB HBM3 at 700 W); None: not
 # recorded
@@ -104,6 +124,10 @@ PREV_MS = {
     "K1 chunk q": None, "K1 chunk gate/up": 13.7831, "K1 chunk down": None,
     "K1 odd": None,
     "K7 decode": 0.8197, "K7 prefill": 1.4612, "K7 decode window 256": 0.4318,
+    # fused K4's first design (a dp4a SIMT tile per segment): PERF.md's K4
+    # row, and the same-call times beside the redesigned bitserial core
+    "K4 decode gate/up": 0.7382, "K4 decode down": None,
+    "K4 chunk gate/up": 12.7678, "K4 G=32 down": 63.2758,
     # the bitserial kernels on the earlier b1 core (.xor.popc, X re-packed in
     # every column block), before the .and / stacked / pipelined redesign
     "K1-bs decode q": 0.2025, "K1-bs decode gate/up": 0.2387,
@@ -206,17 +230,35 @@ def device_split(torch, timer, fn, iters: int = 10) -> dict:
     return out
 
 
-def bitserial_split(torch, timer, fn) -> str:
-    """The bitserial prologue's (X packed once, with its SU clear) and the
-    GEMM's device time per call, apart: the breakdown ``ncu`` would
-    give."""
-    split = device_split(torch, timer, fn)
+def bitserial_split(torch, timer, fn, split=None) -> str:
+    """The prologue's (bitserial: X packed once, with its SU clear; fused
+    K4: the live rows quantized once) and the GEMM's device time per
+    call, apart: the breakdown ``ncu`` would give (``split``: a
+    ``device_split`` of ``fn`` already taken)."""
+    if split is None:
+        split = device_split(torch, timer, fn)
     pro = sum(v for k, v in split.items()
-              if "pack_x" in k or "emset" in k)
-    gemm = sum(v for k, v in split.items() if "bitserial_" in k)
+              if "pack_x" in k or "emset" in k or "prologue" in k)
+    gemm = sum(v for k, v in split.items()
+               if "bitserial_" in k or "fused_decode" in k
+               or "fused_chunk" in k)
     rest = sum(split.values()) - pro - gemm
     return (f"device split: prologue {pro:.4f} ms, GEMM {gemm:.4f} ms"
             + (f", other {rest:.4f} ms" if rest > 0 else ""))
+
+
+def fused_k4_routes(torch, timer, fn):
+    """The routes fused K4 took in ``fn``, read off the kernels that ran
+    (``moe_fused_decode_kernel``, ``moe_fused_chunk_kernel``), with the
+    ``device_split``; a trace that caught no K4 GEMM is taken again, twice
+    at most."""
+    for _ in range(3):
+        split = device_split(torch, timer, fn)
+        ran = {route for route in ("decode", "chunk")
+               if any(f"moe_fused_{route}_kernel" in key for key in split)}
+        if ran:
+            return ran, split
+    raise AssertionError("fused K4: the profiler caught no GEMM kernel")
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
@@ -635,6 +677,13 @@ def _k4_case(torch, timer, g_, name, *, e, groups, seg, k, n, counts,
         + live_experts * nw * (w_bits * n * kw * 4 + n * 4) + e * c * n * 2
     n_ops = nw * groups_ab * 2 * n_live * n * k
     b_ms, b_by = bound_ms(n_bytes, n_ops, INT8_OPS_PER_S)
+    route = "decode" if seg <= moe.fused_route_max() else "chunk"
+    ran, split = fused_k4_routes(torch, timer, run)
+    if ran != {route}:
+        raise AssertionError(f"K4 {name}: ran the {sorted(ran)} route(s); "
+                             f"the threshold {moe.fused_route_max()} gives "
+                             f"seg={seg} the {route} route")
+    split = bitserial_split(torch, timer, run, split)
     bs = _k4_bitserial(torch, timer, name, x, a_s, counts, w, w2, a_bits,
                        act, bc, live_rows, got, want, ms, b_ms, b_by)
     # yardstick (not the same function; the port never calls it)
@@ -643,13 +692,15 @@ def _k4_case(torch, timer, g_, name, *, e, groups, seg, k, n, counts,
     mm = timer(lambda: torch.bmm(x, wb), iters=10)
     del wb
     print(f"K4 moe_expert_linear {name} E={e} G={groups} seg={seg} N={n} "
-          f"K={k}{' dual' if dual else ''} act={act}, {n_live} live rows of "
-          f"{e * c}, {live_experts} live experts: core bit-exact, live map "
-          f"equal, dead rows 0, out max|err| {err:.3g}, {ulps} bf16 ulps "
-          f"(tol {1 if dual else 0}); {ms:.4f} ms (bound {b_ms:.4f} ms by "
-          f"{b_by}, {100 * b_ms / ms:.1f}% of bound), plain {plain:.4f} ms; "
-          f"yardstick (not the same function): torch.bmm bf16 {mm:.4f} ms",
-          flush=True)
+          f"K={k}{' dual' if dual else ''} act={act}, {route} route (the "
+          f"kernels that ran), "
+          f"{n_live} live rows of {e * c}, {live_experts} live experts: core "
+          f"bit-exact, live map equal, dead rows 0, out max|err| {err:.3g}, "
+          f"{ulps} bf16 ulps (tol {1 if dual else 0}); {ms:.4f} ms (bound "
+          f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of bound; "
+          f"{versus_prev('K4 ' + name, b_ms)}; {split}), plain {plain:.4f} "
+          f"ms; yardstick (not the same function): torch.bmm bf16 "
+          f"{mm:.4f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None), bs
 
@@ -741,12 +792,21 @@ def k4_phase(torch, timer, seed, results):
         ("odd", dict(e=4, groups=2, seg=4, k=1000, n=1000, counts=odd,
                      dual=True)),
     ]
-    # the bitserial variant's route edge: its stacked route's tallest
-    # segment and the rows route's first, at the gate/up shape
+    # the shapes phase 5's traced mixtral steps give K4 (K4_STEP_SEGS,
+    # checked there)
+    for kind, (tokens, seg) in K4_STEP_SEGS.items():
+        cases.append((f"{kind} step gate/up", dict(
+            e=8, groups=1, seg=seg, k=d, n=f, dual=True,
+            counts=routed_counts(torch, g_, e=8, g=1, tg=tokens, cap=seg))))
+    # the route edges: the fused variant's decode route's tallest segment
+    # and its chunk route's first; the bitserial variant's stacked route's
+    # tallest and its rows route's first; at the gate/up shape
     from repro_torch.kernels import moe
-    edge = moe.bitserial_stack_max()
-    for name, seg in (("stack edge gate/up", edge),
-                      ("rows edge gate/up", edge + 1)):
+    edges = (("decode edge gate/up", moe.fused_route_max()),
+             ("chunk edge gate/up", moe.fused_route_max() + 1),
+             ("stack edge gate/up", moe.bitserial_stack_max()),
+             ("rows edge gate/up", moe.bitserial_stack_max() + 1))
+    for name, seg in edges:
         cases.append((name, dict(
             e=8, groups=1, seg=seg, k=d, n=f, dual=True,
             counts=routed_counts(torch, g_, e=8, g=1, tg=4 * seg,
@@ -1318,6 +1378,43 @@ def zero_counters() -> None:
     moe.LAUNCHES = moe.BITSERIAL_LAUNCHES = 0
 
 
+@contextlib.contextmanager
+def k4_rows():
+    """Record each K4 call's counts while the block runs; yields a list
+    that then holds (live rows, capacity rows, segment height) per call.  The counts are
+    summed after the block (their sync happens here, never in the
+    port)."""
+    from repro_torch.kernels import moe
+    kernel, seen, out = moe.moe_expert_linear, [], []
+
+    def recording(x, a_scale, counts, *a, **kw):
+        seen.append((counts, x.shape[0] * x.shape[1]))
+        return kernel(x, a_scale, counts, *a, **kw)
+
+    moe.moe_expert_linear = recording
+    try:
+        yield out
+    finally:
+        moe.moe_expert_linear = kernel
+        for counts, cap in seen:
+            seg = cap // counts.numel()
+            out.append((int(counts.clamp(0, seg).sum()), cap, seg))
+
+
+def _k4_step_rows(label, step, rows_seen) -> None:
+    """K4's live against capacity rows and its segment heights in a
+    traced step; phase 3's case for this step must be one of its calls."""
+    live, cap, _ = map(sum, zip(*rows_seen))
+    heights = sorted({seg for _, _, seg in rows_seen})
+    print(f"{label} traced {step} step(s): K4 ran {len(rows_seen)} times over "
+          f"{live} live rows of {cap} capacity rows ({100 * live / cap:.1f}% "
+          f"live), segment heights {heights}", flush=True)
+    if K4_STEP_SEGS[step][1] not in heights:
+        raise AssertionError(f"{label}: phase 3 times K4's {step} step at "
+                             f"seg={K4_STEP_SEGS[step][1]}, but the traced "
+                             f"step gave it heights {heights}")
+
+
 def same_tokens(label, reqs, twin_tokens) -> None:
     """A bit-serial path's greedy tokens against its fused twin's (same
     weights, prompts and engine): the integer cores are exact and the
@@ -1414,11 +1511,16 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
                 and len(step_ms["prefill"]) == 1)
             if traced:
                 n0, tp = sum(len(r.out) for r in reqs), time.time()
-                if kind == "prefill":
-                    profile_steps(torch, eng, 1, kind="chunk")
+                step = "chunk" if kind == "prefill" else "decode"
+                with k4_rows() as rows_seen:
+                    step_prof = profile_steps(
+                        torch, eng, 1 if step == "chunk" else 3, kind=step)
+                if step == "chunk":
                     chunk_traced = True
                 else:
-                    prof = profile_steps(torch, eng, 3)
+                    prof = step_prof
+                if rows_seen:
+                    _k4_step_rows(label, step, rows_seen)
                 t_prof += time.time() - tp
                 tok_prof += sum(len(r.out) for r in reqs) - n0
                 continue

@@ -64,6 +64,7 @@
 #include <stdint.h>
 
 #include "bitserial_core.cuh"
+#include "int8_core.cuh"
 
 namespace {
 
@@ -73,58 +74,16 @@ constexpr int BK = 128;           // K elements per tile (4 words per plane)
 constexpr int LDS = BK + 4;       // padded smem row (bytes): no bank conflicts
 constexpr int THREADS = 256;      // 16 x 16, each a 4 x 4 micro-tile
 
-using bitserial::quantize_u;   // shared with the bitserial prologue
-using bitserial::to_f32;
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16_rn(v);
-}
+using int8core::act_fn;        // the int8 steps shared with K4 and K5
+using int8core::from_f32;
+using int8core::group_word;
+using int8core::plane_group;
+using int8core::quantize_u;
+using int8core::to_f32;
 
 // round-trip through the output dtype (the plain version's cast points)
 template <typename TO> __device__ __forceinline__ float cast_f32(float v) {
   return to_f32(from_f32<TO>(v));
-}
-
-// silu as y * logistic(y) (the plain version's form); gelu, tanh form
-__device__ __forceinline__ float act_fn(float y, int act) {
-  if (act == 1) {
-    return __fmul_rn(y, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-y))));
-  }
-  if (act == 2) {                       // gelu, tanh form
-    float inner = 0.7978845608028654f * (y + 0.044715f * y * y * y);
-    return 0.5f * y * (1.0f + tanhf(inner));
-  }
-  return y;
-}
-
-// balanced <=7-bit plane groups of ref.plane_groups
-__device__ __forceinline__ void plane_group(int n_bits, int g, int* lo,
-                                            int* size) {
-  int ng = (n_bits + 6) / 7;
-  int base = n_bits / ng, extra = n_bits % ng;
-  int l = 0;
-  for (int i = 0; i < g; ++i) l += base + (i < extra ? 1 : 0);
-  *lo = l;
-  *size = base + (g < extra ? 1 : 0);
-}
-
-// 4 values' group (lo, sz) as int8x4: ((u >> lo) & mask) * 2 - mask, 0
-// where not live
-__device__ __forceinline__ uint32_t group_word(const int* u, const bool* live,
-                                               int lo, int sz) {
-  const int mask = (1 << sz) - 1;
-  uint32_t word = 0u;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    int v = live[e] ? ((((u[e] >> lo) & mask) << 1) - mask) : 0;
-    word |= ((uint32_t)(uint8_t)(int8_t)v) << (8 * e);
-  }
-  return word;
 }
 
 // the epilogue of one output (row, col) from its int32 sum(s); both routes
@@ -346,7 +305,8 @@ apmm_fused_linear_kernel(const TX* __restrict__ x,
 //      for every tile).  Each (slot, row) sum is reduced over the warp by
 //      shuffles and over the block's warps in shared memory (exact int32,
 //      one barrier per tile), then the epilogue above runs once per (row,
-//      column).
+//      column).  The quantize, slice, dot and correction steps are
+//      int8_core.cuh's, shared with K4's prologue and decode route.
 // ---------------------------------------------------------------------------
 
 constexpr int SMALL_M_MAX = 64;   // rows the small-M route takes
@@ -367,18 +327,10 @@ __global__ void quantize_x_kernel(const TX* __restrict__ x,
   const int item = blockIdx.x * blockDim.x + threadIdx.x;
   if (item >= m * k4n) return;
   const int row = item / k4n, k4 = item % k4n;
-  const int kwi = k4 / 8, j = k4 % 8;
-  const float s = a_scale[row];
   int u[4];
   bool live[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    int col = kwi * 32 + 8 * e + j;
-    live[e] = col < k;
-    u[e] = 0;
-    if (live[e]) u[e] = quantize_u(to_f32(x[(long long)row * k + col]), s,
-                                   max_a);
-  }
+  int8core::quantize_slice(x + (long long)row * k, k, k4 / 8, k4 % 8,
+                           a_scale[row], max_a, u, live);
   for (int g = 0; g < nga; ++g) {
     int lo, sz;
     plane_group(n_a, g, &lo, &sz);
@@ -414,13 +366,13 @@ small_m_kernel(const int8_t* __restrict__ xq,
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int n_warps = blockDim.x / 32;
   const int n_tiles = (n + NC - 1) / NC;
-  constexpr uint32_t BIT0 = 0x01010101u;
+  constexpr uint32_t BIT0 = int8core::BIT0;
 
-  int lo_a[2], sz_a[2], lo_b[2], sz_b[2];
+  int lo_a[2];
 #pragma unroll
   for (int g = 0; g < 2; ++g) {
-    plane_group(n_a, g < nga ? g : 0, &lo_a[g], &sz_a[g]);
-    plane_group(n_b, g < NGB ? g : 0, &lo_b[g], &sz_b[g]);
+    int sz;
+    plane_group(n_a, g < nga ? g : 0, &lo_a[g], &sz);
   }
 
   // the plane words of one (tile, word) step, for every slot
@@ -468,8 +420,8 @@ small_m_kernel(const int8_t* __restrict__ xq,
     for (int ga = 0; ga < nga; ++ga)
 #pragma unroll
       for (int gb = 0; gb < NGB; ++gb)
-        corr += (((1 << sz_b[gb]) - 1) * s_xsum[ga][row])
-                << (lo_a[ga] + lo_b[gb]);
+        corr += (int)int8core::group_correction<NGB>(
+            (uint32_t)s_xsum[ga][row], lo_a[ga], gb, n_b);
   }
 
   int buf = 0;
@@ -492,20 +444,14 @@ small_m_kernel(const int8_t* __restrict__ xq,
       else
         load_planes(tile + gridDim.x, tid, p_next);
       // u of each slot: 32 int8 in 8 int32 (bit-sliced, as xq)
-      int bv[SLOTS][8];
+      uint32_t bv[SLOTS][8];
 #pragma unroll
       for (int s = 0; s < NS; ++s)
 #pragma unroll
         for (int gb = 0; gb < NGB; ++gb)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            uint32_t word = 0u;
-#pragma unroll
-            for (int i = 0; i < NBM; ++i)   // static indices: p[] in registers
-              if (i >= lo_b[gb] && i < lo_b[gb] + sz_b[gb])
-                word |= ((p[s][i] >> j) & BIT0) << (i - lo_b[gb]);
-            bv[s * NGB + gb][j] = (int)word;
-          }
+          for (int j = 0; j < 8; ++j)
+            bv[s * NGB + gb][j] = int8core::slice_u<NBM, NGB>(p[s], j, gb);
       // products against each (row, group) of X, 8 registers at a time
 #pragma unroll
       for (int r = 0; r < MR; ++r) {
@@ -520,13 +466,9 @@ small_m_kernel(const int8_t* __restrict__ xq,
 #pragma unroll
           for (int s = 0; s < NS; ++s)
 #pragma unroll
-            for (int gb = 0; gb < NGB; ++gb) {
-              int t = 0;
-#pragma unroll
-              for (int j = 0; j < 8; ++j)
-                t = __dp4a(xv[j], bv[s * NGB + gb][j], t);
-              acc[s][r] += t << (lo_a[ga] + lo_b[gb] + 1);   // 2 u x
-            }
+            for (int gb = 0; gb < NGB; ++gb)
+              acc[s][r] += int8core::dot_word(xv, bv[s * NGB + gb])
+                           << (lo_a[ga] + int8core::slice_lo<NGB>(gb) + 1);
         }
       }
     }

@@ -25,11 +25,11 @@
 // Bound on Hopper.  At decode (M = the batch) the kernel is bound by bytes:
 // the weight planes, n_b bits per weight element.  At a prefill chunk it
 // is bound by operations: int8 multiply-adds, one per plane-group pair,
-// weight element and row.  This first design is K4's dp4a tile on CUDA
-// cores: the row tile is 8, 16, 32 or 64 rows by M (decode runs 8-row
-// tiles of 128 columns), K streams in tiles of 128, and each of the 256
-// threads owns a micro-tile of int32 accumulators.  Tensor cores (int8
-// mma / wgmma with TMA) for chunk shapes are later work.
+// weight element and row.  This first design is the dp4a tile K4 first
+// had, on CUDA cores: the row tile is 8, 16, 32 or 64 rows by M (decode
+// runs 8-row tiles of 128 columns), K streams in tiles of 128, and each
+// of the 256 threads owns a micro-tile of int32 accumulators.  Tensor
+// cores (int8 mma / wgmma with TMA) for chunk shapes are later work.
 //
 // Built with -fmad=false; the dequant also uses __fmul_rn, so its f32 bits
 // equal the plain version's.
@@ -51,6 +51,7 @@
 #include <stdint.h>
 
 #include "bitserial_core.cuh"
+#include "int8_core.cuh"
 
 namespace {
 
@@ -73,16 +74,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16>(
   return __float2bfloat16_rn(__fmul_rn(__fmul_rn((float)acc, as), bs));
 }
 
-// balanced <=7-bit plane groups of ref.plane_groups
-__device__ __forceinline__ void plane_group(int n_bits, int g, int* lo,
-                                            int* size) {
-  int ng = (n_bits + 6) / 7;
-  int base = n_bits / ng, extra = n_bits % ng;
-  int l = 0;
-  for (int i = 0; i < g; ++i) l += base + (i < extra ? 1 : 0);
-  *lo = l;
-  *size = base + (g < extra ? 1 : 0);
-}
+using int8core::plane_group;   // shared with K1 and K4
 
 // bits 0..3 of n to bit 0 of bytes 0..3
 __device__ __forceinline__ uint32_t spread4(uint32_t n) {

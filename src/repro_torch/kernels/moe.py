@@ -38,6 +38,14 @@ def _lib():
 
 
 @functools.cache
+def fused_route_max() -> int:
+    """The largest segment that K4's C entry sends to the fused variant's
+    decode (weight-streaming) route; taller segments take its int8
+    tensor-core chunk route (the library's own threshold)."""
+    return int(_build.load("moe_expert_linear").repro_moe_fused_route_max())
+
+
+@functools.cache
 def bitserial_stack_max() -> int:
     """The largest segment that K4's C entry sends to the bitserial
     variant's stacked route (the library's own threshold)."""
@@ -145,15 +153,19 @@ def moe_expert_linear(x: torch.Tensor, a_scale: torch.Tensor,
     n_ci = -(-seg // bc)
     out = torch.empty((e, c, n), dtype=out_dtype, device=dev)
     live = torch.empty((e * g, n_ci), dtype=torch.int32, device=dev)
-    # the bitserial prologue's workspace: X's planes, then SU
-    xp = apmm._bitserial_workspace(a_bits, e * c, kw, dev) \
-        if variant == "bitserial" else None
+    # the prologue's workspace -- fused: the live rows' int8 plane-group
+    # values, then their sums; bitserial: X's planes, then SU
+    if variant == "bitserial":
+        xp = apmm._bitserial_workspace(a_bits, e * c, kw, dev)
+    else:
+        xp = torch.empty(len(ref.plane_groups(a_bits)) * e * c
+                         * (kw * 32 + 4), dtype=torch.int8, device=dev)
     fn = _lib()
     err = fn(x.data_ptr(), a_scale.data_ptr(), counts.data_ptr(),
              w.packed.data_ptr(), ws.data_ptr(),
              0 if w2 is None else w2.packed.data_ptr(),
              0 if w2s is None else w2s.data_ptr(), out.data_ptr(),
-             live.data_ptr(), 0 if xp is None else xp.data_ptr(), e * g, e,
+             live.data_ptr(), xp.data_ptr(), e * g, e,
              g, seg, n, k, kw, a_bits, w.n_bits,
              _ACTS[act], bc, n_ci, _DTYPES[x.dtype], _DTYPES[out_dtype],
              _VARIANTS[variant], torch.cuda.current_stream(dev).cuda_stream)

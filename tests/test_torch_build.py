@@ -1,8 +1,8 @@
 """The kernel build cache of ``repro_torch.kernels._build`` (no ``nvcc``
 needed): a library's name hashes its source, the ``csrc/*.cuh`` headers
 the source includes and the flags, so that an edited header -- the b1
-core shared by K1, K4 and K5 -- rebuilds every source that includes it
-and nothing else."""
+core or the int8 plane-group steps, both shared by K1, K4 and K5 --
+rebuilds every source that includes it and nothing else."""
 
 import os
 import shutil
@@ -21,7 +21,7 @@ def test_sources_that_include_the_core_list_it():
     for name in ("apmm_fused_linear", "apmm_packed", "moe_expert_linear"):
         src = _build._target(name)[0]
         assert [os.path.basename(p) for p in _build._sources_of(src)] == \
-            [f"{name}.cu", "bitserial_core.cuh"]
+            [f"{name}.cu", "bitserial_core.cuh", "int8_core.cuh"]
     assert [os.path.basename(p) for p in
             _build._sources_of(_build._target("pack")[0])] == ["pack.cu"]
 
@@ -38,6 +38,18 @@ def test_editing_a_header_renames_the_libraries_that_include_it(
     changed = {n for n in names if after[n] != before[n]}
     assert changed == {"apmm_fused_linear", "apmm_packed",
                        "moe_expert_linear"}
+
+
+def test_editing_the_int8_core_renames_the_libraries_that_include_it(
+        tmp_path, monkeypatch):
+    csrc = _copy_csrc(tmp_path, monkeypatch)
+    names = _build.sources()
+    before = {n: _build._target(n)[2] for n in names}
+    header = csrc / "int8_core.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {n: _build._target(n)[2] for n in names}
+    assert {n for n in names if after[n] != before[n]} == {
+        "apmm_fused_linear", "apmm_packed", "moe_expert_linear"}
 
 
 def test_editing_a_source_renames_only_its_library(tmp_path, monkeypatch):

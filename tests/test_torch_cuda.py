@@ -21,6 +21,9 @@ where its C entry splits T (some ranges seen by no query row) and
 against ``ref.flash_attention_split``.  K1's small-M route (M up to
 ``apmm.small_m_max()``): the integer core bit-exact on both sides of the
 threshold, the dual SiLU within 1 bf16 ulp, bias and residual bit-exact.
+Fused K4 on both sides of its route threshold (``moe.fused_route_max()``:
+the weight-streaming decode route and the int8 tensor-core chunk route)
+at six width pairs: the same rules as K4's other cases.
 The bitserial variants of K1 and K4 on both sides of the b1 core's
 stacked-route threshold (``apmm.bitserial_stack_max()``,
 ``moe.bitserial_stack_max()``): integer cores bit-exact to the plain
@@ -256,10 +259,10 @@ def _expert_weight(rng, dev, e, n, k, bits):
 
 
 @pytest.mark.parametrize("e,g,seg,k,n", [
-    (8, 1, 2, 256, 300),          # decode: 8-row tiles
+    (8, 1, 2, 256, 300),          # decode: the decode route
     (4, 2, 5, 37, 19),            # odd K and N, two groups
-    (3, 1, 70, 200, 130),         # 64-row tiles, one 72-row live tile
-    (2, 1, 300, 96, 64),          # two 256-row live tiles
+    (3, 1, 70, 200, 130),         # a work list over two row tiles
+    (2, 1, 300, 96, 64),          # two 256-row live-map tiles
     (4, 32, 3, 64, 64),           # G = 32
 ])
 @pytest.mark.parametrize("a_bits,w_bits", [(8, 2), (4, 3), (8, 8)])
@@ -958,6 +961,63 @@ def test_k4_bitserial_route_boundaries(device, seg_case, a_bits, w_bits):
     assert torch.equal(got, fused)
     assert int(_bf16_ulps(got, want).max()) <= 1
     assert moe.BITSERIAL_LAUNCHES == before + 3
+
+
+_FUSED_PAIRS = [(8, 2), (2, 8), (7, 7), (8, 8), (1, 1), (3, 5)]
+
+
+@pytest.mark.parametrize("seg_case", [1, 2, "max", "max+1", 70, 130])
+@pytest.mark.parametrize("n,k", [(77, 1001), (130, 200)])
+@pytest.mark.parametrize("a_bits,w_bits", _FUSED_PAIRS)
+def test_k4_fused_route_boundaries(device, seg_case, n, k, a_bits, w_bits):
+    """Fused K4 on both sides of its route threshold
+    (``moe.fused_route_max()``: the decode route's tallest segment and the
+    chunk route's first), at odd N and K (K = 200: 4-byte copies, Kw not
+    a multiple of 4), with an empty expert, a full one and two dispatch
+    groups (the chunk route's work list runs across segments and, at 70
+    and 130 rows, across tiles): the integer core of each weight, the
+    live map and the dead rows' zeros equal to the plain version's, the
+    bf16 output at act none equal, the dual SiLU within 1 ulp."""
+    seg = _rows_case(seg_case, moe.fused_route_max())
+    e, g = 4, 2
+    rng = np.random.default_rng(seg * 13 + a_bits * 10 + w_bits + k)
+    w = _expert_weight(rng, device, e, n, k, w_bits)
+    w2 = _expert_weight(rng, device, e, n, k, w_bits)
+    counts = torch.from_numpy(rng.integers(0, seg + 1, (e, g))
+                              .astype(np.int32))
+    counts[1] = 0                                     # an empty expert
+    counts[2] = seg                                   # a full one
+    counts = counts.to(device)
+    x = _rand(rng, (e, g * seg, k), device, torch.bfloat16)
+    bc = ops.moe_row_tile(seg)
+    a_s = bipolar.absmax_scale(x.float(), a_bits, axis=-1)
+    rows = torch.arange(g * seg, device=device)
+    dead = (rows % seg)[None, :] >= counts[:, rows // seg]
+    before = moe.LAUNCHES
+    for wt in (w, w2):
+        got, live = moe.moe_expert_linear(x, a_s, counts, wt, a_bits=a_bits,
+                                          out_dtype=torch.float32, bc=bc)
+        torch.cuda.synchronize()
+        want, live_ref = moe.moe_expert_linear_plain(
+            x, a_s, counts, wt, a_bits=a_bits, out_dtype=torch.float32,
+            bc=bc)
+        assert torch.equal(got, want)
+        assert torch.equal(live, live_ref)
+        assert not got[dead].any()
+    got, _ = moe.moe_expert_linear(x, a_s, counts, w, a_bits=a_bits,
+                                   out_dtype=torch.bfloat16, bc=bc)
+    want = ref.ap_moe_expert_linear_ref(x, a_s, counts, w, a_bits=a_bits,
+                                        out_dtype=torch.bfloat16)
+    assert torch.equal(got, want)
+    got, _ = moe.moe_expert_linear(x, a_s, counts, w, w2=w2, a_bits=a_bits,
+                                   act="silu", out_dtype=torch.bfloat16,
+                                   bc=bc)
+    want = ref.ap_moe_expert_linear_ref(x, a_s, counts, w, w2=w2,
+                                        a_bits=a_bits, act="silu",
+                                        out_dtype=torch.bfloat16)
+    assert int(_bf16_ulps(got, want).max()) <= 1
+    assert not got[dead].any()
+    assert moe.LAUNCHES == before + 4
 
 
 def _su_of(x, a_s, a_bits):
