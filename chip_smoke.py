@@ -12,8 +12,10 @@ exit and no result line):
    summary;
 3. kernels -- each hand-written kernel against its plain torch version on
    the card, at the shapes of llama3-8b's and mixtral-8x7b's serving
-   paths (K3 words, the K1, K4 and K5 integer cores of every weight, K4's
-   bf16 output and K5's f32/bf16 dequant bit-exact; K1 and K4 SiLU
+   paths (K3 words at its load shape and at the unfused linear's
+   per-dispatch activation shape, the K1, K4 and K5 integer cores of
+   every weight, K4's bf16 output and K5's f32/bf16 dequant bit-exact;
+   K1 and K4 SiLU
    outputs within 1 bf16 ulp of the plain version; K4's dead rows
    exactly 0 and its live map equal to the analytic one; the unfused
    linear (K3 + K5) equal to the fused one (K1) bit for bit, within 1
@@ -25,8 +27,15 @@ exit and no result line):
    ``scaled_dot_product_attention`` call, the same function); K1's
    decode cases must run its small-M route and its chunk cases the tile
    kernel (``apmm.SMALL_M_LAUNCHES`` against the library's own
-   ``apmm.small_m_max()``), and K1, K4 and K7 print their time beside
-   the time PERF.md recorded before their redesign; fused K4 also prints
+   ``apmm.small_m_max()``), and so must K5's (its small-M route, K1's
+   GEMM after a prologue, at M <= ``apmm.packed_small_m_max()``: the
+   route printed, read off the kernels that ran); K2 runs at
+   ``K2_CASES`` (decode, a prefill chunk, and the shape of phase 5's
+   traced mixtral decode steps), each held against the plain version of
+   the split plan its C entry makes (``ref.paged_attention_split``), the
+   split count printed and the combine kernel seen to run exactly when
+   it splits; K1, K2, K4, K5 and K7 print their time beside
+   the time recorded before their redesign (``PREV_MS``); fused K4 also prints
    the route each case took, read off the kernels that ran, which must
    be the one its threshold gives (its decode route up to segments of
    ``moe.fused_route_max()`` rows, its int8 tensor-core chunk route
@@ -76,6 +85,10 @@ exit and no result line):
    fused kernels never, and whose greedy tokens equal the twin's, all of
    them; each path profiles one chunk step (contiguous: one admitting
    step) and three decode steps (device time by kernel, idle share); the
+   paged paths print K2's shapes in those steps and the ranges it splits
+   each into, and mixtral fails if phase 3's ``K2_STEP`` case is not
+   among its decode steps' shapes; the contiguous fused path counts K5's
+   small-M launches (decode) beside its tile launches (prefill); the
    MoE paths print K4's live rows against its capacity rows and its
    segment heights in both, and fail if phase 3's case for that step
    (``K4_STEP_SEGS``) is not among those heights;
@@ -94,6 +107,7 @@ import contextlib
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -114,6 +128,20 @@ BF16_FLOPS_PER_S = 989.4e12     # dense tensor-core rate (K7's bf16 route)
 # the pad lanes routed too.  Phase 3 times K4 at these shapes; phase 5
 # fails if its traced steps gave K4 no such call.
 K4_STEP_SEGS = {"chunk": (256, 80), "decode": (8, 3)}
+
+# K2's cases in phase 3: (name, tokens of each lane -- None: a pad lane on
+# an all-null table --, query tokens a lane, table width NB, window).
+# "mixtral decode window" is the shape of phase 5's traced mixtral decode
+# steps: the 5 requests bucketed to 8 lanes, the 4,300-token one past its
+# 4,096-token window (its out-of-window blocks reclaimed), NB the engine's
+# table width (4352 // 16: the long lane's ~257 blocks bucket to 512,
+# capped there); phase 5 fails if those steps gave K2 no call of its (B,
+# Gq, NB, window).
+K2_CASES = (("decode", (600,) * 4, 1, 64, None),
+            ("chunk", (600,), 256, 64, None),
+            ("mixtral decode window", (609, 109, 309, 4309, 209, None, None,
+                                       None), 1, 272, 4096))
+K2_STEP = {"mixtral-8x7b": "mixtral decode window"}
 
 # the redesigned kernels' times before the redesign, as PERF.md section 6
 # records them (this Timer, NVIDIA H100 80GB HBM3 at 700 W); None: not
@@ -141,6 +169,14 @@ PREV_MS = {
     "K5-bs chunk q": 0.8467, "K5-bs chunk gate": 2.7359,
     "K5-bs odd a2w8": 0.0559, "K5-bs odd a8w8": 0.1700,
     "K5-bs odd a1w1": 0.0622, "K5-bs odd a3w5": 0.0803,
+    # K2 (one block per q-tile, head and request walking the whole table)
+    # and fused K5 (the dp4a tile at every M) before their redesign: the
+    # mean of two runs of tools/k2_k5_times.py on that code at these cases
+    "K2 decode": 0.2648, "K2 chunk": 0.8842, "K2 mixtral decode window": 1.583,
+    "K5 decode q": 0.1749, "K5 decode gate": 0.1985, "K5 decode down": 0.5153,
+    "K5 decode lm_head": 0.6501, "K5 chunk q": 1.1442, "K5 chunk gate": 3.7087,
+    "K5 odd, unequal Kw": 0.0748, "K5 odd a2w8": 0.0791, "K5 odd a8w8": 0.0855,
+    "K5 odd a1w1": 0.0476, "K5 odd a3w5": 0.0544,
 }
 
 
@@ -230,6 +266,32 @@ def device_split(torch, timer, fn, iters: int = 10) -> dict:
     return out
 
 
+def kernel_name(key: str) -> str:
+    """A kernel's own name in the profiler's demangled signature."""
+    m = re.search(r"(\w+)[<(]", key)
+    return m.group(1) if m else key
+
+
+def kernel_names(split: dict) -> list:
+    """The kernels' own names among a ``device_split``'s keys, sorted."""
+    return sorted({kernel_name(key) for key in split})
+
+
+def traced_split(torch, timer, fn, names) -> dict:
+    """A ``device_split`` of ``fn`` that caught one of the kernels
+    ``names``; a trace that caught none is taken again, twice at most."""
+    for _ in range(3):
+        split = device_split(torch, timer, fn)
+        if set(names) & set(kernel_names(split)):
+            return split
+    raise AssertionError(f"the profiler caught none of {names}")
+
+
+def split_line(split: dict) -> str:
+    """A ``device_split`` as "name ms, ..."."""
+    return ", ".join(f"{kernel_name(k)} {v:.4f}" for k, v in split.items())
+
+
 def bitserial_split(torch, timer, fn, split=None) -> str:
     """The prologue's (bitserial: X packed once, with its SU clear; fused
     K4: the live rows quantized once) and the GEMM's device time per
@@ -250,15 +312,12 @@ def bitserial_split(torch, timer, fn, split=None) -> str:
 def fused_k4_routes(torch, timer, fn):
     """The routes fused K4 took in ``fn``, read off the kernels that ran
     (``moe_fused_decode_kernel``, ``moe_fused_chunk_kernel``), with the
-    ``device_split``; a trace that caught no K4 GEMM is taken again, twice
-    at most."""
-    for _ in range(3):
-        split = device_split(torch, timer, fn)
-        ran = {route for route in ("decode", "chunk")
-               if any(f"moe_fused_{route}_kernel" in key for key in split)}
-        if ran:
-            return ran, split
-    raise AssertionError("fused K4: the profiler caught no GEMM kernel")
+    ``device_split``."""
+    kernels = {route: f"moe_fused_{route}_kernel"
+               for route in ("decode", "chunk")}
+    split = traced_split(torch, timer, fn, list(kernels.values()))
+    ran = kernel_names(split)
+    return {route for route, k in kernels.items() if k in ran}, split
 
 
 def bound_ms(n_bytes: float, n_ops: float, ops_rate: float):
@@ -280,33 +339,45 @@ def versus_prev(key: str, b_ms: float) -> str:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# K3's cases: (name, rows, K, bits, pad bit): the weights' pack at load,
+# and the unfused linear's per-dispatch activation pack at decode (M = 4,
+# a8); both f32 (ops.quantize_rows hands K3 x.float())
+K3_CASES = (("load", 14336, 4096, 2, 1),
+            ("decode activations", 4, 4096, 8, 0))
+
+
 def k3_phase(torch, timer, rng_seed, results):
     from repro_torch.core import bipolar
     from repro_torch.kernels import pack, ref
     g = torch.Generator(device="cuda").manual_seed(rng_seed)
-    r, k, n_bits = 14336, 4096, 2
-    x = torch.randn((r, k), generator=g, device="cuda")
-    scale = bipolar.absmax_scale(x, n_bits, axis=-1)
-    got = pack.quantize_pack_rows(x, scale, n_bits=n_bits, pad_bit=1)
-    torch.cuda.synchronize()
-    want = ref.quantize_pack_rows(x, scale, n_bits=n_bits, pad_bit=1)
-    err = float((got.long() - want.long()).abs().max())
-    if not torch.equal(got, want):
-        raise AssertionError("K3 words differ from the plain version")
-    ms = timer(lambda: pack.quantize_pack_rows(x, scale, n_bits=n_bits,
-                                               pad_bit=1), iters=20)
-    plain = timer(lambda: ref.quantize_pack_rows(x, scale, n_bits=n_bits,
-                                                 pad_bit=1), iters=3, warmup=1)
-    kw = bipolar.packed_words(k)
-    b_ms, b_by = bound_ms(r * k * 4 + r * 4 + n_bits * r * kw * 4, 0,
-                          INT8_OPS_PER_S)
-    print(f"K3 quantize_pack_rows {r}x{k} w{n_bits}: words equal; "
-          f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-          f"{100 * b_ms / ms:.1f}% of bound), plain {plain:.4f} ms",
-          flush=True)
-    results["quantize_pack_rows"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None)
+    for name, r, k, n_bits, pad_bit in K3_CASES:
+        x = torch.randn((r, k), generator=g, device="cuda")
+        scale = bipolar.absmax_scale(x, n_bits, axis=-1)
+        got = pack.quantize_pack_rows(x, scale, n_bits=n_bits,
+                                      pad_bit=pad_bit)
+        torch.cuda.synchronize()
+        want = ref.quantize_pack_rows(x, scale, n_bits=n_bits,
+                                      pad_bit=pad_bit)
+        err = float((got.long() - want.long()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 {name}: words differ from the plain "
+                                 f"version")
+        ms = timer(lambda: pack.quantize_pack_rows(
+            x, scale, n_bits=n_bits, pad_bit=pad_bit), iters=20)
+        plain = timer(lambda: ref.quantize_pack_rows(
+            x, scale, n_bits=n_bits, pad_bit=pad_bit), iters=3, warmup=1)
+        kw = bipolar.packed_words(k)
+        b_ms, b_by = bound_ms(r * k * x.element_size() + r * 4
+                              + n_bits * r * kw * 4, 0, INT8_OPS_PER_S)
+        print(f"K3 quantize_pack_rows {name} {r}x{k} f32 w{n_bits} pad "
+              f"{pad_bit}: words equal; {ms:.4f} ms (bound {b_ms:.4f} ms by "
+              f"{b_by}, {100 * b_ms / ms:.1f}% of bound), plain "
+              f"{plain:.4f} ms", flush=True)
+        if name == "load":
+            results["quantize_pack_rows"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+        del x, got, want
 
 
 def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
@@ -500,14 +571,23 @@ def k1_phase(torch, timer, seed, results):
     torch.cuda.empty_cache()
 
 
-def _k2_inputs(torch, g, *, b, ctx, s_q, h=8, group=4, d=128, n_bits=8,
-               bs=16):
+def _k2_inputs(torch, g, lanes, *, s_q, nb, window, h=8, group=4, d=128,
+               n_bits=8, bs=16):
+    """One K2 case: lane i holds ``lanes[i]`` tokens (positions 0..ctx-1)
+    in blocks of its own, less the blocks wholly out of the window (the
+    engine reclaims them: they are not in its table), its table padded
+    to ``nb`` entries with the null block 0; None is a pad lane on an
+    all-null table.  Queries: each lane's last ``s_q`` positions, the GQA
+    group folded in (pad lanes -1).  Returns the kernel's arguments."""
     from repro_torch.kernels import ops
-    n_per = -(-ctx // bs)
-    nb = 1
-    while nb < n_per:
-        nb *= 2
-    n_blocks = 1 + b * n_per
+    spans = []
+    for ctx in lanes:
+        if ctx is None:
+            spans.append(None)
+            continue
+        lo = 0 if window is None else max(0, ctx - s_q + 1 - window)
+        spans.append((ctx, lo // bs, -(-ctx // bs) - lo // bs))
+    n_blocks = 1 + sum(sp[2] for sp in spans if sp)
     dw = d // 32
     k_pool = torch.zeros((n_blocks, bs, h, n_bits, dw), dtype=torch.int32,
                          device="cuda")
@@ -515,68 +595,99 @@ def _k2_inputs(torch, g, *, b, ctx, s_q, h=8, group=4, d=128, n_bits=8,
     k_sc = torch.zeros((n_blocks, bs, h, 1), device="cuda")
     v_sc = torch.zeros_like(k_sc)
     pos = torch.full((n_blocks, bs), -1, dtype=torch.int32, device="cuda")
-    tables = torch.zeros((b, nb), dtype=torch.int32, device="cuda")
-    for row in range(b):
-        kv = torch.randn((2, n_per * bs, h, d), generator=g,
+    tables = torch.zeros((len(lanes), nb), dtype=torch.int32, device="cuda")
+    q_pos = torch.full((len(lanes), group * s_q), -1, dtype=torch.int32,
+                       device="cuda")
+    nxt = 1
+    for row, sp in enumerate(spans):
+        if sp is None:
+            continue
+        ctx, first, n_blk = sp
+        assert n_blk <= nb, (ctx, n_blk, nb)
+        kv = torch.randn((2, n_blk * bs, h, d), generator=g,
                          device="cuda").to(torch.bfloat16)
         kq, ks = ops.quantize_kv(kv[0], n_bits)
         vq, vs = ops.quantize_kv(kv[1], n_bits)
-        ids = torch.arange(1 + row * n_per, 1 + (row + 1) * n_per,
-                           device="cuda")
-        tables[row, :n_per] = ids.to(torch.int32)
-        k_pool[ids] = kq.reshape(n_per, bs, h, n_bits, dw)
-        v_pool[ids] = vq.reshape(n_per, bs, h, n_bits, dw)
-        k_sc[ids] = ks.reshape(n_per, bs, h, 1)
-        v_sc[ids] = vs.reshape(n_per, bs, h, 1)
-        p = torch.arange(n_per * bs, dtype=torch.int32, device="cuda")
-        pos[ids] = torch.where(p < ctx, p, -1).reshape(n_per, bs)
-    q = torch.randn((b, h, group * s_q, d), generator=g,
+        ids = torch.arange(nxt, nxt + n_blk, device="cuda")
+        nxt += n_blk
+        tables[row, :n_blk] = ids.to(torch.int32)
+        k_pool[ids] = kq.reshape(n_blk, bs, h, n_bits, dw)
+        v_pool[ids] = vq.reshape(n_blk, bs, h, n_bits, dw)
+        k_sc[ids] = ks.reshape(n_blk, bs, h, 1)
+        v_sc[ids] = vs.reshape(n_blk, bs, h, 1)
+        p = torch.arange(first * bs, (first + n_blk) * bs, dtype=torch.int32,
+                         device="cuda")
+        pos[ids] = torch.where(p < ctx, p, -1).reshape(n_blk, bs)
+        qp = torch.arange(ctx - s_q, ctx, dtype=torch.int32, device="cuda")
+        q_pos[row] = qp[None, :].expand(group, s_q).reshape(-1)
+    q = torch.randn((len(lanes), h, group * s_q, d), generator=g,
                     device="cuda").to(torch.bfloat16)
-    qp = torch.arange(ctx - s_q, ctx, dtype=torch.int32, device="cuda")
-    q_pos = qp[None, None, :].expand(b, group, s_q).reshape(b, group * s_q)
-    return (q, k_pool, k_sc, v_pool, v_sc, pos, tables,
-            q_pos.contiguous()), n_per
+    return q, k_pool, k_sc, v_pool, v_sc, pos, tables, q_pos
+
+
+def _k2_bound(torch, args, window, d, n_bits):
+    """Bytes: each slot that some query row of its lane may see, once
+    (its K and V planes and scales for every head, and its position),
+    plus q, out, the positions and the tables; operations: 4 d flops per
+    visible (query, slot) pair and head, at the f32 rate."""
+    from repro_torch.kernels import ref
+    q, _, _, _, _, pos, tables, q_pos = args
+    b, h, gq, _ = q.shape
+    kpos = ref.gather_paged_kv(pos[:, :, None], tables)[..., 0]
+    valid = ref.position_mask(q_pos[:, :, None], kpos[:, None, :], True,
+                              window)
+    slots = int(valid.any(1).sum())
+    slot_bytes = h * (2 * n_bits * (d // 32) * 4 + 8) + 4
+    io_bytes = 2 * q.numel() * q.element_size() + q_pos.numel() * 4 \
+        + tables.numel() * 4
+    return bound_ms(slots * slot_bytes + io_bytes,
+                    4 * d * int(valid.sum()) * h, F32_FLOPS_PER_S)
 
 
 def k2_phase(torch, timer, seed, results):
+    """K2 at ``K2_CASES``: within 1 bf16 ulp or 1e-5 of its plain version
+    -- the split plain version (``ref.paged_attention_split``) where its C
+    entry splits the table -- with the split count its C entry plans and
+    the kernels that ran (the combine exactly when it splits)."""
     from repro_torch.kernels import flash_attention, ref
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
-    for name, b, ctx, s_q in (("decode", 4, 600, 1),
-                              ("chunk", 1, 600, 256)):
-        args, n_per = _k2_inputs(torch, g, b=b, ctx=ctx, s_q=s_q)
-        d, h, gq = 128, 8, args[0].shape[2]
+    for name, lanes, s_q, nb, window in K2_CASES:
+        args = _k2_inputs(torch, g, lanes, s_q=s_q, nb=nb, window=window)
+        d, n_bits = 128, 8
+        b, h, gq, _ = args[0].shape
+        n_split = flash_attention.paged_splits(b, h, gq, nb)
 
         def run():
             return flash_attention.flash_attention_paged_quantized(
-                *args, d=d)
+                *args, d=d, window=window)
 
         def run_plain():
-            return ref.paged_attention(*args, d=d)
+            return ref.paged_attention(*args, d=d, window=window)
 
-        got, want = run(), run_plain()
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        ulps = bf16_ulps(got, want)
-        # both sides run in f32 and round once to bf16: each element is
-        # within 1 ulp, or 1e-5 where f32 sum order shows near zero
-        n_bad = int(((ulps > 1) & (diff > 1e-5)).sum())
-        if n_bad:
-            raise AssertionError(f"K2 {name}: {n_bad} elements beyond 1 "
-                                 f"bf16 ulp and 1e-5 (max |err| {err})")
+        got = run()
+        want = ref.paged_attention_split(*args, splits=n_split, d=d,
+                                         window=window)
+        ok, err, ulps = _within(got, want)
+        if not ok:
+            raise AssertionError(f"K2 {name}: beyond 1 bf16 ulp and 1e-5 of "
+                                 f"the {n_split}-range plain version (max "
+                                 f"|err| {err})")
+        split = traced_split(torch, timer, run, ["paged_attention_kernel"])
+        ran = kernel_names(split)
+        if ("combine_kernel" in ran) != (n_split > 1):
+            raise AssertionError(f"K2 {name}: {n_split} ranges planned, but "
+                                 f"the kernels that ran were {ran}")
         ms = timer(run, iters=20)
         plain = timer(run_plain, iters=3, warmup=1)
-        kv_bytes = b * n_per * 16 * 2116            # planes+scales+pos
-        io_bytes = 2 * b * h * gq * d * 2 + b * gq * 4 + args[6].numel() * 4
-        q_pos = args[7]
-        kpos = torch.arange(ctx, device="cuda")
-        pairs = int((kpos[None, None, :] <= q_pos[:, :, None]).sum()) * h
-        b_ms, b_by = bound_ms(kv_bytes + io_bytes, 4 * d * pairs,
-                              F32_FLOPS_PER_S)
-        print(f"K2 paged attention {name} B={b} ctx={ctx} Gq={gq} H={h} "
-              f"d={d} kv8 bs=16: max|err| {err:.3g}, max "
-              f"{int(ulps.max())} bf16 ulps (tol 1 ulp or 1e-5); "
-              f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-              f"{100 * b_ms / ms:.1f}% of bound), plain {plain:.4f} ms",
+        b_ms, b_by = _k2_bound(torch, args, window, d, n_bits)
+        print(f"K2 paged attention {name} B={b} lanes={list(lanes)} "
+              f"Gq={gq} H={h} NB={nb} window={window} d={d} kv8 bs=16: "
+              f"{n_split} range(s) of the table (device ms: "
+              f"{split_line(split)}); max|err| {err:.3g} against the {n_split}-range plain "
+              f"version, max {ulps} bf16 ulps where |err| > 1e-5 (tol 1 "
+              f"ulp or 1e-5); {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+              f"{100 * b_ms / ms:.1f}% of bound; "
+              f"{versus_prev('K2 ' + name, b_ms)}), plain {plain:.4f} ms",
               flush=True)
         if name == "decode":
             results["paged_attention"] = dict(
@@ -819,12 +930,13 @@ def k4_phase(torch, timer, seed, results):
         torch.cuda.empty_cache()
 
 
-def _k5_case(torch, timer, g, name, m, n, k, *, a_bits=8, w_bits=2,
-             extra_b_words=0):
-    """K5 at one shape: A = K3-packed bf16 activations, B = a packed
-    weight (``extra_b_words`` all-one alignment words widen its Kw)."""
+def _k5_operands(torch, g, m, n, k, *, a_bits=8, w_bits=2,
+                 extra_b_words=0):
+    """K5's operands at one shape: A = K3-packed bf16 activations ``x``,
+    B = a packed weight (``extra_b_words`` all-one alignment words widen
+    its Kw).  Returns (x, A, B)."""
     import dataclasses
-    from repro_torch.kernels import apmm, ops, ref
+    from repro_torch.kernels import ops
     w = ops.pack_weight(torch.randn((n, k), generator=g, device="cuda"),
                         w_bits)
     if extra_b_words:
@@ -834,6 +946,17 @@ def _k5_case(torch, timer, g, name, m, n, k, *, a_bits=8, w_bits=2,
     x = torch.randn((m, k), generator=g, device="cuda").to(torch.bfloat16)
     a = ops.quantize_rows(x, a_bits, pad_bit=0)
     a, w = ops._normalize_packed_kw(a, w)
+    return x, a, w
+
+
+def _k5_case(torch, timer, g, name, m, n, k, *, a_bits=8, w_bits=2,
+             extra_b_words=0):
+    """K5 at one shape (``_k5_operands``): bit-exact raw and dequantized,
+    on the route its threshold gives (read off the kernels that ran)."""
+    from repro_torch.kernels import apmm, ref
+    x, a, w = _k5_operands(torch, g, m, n, k, a_bits=a_bits, w_bits=w_bits,
+                           extra_b_words=extra_b_words)
+    before = apmm.PACKED_SMALL_M_LAUNCHES
     raw = apmm.apmm_packed(a, w)
     torch.cuda.synchronize()
     if not torch.equal(raw, ref.apmm_packed(a, w)):
@@ -853,6 +976,18 @@ def _k5_case(torch, timer, g, name, m, n, k, *, a_bits=8, w_bits=2,
     def run_plain():
         return ref.apmm_dequant(a, w, out_dtype=torch.bfloat16)
 
+    small = m <= apmm.packed_small_m_max()
+    if apmm.PACKED_SMALL_M_LAUNCHES - before != 3 * small:
+        raise AssertionError(f"K5 {name}: small-M launch counter")
+    split = traced_split(torch, timer, run,
+                         ["gemm_kernel", "apmm_packed_kernel"])
+    ran = kernel_names(split)
+    route = "small-M" if "gemm_kernel" in ran else "tile"
+    if route != ("small-M" if small else "tile") or (
+            small and "packed_to_xq_kernel" not in ran):
+        raise AssertionError(f"K5 {name} M={m}: kernels {ran} ran, not the "
+                             f"route its threshold "
+                             f"{apmm.packed_small_m_max()} gives")
     ms = timer(run, iters=10)
     plain = timer(run_plain, iters=2, warmup=1)
     kw = w.packed.shape[-1]
@@ -869,9 +1004,12 @@ def _k5_case(torch, timer, g, name, m, n, k, *, a_bits=8, w_bits=2,
     im = timer(lambda: torch._int_mm(xi, wi.t()), iters=10)
     del wb, xi, wi
     print(f"K5 apmm_packed {name} M={m} N={n} K={k} Kw={kw} a{a_bits}w"
-          f"{w_bits}: raw int32 and f32/bf16 dequant bit-exact; {ms:.4f} ms "
-          f"(bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of "
-          f"bound), plain {plain:.4f} ms; yardsticks (not the same "
+          f"{w_bits}: raw int32 and f32/bf16 dequant bit-exact; {route} "
+          f"route (device ms: {split_line(split)}); "
+          f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+          f"{100 * b_ms / ms:.1f}% of bound; "
+          f"{versus_prev('K5 ' + name, b_ms)}), plain {plain:.4f} ms; "
+          f"yardsticks (not the same "
           f"function): torch.matmul bf16 {mm:.4f} ms, torch._int_mm int8 "
           f"M={mi} N={ni} K={ki} {im:.4f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -940,22 +1078,25 @@ def _unfused_vs_fused(torch, g, name, m, n, k):
           f"ulps (tol 1)", flush=True)
 
 
+_ODD = dict(extra_b_words=3)
+# K5's cases in phase 3: (name, M, N, K, options of _k5_operands)
+K5_CASES = (("decode q", 4, 4096, 4096, {}),
+            ("decode gate", 4, 14336, 4096, {}),
+            ("decode down", 4, 4096, 14336, {}),
+            ("decode lm_head", 4, 128256, 4096, {}),
+            ("chunk q", 1024, 4096, 4096, {}),
+            ("chunk gate", 1024, 14336, 4096, {}),
+            ("odd, unequal Kw", 5, 1000, 1000, _ODD),
+            # the bitserial variant's width pairs at odd M/N/K
+            ("odd a2w8", 5, 999, 1001, dict(a_bits=2, w_bits=8, **_ODD)),
+            ("odd a8w8", 37, 999, 1001, dict(a_bits=8, w_bits=8, **_ODD)),
+            ("odd a1w1", 5, 999, 1001, dict(a_bits=1, w_bits=1, **_ODD)),
+            ("odd a3w5", 67, 999, 1001, dict(a_bits=3, w_bits=5, **_ODD)))
+
+
 def k5_phase(torch, timer, seed, results):
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
-    odd = dict(extra_b_words=3)
-    cases = [("decode q", 4, 4096, 4096, {}),
-             ("decode gate", 4, 14336, 4096, {}),
-             ("decode down", 4, 4096, 14336, {}),
-             ("decode lm_head", 4, 128256, 4096, {}),
-             ("chunk q", 1024, 4096, 4096, {}),
-             ("chunk gate", 1024, 14336, 4096, {}),
-             ("odd, unequal Kw", 5, 1000, 1000, odd),
-             # the bitserial variant's width pairs at odd M/N/K
-             ("odd a2w8", 5, 999, 1001, dict(a_bits=2, w_bits=8, **odd)),
-             ("odd a8w8", 37, 999, 1001, dict(a_bits=8, w_bits=8, **odd)),
-             ("odd a1w1", 5, 999, 1001, dict(a_bits=1, w_bits=1, **odd)),
-             ("odd a3w5", 67, 999, 1001, dict(a_bits=3, w_bits=5, **odd))]
-    for name, m, n, k, kw in cases:
+    for name, m, n, k, kw in K5_CASES:
         r, bs = _k5_case(torch, timer, g, name, m, n, k, **kw)
         if name == "decode gate":
             results["apmm_packed"] = r
@@ -1372,6 +1513,7 @@ def zero_counters() -> None:
     from repro_torch.kernels import apmm, flash_attention, moe, pack
     pack.LAUNCHES = apmm.LAUNCHES = apmm.SMALL_M_LAUNCHES = 0
     apmm.BITSERIAL_LAUNCHES = apmm.PACKED_LAUNCHES = 0
+    apmm.PACKED_SMALL_M_LAUNCHES = 0
     apmm.PACKED_BITSERIAL_LAUNCHES = 0
     flash_attention.LAUNCHES = flash_attention.QUANTIZED_LAUNCHES = 0
     flash_attention.FLOAT_LAUNCHES = 0
@@ -1399,6 +1541,44 @@ def k4_rows():
         for counts, cap in seen:
             seg = cap // counts.numel()
             out.append((int(counts.clamp(0, seg).sum()), cap, seg))
+
+
+@contextlib.contextmanager
+def k2_shapes():
+    """Record each K2 call's (B, H, Gq, NB, window) while the block runs;
+    yields the list."""
+    from repro_torch.kernels import flash_attention
+    kernel, seen = flash_attention.flash_attention_paged_quantized, []
+
+    def recording(q, *a, window=None, **kw):
+        seen.append((*q.shape[:3], a[5].shape[1], window))
+        return kernel(q, *a, window=window, **kw)
+
+    flash_attention.flash_attention_paged_quantized = recording
+    try:
+        yield seen
+    finally:
+        flash_attention.flash_attention_paged_quantized = kernel
+
+
+def _k2_step_shapes(label, step, shapes, case) -> None:
+    """K2's shapes in a traced step and the ranges its C entry splits each
+    into; phase 3's case ``case`` (a ``K2_CASES`` name) must be one of
+    them."""
+    from repro_torch.kernels import flash_attention
+    seen = sorted(set(shapes), key=str)
+    print(f"{label} traced {step} step(s): K2 ran {len(shapes)} times, "
+          f"(B, H, Gq, NB, window) -> ranges: " + ", ".join(
+              f"{sh} -> {flash_attention.paged_splits(*sh[:4])}"
+              for sh in seen), flush=True)
+    if case is None:
+        return
+    _, lanes, s_q, nb, window = next(c for c in K2_CASES if c[0] == case)
+    want = (len(lanes), 4 * s_q, nb, window)
+    if want not in {(b, gq, nb_, w) for b, _, gq, nb_, w in seen}:
+        raise AssertionError(f"{label}: phase 3 times K2 at {case!r}, "
+                             f"(B, Gq, NB, window) {want}, but the traced "
+                             f"{step} steps gave it {seen}")
 
 
 def _k4_step_rows(label, step, rows_seen) -> None:
@@ -1512,9 +1692,12 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
             if traced:
                 n0, tp = sum(len(r.out) for r in reqs), time.time()
                 step = "chunk" if kind == "prefill" else "decode"
-                with k4_rows() as rows_seen:
+                with k4_rows() as rows_seen, k2_shapes() as k2_seen:
                     step_prof = profile_steps(
                         torch, eng, 1 if step == "chunk" else 3, kind=step)
+                _k2_step_shapes(label, step, k2_seen,
+                                K2_STEP.get(arch) if step == "decode"
+                                else None)
                 if step == "chunk":
                     chunk_traced = True
                 else:
@@ -1608,6 +1791,7 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
     tokens."""
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.kernels import apmm
     from repro_torch.models import model as M
     from repro_torch.models.config import QuantConfig
     from repro_torch.serving import engine as E
@@ -1677,6 +1861,7 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
             step_ms[kind].append((time.time() - ts) * 1e3)
         t_serve = time.time() - t_serve - t_prof
         counts = counters()
+        small_m = apmm.PACKED_SMALL_M_LAUNCHES
     finally:
         M.forward = forward
     # --- end of the main path ---
@@ -1700,6 +1885,10 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
     if n_load_pack != n_pack:
         raise AssertionError(f"{label}: K3 launched {n_load_pack} times "
                              f"at load, not {n_pack}")
+    if variant == "fused" and not 0 < small_m < counts["apmm_packed"]:
+        raise AssertionError(f"{label}: {small_m} of "
+                             f"{counts['apmm_packed']} K5 launches on its "
+                             f"small-M route (decode and prefill both run)")
     if twin_tokens is not None:
         same_tokens(label, reqs, twin_tokens)
     same = sum(a == b for ra, rb in zip(reqs, paged_tokens)
@@ -1712,7 +1901,8 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
           f"w2/a8/kv8 contiguous n_slots=4 max_len=1024: load+quantize "
           f"{t_load:.2f} s; {len(reqs)} requests (prompts "
           f"{[len(r.prompt) for r in reqs]}), {nd} forward dispatches, "
-          f"launches {counts}; {n_tok} tokens outside the traced steps in "
+          f"launches {counts} (K5 small-M route {small_m}); {n_tok} tokens "
+          f"outside the traced steps in "
           f"{t_serve:.2f} s = {n_tok / t_serve:.2f} tok/s; {len(pre)} "
           f"admitting steps (prefills + a decode) mean {np.mean(pre):.1f} ms, "
           f"{len(dec)} decode steps mean {np.mean(dec):.1f} ms (median "

@@ -25,11 +25,22 @@
 // Bound on Hopper.  At decode (M = the batch) the kernel is bound by bytes:
 // the weight planes, n_b bits per weight element.  At a prefill chunk it
 // is bound by operations: int8 multiply-adds, one per plane-group pair,
-// weight element and row.  This first design is the dp4a tile K4 first
-// had, on CUDA cores: the row tile is 8, 16, 32 or 64 rows by M (decode
-// runs 8-row tiles of 128 columns), K streams in tiles of 128, and each
-// of the 256 threads owns a micro-tile of int32 accumulators.  Tensor
-// cores (int8 mma / wgmma with TMA) for chunk shapes are later work.
+// weight element and row.  The C entry routes by M:
+//   M <= SMALL_M_MAX: the small-M route, K1's.  packed_to_xq_kernel turns
+//              A's packed planes into small_m.cuh's bit-sliced int8
+//              plane-group values (u = sum_i b_i << i of each element from
+//              its plane bits, then group_word as K1's quantize does), a
+//              workspace of the wrapper; pad columns k >= K hold 0, so
+//              their products are 0 and no preload is needed.  Then
+//              small_m.cuh's weight-streaming GEMM (the same code K1 runs)
+//              with from_acc as its epilogue (PackedEpi).  SMALL_M_MAX is
+//              where tools/k1_small_m_threshold.py --kernel K5 found this
+//              route stop beating the tile on the H100 (PERF.md);
+//   above:     the dp4a tile K4 first had, on CUDA cores: the row tile is
+//              8, 16, 32 or 64 rows by M, K streams in tiles of 128, and
+//              each of the 256 threads owns a micro-tile of int32
+//              accumulators.
+// Tensor cores (int8 mma / wgmma with TMA) for chunk shapes are later work.
 //
 // Built with -fmad=false; the dequant also uses __fmul_rn, so its f32 bits
 // equal the plain version's.
@@ -52,6 +63,7 @@
 
 #include "bitserial_core.cuh"
 #include "int8_core.cuh"
+#include "small_m.cuh"
 
 namespace {
 
@@ -236,7 +248,8 @@ int launch_tile(const void* ap, const void* bp, const void* a_scale,
 }
 
 // the tallest row tile of 8, 16, 32 or 64 rows that is no taller than M
-// padded to 8 rows (decode: 8-row tiles)
+// padded to 8 rows (8-row tiles only below the small-M route's threshold:
+// tools/k1_small_m_threshold.py builds it at 0)
 template <typename TO>
 int launch(const void* ap, const void* bp, const void* a_scale,
            const void* b_scale, void* out, int m, int n, int kw, int n_a,
@@ -253,6 +266,77 @@ int launch(const void* ap, const void* bp, const void* a_scale,
                                          kw, n_a, n_b, preload, s);
   return launch_tile<TO, 8, 128, 1, 4>(ap, bp, a_scale, b_scale, out, m, n,
                                        kw, n_a, n_b, preload, s);
+}
+
+// ---------------------------------------------------------------------------
+// Small-M route (header note)
+// ---------------------------------------------------------------------------
+
+constexpr int SMALL_M_MAX = 24;   // rows the small-M route takes
+
+// one int32 of xq per thread: (row, word kwi, j), its bytes e = 0..3 the
+// group values of elements kwi * 32 + 8 e + j, from A's plane words
+__global__ void packed_to_xq_kernel(const uint32_t* __restrict__ ap,
+                                    int8_t* __restrict__ xq, int m, int k,
+                                    int kw, int n_a) {
+  const int nga = (n_a + 6) / 7;
+  const int kp = kw * 32, k4n = kw * 8;
+  const int item = blockIdx.x * blockDim.x + threadIdx.x;
+  if (item >= m * k4n) return;
+  const int row = item / k4n, kwi = item % k4n / 8, j = item % 8;
+  uint32_t p[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    p[i] = i < n_a ? ap[((long long)i * m + row) * kw + kwi] : 0u;
+  int u[4];
+  bool live[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int bit = 8 * e + j;
+    live[e] = kwi * 32 + bit < k;
+    u[e] = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) u[e] |= (int)((p[i] >> bit) & 1u) << i;
+  }
+  for (int g = 0; g < nga; ++g) {
+    int lo, sz;
+    plane_group(n_a, g, &lo, &sz);
+    *reinterpret_cast<uint32_t*>(xq + ((long long)g * m + row) * kp +
+                                 (item % k4n) * 4) =
+        int8core::group_word(u, live, lo, sz);
+  }
+}
+
+// from_acc as small_m.cuh's epi(row, col, y, _)
+template <typename TO>
+struct PackedEpi {
+  const float* a_scale;
+  const float* b_scale;
+  TO* out;
+  int n;
+  __device__ __forceinline__ void operator()(int row, int col, int y,
+                                             int) const {
+    const float as = a_scale != nullptr ? a_scale[row] : 1.0f;
+    const float bs = b_scale != nullptr ? b_scale[col] : 1.0f;
+    out[(long long)row * n + col] = from_acc<TO>(y, as, bs);
+  }
+};
+
+template <typename TO>
+int launch_small_m(const void* ap, const void* bp, const void* a_scale,
+                   const void* b_scale, void* out, void* ws, int m, int n,
+                   int k, int kw, int n_a, int n_b, cudaStream_t s) {
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int items = m * kw * 8;
+  packed_to_xq_kernel<<<(items + 255) / 256, 256, 0, s>>>(
+      (const uint32_t*)ap, (int8_t*)ws, m, k, kw, n_a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return small_m::launch<1>(
+      ws, bp, nullptr, m, n, kw, n_a, n_b,
+      PackedEpi<TO>{(const float*)a_scale, (const float*)b_scale, (TO*)out,
+                    n},
+      s);
 }
 
 // ---------------------------------------------------------------------------
@@ -331,47 +415,56 @@ int launch_bitserial(const void* ap, const void* bp, const void* a_scale,
 
 }  // namespace
 
+// The largest M the small-M route takes; the wrapper sizes its workspace
+// (int8 A values, ceil(n_a / 7) x M x Kw * 32 bytes) from it.
+extern "C" int repro_apmm_packed_small_m_max(void) { return SMALL_M_MAX; }
+
 // out dtype codes: 0 = float32, 1 = bfloat16, 2 = raw int32 (scales
 // ignored).  ap (n_a, m, kw), bp (n_b, n, kw), a_scale (m), b_scale (n),
-// out (m, n); k is the unpadded reduction length (k <= 32 kw).  variant:
-// 0 = fused (the dp4a tile), 1 = bitserial (the b1 core).
+// out (m, n); k is the unpadded reduction length (k <= 32 kw).  ws: the
+// small-M route's workspace (variant 0, M <= repro_apmm_packed_small_m_max()),
+// else unused.  variant: 0 = fused (the small-M route or the dp4a tile),
+// 1 = bitserial (the b1 core).
 extern "C" int repro_apmm_packed(const void* ap, const void* bp,
                                  const void* a_scale, const void* b_scale,
-                                 void* out, int m, int n, int k, int kw,
-                                 int n_a, int n_b, int out_dtype, int variant,
-                                 void* stream) {
+                                 void* out, void* ws, int m, int n, int k,
+                                 int kw, int n_a, int n_b, int out_dtype,
+                                 int variant, void* stream) {
   if (m == 0 || n == 0) return 0;
   if (n_a < 1 || n_a > 8 || n_b < 1 || n_b > 8 || k > kw * 32 || k < 0 ||
-      variant < 0 || variant > 1)
+      variant < 0 || variant > 1 || out_dtype < 0 || out_dtype > 2)
     return (int)cudaErrorInvalidValue;
+  if (out_dtype != 2 && (a_scale == nullptr || b_scale == nullptr))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
   if (variant == 1) {
-    cudaStream_t s = (cudaStream_t)stream;
     if (out_dtype == 2)
       return launch_bitserial<int>(ap, bp, nullptr, nullptr, out, m, n, k,
                                    kw, n_a, n_b, s);
-    if (a_scale == nullptr || b_scale == nullptr)
-      return (int)cudaErrorInvalidValue;
     if (out_dtype == 0)
       return launch_bitserial<float>(ap, bp, a_scale, b_scale, out, m, n, k,
                                      kw, n_a, n_b, s);
-    if (out_dtype == 1)
-      return launch_bitserial<__nv_bfloat16>(ap, bp, a_scale, b_scale, out,
-                                             m, n, k, kw, n_a, n_b, s);
-    return (int)cudaErrorInvalidValue;
+    return launch_bitserial<__nv_bfloat16>(ap, bp, a_scale, b_scale, out, m,
+                                           n, k, kw, n_a, n_b, s);
+  }
+  if (m <= SMALL_M_MAX) {
+    if (out_dtype == 2)
+      return launch_small_m<int>(ap, bp, nullptr, nullptr, out, ws, m, n, k,
+                                 kw, n_a, n_b, s);
+    if (out_dtype == 0)
+      return launch_small_m<float>(ap, bp, a_scale, b_scale, out, ws, m, n,
+                                   k, kw, n_a, n_b, s);
+    return launch_small_m<__nv_bfloat16>(ap, bp, a_scale, b_scale, out, ws,
+                                         m, n, k, kw, n_a, n_b, s);
   }
   // closed-form K-pad correction: each pad column's product is -maxA*maxB
   int preload = (kw * 32 - k) * ((1 << n_a) - 1) * ((1 << n_b) - 1);
-  cudaStream_t s = (cudaStream_t)stream;
   if (out_dtype == 2)
     return launch<int>(ap, bp, nullptr, nullptr, out, m, n, kw, n_a, n_b,
                        preload, s);
-  if (a_scale == nullptr || b_scale == nullptr)
-    return (int)cudaErrorInvalidValue;
   if (out_dtype == 0)
     return launch<float>(ap, bp, a_scale, b_scale, out, m, n, kw, n_a, n_b,
                          preload, s);
-  if (out_dtype == 1)
-    return launch<__nv_bfloat16>(ap, bp, a_scale, b_scale, out, m, n, kw,
-                                 n_a, n_b, preload, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<__nv_bfloat16>(ap, bp, a_scale, b_scale, out, m, n, kw, n_a,
+                               n_b, preload, s);
 }

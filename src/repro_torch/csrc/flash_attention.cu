@@ -41,6 +41,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "split_kv.cuh"
+
 namespace {
 
 constexpr int BQ = 16;          // query rows per block
@@ -280,8 +282,9 @@ int launch(const void* q, Loader loader, const void* q_pos,
 //   * splits T across blocks when the grid would not fill the card
 //     (flash-decoding): each block writes f32 partials (m, l, acc) of its
 //     slot range to a workspace of the wrapper's, a range no row sees
-//     writes (-1e30, 0, 0), and combine_kernel merges them, with the final
-//     max(l, 1e-20) clamp, so a fully masked row still returns 0.
+//     writes (-1e30, 0, 0), and split_kv.cuh's combine (K2's too) merges
+//     them, with the final max(l, 1e-20) clamp, so a fully masked row
+//     still returns 0.
 // Decode (Sq <= 16) runs one warp per block (16 query rows), prefill four
 // (64 rows).  Tiles that no query row of the block may see are skipped.
 // ---------------------------------------------------------------------------
@@ -536,31 +539,6 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// merge the split partials of each output row (one block per row)
-__global__ void combine_kernel(const float* __restrict__ ws,
-                               __nv_bfloat16* __restrict__ out,
-                               long long rows_total, int d, int n_split) {
-  const long long row = blockIdx.x;
-  float m_max = -1e30f;
-  for (int s = 0; s < n_split; ++s)
-    m_max = fmaxf(m_max, ws[2 * (s * rows_total + row)]);
-  float l = 0.0f;
-  for (int s = 0; s < n_split; ++s) {
-    const long long pr = s * rows_total + row;
-    l += ws[2 * pr + 1] * expf(ws[2 * pr] - m_max);
-  }
-  const float denom = fmaxf(l, 1e-20f);
-  const float* acc = ws + 2 * n_split * rows_total;
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    float a = 0.0f;
-    for (int s = 0; s < n_split; ++s) {
-      const long long pr = s * rows_total + row;
-      a += acc[pr * d + c] * expf(ws[2 * pr] - m_max);
-    }
-    out[row * d + c] = __float2bfloat16_rn(a / denom);
-  }
-}
-
 // splits of T (and slot tiles per split) for the bf16 route
 void plan_splits(int batch, int h_kv, int sq, int t_len, int* n_split,
                  int* tiles_per_split) {
@@ -605,7 +583,8 @@ int launch_mma_t(const void* q, const void* k, const void* v,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return (int)e;
   const long long rows_total = (long long)batch * h_kv * sq;
-  combine_kernel<<<(unsigned)rows_total, 128, 0, stream>>>(
+  split_kv::combine_kernel<__nv_bfloat16><<<(unsigned)rows_total, 128, 0,
+                                            stream>>>(
       (const float*)ws, (__nv_bfloat16*)out, rows_total, d, n_split);
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,9 @@ plain versions
 (:func:`repro_torch.kernels.ref.ap_linear_fused_ref`,
 :func:`~repro_torch.kernels.ref.apmm_packed` and
 :func:`~repro_torch.kernels.ref.apmm_dequant`), CUDA tensors launch the
-kernel or raise.
+kernel or raise.  At small M both fused C entries take the one
+weight-streaming GEMM of ``csrc/small_m.cuh`` (:func:`small_m_max`,
+:func:`packed_small_m_max`), on a workspace the wrapper allocates.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from repro_torch.kernels import _build, ref
 LAUNCHES = 0          # K1 `fused` launches since the last reset (chip_smoke)
 SMALL_M_LAUNCHES = 0  # of those, on the small-M route (M <= small_m_max())
 PACKED_LAUNCHES = 0   # K5 `fused` launches since the last reset
+PACKED_SMALL_M_LAUNCHES = 0   # of those, on the small-M route
 BITSERIAL_LAUNCHES = 0         # K1 `bitserial` launches
 PACKED_BITSERIAL_LAUNCHES = 0  # K5 `bitserial` launches
 
@@ -181,10 +184,18 @@ def _packed_lib():
     lib = _build.load("apmm_packed")
     fn = lib.repro_apmm_packed
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def packed_small_m_max() -> int:
+    """The largest M that K5's C entry routes to the small-M route (K1's
+    weight-streaming GEMM; the library's own threshold; builds the
+    library)."""
+    return int(_build.load("apmm_packed").repro_apmm_packed_small_m_max())
 
 
 def apmm_packed_plain(a: BipolarTensor, b: BipolarTensor, *,
@@ -207,7 +218,7 @@ def apmm_packed(a: BipolarTensor, b: BipolarTensor, *,
         raise ValueError(f"apmm_packed: unsupported device {a.device}")
     if variant not in _VARIANTS:
         raise ValueError(f"apmm_packed: variant {variant!r}")
-    global PACKED_LAUNCHES, PACKED_BITSERIAL_LAUNCHES
+    global PACKED_LAUNCHES, PACKED_SMALL_M_LAUNCHES, PACKED_BITSERIAL_LAUNCHES
     (m, k), (n, k2) = a.shape, b.shape
     n_a, m_, kw = a.packed.shape
     n_b, n_, kw2 = b.packed.shape
@@ -234,14 +245,19 @@ def apmm_packed(a: BipolarTensor, b: BipolarTensor, *,
             raise ValueError("apmm_packed: scales on another device")
     out = torch.empty((m, n), device=dev,
                       dtype=torch.int32 if out_dtype is None else out_dtype)
+    small = variant == "fused" and m <= packed_small_m_max()
+    # the small-M route's: A's values once, int8 per plane group
+    xq = torch.empty((len(ref.plane_groups(n_a)), m, kw * 32),
+                     dtype=torch.int8, device=dev) if small else None
     err = _packed_lib()(
         ap.data_ptr(), bp.data_ptr(), _ptr(a_s), _ptr(b_s), out.data_ptr(),
-        m, n, k, kw, n_a, n_b,
+        _ptr(xq), m, n, k, kw, n_a, n_b,
         _RAW if out_dtype is None else _DTYPES[out_dtype],
         _VARIANTS[variant], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, f"apmm_packed ({variant})")
     if variant == "fused":
         PACKED_LAUNCHES += 1
+        PACKED_SMALL_M_LAUNCHES += small
     else:
         PACKED_BITSERIAL_LAUNCHES += 1
     return out

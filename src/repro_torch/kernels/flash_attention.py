@@ -9,14 +9,16 @@ decides: CPU tensors run the plain versions
 (:func:`repro_torch.kernels.ref.paged_attention`,
 :func:`~repro_torch.kernels.ref.kv_cache_attention`,
 :func:`~repro_torch.kernels.ref.flash_attention`), CUDA tensors launch
-the kernel or raise.  K7's C entry splits T across blocks for bf16
-inputs when the grid would not fill the card; :func:`float_splits`
-reports its choice, and the wrapper allocates the partials' workspace.
+the kernel or raise.  K2's C entry splits each request's block table
+across blocks, and K7's splits T for bf16 inputs, when the grid would
+not fill the card; :func:`paged_splits` and :func:`float_splits` report
+their choice, and the wrappers allocate the partials' workspace.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -38,10 +40,32 @@ def _lib():
     lib = _build.load("paged_attention")
     fn = lib.repro_paged_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _dense(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` as a contiguous tensor of ``dtype`` (itself when it is one:
+    no dispatch on the decode path's hot call)."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
+@functools.cache
+def paged_splits(b: int, h: int, gq: int, nb: int) -> int:
+    """How many ranges of the ``NB`` table entries K2's C entry splits
+    this shape into (its own choice, from its grid and ``NB``; builds
+    the library)."""
+    fn = _build.load("paged_attention").repro_paged_attention_splits
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    n = int(fn(b, h, gq, nb))
+    if n < 1:
+        raise RuntimeError(f"paged attention split plan: cudaError_t {-n}")
+    return n
 
 
 def flash_attention_paged_quantized(q, k_pool, k_scale, v_pool, v_scale,
@@ -79,18 +103,26 @@ def flash_attention_paged_quantized(q, k_pool, k_scale, v_pool, v_scale,
            q_pos]
     if any(t.device != q.device for t in ops):
         raise ValueError("paged attention: all operands on one device")
-    qs = q.contiguous()
-    ks = k_scale.reshape(n_blocks, bs, h).to(torch.float32).contiguous()
-    vs = v_scale.reshape(n_blocks, bs, h).to(torch.float32).contiguous()
-    pp = pool_pos.to(torch.int32).contiguous()
-    bt = block_tables.to(torch.int32).contiguous()
-    qp = q_pos.to(torch.int32).contiguous()
-    kp, vp = k_pool.contiguous(), v_pool.contiguous()
+    if k_scale.numel() != n_blocks * bs * h or \
+            v_scale.numel() != n_blocks * bs * h:
+        raise ValueError("paged attention: scales do not match the pool")
+    # the kernel reads each operand as a dense array of its own dtype:
+    # (n_blocks, bs, H, 1) scales as (n_blocks, bs, H)
+    qs, kp, vp = _dense(q, q.dtype), _dense(k_pool, torch.int32), \
+        _dense(v_pool, torch.int32)
+    ks, vs = _dense(k_scale, torch.float32), _dense(v_scale, torch.float32)
+    pp, bt, qp = (_dense(t, torch.int32)
+                  for t in (pool_pos, block_tables, q_pos))
     out = torch.empty((b, h, gq, d), dtype=q.dtype, device=q.device)
+    n_split = paged_splits(b, h, gq, nb)
+    # split-KV partials: (m, l) and acc of every row, per range of entries
+    ws = torch.empty(n_split * b * h * gq * (d + 2), dtype=torch.float32,
+                     device=q.device) if n_split > 1 else None
     fn = _lib()
     err = fn(qs.data_ptr(), kp.data_ptr(), ks.data_ptr(), vp.data_ptr(),
              vs.data_ptr(), pp.data_ptr(), bt.data_ptr(), qp.data_ptr(),
-             out.data_ptr(), b, h, gq, d, dw, n_bits, bs, nb, int(causal),
+             out.data_ptr(), 0 if ws is None else ws.data_ptr(), b, h, gq,
+             d, dw, n_bits, bs, nb, int(causal),
              int(window) if window is not None else 0,
              float(1.0 / math.sqrt(d)), _DTYPES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)

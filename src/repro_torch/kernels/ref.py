@@ -306,21 +306,19 @@ def attention_reference(q, k, v, q_pos, kv_pos, *, causal=True,
     return o.to(q.dtype)
 
 
-def flash_attention_split(q, k, v, q_pos, kv_pos, *, splits: int,
-                          causal=True, window=None):
-    """Plain version of K7's split-KV decomposition (flash-decoding), in
-    the folded ``(BH, S, D)`` layout: T cut into ranges of ``ceil(T /
-    splits)`` slots, each range's f32 partials ``(m, l, acc)`` -- a range
-    that no query row may see gives ``(-1e30, 0, 0)`` -- then the combine
-    ``m = max m_s``, ``l = sum l_s e^(m_s - m)``, ``acc = sum acc_s e^(m_s
-    - m)``, ``acc / max(l, 1e-20)``: a fully masked row returns 0.  The
-    tests hold it against :func:`attention_reference`."""
+def _split_attention(q, k, v, q_pos, kv_pos, *, size: int, causal, window):
+    """Folded ``(BH, S, D)`` attention as split-KV computes it: T cut into
+    ranges of ``size`` slots, each range's f32 partials ``(m, l, acc)``
+    -- a range that no query row may see gives ``(-1e30, 0, 0)`` -- then
+    the combine ``m = max m_s``, ``l = sum l_s e^(m_s - m)``, ``acc = sum
+    acc_s e^(m_s - m)``, ``acc / max(l, 1e-20)``: a fully masked row
+    returns 0.  One range computes exactly :func:`attention_reference`'s
+    steps."""
     d, t = q.shape[-1], k.shape[1]
     s = torch.einsum("bqd,btd->bqt", q.float(), k.float()) / math.sqrt(d)
     valid = position_mask(q_pos[:, :, None], kv_pos[:, None, :], causal,
                           window)
     s = torch.where(valid, s, torch.full_like(s, -1e30))
-    size = -(-t // splits)
     parts = []
     for lo in range(0, t, size):
         sv, ok = s[..., lo:lo + size], valid[..., lo:lo + size]
@@ -334,6 +332,17 @@ def flash_attention_split(q, k, v, q_pos, kv_pos, *, splits: int,
     l = sum(l_s * torch.exp(m_s - m) for m_s, l_s, _ in parts)
     acc = sum(a_s * torch.exp(m_s - m) for m_s, _, a_s in parts)
     return (acc / torch.clamp(l, min=1e-20)).to(q.dtype)
+
+
+def flash_attention_split(q, k, v, q_pos, kv_pos, *, splits: int,
+                          causal=True, window=None):
+    """Plain version of K7's split-KV decomposition (flash-decoding), in
+    the folded ``(BH, S, D)`` layout: T cut into ranges of ``ceil(T /
+    splits)`` slots (see :func:`_split_attention`).  The tests hold it
+    against :func:`attention_reference`."""
+    return _split_attention(q, k, v, q_pos, kv_pos,
+                            size=-(-k.shape[1] // splits), causal=causal,
+                            window=window)
 
 
 def fold_kv_heads(a: torch.Tensor) -> torch.Tensor:
@@ -378,3 +387,29 @@ def paged_attention(q, k_pool, k_scale, v_pool, v_scale, pool_pos,
         q, gath(k_pool), gath(k_scale), gath(v_pool), gath(v_scale), q_pos,
         gath(pool_pos[:, :, None])[..., 0], d=d, causal=causal,
         window=window)
+
+
+def paged_attention_split(q, k_pool, k_scale, v_pool, v_scale, pool_pos,
+                          block_tables, q_pos, *, splits: int, d: int,
+                          causal: bool = True, window=None) -> torch.Tensor:
+    """Plain version of K2's split plan: the ``NB`` table entries cut into
+    ``splits`` ranges of ``ceil(NB / splits)`` entries (the last fewer),
+    each range's f32 partials over the slots of its pool blocks, then the
+    f32 combine (:func:`_split_attention`).  ``splits=1`` gives
+    :func:`paged_attention`'s bits.  Used by the tests and by
+    ``chip_smoke.py``, on no path of the model."""
+    b, h, gq, _ = q.shape
+    nb, bs = block_tables.shape[1], k_pool.shape[1]
+
+    def fold(leaf):
+        return fold_kv_heads(gather_paged_kv(leaf, block_tables))
+
+    k = dequantize_kv(fold(k_pool), fold(k_scale), d)
+    v = dequantize_kv(fold(v_pool), fold(v_scale), d)
+    kv_pos = gather_paged_kv(pool_pos[:, :, None], block_tables)[..., 0]
+    o = _split_attention(
+        q.reshape(b * h, gq, q.shape[-1]), k, v,
+        torch.repeat_interleave(q_pos, h, 0),
+        torch.repeat_interleave(kv_pos, h, 0),
+        size=-(-nb // splits) * bs, causal=causal, window=window)
+    return o.reshape(b, h, gq, d)

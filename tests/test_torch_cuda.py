@@ -8,12 +8,16 @@ Tolerances: K3 words and the K1 integer core (``act="none"``, f32 out)
 are bit-exact; K1 SiLU outputs within 1 bf16 ulp per element (exp
 differs between the kernel and torch, rounded once to bf16), gelu
 within 1.6e-2 relative (tanh); K2 within 1 bf16 ulp per element, or
-1e-5 absolute near zero (f32 sum order and exp).  K4: the integer core
-of each weight and the bf16 ``act="none"`` output bit-exact, the dual
+1e-5 absolute near zero (f32 sum order and exp), held against the
+plain version of its C entry's split plan
+(``ref.paged_attention_split``) at decode shapes, where it splits each
+table across blocks, and against ``ref.paged_attention`` at a prefill
+chunk, where it does not.  K4: the integer core of each weight and the bf16 ``act="none"`` output bit-exact, the dual
 SiLU output within 1 bf16 ulp, dead rows exactly 0, the live map equal
 to the analytic one.  K5 (the packed x packed GEMM): the raw int32
-product and the f32/bf16 dequant bit-exact; the unfused linear (K3 +
-K5) equal to the fused one (K1) bit for bit at ``act="none"`` and with a
+product and the f32/bf16 dequant bit-exact, on both sides of its
+small-M route's threshold (``apmm.packed_small_m_max()``); the unfused
+linear (K3 + K5) equal to the fused one (K1) bit for bit at ``act="none"`` and with a
 residual, and within K1's 1-ulp SiLU rule through the SwiGLU.  K6 and
 K7 (contiguous attention, packed and float K/V): within 1 bf16 ulp per
 element, or 1e-5 absolute, of the plain version; K7's bf16 route also
@@ -214,6 +218,87 @@ def test_paged_attention_kernel_matches_plain(device, bs, d, gq, window):
     near = (got.float() - want.float()).abs() <= 1e-5
     assert torch.all((_bf16_ulps(got, want) <= 1) | near)
     assert torch.all(got[2] == 0) and torch.all(got[0, :, 0] == 0)
+
+
+def _paged_case(dev, seed, lanes, s_q, nb, window, *, h=8, group=4, d=128,
+                bs=16, n_bits=8, dtype=torch.bfloat16):
+    """K2's arguments: lane i holds ``lanes[i]`` tokens in blocks of its
+    own, less those wholly out of the window (reclaimed: not in its
+    table), the table padded to ``nb`` null entries; None: a pad lane on
+    an all-null table.  Queries: each lane's last ``s_q`` positions times
+    ``group`` heads (pad lanes -1)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    spans = []
+    for ctx in lanes:
+        lo = 0 if ctx is None or window is None else \
+            max(0, ctx - s_q + 1 - window) // bs
+        spans.append(None if ctx is None else (ctx, lo, -(-ctx // bs) - lo))
+    n_blocks = 1 + sum(sp[2] for sp in spans if sp)
+    kv = torch.randn((2, n_blocks, bs, h, d), generator=g, device=dev)
+    kq, ks = ops.quantize_kv(kv[0], n_bits)
+    vq, vs = ops.quantize_kv(kv[1], n_bits)
+    pos = torch.full((n_blocks, bs), -1, dtype=torch.int32, device=dev)
+    tables = torch.zeros((len(lanes), nb), dtype=torch.int32, device=dev)
+    q_pos = torch.full((len(lanes), group * s_q), -1, dtype=torch.int32,
+                       device=dev)
+    nxt = 1
+    for row, sp in enumerate(spans):
+        if sp is None:
+            continue
+        ctx, first, n_blk = sp
+        tables[row, :n_blk] = torch.arange(nxt, nxt + n_blk)
+        p = torch.arange(first * bs, (first + n_blk) * bs, device=dev)
+        pos[nxt:nxt + n_blk] = torch.where(p < ctx, p, -1).reshape(
+            n_blk, bs).to(torch.int32)
+        nxt += n_blk
+        q_pos[row] = torch.arange(ctx - s_q, ctx, dtype=torch.int32,
+                                  device=dev).repeat(group)
+    q = torch.randn((len(lanes), h, group * s_q, d), generator=g,
+                    device=dev).to(dtype)
+    return q, kq, ks, vq, vs, pos, tables, q_pos
+
+
+# (lanes, s_q, NB, window, options): llama decode (B = 4, ctx 600), a
+# prefill chunk (one 256-token lane: a grid that fills the card), mixtral's
+# decode step (8 lanes, 3 of them pads, one past its 4,096-token window),
+# and a small odd shape (bs 4, d 40, 3 bits: 4-byte copies)
+_PAGED_CASES = {
+    "decode": ((600,) * 4, 1, 64, None, {}),
+    "chunk": ((600,), 256, 64, None, {}),
+    "mixtral window": ((609, 109, 309, 4309, 209, None, None, None), 1, 272,
+                       4096, {}),
+    "odd": ((37, 6, None, 15), 2, 11, 9,
+            dict(h=2, group=2, d=40, bs=4, n_bits=3)),
+}
+
+
+@pytest.mark.parametrize("case", list(_PAGED_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_kernel_split_kv(device, case, dtype):
+    """K2 where its C entry splits the table (decode shapes: B * H blocks)
+    and where it does not (the chunk): within 1 bf16 ulp or 1e-5 (f32 q:
+    1e-6 relative or 1e-5) of the plain version of its plan -- the split
+    plain version, or the plain version itself at one range -- pad lanes
+    and pad query rows exactly 0."""
+    lanes, s_q, nb, window, kw = _PAGED_CASES[case]
+    args = _paged_case(device, len(case), lanes, s_q, nb, window,
+                       dtype=dtype, **kw)
+    b, h, gq, d = args[0].shape
+    n_split = flash_attention.paged_splits(b, h, gq, nb)
+    assert (n_split > 1) == (case != "chunk")
+    before = flash_attention.LAUNCHES
+    got = flash_attention.flash_attention_paged_quantized(
+        *args, d=d, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1
+    want = ref.paged_attention_split(*args, splits=n_split, d=d,
+                                     window=window)
+    if n_split == 1:
+        assert torch.equal(want, ref.paged_attention(*args, d=d,
+                                                     window=window))
+    assert _within_one_ulp_or(got, want)
+    pads = [i for i, ln in enumerate(lanes) if ln is None]
+    assert torch.all(got[pads] == 0)
 
 
 def test_launch_counters_count_kernel_launches_only(device):
@@ -487,6 +572,37 @@ def test_apmm_packed_kernel_bit_exact(device, m, n, k, a_bits, w_bits):
         assert torch.equal(got, apmm.apmm_packed(a, b, out_dtype=od))
     assert apmm.PACKED_BITSERIAL_LAUNCHES == bs_before + 3
     assert apmm.PACKED_LAUNCHES == before + 6
+
+
+def _packed_small_m(m_case):
+    t = apmm.packed_small_m_max()
+    return {"threshold": t, "threshold+1": t + 1}.get(m_case, m_case)
+
+
+@pytest.mark.parametrize("m_case", [1, 4, 5, 12, "threshold",
+                                    "threshold+1"])
+@pytest.mark.parametrize("n,k", [(70, 100), (4096, 4096), (130, 14336)])
+@pytest.mark.parametrize("a_bits,w_bits", [(8, 2), (8, 8), (3, 5), (1, 1)])
+def test_apmm_packed_kernel_small_m_route_edges(device, m_case, n, k,
+                                                a_bits, w_bits):
+    """K5 at M <= packed_small_m_max() runs its small-M route (K1's
+    weight-streaming GEMM; the counter moves), above it the dp4a tile:
+    raw int32 and f32/bf16 dequant bit-exact on both sides of the
+    threshold, odd K and a weight packed wider than A included."""
+    m = _packed_small_m(m_case)
+    assert apmm.packed_small_m_max() >= 8
+    rng = np.random.default_rng(m * 7 + n + k + a_bits * 10 + w_bits)
+    a = _packed_operand(rng, device, m, k, a_bits, 0)
+    b = _packed_operand(rng, device, n, k, w_bits, 1,
+                        extra_words=2 if k == 100 else 0)
+    a, b = ops._normalize_packed_kw(a, b)
+    before = apmm.PACKED_SMALL_M_LAUNCHES
+    for od in (None, torch.float32, torch.bfloat16):
+        got = apmm.apmm_packed(a, b, out_dtype=od)
+        torch.cuda.synchronize()
+        assert torch.equal(got, apmm.apmm_packed_plain(a, b, out_dtype=od))
+    small = m <= apmm.packed_small_m_max()
+    assert apmm.PACKED_SMALL_M_LAUNCHES - before == 3 * small
 
 
 @pytest.mark.parametrize("m", [1, 4, 5, 12, 33, 67, 130])
