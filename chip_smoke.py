@@ -34,7 +34,11 @@ exit and no result line):
    traced mixtral decode steps), each held against the plain version of
    the split plan its C entry makes (``ref.paged_attention_split``), the
    split count printed and the combine kernel seen to run exactly when
-   it splits; K1, K2, K4, K5 and K7 print their time beside
+   it splits; K6 likewise at ``K6_CASES`` (decode, the admitting step's
+   bucketed prefill, a 256-slot window), against the plain version of
+   its split of the ring's tiles (``ref.kv_cache_attention_split``) and
+   the unsplit one; K3 and K6 print their device time beside the Timer's;
+   K1-K7 print their time beside
    the time recorded before their redesign (``PREV_MS``); fused K4 also prints
    the route each case took, read off the kernels that ran, which must
    be the one its threshold gives (its decode route up to segments of
@@ -87,7 +91,10 @@ exit and no result line):
    step) and three decode steps (device time by kernel, idle share); the
    paged paths print K2's shapes in those steps and the ranges it splits
    each into, and mixtral fails if phase 3's ``K2_STEP`` case is not
-   among its decode steps' shapes; the contiguous fused path counts K5's
+   among its decode steps' shapes; the contiguous paths print K6's shapes
+   in the traced admitting and decode steps and the ranges of ring tiles
+   it splits each into, and fail if phase 3's ``K6_STEP`` case is not
+   among the decode steps' shapes; the contiguous fused path counts K5's
    small-M launches (decode) beside its tile launches (prefill); the
    MoE paths print K4's live rows against its capacity rows and its
    segment heights in both, and fail if phase 3's case for that step
@@ -143,6 +150,18 @@ K2_CASES = (("decode", (600,) * 4, 1, 64, None),
                                        None), 1, 272, 4096))
 K2_STEP = {"mixtral-8x7b": "mixtral decode window"}
 
+# K6's cases in phase 3 (llama3-8b's shapes: 8 kv heads, GQA group 4, d
+# 128, kv8): (name, the ring of ``_ring_case``, window).  "decode" is the
+# shape of phase 5's traced contiguous decode steps (the 4 slots' rings,
+# T = max_len 1024); phase 5 fails if those steps gave K6 no call of its
+# (B, H, Sq, T, window).  "prefill" is the admitting step's bucketed
+# prompt (B = 1, 4 x 1024 query rows: a grid that fills the card).
+K6_CASES = (("decode", dict(b=4, t=1024, live=632, s=1), None),
+            ("prefill", dict(b=1, t=1024, live=600, s=1024, prefill=True),
+             None),
+            ("decode window 256", dict(b=4, t=1024, live=632, s=1), 256))
+K6_STEP = "decode"
+
 # the redesigned kernels' times before the redesign, as PERF.md section 6
 # records them (this Timer, NVIDIA H100 80GB HBM3 at 700 W); None: not
 # recorded
@@ -177,6 +196,11 @@ PREV_MS = {
     "K5 decode lm_head": 0.6501, "K5 chunk q": 1.1442, "K5 chunk gate": 3.7087,
     "K5 odd, unequal Kw": 0.0748, "K5 odd a2w8": 0.0791, "K5 odd a8w8": 0.0855,
     "K5 odd a1w1": 0.0476, "K5 odd a3w5": 0.0544,
+    # K3 (a thread per output word) and K6 (a block per q-tile, head and
+    # request walking the whole ring) before their redesign: the mean of
+    # two runs of tools/k3_k6_times.py on that code at these cases
+    "K3 load": 0.5511, "K3 decode activations": 0.0584,
+    "K6 decode": 0.2247, "K6 prefill": 1.2033, "K6 decode window 256": 0.1581,
 }
 
 
@@ -362,17 +386,24 @@ def k3_phase(torch, timer, rng_seed, results):
         if not torch.equal(got, want):
             raise AssertionError(f"K3 {name}: words differ from the plain "
                                  f"version")
-        ms = timer(lambda: pack.quantize_pack_rows(
-            x, scale, n_bits=n_bits, pad_bit=pad_bit), iters=20)
+        def run():
+            return pack.quantize_pack_rows(x, scale, n_bits=n_bits,
+                                           pad_bit=pad_bit)
+
+        ms = timer(run, iters=20)
+        split = traced_split(torch, timer, run, ["quantize_pack_rows_kernel"])
         plain = timer(lambda: ref.quantize_pack_rows(
             x, scale, n_bits=n_bits, pad_bit=pad_bit), iters=3, warmup=1)
         kw = bipolar.packed_words(k)
         b_ms, b_by = bound_ms(r * k * x.element_size() + r * 4
                               + n_bits * r * kw * 4, 0, INT8_OPS_PER_S)
+        dev = sum(split.values())
         print(f"K3 quantize_pack_rows {name} {r}x{k} f32 w{n_bits} pad "
-              f"{pad_bit}: words equal; {ms:.4f} ms (bound {b_ms:.4f} ms by "
-              f"{b_by}, {100 * b_ms / ms:.1f}% of bound), plain "
-              f"{plain:.4f} ms", flush=True)
+              f"{pad_bit}: words equal; {ms:.4f} ms, device {dev:.4f} ms "
+              f"(bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of "
+              f"bound, device {100 * b_ms / dev:.1f}%; "
+              f"{versus_prev('K3 ' + name, b_ms)}), plain {plain:.4f} ms",
+              flush=True)
         if name == "load":
             results["quantize_pack_rows"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -672,7 +703,7 @@ def k2_phase(torch, timer, seed, results):
             raise AssertionError(f"K2 {name}: beyond 1 bf16 ulp and 1e-5 of "
                                  f"the {n_split}-range plain version (max "
                                  f"|err| {err})")
-        split = traced_split(torch, timer, run, ["paged_attention_kernel"])
+        split = traced_split(torch, timer, run, ["attention_kernel"])
         ran = kernel_names(split)
         if ("combine_kernel" in ran) != (n_split > 1):
             raise AssertionError(f"K2 {name}: {n_split} ranges planned, but "
@@ -1130,8 +1161,9 @@ def _ring_case(torch, g, *, b, t, live, s, h=8, group=4, d=128, n_bits=8,
     from repro_torch.kernels import ops
     kv = torch.randn((2, b, t, h, d), generator=g,
                      device="cuda").to(torch.bfloat16)
-    kq, ks = ops.quantize_kv(kv[0], n_bits)
-    vq, vs = ops.quantize_kv(kv[1], n_bits)
+    # the ring as the contiguous engine holds it: dense (B, T, H, ...)
+    kq, ks, vq, vs = (x.contiguous() for x in (*ops.quantize_kv(
+        kv[0], n_bits), *ops.quantize_kv(kv[1], n_bits)))
     pos = torch.full((b, t), -1, dtype=torch.int32, device="cuda")
     pos[:, :live] = torch.arange(live, dtype=torch.int32, device="cuda")
     if prefill:
@@ -1169,11 +1201,7 @@ def k6_k7_phase(torch, timer, seed, results):
     from repro_torch.kernels import flash_attention, ref
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
     h, d, n_bits = 8, 128, 8
-    cases = [("decode", dict(b=4, t=1024, live=632, s=1), None),
-             ("prefill", dict(b=1, t=1024, live=600, s=1024,
-                              prefill=True), None),
-             ("decode window 256", dict(b=4, t=1024, live=632, s=1), 256)]
-    for name, kw, window in cases:
+    for name, kw, window in K6_CASES:
         q, kv, planes, pos, q_pos7 = _ring_case(torch, g, h=h, d=d,
                                                 n_bits=n_bits, **kw)
         q_pos = q_pos7
@@ -1190,25 +1218,42 @@ def k6_k7_phase(torch, timer, seed, results):
         def run_plain():
             return ref.kv_cache_attention(*args, d=d, window=window)
 
+        n_split = flash_attention.quantized_splits(b, h, sq, pos.shape[1])
         got, want = run(), run_plain()
         ok, err, ulps = _within(got, want)
         if not ok:
             raise AssertionError(f"K6 {name}: beyond 1 bf16 ulp and 1e-5 "
                                  f"(max |err| {err})")
+        ok, err_s, ulps_s = _within(got, ref.kv_cache_attention_split(
+            *args, splits=n_split, d=d, window=window))
+        if not ok:
+            raise AssertionError(f"K6 {name}: beyond 1 bf16 ulp and 1e-5 of "
+                                 f"the {n_split}-range plain version (max "
+                                 f"|err| {err_s})")
         if name == "decode" and got[3, :, 0].abs().max() != 0:
             raise AssertionError("K6: a fully masked row is not 0")
+        split = traced_split(torch, timer, run, ["attention_kernel"])
+        ran = kernel_names(split)
+        if ("combine_kernel" in ran) != (n_split > 1):
+            raise AssertionError(f"K6 {name}: {n_split} ranges planned, but "
+                                 f"the kernels that ran were {ran}")
         ms = timer(run, iters=20)
         plain = timer(run_plain, iters=3, warmup=1)
         io = 2 * q.numel() * 2 + q_pos.numel() * 4 + pos.numel() * 4
         b_ms, b_by = _attn_bound(torch, q_pos, pos, h, d,
                                  2 * (n_bits * d // 8 + 4), io,
                                  F32_FLOPS_PER_S, window)
+        dev = sum(split.values())
         print(f"K6 flash_attention_quantized {name} B={b} H={h} Sq={sq} "
               f"T={pos.shape[1]} live={int((pos[0] >= 0).sum())} d={d} "
-              f"kv{n_bits}: max|err| {err:.3g}, max {ulps} bf16 ulps beyond 1e-5 "
-              f"(tol 1); {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-              f"{100 * b_ms / ms:.1f}% of bound), plain {plain:.4f} ms",
-              flush=True)
+              f"kv{n_bits}: {n_split} range(s) of the ring's tiles (device "
+              f"ms: {split_line(split)}); max|err| {err:.3g}, max {ulps} "
+              f"bf16 ulps beyond 1e-5 (tol 1), against the {n_split}-range "
+              f"plain version {err_s:.3g}, {ulps_s} ulps; {ms:.4f} ms, "
+              f"device {dev:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+              f"{100 * b_ms / ms:.1f}% of bound, device "
+              f"{100 * b_ms / dev:.1f}%; {versus_prev('K6 ' + name, b_ms)}), "
+              f"plain {plain:.4f} ms", flush=True)
         if name == "decode":
             results["flash_attention_quantized"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
@@ -1544,21 +1589,54 @@ def k4_rows():
 
 
 @contextlib.contextmanager
-def k2_shapes():
-    """Record each K2 call's (B, H, Gq, NB, window) while the block runs;
-    yields the list."""
+def call_shapes(name, shape_of):
+    """Record ``shape_of(*args) + (window,)`` of each call of
+    ``flash_attention.<name>`` while the block runs; yields the list."""
     from repro_torch.kernels import flash_attention
-    kernel, seen = flash_attention.flash_attention_paged_quantized, []
+    kernel, seen = getattr(flash_attention, name), []
 
-    def recording(q, *a, window=None, **kw):
-        seen.append((*q.shape[:3], a[5].shape[1], window))
-        return kernel(q, *a, window=window, **kw)
+    def recording(*a, window=None, **kw):
+        seen.append((*shape_of(*a), window))
+        return kernel(*a, window=window, **kw)
 
-    flash_attention.flash_attention_paged_quantized = recording
+    setattr(flash_attention, name, recording)
     try:
         yield seen
     finally:
-        flash_attention.flash_attention_paged_quantized = kernel
+        setattr(flash_attention, name, kernel)
+
+
+def k2_shapes():
+    """K2's calls as (B, H, Gq, NB, window)."""
+    return call_shapes("flash_attention_paged_quantized",
+                       lambda q, *a: (*q.shape[:3], a[5].shape[1]))
+
+
+def k6_shapes():
+    """K6's calls as (B, H, Sq, T, window)."""
+    return call_shapes("flash_attention_quantized",
+                       lambda q, k_packed, *a: (*q.shape[:3],
+                                                k_packed.shape[1]))
+
+
+def _k6_step_shapes(label, step, shapes, case) -> None:
+    """K6's shapes in a traced step and the ranges of ring tiles its C
+    entry splits each into; phase 3's case ``case`` (a ``K6_CASES`` name)
+    must be one of them."""
+    from repro_torch.kernels import flash_attention
+    seen = sorted(set(shapes), key=str)
+    print(f"{label} traced {step} step(s): K6 ran {len(shapes)} times, "
+          f"(B, H, Sq, T, window) -> ranges: " + ", ".join(
+              f"{sh} -> {flash_attention.quantized_splits(*sh[:4])}"
+              for sh in seen), flush=True)
+    if case is None:
+        return
+    _, ring, window = next(c for c in K6_CASES if c[0] == case)
+    want = (ring["b"], 8, 4 * ring["s"], ring["t"], window)
+    if want not in seen:
+        raise AssertionError(f"{label}: phase 3 times K6 at {case!r}, "
+                             f"(B, H, Sq, T, window) {want}, but the traced "
+                             f"{step} steps gave it {seen}")
 
 
 def _k2_step_shapes(label, step, shapes, case) -> None:
@@ -1846,11 +1924,15 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
                 and len(step_ms["prefill"]) == 1)
             if traced:
                 n0, tp = sum(len(r.out) for r in reqs), time.time()
-                if kind == "prefill":
-                    profile_steps(torch, eng, 1, kind="admitting")
-                    admit_traced = True
-                else:
-                    prof = profile_steps(torch, eng, 3)
+                with k6_shapes() as k6_seen:
+                    if kind == "prefill":
+                        profile_steps(torch, eng, 1, kind="admitting")
+                        admit_traced = True
+                    else:
+                        prof = profile_steps(torch, eng, 3)
+                _k6_step_shapes(label, "admitting" if kind == "prefill"
+                                else "decode", k6_seen,
+                                K6_STEP if kind == "decode" else None)
                 t_prof += time.time() - tp
                 tok_prof += sum(len(r.out) for r in reqs) - n0
                 continue

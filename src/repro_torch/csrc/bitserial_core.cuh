@@ -36,8 +36,9 @@
 // against an all-ones B fragment.
 //
 // The prologue (K1, K4).  pack_x_kernel quantizes the float activations
-// once per launch -- one lane per K element, the same quantize_u as the
-// fused kernels, __ballot_sync((u >> i) & 1) is plane i's packed word --
+// once per launch through K3's warp routine (pack_core.cuh: one lane per
+// K element, the same quantize_u as the fused kernels,
+// __ballot_sync((u >> i) & 1) is plane i's packed word) --
 // into a workspace the wrapper allocates: X's planes (n_a, rows, Kw) in
 // K5's packed layout (pad bit 0) and SU (rows,) int32.  For K4 only the
 // live rows of each segment are packed.  The GEMMs then stage A words from
@@ -73,6 +74,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "pack_core.cuh"
+
 namespace bitserial {
 
 constexpr int KSTEP = 8;            // words of a plane row per MMA K step
@@ -83,20 +86,8 @@ constexpr int STACK_ROWS = 64;      // stacked rows at most (4 fragments)
 constexpr int SMEM_BUDGET = 113 * 1024;  // two blocks on each SM
 constexpr int SMEM_MAX = 227 * 1024;     // the H100's per-block limit
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// x -> u = (q + max_a) / 2 of its bipolar value q = clip(round_to_odd(x /
-// s)), in the plain version's f32 steps (IEEE division); the fused
-// kernels and the bitserial prologue all quantize with it
-__device__ __forceinline__ int quantize_u(float xv, float s, int max_a) {
-  float t = __fmul_rn(__fsub_rn(__fdiv_rn(xv, s), 1.0f), 0.5f);
-  float q = __fadd_rn(__fmul_rn(2.0f, rintf(t)), 1.0f);
-  q = fminf(fmaxf(q, (float)(-max_a)), (float)max_a);
-  return ((int)q + max_a) >> 1;
-}
+using pack_core::quantize_u;   // the fused kernels' quantize, K3's too
+using pack_core::to_f32;
 
 __device__ __forceinline__ void mma_and(uint32_t (&d)[4],
                                         const uint32_t (&a)[4],
@@ -562,9 +553,10 @@ inline bool aligned16(const void* p) {
 constexpr int PACK_WORDS = 4;       // packed words a warp
 
 // grid (rows, ceil(kw / (WARPS * PACK_WORDS))): warp w of a block packs
-// PACK_WORDS words of one row.  counts != nullptr: rows are MoE segments
-// of `seg` rows and a row at or past its segment's count is left alone.
-// su must be zero before (the C entry clears it).
+// PACK_WORDS words of one row through K3's routine (pack_core.cuh, pad u
+// 0) and adds its sum of u to the row's SU.  counts != nullptr: rows are
+// MoE segments of `seg` rows and a row at or past its segment's count is
+// left alone.  su must be zero before (the C entry clears it).
 template <typename TX>
 __global__ void __launch_bounds__(THREADS)
 pack_x_kernel(const TX* __restrict__ x, const float* __restrict__ a_scale,
@@ -574,29 +566,11 @@ pack_x_kernel(const TX* __restrict__ x, const float* __restrict__ a_scale,
   const int row = blockIdx.x;
   if (counts != nullptr && row % seg >= counts[row / seg]) return;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int max_a = (1 << n_a) - 1;
-  const float s = a_scale[row];
-  const TX* xr = x + (long long)row * k;
   const int w0 = (blockIdx.y * WARPS + warp) * PACK_WORDS;
-  int u[PACK_WORDS];
-#pragma unroll
-  for (int q = 0; q < PACK_WORDS; ++q) {
-    const int col = (w0 + q) * 32 + lane;
-    u[q] = w0 + q < kw && col < k ? quantize_u(to_f32(xr[col]), s, max_a)
-                                  : 0;     // pad: -maxA
-  }
-  int usum = 0;
-#pragma unroll
-  for (int q = 0; q < PACK_WORDS; ++q) {
-    if (w0 + q >= kw) break;
-    uint32_t mine = 0u;
-    for (int i = 0; i < n_a; ++i) {
-      const uint32_t word = __ballot_sync(0xffffffffu, (u[q] >> i) & 1);
-      if (lane == i) mine = word;
-    }
-    if (lane < n_a) xp[((long long)lane * rows + row) * kw + w0 + q] = mine;
-    usum += u[q];
-  }
+  if (w0 >= kw) return;                     // the whole warp
+  int usum = pack_core::pack_row_words<PACK_WORDS, 8>(
+      x + (long long)row * k, a_scale[row], k, kw, w0, n_a, 0,
+      xp + (long long)row * kw, (long long)rows * kw);
   usum = __reduce_add_sync(0xffffffffu, usum);
   if (lane == 0 && usum != 0) atomicAdd(su + row, usum);
 }

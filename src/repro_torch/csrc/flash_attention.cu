@@ -1,13 +1,10 @@
 // K6 and K7: online-softmax attention over a contiguous KV cache, with
-// the K/V tile loaded from packed bipolar-INT bit planes (K6) or from
-// float K/V (K7).
+// K/V read from packed bipolar-INT bit planes (K6) or as floats (K7).
 //
 // K6 replaces the TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention_quantized (Pallas
 // body `_kernel_quant`, dequant `_dequant_tile`); K7 replaces
-// ::flash_attention (body `_kernel`).  One SIMT template carries K6 and
-// K7's f32 inputs (only the K/V tile loader differs); K7's bf16 inputs run
-// the tensor-core kernel further below.
+// ::flash_attention (body `_kernel`).
 //
 // Layout (the contiguous cache's own, so the serving path reads the ring
 // without folding heads into the batch, which would copy it):
@@ -18,29 +15,38 @@
 // The reference's folded (BH, ...) layout is the case H = 1.
 //
 //   mask   : kpos >= 0, causal kpos <= qpos, window kpos > qpos - window
-//   dequant: v = (sum_i b_i << (i + 1) - (2^n - 1)) * scale, in-tile
 //   softmax: online (running max / denominator / f32 accumulator), p of
 //            masked slots zeroed, final acc / max(l, 1e-20) -- a fully
 //            masked row returns 0; scores scaled by 1 / sqrt(d) with the
-//            true d (K2's rules, csrc/paged_attention.cu)
-// A KV tile that no query row of the block may see (empty ring slots,
-// out of window, causal future) is skipped whole.
+//            true d (K2's rules)
 //
-// Bound on Hopper: bytes at decode (each resident slot's planes read once
-// per layer and step: 2 * H * n_bits * Dp / 8 B plus scales per token),
-// operations at prefill (4 d f32 flops per visible (query, slot) pair).
-// Design: K2's, over fixed tiles of 32 slots in place of pool blocks: one
-// block per (q-tile of 16 rows, kv head, batch row), 4 warps; the block
-// loads (K6: dequantizes) one tile of K and V into shared memory, and each
-// warp updates the running softmax state of its rows, each lane one slot
-// for Q.K^T and 1/32 of the head dim for P.V.  At decode only B * H
-// blocks run (Sq = the GQA group): K6's split-KV (flash-decoding)
-// reduction is the next step; K7's bf16 kernel has one.
+// K6 runs K2's kernel (bipolar_attention.cuh) over the ring: its entries
+// are tiles of 32 ring slots (the last one short when T is not a multiple
+// of 32), one lane a slot in Q.K^T over the whole head dim in order.  Its
+// bound: bytes at decode (each live slot's planes read once per layer and
+// step: 2 * H * n_bits * Dp / 8 B plus scales and positions a token),
+// f32 operations at a prefill (4 d flops per visible (query, slot) pair).
+// Its design, from K2's header: split-KV over ranges of at most
+// MAX_TILES tiles when the (q-tile, head, request) grid is under
+// split_kv::FILL_PER_SM blocks an SM (decode: B * H blocks), the partials
+// merged by split_kv.cuh's combine; the next visible tile's planes,
+// scales and positions staged by cp.async while the current one is
+// dequantized, a (K/V, slot) per warp step; registers capped at four
+// blocks an SM.  A grid that fills the card (a prefill) is not split and
+// sums in the order of K6's first kernel, so its output is that kernel's
+// bit for bit.
+//
+// K7's f32 inputs run the SIMT kernel below (one block per (q-tile of 16
+// rows, kv head, batch row), 4 warps; the block loads one tile of 32
+// float K and V slots into shared memory, each warp updates the running
+// softmax state of its rows, each lane one slot for Q.K^T and 1/32 of the
+// head dim for P.V); its bf16 inputs the tensor-core kernel further down.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bipolar_attention.cuh"
 #include "split_kv.cuh"
 
 namespace {
@@ -51,95 +57,17 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS_PER_WARP = BQ / WARPS;
 constexpr int MAX_DPL = 8;      // head dim <= 256
+constexpr int MAX_TILES = 4;    // K6: ring tiles a split range holds at most
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float v) {
-  return __float2bfloat16_rn(v);
-}
+using bipolar_attention::pos_valid;
 
-__device__ __forceinline__ bool pos_valid(int qpos, int kpos, int causal,
-                                          int window) {
-  bool v = kpos >= 0;
-  if (causal) v = v && kpos <= qpos;
-  if (window > 0) v = v && kpos > qpos - window;
-  return v;
-}
-
-// K6 tile: dequantize BT slots of K and V of head h into s_k / s_v
-struct QuantLoader {
-  const uint32_t* k;
-  const uint32_t* v;
-  const float* ks;
-  const float* vs;
-  int n_bits;
-
-  template <typename TQ>
-  __device__ void load(float* s_k, float* s_v, long long b, int h, int h_kv,
-                       int t0, int t_len, int d, int dp, int tid) const {
-    const int dw = dp / 32;
-    const int maxv = (1 << n_bits) - 1;
-    for (int item = tid; item < 2 * BT * dw; item += THREADS) {
-      int is_v = item / (BT * dw);
-      int rem = item % (BT * dw);
-      int t = rem / dw, w = rem % dw, slot = t0 + t;
-      float* dst = is_v ? s_v + t * dp + w * 32 : s_k + t * (dp + 1) + w * 32;
-      if (slot >= t_len) {
-        for (int bit = 0; bit < 32; ++bit) dst[bit] = 0.0f;
-        continue;
-      }
-      long long tok = (b * t_len + slot) * h_kv + h;
-      const uint32_t* planes = (is_v ? v : k) + (tok * n_bits) * dw;
-      float sc = (is_v ? vs : ks)[tok];
-      uint32_t p[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) p[i] = i < n_bits ? planes[i * dw + w] : 0u;
-      for (int bit = 0; bit < 32; ++bit) {
-        int a = 0;
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (i < n_bits) a += (int)((p[i] >> bit) & 1u) << (i + 1);
-        dst[bit] = __fmul_rn((float)(a - maxv), sc);
-      }
-    }
-  }
-};
-
-// K7 tile: BT slots of float K and V of head h (head-dim pad columns 0)
-struct FloatLoader {
-  const void* k;
-  const void* v;
-
-  template <typename TQ>
-  __device__ void load(float* s_k, float* s_v, long long b, int h, int h_kv,
-                       int t0, int t_len, int d, int dp, int tid) const {
-    const TQ* kk = static_cast<const TQ*>(k);
-    const TQ* vv = static_cast<const TQ*>(v);
-    for (int item = tid; item < 2 * BT * dp; item += THREADS) {
-      int is_v = item / (BT * dp);
-      int rem = item % (BT * dp);
-      int t = rem / dp, c = rem % dp, slot = t0 + t;
-      float val = 0.0f;
-      if (slot < t_len && c < d)
-        val = to_f32((is_v ? vv : kk)[((b * t_len + slot) * h_kv + h) * d + c]);
-      if (is_v) s_v[t * dp + c] = val;
-      else s_k[t * (dp + 1) + c] = val;
-    }
-  }
-};
-
-template <typename TQ, typename Loader>
+// K7, f32: q (B * H, Sq, d), K/V (B, T, H, d) f32
 __global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const TQ* __restrict__ q, Loader loader,
+float_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
                        const int* __restrict__ q_pos,
-                       const int* __restrict__ kv_pos, TQ* __restrict__ out,
+                       const int* __restrict__ kv_pos, float* __restrict__ out,
                        int h_kv, int sq, int t_len, int d, int dp, int causal,
                        int window, float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -158,9 +86,9 @@ flash_attention_kernel(const TQ* __restrict__ q, Loader loader,
   // query tile (head-dim pad columns are zeros) and its positions
   for (int i = tid; i < BQ * dp; i += THREADS) {
     int r = i / dp, c = i % dp, row = q0 + r;
-    float v = 0.0f;
-    if (row < sq && c < d) v = to_f32(q[(bh * sq + row) * d + c]);
-    s_q[i] = v;
+    float val = 0.0f;
+    if (row < sq && c < d) val = q[(bh * sq + row) * d + c];
+    s_q[i] = val;
   }
   if (tid < BQ) {
     int row = q0 + tid;
@@ -190,7 +118,17 @@ flash_attention_kernel(const TQ* __restrict__ q, Loader loader,
     }
     if (!__syncthreads_or(any)) continue;     // tile invisible to the block
 
-    loader.template load<TQ>(s_k, s_v, b, h, h_kv, t0, t_len, d, dp, tid);
+    // BT slots of K and V of head h (head-dim pad columns 0)
+    for (int item = tid; item < 2 * BT * dp; item += THREADS) {
+      int is_v = item / (BT * dp);
+      int rem = item % (BT * dp);
+      int t = rem / dp, c = rem % dp, slot = t0 + t;
+      float val = 0.0f;
+      if (slot < t_len && c < d)
+        val = (is_v ? v : k)[((b * t_len + slot) * h_kv + h) * d + c];
+      if (is_v) s_v[t * dp + c] = val;
+      else s_k[t * (dp + 1) + c] = val;
+    }
     __syncthreads();
 
 #pragma unroll
@@ -231,41 +169,50 @@ flash_attention_kernel(const TQ* __restrict__ q, Loader loader,
     const int r = warp + WARPS * i, row = q0 + r;
     if (row >= sq) continue;
     const float denom = fmaxf(l_run[i], 1e-20f);
-    TQ* o = out + (bh * sq + row) * d;
+    float* o = out + (bh * sq + row) * d;
 #pragma unroll
     for (int c = 0; c < MAX_DPL; ++c) {
       int col = lane + 32 * c;
-      if (c < dpl && col < d) o[col] = from_f32<TQ>(acc[i][c] / denom);
+      if (c < dpl && col < d) o[col] = acc[i][c] / denom;
     }
   }
 }
 
-template <typename TQ, typename Loader>
-int launch(const void* q, Loader loader, const void* q_pos,
-           const void* kv_pos, void* out, int batch, int h_kv, int sq,
-           int t_len, int d, int dp, int causal, int window, float scale,
-           cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<TQ, Loader>;
+int launch_float(const void* q, const void* k, const void* v,
+                 const void* q_pos, const void* kv_pos, void* out, int batch,
+                 int h_kv, int sq, int t_len, int d, int causal, int window,
+                 float scale, cudaStream_t stream) {
   static bool configured = false;
   if (!configured) {
     int max_smem = sizeof(float) * (BQ * 256 + BT * 257 + BT * 256);
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+        float_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        max_smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
+  const int dp = (d + 31) / 32 * 32;
   size_t smem = sizeof(float) * (BQ * dp + BT * (dp + 1) + BT * dp);
   dim3 grid((sq + BQ - 1) / BQ, h_kv, batch);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      (const TQ*)q, loader, (const int*)q_pos, (const int*)kv_pos, (TQ*)out,
-      h_kv, sq, t_len, d, dp, causal, window, scale);
+  float_attention_kernel<<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const int*)q_pos,
+      (const int*)kv_pos, (float*)out, h_kv, sq, t_len, d, dp, causal,
+      window, scale);
   return (int)cudaGetLastError();
+}
+
+// K6's split plan: n_split ranges of tps ring tiles
+int quantized_plan(int batch, int h_kv, int sq, int t_len, int* n_split,
+                   int* tps) {
+  const int n_tiles = (t_len + BT - 1) / BT;
+  return bipolar_attention::plan(batch, h_kv, sq, n_tiles, MAX_TILES,
+                                 n_split, tps);
 }
 
 // ---------------------------------------------------------------------------
 // K7, bf16 inputs: tensor-core flash attention with split-KV at decode.
 //
-// The SIMT template above spends one 2-byte load per element and one f32
+// A SIMT kernel (the f32 one above) spends a load per element and one f32
 // FMA chain per lane over the head dim, and at decode puts B * H blocks
 // on 132 SMs.  This kernel instead:
 //   * loads Q, K and V tiles with 16-byte vector loads into shared memory
@@ -611,26 +558,47 @@ int launch_mma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// K6: the number of ranges of ring tiles the C entry splits this shape
+// into (1: no workspace; negative: a CUDA error); the wrapper sizes the
+// workspace from it: n_split * batch * h_kv * sq * (d + 2) f32.
+extern "C" int repro_flash_attention_quantized_splits(int batch, int h_kv,
+                                                      int sq, int t_len) {
+  if (batch == 0 || sq == 0) return 1;
+  int n_split = 1, tps = 1;
+  const int e = quantized_plan(batch, h_kv, sq, t_len, &n_split, &tps);
+  return e != 0 ? -e : n_split;
+}
+
 // K6.  q dtype code: 0 = float32, 1 = bfloat16.  window <= 0: no window.
 // q (batch * h_kv, sq, d), planes (batch, t_len, h_kv, n_bits, dw), scales
-// (batch, t_len, h_kv), q_pos (batch, sq), kv_pos (batch, t_len).
+// (batch, t_len, h_kv), q_pos (batch, sq), kv_pos (batch, t_len); ws: the
+// split workspace (see repro_flash_attention_quantized_splits), else
+// unused.
 extern "C" int repro_flash_attention_quantized(
     const void* q, const void* k, const void* k_scale, const void* v,
     const void* v_scale, const void* q_pos, const void* kv_pos, void* out,
-    int batch, int h_kv, int sq, int t_len, int d, int dw, int n_bits,
-    int causal, int window, float scale, int q_dtype, void* stream) {
+    void* ws, int batch, int h_kv, int sq, int t_len, int d, int dw,
+    int n_bits, int causal, int window, float scale, int q_dtype,
+    void* stream) {
   if (batch == 0 || sq == 0) return 0;
   if (dw < 1 || dw > MAX_DPL || d > dw * 32 || n_bits < 1 || n_bits > 8)
     return (int)cudaErrorInvalidValue;
-  QuantLoader ld{(const uint32_t*)k, (const uint32_t*)v,
-                 (const float*)k_scale, (const float*)v_scale, n_bits};
+  int n_split = 1, tps = 1;
+  const int e = quantized_plan(batch, h_kv, sq, t_len, &n_split, &tps);
+  if (e != 0) return e;
+  const bipolar_attention::Source src{
+      (const uint32_t*)k, (const float*)k_scale, (const uint32_t*)v,
+      (const float*)v_scale, (const int*)kv_pos, nullptr,
+      (t_len + BT - 1) / BT, t_len};
   cudaStream_t s = (cudaStream_t)stream;
   if (q_dtype == 1)
-    return launch<__nv_bfloat16>(q, ld, q_pos, kv_pos, out, batch, h_kv, sq,
-                                 t_len, d, dw * 32, causal, window, scale, s);
+    return bipolar_attention::launch<__nv_bfloat16, BT, true>(
+        q, src, q_pos, out, ws, batch, h_kv, sq, d, dw, n_bits, causal,
+        window, scale, n_split, tps, s);
   if (q_dtype == 0)
-    return launch<float>(q, ld, q_pos, kv_pos, out, batch, h_kv, sq, t_len,
-                         d, dw * 32, causal, window, scale, s);
+    return bipolar_attention::launch<float, BT, true>(
+        q, src, q_pos, out, ws, batch, h_kv, sq, d, dw, n_bits, causal,
+        window, scale, n_split, tps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -645,7 +613,7 @@ extern "C" int repro_flash_attention_splits(int batch, int h_kv, int sq,
   return n_split;
 }
 
-// K7.  dtype code (q, k, v alike): 0 = float32 (the SIMT template above),
+// K7.  dtype code (q, k, v alike): 0 = float32 (the SIMT kernel above),
 // 1 = bfloat16 (the mma route).  q (batch * h_kv, sq, d), k/v (batch,
 // t_len, h_kv, d); ws: the split workspace (see repro_flash_attention_splits).
 extern "C" int repro_flash_attention(
@@ -666,11 +634,8 @@ extern "C" int repro_flash_attention(
     return launch_mma<4>(q, k, v, q_pos, kv_pos, out, ws, batch, h_kv, sq,
                          t_len, d, causal, window, scale, n_split, tps, s);
   }
-  if (dtype == 0) {
-    FloatLoader ld{k, v};
-    int dp = (d + 31) / 32 * 32;
-    return launch<float>(q, ld, q_pos, kv_pos, out, batch, h_kv, sq, t_len,
-                         d, dp, causal, window, scale, s);
-  }
+  if (dtype == 0)
+    return launch_float(q, k, v, q_pos, kv_pos, out, batch, h_kv, sq, t_len,
+                        d, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

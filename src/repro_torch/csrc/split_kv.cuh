@@ -1,5 +1,6 @@
 // Split-KV (flash-decoding) pieces shared by the attention kernels: K2
-// (paged_attention.cu) plans its splits here, and K2 and K7
+// and K6 (one kernel, bipolar_attention.cuh: ranges of table entries, of
+// ring tiles) plan their splits here, and K2, K6 and K7
 // (flash_attention.cu) merge their f32 partials with the one combine.
 //
 // A split kernel runs n_split blocks along the keys for each block it
@@ -10,7 +11,8 @@
 // combine merges a row's partials as
 //   m = max_s m_s,  l = sum_s l_s e^(m_s - m),  acc = sum_s acc_s e^(m_s - m)
 // and writes acc / max(l, 1e-20): a fully masked row still returns 0
-// (kernels/ref.py::paged_attention_split, ::flash_attention_split).
+// (kernels/ref.py::paged_attention_split, ::kv_cache_attention_split,
+// ::flash_attention_split).
 
 #pragma once
 
@@ -22,11 +24,11 @@ namespace split_kv {
 constexpr int FILL_PER_SM = 2;     // a grid this many blocks an SM fills it
 constexpr int TARGET_PER_SM = 4;   // split towards this many blocks an SM
 
-// Ranges of n_items keys (K2: table entries) for a grid of `blocks`
-// blocks: one range when the grid fills the card, else enough ranges for
-// TARGET_PER_SM blocks an SM, and at least enough that no range holds
-// more than max_per_split items.  Ranges hold per_split items (the last
-// fewer); n_split = ceil(n_items / per_split).
+// Ranges of n_items keys (K2: table entries; K6: ring tiles) for a grid
+// of `blocks` blocks: one range when the grid fills the card, else enough
+// ranges for TARGET_PER_SM blocks an SM, and at least enough that no
+// range holds more than max_per_split items.  Ranges hold per_split items
+// (the last fewer); n_split = ceil(n_items / per_split).
 inline void plan(long long blocks, int n_items, int n_sm, int max_per_split,
                  int* n_split, int* per_split) {
   long long s = 1;

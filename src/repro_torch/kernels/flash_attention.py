@@ -10,9 +10,10 @@ decides: CPU tensors run the plain versions
 :func:`~repro_torch.kernels.ref.kv_cache_attention`,
 :func:`~repro_torch.kernels.ref.flash_attention`), CUDA tensors launch
 the kernel or raise.  K2's C entry splits each request's block table
-across blocks, and K7's splits T for bf16 inputs, when the grid would
-not fill the card; :func:`paged_splits` and :func:`float_splits` report
-their choice, and the wrappers allocate the partials' workspace.
+across blocks, K6's splits the ring's tiles, and K7's splits T for bf16
+inputs, when the grid would not fill the card; :func:`paged_splits`,
+:func:`quantized_splits` and :func:`float_splits` report their choice,
+and the wrappers allocate the partials' workspace.
 """
 
 from __future__ import annotations
@@ -135,12 +136,26 @@ def _contiguous_lib(name: str):
     lib = _build.load("flash_attention")
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        n_ptr = 8 if name == "repro_flash_attention_quantized" else 7
+        n_ptr = 9 if name == "repro_flash_attention_quantized" else 7
         n_int = 9 if name == "repro_flash_attention_quantized" else 7
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def quantized_splits(b: int, h: int, sq: int, t: int) -> int:
+    """How many ranges of the ring's 32-slot tiles K6's C entry splits
+    this shape into (its own choice, from its grid and T; builds the
+    library)."""
+    fn = _build.load("flash_attention").repro_flash_attention_quantized_splits
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    n = int(fn(b, h, sq, t))
+    if n < 1:
+        raise RuntimeError(f"ring attention split plan: cudaError_t {-n}")
+    return n
 
 
 def float_splits(bh: int, sq: int, t: int, dtype) -> int:
@@ -199,10 +214,15 @@ def flash_attention_quantized(q, k_packed, k_scale, v_packed, v_scale,
     vs = v_scale.reshape(b, t, h).to(torch.float32).contiguous()
     kq, vq = k_packed.contiguous(), v_packed.contiguous()
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
+    n_split = quantized_splits(b, h, sq, t)
+    # split-KV partials: (m, l) and acc of every row, per range of tiles
+    ws = torch.empty(n_split * b * h * sq * (d + 2), dtype=torch.float32,
+                     device=dev) if n_split > 1 else None
     err = _contiguous_lib("repro_flash_attention_quantized")(
         qs.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
-        vs.data_ptr(), qp.data_ptr(), kp.data_ptr(), out.data_ptr(), b, h,
-        sq, t, d, dw, n_bits, int(causal),
+        vs.data_ptr(), qp.data_ptr(), kp.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(), b, h, sq, t, d, dw, n_bits,
+        int(causal),
         int(window) if window is not None else 0,
         float(1.0 / math.sqrt(d)), _DTYPES[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)

@@ -371,6 +371,31 @@ def kv_cache_attention(q, k_packed, k_scale, v_packed, v_scale, q_pos,
     return o.reshape(b, h, sq, d)
 
 
+RING_TILE = 32      # ring slots a K6 tile (csrc/flash_attention.cu's BT)
+
+
+def kv_cache_attention_split(q, k_packed, k_scale, v_packed, v_scale, q_pos,
+                             kv_pos, *, splits: int, d: int,
+                             causal: bool = True, window=None):
+    """Plain version of K6's split plan, in :func:`kv_cache_attention`'s
+    layout: the ring's ``ceil(T / 32)`` tiles of 32 slots cut into
+    ``splits`` ranges of ``ceil(tiles / splits)`` tiles (the last fewer),
+    each range's f32 partials, then the f32 combine
+    (:func:`_split_attention`).  ``splits=1`` gives
+    :func:`kv_cache_attention`'s bits.  Used by the tests and by
+    ``chip_smoke.py``, on no path of the model."""
+    b, h, sq, _ = q.shape
+    k = dequantize_kv(fold_kv_heads(k_packed), fold_kv_heads(k_scale), d)
+    v = dequantize_kv(fold_kv_heads(v_packed), fold_kv_heads(v_scale), d)
+    tiles = -(-k_packed.shape[1] // RING_TILE)
+    o = _split_attention(
+        q.reshape(b * h, sq, q.shape[-1]), k, v,
+        torch.repeat_interleave(q_pos, h, 0),
+        torch.repeat_interleave(kv_pos, h, 0),
+        size=-(-tiles // splits) * RING_TILE, causal=causal, window=window)
+    return o.reshape(b, h, sq, d)
+
+
 flash_attention = attention_reference     # the float kernel's plain version
 
 

@@ -2,9 +2,11 @@
 needed): a library's name hashes its source, the ``csrc/*.cuh`` headers
 the source includes and the flags, so that an edited header -- the b1
 core (K1, K4 and K5; K2 takes its cp.async helpers), the int8
-plane-group steps (K1, K4, K5), the small-M GEMM (K1, K5) or the
-split-KV combine (K2, K6/K7) -- rebuilds every source that includes it
-and nothing else."""
+plane-group steps (K1, K4, K5), the small-M GEMM (K1, K5), the
+split-KV combine (K2, K6/K7), the bipolar-KV attention kernel (K2, K6)
+or the quantize-and-pack (K3 and, through the b1 core, every source that
+includes it) -- rebuilds every source that includes it and nothing
+else."""
 
 import pytest
 
@@ -28,11 +30,16 @@ def test_sources_that_include_the_core_list_it():
                         ("moe_expert_linear", [])):
         src = _build._target(name)[0]
         assert [os.path.basename(p) for p in _build._sources_of(src)] == \
-            [f"{name}.cu"] + core + extra
-    for name, headers in (("pack", []),
-                          ("paged_attention", ["bitserial_core.cuh",
-                                               "split_kv.cuh"]),
-                          ("flash_attention", ["split_kv.cuh"])):
+            [f"{name}.cu"] + core + extra + ["pack_core.cuh"]
+    for name, headers in (("pack", ["pack_core.cuh"]),
+                          ("paged_attention", ["bipolar_attention.cuh",
+                                               "bitserial_core.cuh",
+                                               "split_kv.cuh",
+                                               "pack_core.cuh"]),
+                          ("flash_attention", ["bipolar_attention.cuh",
+                                               "split_kv.cuh",
+                                               "bitserial_core.cuh",
+                                               "pack_core.cuh"])):
         assert [os.path.basename(p) for p in _build._sources_of(
             _build._target(name)[0])] == [f"{name}.cu"] + headers
 
@@ -48,7 +55,8 @@ def test_editing_a_header_renames_the_libraries_that_include_it(
     after = {n: _build._target(n)[2] for n in names}
     changed = {n for n in names if after[n] != before[n]}
     assert changed == {"apmm_fused_linear", "apmm_packed",
-                       "moe_expert_linear", "paged_attention"}
+                       "moe_expert_linear", "paged_attention",
+                       "flash_attention"}
 
 
 def test_editing_the_int8_core_renames_the_libraries_that_include_it(
@@ -65,7 +73,11 @@ def test_editing_the_int8_core_renames_the_libraries_that_include_it(
 
 @pytest.mark.parametrize("header,users", [
     ("small_m.cuh", {"apmm_fused_linear", "apmm_packed"}),
-    ("split_kv.cuh", {"paged_attention", "flash_attention"})])
+    ("split_kv.cuh", {"paged_attention", "flash_attention"}),
+    ("bipolar_attention.cuh", {"paged_attention", "flash_attention"}),
+    ("pack_core.cuh", {"pack", "apmm_fused_linear", "apmm_packed",
+                       "moe_expert_linear", "paged_attention",
+                       "flash_attention"})])
 def test_editing_a_shared_route_header_renames_its_users(
         tmp_path, monkeypatch, header, users):
     csrc = _copy_csrc(tmp_path, monkeypatch)

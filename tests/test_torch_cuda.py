@@ -20,9 +20,12 @@ small-M route's threshold (``apmm.packed_small_m_max()``); the unfused
 linear (K3 + K5) equal to the fused one (K1) bit for bit at ``act="none"`` and with a
 residual, and within K1's 1-ulp SiLU rule through the SwiGLU.  K6 and
 K7 (contiguous attention, packed and float K/V): within 1 bf16 ulp per
-element, or 1e-5 absolute, of the plain version; K7's bf16 route also
-where its C entry splits T (some ranges seen by no query row) and
-against ``ref.flash_attention_split``.  K1's small-M route (M up to
+element, or 1e-5 absolute, of the plain version; K6 and K7's bf16 route
+also where their C entries split T (some ranges seen by no query row)
+and against the split plain versions (``ref.kv_cache_attention_split``,
+``ref.flash_attention_split``), K6 on both sides of its split
+threshold.  K3 is also held bit for bit at every width 1..8 and against
+the bit-serial prologue, which runs its warp routine.  K1's small-M route (M up to
 ``apmm.small_m_max()``): the integer core bit-exact on both sides of the
 threshold, the dual SiLU within 1 bf16 ulp, bias and residual bit-exact.
 Fused K4 on both sides of its route threshold (``moe.fused_route_max()``:
@@ -76,6 +79,43 @@ def test_pack_kernel_words_equal_plain(device, n_bits, k, pad_bit):
     torch.cuda.synchronize()
     want = ref.quantize_pack_rows(x, scale, n_bits=n_bits, pad_bit=pad_bit)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 14336])
+@pytest.mark.parametrize("k", [1, 31, 33, 100, 4096])
+@pytest.mark.parametrize("pad_bit", [0, 1])
+def test_pack_kernel_words_equal_plain_every_width(device, rows, k, pad_bit):
+    """K3 at every width 1..8, both pad bits, K below, around and above
+    one word (ragged last words) and row counts on both sides of its C
+    entry's choice of words a warp: the plain version's words."""
+    rng = np.random.default_rng(rows + k + pad_bit)
+    x = _rand(rng, (rows, k), device) * 2.5
+    before = pack.LAUNCHES
+    for n_bits in range(1, 9):
+        scale = bipolar.absmax_scale(x, n_bits, axis=-1)
+        got = pack.quantize_pack_rows(x, scale, n_bits=n_bits,
+                                      pad_bit=pad_bit)
+        torch.cuda.synchronize()
+        want = ref.quantize_pack_rows(x, scale, n_bits=n_bits,
+                                      pad_bit=pad_bit)
+        assert torch.equal(got, want), n_bits
+    assert pack.LAUNCHES == before + 8
+
+
+@pytest.mark.parametrize("m,k", [(1, 1), (3, 33), (4, 4096), (5, 1001),
+                                 (70, 14336)])
+@pytest.mark.parametrize("a_bits", [1, 4, 8])
+def test_pack_kernel_words_equal_bitserial_prologue(device, m, k, a_bits):
+    """K3 (pad bit 0) and the bit-serial prologue run one warp routine
+    (csrc/pack_core.cuh) at different words a warp: the same words."""
+    rng = np.random.default_rng(m * k + a_bits)
+    x = _rand(rng, (m, k), device)
+    a_s = bipolar.absmax_scale(x, a_bits, axis=-1).float()
+    planes, _ = apmm.bitserial_pack_x(x, a_s, a_bits=a_bits,
+                                      kw=bipolar.packed_words(k))
+    got = pack.quantize_pack_rows(x, a_s, n_bits=a_bits, pad_bit=0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, planes)
 
 
 @pytest.mark.parametrize("m,n,k", [(5, 70, 100), (67, 130, 300),
@@ -885,6 +925,104 @@ def test_float_attention_kernel_split_kv(device, bh, sq, t, live, d, window):
     split = ref.flash_attention_split(q, k, v, q_pos, kv_pos,
                                       splits=n_split, window=window)
     assert _within_one_ulp_or(got, split)
+
+
+def _ring_kinds(dev, rng, b, t, h, d, n_bits, sq):
+    """Ring rows of every kind K6's ranges meet, cycled over ``b`` rows:
+    positions 0..t/2 then empty slots; a ring that wrapped (positions
+    t+5..2t+4 at slot pos % t); a prompt of 3t/4 tokens whose queries sit
+    at the start (its later tiles in the causal future); an empty ring.
+    Queries: each row's last ``sq`` positions (at least 0; the prompt's
+    first), row 0's first query row a pad (fully masked)."""
+    kv = _rand(rng, (2, b, t, h, d), dev)
+    kq, ks = ops.quantize_kv(kv[0], n_bits)
+    vq, vs = ops.quantize_kv(kv[1], n_bits)
+    kv_pos = torch.full((b, t), -1, dtype=torch.int32)
+    q_pos = torch.full((b, sq), -1, dtype=torch.int32)
+    for row in range(b):
+        kind = row % 4
+        if kind == 0:
+            kv_pos[row, :t // 2 + 1] = torch.arange(t // 2 + 1)
+            q_pos[row] = torch.arange(t // 2 + 1 - sq, t // 2 + 1).clamp(
+                min=0)
+        elif kind == 1:
+            pos = torch.arange(t + 5, 2 * t + 5)
+            kv_pos[row, pos % t] = pos.to(torch.int32)
+            q_pos[row] = torch.arange(2 * t + 5 - sq, 2 * t + 5)
+        elif kind == 2:
+            kv_pos[row, :3 * t // 4] = torch.arange(3 * t // 4)
+            q_pos[row] = torch.arange(sq).clamp(max=3 * t // 4 - 1)
+    q_pos[0, 0] = -1
+    return kq, ks, vq, vs, q_pos.to(dev), kv_pos.to(dev)
+
+
+def _k6_split_threshold_sq(h):
+    """The smallest Sq (a multiple of 16) whose (q-tile, head) grid of one
+    request fills split_kv::FILL_PER_SM = 2 blocks an SM: K6 splits below
+    it and not from it."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    return 16 * -(-2 * n_sm // h)
+
+
+@pytest.mark.parametrize("b,h,sq,t,d,n_bits,window", [
+    (4, 8, 4, 1024, 128, 8, None),       # llama3-8b's decode shape
+    (4, 8, 4, 1024, 128, 8, 256),        # its 256-token window
+    (3, 2, 3, 232, 40, 3, None),         # short last tile, Dw 2
+    (5, 1, 4, 100, 32, 8, 30),           # T < 4 tiles, a window
+    (1, 8, "below", 256, 128, 8, None),  # the grid just under the threshold
+    (1, 8, "at", 256, 128, 8, None)])    # the grid that fills the card
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_quantized_attention_kernel_split_kv(device, b, h, sq, t, d, n_bits,
+                                             window, dtype):
+    """K6 on both sides of its split threshold, with ranges no query row
+    sees (empty slots, the causal future, out of window) and a fully
+    masked row: within 1 bf16 ulp or 1e-5 of the plain version of the
+    split its C entry plans (``quantized_splits``), and of the unsplit
+    plain version; the fully masked row exactly 0."""
+    if sq in ("below", "at"):
+        sq = _k6_split_threshold_sq(h) - (16 if sq == "below" else 0)
+    rng = np.random.default_rng(b * t + sq + d + n_bits)
+    kq, ks, vq, vs, q_pos, kv_pos = _ring_kinds(device, rng, b, t, h, d,
+                                                n_bits, sq)
+    q = _rand(rng, (b, h, sq, d), device, dtype)
+    args = (q, kq, ks, vq, vs, q_pos, kv_pos)
+    n_split = flash_attention.quantized_splits(b, h, sq, t)
+    blocks = -(-sq // 16) * h * b
+    assert (n_split > 1) == (blocks < 2 * torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    before = flash_attention.QUANTIZED_LAUNCHES
+    got = flash_attention.flash_attention_quantized(*args, d=d,
+                                                    window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.QUANTIZED_LAUNCHES == before + 1
+    split = ref.kv_cache_attention_split(*args, splits=n_split, d=d,
+                                         window=window)
+    assert _within_one_ulp_or(got, split)
+    assert _within_one_ulp_or(got, ref.kv_cache_attention(
+        *args, d=d, window=window))
+    assert torch.all(got[0, :, 0] == 0)
+    if b > 3:
+        assert torch.all(got[3] == 0)          # an empty ring
+
+
+def test_quantized_attention_kernel_prefill_unsplit(device):
+    """The admitting step's bucketed prefill (B = 1, 8 heads, Sq = 4 x
+    1024 rows, 600 live slots of T = 1024, pads fully masked): one range,
+    within 1 bf16 ulp or 1e-5 of the unsplit plain version."""
+    rng = np.random.default_rng(3)
+    b, h, t, live, s, d = 1, 8, 1024, 600, 1024, 128
+    _, kq, ks, vq, vs, pos = _ring(rng, device, b, t, h, 8, d, [live])
+    tok = torch.full((s,), -1, dtype=torch.int32)
+    tok[:live] = torch.arange(live, dtype=torch.int32)
+    q_pos = tok.repeat(4)[None].to(device)
+    q = _rand(rng, (b, h, 4 * s, d), device, torch.bfloat16)
+    assert flash_attention.quantized_splits(b, h, 4 * s, t) == 1
+    got = flash_attention.flash_attention_quantized(q, kq, ks, vq, vs, q_pos,
+                                                    pos, d=d)
+    torch.cuda.synchronize()
+    want = ref.kv_cache_attention(q, kq, ks, vq, vs, q_pos, pos, d=d)
+    assert _within_one_ulp_or(got, want)
+    assert torch.all(got[:, :, q_pos[0] < 0] == 0)
 
 
 def test_contiguous_attention_matches_paged_attention(device):
