@@ -12,11 +12,21 @@ exit and no result line):
    summary;
 3. kernels -- each hand-written kernel against its plain torch version on
    the card, at the shapes of llama3-8b's and mixtral-8x7b's serving
-   paths (K3 words at its load shape and at the unfused linear's
-   per-dispatch activation shape, the K1, K4 and K5 integer cores of
-   every weight, K4's bf16 output and K5's f32/bf16 dequant bit-exact;
-   K1 and K4 SiLU
-   outputs within 1 bf16 ulp of the plain version; K4's dead rows
+   paths, and at the new shapes of deepseek-moe-16b's, stablelm-3b's and
+   glm4-9b's (K3 at deepseek's expert and stablelm's gate/up load
+   shapes, w3; K1 at deepseek's dense down projection, K = 10944: weight
+   rows of 342 words, not a multiple of 4, at M 4 and 256, w3, and at
+   stablelm's dual gate/up, N 6912, K 2560, w3, at M 4; K2 at
+   stablelm's decode, 32 kv heads of head dim 80 -- three packed words --
+   and group 1, deepseek's, 16 kv heads of head dim 128 and group 1, and
+   glm4's, 2 kv heads with a group of 16; fused K4 and K4-bs at
+   deepseek's 64 experts, gate/up 1408 x 2048 and down 2048 x 1408, w3,
+   at the segment heights its traced steps give, each route read off
+   the kernels that ran) (K3 words at its load shapes and at the
+   unfused linear's per-dispatch activation shape, the K1, K4 and K5
+   integer cores of every weight, K4's bf16 output and K5's f32/bf16
+   dequant bit-exact; K1 and K4 SiLU outputs within 1 bf16 ulp of the
+   plain version; K4's dead rows
    exactly 0 and its live map equal to the analytic one; the unfused
    linear (K3 + K5) equal to the fused one (K1) bit for bit, within 1
    ulp through the SwiGLU; K2, K6 and K7 outputs within 1 bf16 ulp or
@@ -30,9 +40,10 @@ exit and no result line):
    ``apmm.small_m_max()``), and so must K5's (its small-M route, K1's
    GEMM after a prologue, at M <= ``apmm.packed_small_m_max()``: the
    route printed, read off the kernels that ran); K2 runs at
-   ``K2_CASES`` (decode, a prefill chunk, and the shape of phase 5's
-   traced mixtral decode steps), each held against the plain version of
-   the split plan its C entry makes (``ref.paged_attention_split``), the
+   ``K2_CASES`` (decode, a prefill chunk, the shape of phase 5's traced
+   mixtral decode steps, stablelm's, deepseek's and glm4's decode),
+   each held against the plain version of the split plan its C entry
+   makes (``ref.paged_attention_split``), the
    split count printed and the combine kernel seen to run exactly when
    it splits; K6 likewise at ``K6_CASES`` (decode, the admitting step's
    bucketed prefill, a 256-slot window), against the plain version of
@@ -44,9 +55,10 @@ exit and no result line):
    be the one its threshold gives (its decode route up to segments of
    ``moe.fused_route_max()`` rows, its int8 tensor-core chunk route
    above), its prologue's and GEMM's device time apart, and runs at the
-   edge of its two routes and at the shapes phase 5's traced mixtral
-   steps give it (``K4_STEP_SEGS``: a chunk step's 256 tokens, segments
-   of 80 rows; a decode step's 5 lanes bucketed to 8, 3 rows); the
+   edge of its two routes and at the shapes phase 5's traced MoE steps
+   give it (``K4_STEP_SEGS``: a chunk step's 256 tokens, segments of 80
+   rows on mixtral and 30 on deepseek; a decode step's 5 lanes bucketed
+   to 8, 3 rows on mixtral and 1 on deepseek); the
    ``bitserial``
    variants of K1, K4 and K5 (the b1 tensor-core core) at the same cases
    (K5 also at the width pairs a2w8, a8w8, a1w1, a3w5, odd M/N/K):
@@ -59,32 +71,46 @@ exit and no result line):
    prologue's and the GEMM's device time apart (``torch.profiler``), and
    each at the edge of the core's two routes (the stacked route's last
    M or segment height and the rows route's first);
-4. the norm -- ``norm_apply`` on the card at llama3-8b's width gives
-   the CPU's bits (it reproduces XLA's f32 steps in torch ops), and its
-   time; then full width, shallow -- one forward of llama3-8b (depth 2,
-   paged pool and fused linear; then a contiguous cache and the unfused
-   linear) and
-   of mixtral-8x7b (depth 1) on the card, then the same forward with the
-   parameters moved to the CPU (the plain versions run there because
-   the device decides), logits compared and, for mixtral, the share of
-   tokens routed to the same experts;
-5. end to end -- three main paths at w2/a8/kv8 with random weights from
-   ``--seed`` quantized on the card (K3 at load), the launch counters
-   zeroed just before and read just after each: the full 32-layer
-   llama3-8b (4 requests) and mixtral-8x7b (5 requests, one of 4,300
-   tokens that attends through the rolling 4,096-token window), each
-   served by ``Engine(paged=True, block_size=16, chunk_tokens=256)``
-   with the fused linear, where every forward dispatch launches K1 193
-   (mixtral 129) times, K2 32 times and K4 64 times on mixtral (and
-   exactly the K1 launches whose M is at most ``apmm.small_m_max()``
-   take its small-M route); then
-   llama3-8b served by ``Engine(paged=False, n_slots=4, max_len=1024)``
-   with the unfused linear (``llama3-8b-contiguous-unfused``), where
-   every dispatch launches K5 and K3 225 times and K6 32 times, and K1,
-   K2, K4 never; each path is followed by its bit-serial twin
-   (``QuantConfig(variant="bitserial")``: the same weights, prompts and
-   engine), whose dispatches launch the bitserial kernels as often as
-   the twin launched the fused ones (``apmm.BITSERIAL_LAUNCHES``,
+4. the norm -- ``norm_apply`` on the card at llama3-8b's width and at
+   stablelm-3b's layernorm with its bias (d 2560) gives the CPU's bits
+   (it reproduces XLA's f32 steps in torch ops), and its time; then full
+   width, shallow -- one forward of llama3-8b (depth 2, paged pool and
+   fused linear; then a contiguous cache and the unfused linear), of
+   mixtral-8x7b (depth 1), of glm4-9b and minicpm-2b (depth 2, paged,
+   their own w2 with a kv8 pool; minicpm's tied logits are a bf16
+   ``torch.matmul``), of stablelm-3b (depth 2, paged: its own w3, head
+   dim 80 with partial rotary 0.25, layernorm with bias) and of
+   deepseek-moe-16b (depth 2: the dense layer 0, then a MoE layer; its
+   own w3) on the card, then the same forward with
+   the parameters moved to the CPU (the plain versions run there because
+   the device decides), logits compared within 5% of the largest and,
+   for the MoE configs, the share of tokens routed to the same experts;
+5. end to end -- five main paths, each config at its own weight and
+   activation bits with a kv8 cache, random weights from ``--seed``
+   quantized on the card (K3 at load), the launch counters zeroed just
+   before and read just after each: the full 32-layer llama3-8b (4
+   requests, w2), the full 32-layer mixtral-8x7b (5 requests, one of
+   4,300 tokens that attends through the rolling 4,096-token window,
+   w2), the full
+   28-layer deepseek-moe-16b (w3: a dense layer 0, then 27 layers of 64
+   experts, top 6, and a shared expert) and the full 32-layer
+   stablelm-3b (w3, head dim 80, MHA, layernorm), the last two with
+   llama's prompts, each served by ``Engine(paged=True, block_size=16,
+   chunk_tokens=256)`` with the fused linear, where every forward
+   dispatch launches K1 6 times a layer (mixtral 4) and once more (the
+   lm_head), K2 once a layer and K4 twice a MoE layer, and exactly
+   the K1 launches whose M is at most ``apmm.small_m_max()`` take its
+   small-M route; then
+   llama3-8b at ``CONTIGUOUS_LAYERS`` (8) of its 32 layers served by
+   ``Engine(paged=False, n_slots=4, max_len=1024)`` with the unfused
+   linear (``llama3-8b-contiguous-unfused``), where every dispatch
+   launches K5 and K3 7 times a layer and once more (the lm_head) and K6
+   once a layer, and K1, K2, K4 never; each path is followed by its
+   bit-serial twin (``QuantConfig(variant="bitserial")``: the same
+   weights, prompts and engine; a paged twin serves the fused path's own
+   quantized weights, so it launches K3 no time), whose dispatches
+   launch the bitserial kernels as often as the twin launched the fused
+   ones (``apmm.BITSERIAL_LAUNCHES``,
    ``apmm.PACKED_BITSERIAL_LAUNCHES``, ``moe.BITSERIAL_LAUNCHES``), the
    fused kernels never, and whose greedy tokens equal the twin's, all of
    them; each path profiles one chunk step (contiguous: one admitting
@@ -100,9 +126,11 @@ exit and no result line):
    segment heights in both, and fail if phase 3's case for that step
    (``K4_STEP_SEGS``) is not among those heights;
 6. the launch counts of each path, the JSON kernels line (one entry per
-   path and kernel of that path, ``launches`` that path's own count; K7,
-   on no path, with its phase-3 launches), the ``nvidia-smi`` line and,
-   last, the JSON device line.
+   path and kernel of that path, ``launches`` that path's own count, the
+   other numbers those of the phase-3 case at that path's own shape,
+   named in ``case`` (``PATH_CASES``; the kernel's shared case where
+   the path has none); K7, on no path, with its phase-3 launches), the
+   ``nvidia-smi`` line and, last, the JSON device line.
 
 It imports nothing of JAX and nothing of the reference package.
 """
@@ -128,26 +156,36 @@ INT8_OPS_PER_S = 1979e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989.4e12     # dense tensor-core rate (K7's bf16 route)
 
-# (tokens, segment height) of mixtral's K4 calls in phase 5's traced steps
-# (layers.moe_apply: top 2, G = 1, capacity ceil(2 T 1.25 / 8) rows): a
+# (tokens, segment height) of each MoE path's K4 calls in phase 5's traced
+# steps (layers.moe_apply: G = 1, capacity ceil(top_k T 1.25 / E) rows): a
 # chunk step runs one 256-token chunk; a decode step runs the (B, 1) batch
 # of the 5 requests bucketed to 8 lanes (Engine.max_batch = 2 n_slots),
-# the pad lanes routed too.  Phase 3 times K4 at these shapes; phase 5
-# fails if its traced steps gave K4 no such call.
-K4_STEP_SEGS = {"chunk": (256, 80), "decode": (8, 3)}
+# the pad lanes routed too.  mixtral: top 2 of 8 experts; deepseek-moe-16b:
+# top 6 of 64.  Phase 3 times K4 at these shapes; phase 5 fails if its
+# traced steps gave K4 no such call.
+K4_STEP_SEGS = {"mixtral-8x7b": {"chunk": (256, 80), "decode": (8, 3)},
+                "deepseek-moe-16b": {"chunk": (256, 30), "decode": (8, 1)}}
 
 # K2's cases in phase 3: (name, tokens of each lane -- None: a pad lane on
-# an all-null table --, query tokens a lane, table width NB, window).
-# "mixtral decode window" is the shape of phase 5's traced mixtral decode
-# steps: the 5 requests bucketed to 8 lanes, the 4,300-token one past its
-# 4,096-token window (its out-of-window blocks reclaimed), NB the engine's
-# table width (4352 // 16: the long lane's ~257 blocks bucket to 512,
-# capped there); phase 5 fails if those steps gave K2 no call of its (B,
-# Gq, NB, window).
-K2_CASES = (("decode", (600,) * 4, 1, 64, None),
-            ("chunk", (600,), 256, 64, None),
+# an all-null table --, query tokens a lane, table width NB, window, the
+# heads: (kv heads H, GQA group, head dim d)).  llama3-8b's and
+# mixtral-8x7b's heads are (8, 4, 128).  "mixtral decode window" is the
+# shape of phase 5's traced mixtral decode steps: the 5 requests bucketed
+# to 8 lanes, the 4,300-token one past its 4,096-token window (its
+# out-of-window blocks reclaimed), NB the engine's table width (4352 //
+# 16: the long lane's ~257 blocks bucket to 512, capped there); phase 5
+# fails if those steps gave K2 no call of its (B, Gq, NB, window).
+# "stablelm decode": stablelm-3b's 32 kv heads at head dim 80 (three
+# packed words: the kernel's 4-byte staging) and group 1; "deepseek
+# decode": deepseek-moe-16b's 16 kv heads at head dim 128 and group 1;
+# "glm4 decode": glm4-9b's 2 kv heads with a group of 16.
+K2_CASES = (("decode", (600,) * 4, 1, 64, None, (8, 4, 128)),
+            ("chunk", (600,), 256, 64, None, (8, 4, 128)),
             ("mixtral decode window", (609, 109, 309, 4309, 209, None, None,
-                                       None), 1, 272, 4096))
+                                       None), 1, 272, 4096, (8, 4, 128)),
+            ("stablelm decode", (600,) * 4, 1, 64, None, (32, 1, 80)),
+            ("deepseek decode", (600,) * 4, 1, 64, None, (16, 1, 128)),
+            ("glm4 decode", (600,) * 4, 1, 64, None, (2, 16, 128)))
 K2_STEP = {"mixtral-8x7b": "mixtral decode window"}
 
 # K6's cases in phase 3 (llama3-8b's shapes: 8 kv heads, GQA group 4, d
@@ -161,6 +199,36 @@ K6_CASES = (("decode", dict(b=4, t=1024, live=632, s=1), None),
              None),
             ("decode window 256", dict(b=4, t=1024, live=632, s=1), 256))
 K6_STEP = "decode"
+
+# the depth of phase 5's llama3-8b contiguous pair (of its 32 layers):
+# cut so that the whole run keeps inside its time budget once the
+# deepseek-moe-16b and stablelm-3b paths run at full depth
+CONTIGUOUS_LAYERS = 8
+
+# the phase-3 case whose numbers (ms, bound, plain, error) a path's
+# entry in the kernels line carries, by path and kernel (its bitserial
+# kernel too): the case at that path's own shape; a kernel a path does
+# not name here carries its ``SHARED_CASES`` case (llama3-8b's shape)
+SHARED_CASES = {"quantize_pack_rows": "load",
+                "apmm_fused_linear": "decode gate/up",
+                "paged_attention": "decode",
+                "moe_expert_linear": "decode gate/up",
+                "apmm_packed": "decode gate",
+                "flash_attention_quantized": "decode",
+                "flash_attention": "decode"}
+PATH_CASES = {
+    "mixtral-8x7b": {"apmm_fused_linear": "decode q",
+                     "paged_attention": "mixtral decode window",
+                     "moe_expert_linear": "decode step gate/up"},
+    "deepseek-moe-16b": {"quantize_pack_rows": "deepseek load",
+                         "apmm_fused_linear": "deepseek dense down",
+                         "paged_attention": "deepseek decode",
+                         "moe_expert_linear":
+                             "deepseek decode step gate/up"},
+    "stablelm-3b": {"quantize_pack_rows": "stablelm load",
+                    "apmm_fused_linear": "stablelm decode gate/up",
+                    "paged_attention": "stablelm decode"},
+}
 
 # the redesigned kernels' times before the redesign, as PERF.md section 6
 # records them (this Timer, NVIDIA H100 80GB HBM3 at 700 W); None: not
@@ -367,7 +435,11 @@ def versus_prev(key: str, b_ms: float) -> str:
 # and the unfused linear's per-dispatch activation pack at decode (M = 4,
 # a8); both f32 (ops.quantize_rows hands K3 x.float())
 K3_CASES = (("load", 14336, 4096, 2, 1),
-            ("decode activations", 4, 4096, 8, 0))
+            ("decode activations", 4, 4096, 8, 0),
+            # one deepseek-moe-16b expert's gate (1408 x 2048) and
+            # stablelm-3b's gate (6912 x 2560), each at its own w3
+            ("deepseek load", 1408, 2048, 3, 1),
+            ("stablelm load", 6912, 2560, 3, 1))
 
 
 def k3_phase(torch, timer, rng_seed, results):
@@ -404,10 +476,9 @@ def k3_phase(torch, timer, rng_seed, results):
               f"bound, device {100 * b_ms / dev:.1f}%; "
               f"{versus_prev('K3 ' + name, b_ms)}), plain {plain:.4f} ms",
               flush=True)
-        if name == "load":
-            results["quantize_pack_rows"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+        results["quantize_pack_rows", name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
         del x, got, want
 
 
@@ -415,7 +486,7 @@ def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
              act="none", w_bits=2, a_bits=8, cache=None):
     from repro_torch.core import bipolar
     from repro_torch.kernels import apmm, ops, ref
-    key = (n, k, dual)
+    key = (n, k, dual, w_bits)
     if cache is not None and key in cache:
         w, w2 = cache[key]
     else:
@@ -491,7 +562,9 @@ def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
                        dtype=torch.int8)
     im = timer(lambda: torch._int_mm(xi, wi.t()), iters=10)
     del wb, xi, wi
-    print(f"K1 apmm_fused_linear {name} M={m} N={n} K={k}"
+    print(f"K1 apmm_fused_linear {name} M={m} N={n} K={k} ({kw} words, "
+          f"{'16-byte' if kw % 4 == 0 else '4-byte'} weight loads) "
+          f"w{w_bits}a{a_bits}"
           f"{' dual' if dual else ''}{' +res' if residual else ''}"
           f" act={act}, {route} route: core bit-exact, out max|err| "
           f"{err:.3g}, {ulps} bf16 ulps (tol {0 if act == 'none' else 1}); "
@@ -583,6 +656,16 @@ def k1_phase(torch, timer, seed, results):
         ("chunk gate/up", 1024, 14336, 4096, dict(dual=True, act="silu")),
         ("chunk down", 1024, 4096, 14336, dict(residual=True)),
         ("odd", 5, 1000, 1000, {}),
+        # deepseek-moe-16b's dense layer-0 down projection at its own w3:
+        # K = 10944 is 342 words, not a multiple of 4 (K1's non-vector
+        # weight loads), at decode (small-M route) and at a chunk (tile)
+        ("deepseek dense down", 4, 2048, 10944,
+         dict(residual=True, w_bits=3)),
+        ("deepseek chunk dense down", 256, 2048, 10944,
+         dict(residual=True, w_bits=3)),
+        # stablelm-3b's dual gate/up at its own w3, at decode
+        ("stablelm decode gate/up", 4, 6912, 2560,
+         dict(dual=True, act="silu", w_bits=3)),
     ]
     # the bitserial variant's route edge: its stacked route's last M and
     # the rows route's first, at the decode gate/up shape
@@ -593,11 +676,10 @@ def k1_phase(torch, timer, seed, results):
                dict(dual=True, act="silu"))]
     for name, m, n, k, kw in cases:
         r, bs = _k1_case(torch, timer, g, name, m, n, k, cache=cache, **kw)
-        if name == "decode gate/up":
-            results["apmm_fused_linear"] = r
-            results["apmm_fused_linear_bitserial"] = bs
+        results["apmm_fused_linear", name] = r
+        results["apmm_fused_linear_bitserial", name] = bs
         if name == "decode lm_head":
-            cache.pop((n, k, False), None)
+            cache.pop((n, k, False, 2), None)
     cache.clear()
     torch.cuda.empty_cache()
 
@@ -619,7 +701,7 @@ def _k2_inputs(torch, g, lanes, *, s_q, nb, window, h=8, group=4, d=128,
         lo = 0 if window is None else max(0, ctx - s_q + 1 - window)
         spans.append((ctx, lo // bs, -(-ctx // bs) - lo // bs))
     n_blocks = 1 + sum(sp[2] for sp in spans if sp)
-    dw = d // 32
+    dw = -(-d // 32)                  # the head dim padded to whole words
     k_pool = torch.zeros((n_blocks, bs, h, n_bits, dw), dtype=torch.int32,
                          device="cuda")
     v_pool = torch.zeros_like(k_pool)
@@ -668,7 +750,7 @@ def _k2_bound(torch, args, window, d, n_bits):
     valid = ref.position_mask(q_pos[:, :, None], kpos[:, None, :], True,
                               window)
     slots = int(valid.any(1).sum())
-    slot_bytes = h * (2 * n_bits * (d // 32) * 4 + 8) + 4
+    slot_bytes = h * (2 * n_bits * -(-d // 32) * 4 + 8) + 4
     io_bytes = 2 * q.numel() * q.element_size() + q_pos.numel() * 4 \
         + tables.numel() * 4
     return bound_ms(slots * slot_bytes + io_bytes,
@@ -682,10 +764,11 @@ def k2_phase(torch, timer, seed, results):
     the kernels that ran (the combine exactly when it splits)."""
     from repro_torch.kernels import flash_attention, ref
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
-    for name, lanes, s_q, nb, window in K2_CASES:
-        args = _k2_inputs(torch, g, lanes, s_q=s_q, nb=nb, window=window)
-        d, n_bits = 128, 8
-        b, h, gq, _ = args[0].shape
+    for name, lanes, s_q, nb, window, (h, group, d) in K2_CASES:
+        n_bits = 8
+        args = _k2_inputs(torch, g, lanes, s_q=s_q, nb=nb, window=window,
+                          h=h, group=group, d=d, n_bits=n_bits)
+        b, _, gq, _ = args[0].shape
         n_split = flash_attention.paged_splits(b, h, gq, nb)
 
         def run():
@@ -712,7 +795,8 @@ def k2_phase(torch, timer, seed, results):
         plain = timer(run_plain, iters=3, warmup=1)
         b_ms, b_by = _k2_bound(torch, args, window, d, n_bits)
         print(f"K2 paged attention {name} B={b} lanes={list(lanes)} "
-              f"Gq={gq} H={h} NB={nb} window={window} d={d} kv8 bs=16: "
+              f"Gq={gq} (group {group}) H={h} NB={nb} window={window} d={d} "
+              f"({-(-d // 32)} words) kv8 bs=16: "
               f"{n_split} range(s) of the table (device ms: "
               f"{split_line(split)}); max|err| {err:.3g} against the {n_split}-range plain "
               f"version, max {ulps} bf16 ulps where |err| > 1e-5 (tol 1 "
@@ -720,10 +804,9 @@ def k2_phase(torch, timer, seed, results):
               f"{100 * b_ms / ms:.1f}% of bound; "
               f"{versus_prev('K2 ' + name, b_ms)}), plain {plain:.4f} ms",
               flush=True)
-        if name == "decode":
-            results["paged_attention"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
+        results["paged_attention", name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
         del args, got, want
     torch.cuda.empty_cache()
 
@@ -834,7 +917,8 @@ def _k4_case(torch, timer, g_, name, *, e, groups, seg, k, n, counts,
     mm = timer(lambda: torch.bmm(x, wb), iters=10)
     del wb
     print(f"K4 moe_expert_linear {name} E={e} G={groups} seg={seg} N={n} "
-          f"K={k}{' dual' if dual else ''} act={act}, {route} route (the "
+          f"K={k} w{w_bits}a{a_bits}{' dual' if dual else ''} act={act}, "
+          f"{route} route (the "
           f"kernels that ran), "
           f"{n_live} live rows of {e * c}, {live_experts} live experts: core "
           f"bit-exact, live map equal, dead rows 0, out max|err| {err:.3g}, "
@@ -901,13 +985,22 @@ def _k4_bitserial(torch, timer, name, x, a_s, counts, w, w2, a_bits, act,
     plain = timer(run_plain, iters=2, warmup=1)
     seg = x.shape[1] // counts.shape[1]
     route = "stacked" if seg <= moe.bitserial_stack_max() else "rows"
-    print(f"K4 moe_expert_linear_bitserial {name}, {route} route: cores "
+    kernels = {r: f"moe_bitserial_{r}_kernel" for r in ("stacked", "rows")}
+    split = traced_split(torch, timer, run, list(kernels.values()))
+    ran = {r for r, k in kernels.items() if k in kernel_names(split)}
+    if ran != {route}:
+        raise AssertionError(f"K4 bitserial {name}: ran the {sorted(ran)} "
+                             f"route(s); the threshold "
+                             f"{moe.bitserial_stack_max()} gives seg={seg} "
+                             f"the {route} route")
+    print(f"K4 moe_expert_linear_bitserial {name}, {route} route (the "
+          f"kernels that ran): cores "
           f"bit-exact to plain and fused, live map equal, dead rows 0, out "
           f"equal to the fused kernel's, max|err| {err:.3g}, {ulps} bf16 "
           f"ulps; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, the fused "
           f"row's; {100 * b_ms / ms:.1f}% of bound; "
           f"{versus_prev('K4-bs ' + name, b_ms)}; "
-          f"{bitserial_split(torch, timer, run)}), fused kernel "
+          f"{bitserial_split(torch, timer, run, split)}), fused kernel "
           f"{fused_ms:.4f} ms in this run, plain {plain:.4f} ms", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, fused_ms=fused_ms)
@@ -915,7 +1008,9 @@ def _k4_bitserial(torch, timer, name, x, a_s, counts, w, w2, a_bits, act,
 
 def k4_phase(torch, timer, seed, results):
     """K4 at mixtral-8x7b's shapes (E = 8, top 2, capacity factor 1.25),
-    counts from a top-2 routing with one empty expert."""
+    counts from a top-2 routing with one empty expert; then at
+    deepseek-moe-16b's (E = 64, top 6, expert_d_ff 1408, its own w3) at
+    the segment heights its traced steps give (``K4_STEP_SEGS``)."""
     g_ = torch.Generator(device="cuda").manual_seed(seed + 3)
     d, f = 4096, 14336
     dec = routed_counts(torch, g_, e=8, g=1, tg=4, cap=2)       # 4 lanes
@@ -936,7 +1031,7 @@ def k4_phase(torch, timer, seed, results):
     ]
     # the shapes phase 5's traced mixtral steps give K4 (K4_STEP_SEGS,
     # checked there)
-    for kind, (tokens, seg) in K4_STEP_SEGS.items():
+    for kind, (tokens, seg) in K4_STEP_SEGS["mixtral-8x7b"].items():
         cases.append((f"{kind} step gate/up", dict(
             e=8, groups=1, seg=seg, k=d, n=f, dual=True,
             counts=routed_counts(torch, g_, e=8, g=1, tg=tokens, cap=seg))))
@@ -953,11 +1048,21 @@ def k4_phase(torch, timer, seed, results):
             e=8, groups=1, seg=seg, k=d, n=f, dual=True,
             counts=routed_counts(torch, g_, e=8, g=1, tg=4 * seg,
                                  cap=seg))))
+    # deepseek-moe-16b's experts at its traced steps' heights, both
+    # linears: gate/up N 1408 x K 2048, down N 2048 x K 1408
+    ds_d, ds_f = 2048, 1408
+    for kind, (tokens, seg) in K4_STEP_SEGS["deepseek-moe-16b"].items():
+        counts = routed_counts(torch, g_, e=64, g=1, tg=tokens, k=6, cap=seg)
+        cases += [(f"deepseek {kind} step gate/up", dict(
+                       e=64, groups=1, seg=seg, k=ds_d, n=ds_f, dual=True,
+                       counts=counts, w_bits=3)),
+                  (f"deepseek {kind} step down", dict(
+                       e=64, groups=1, seg=seg, k=ds_f, n=ds_d, dual=False,
+                       counts=counts, w_bits=3))]
     for name, kw in cases:
         r, bs = _k4_case(torch, timer, g_, name, **kw)
-        if name == "decode gate/up":
-            results["moe_expert_linear"] = r
-            results["moe_expert_linear_bitserial"] = bs
+        results["moe_expert_linear", name] = r
+        results["moe_expert_linear_bitserial", name] = bs
         torch.cuda.empty_cache()
 
 
@@ -1129,9 +1234,8 @@ def k5_phase(torch, timer, seed, results):
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
     for name, m, n, k, kw in K5_CASES:
         r, bs = _k5_case(torch, timer, g, name, m, n, k, **kw)
-        if name == "decode gate":
-            results["apmm_packed"] = r
-            results["apmm_packed_bitserial"] = bs
+        results["apmm_packed", name] = r
+        results["apmm_packed_bitserial", name] = bs
         torch.cuda.empty_cache()
     for name, m, n, k in (("decode gate", 4, 14336, 4096),
                           ("decode down", 4, 4096, 14336),
@@ -1254,10 +1358,10 @@ def k6_k7_phase(torch, timer, seed, results):
               f"{100 * b_ms / ms:.1f}% of bound, device "
               f"{100 * b_ms / dev:.1f}%; {versus_prev('K6 ' + name, b_ms)}), "
               f"plain {plain:.4f} ms", flush=True)
+        results["flash_attention_quantized", name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None)
         if name == "decode":
-            results["flash_attention_quantized"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=None)
             _k6_vs_k2(torch, q, planes, pos, q_pos, d)
         # K7 on the same K/V in bf16, folded (B*H, T, d); its decode
         # queries have no fully masked row (the prefill's pads do)
@@ -1310,10 +1414,9 @@ def k6_k7_phase(torch, timer, seed, results):
               f"library: scaled_dot_product_attention with a boolean mask "
               f"over the {qs.shape[1]} of {sq} query rows that see a slot "
               f"{lib:.4f} ms (max|err| vs plain {lib_err:.3g})", flush=True)
-        if name == "decode":
-            results["flash_attention"] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
+        results["flash_attention", name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib)
         del q, kv, planes, args, got, want
         torch.cuda.empty_cache()
 
@@ -1368,15 +1471,17 @@ def norm_phase(torch, timer, seed):
     """``layers.norm_apply`` on the card: its output stays on the card
     and equals the CPU's bits (the same torch ops: serial f32 sums, the
     rsqrt estimate and Newton steps, f64 products for the FMAs), at
-    llama3-8b's width, decode and chunk rows, rmsnorm and layernorm; the
-    decode call's time is its launches' (about 90 small ops)."""
+    llama3-8b's width (rmsnorm, and layernorm) and at stablelm-3b's own
+    layernorm with its bias (d 2560), decode and chunk rows; the decode
+    call's time is its launches' (about 90 small ops)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
-    cfg = get_config("llama3-8b")
+    llama = get_config("llama3-8b")
     g = torch.Generator(device="cuda").manual_seed(seed + 6)
-    for norm in ("rmsnorm", "layernorm"):
-        c = dataclasses.replace(cfg, norm_type=norm)
+    for cfg in (llama, dataclasses.replace(llama, norm_type="layernorm"),
+                get_config("stablelm-3b")):
+        norm = cfg.norm_type
         p = {"scale": torch.rand((cfg.d_model,), generator=g,
                                  device="cuda") + 0.5,
              "bias": torch.rand((cfg.d_model,), generator=g,
@@ -1384,15 +1489,17 @@ def norm_phase(torch, timer, seed):
         for rows in (4, 256):
             x = (3 * torch.randn((rows, cfg.d_model), generator=g,
                                  device="cuda")).to(torch.bfloat16)
-            y = L.norm_apply(p, x, c)
+            y = L.norm_apply(p, x, cfg)
             if y.device.type != "cuda":
                 raise AssertionError("norm_apply left the card")
-            cpu = L.norm_apply({k: v.cpu() for k, v in p.items()}, x.cpu(), c)
+            cpu = L.norm_apply({k: v.cpu() for k, v in p.items()}, x.cpu(),
+                               cfg)
             if not torch.equal(y.cpu(), cpu):
                 raise AssertionError(f"norm_apply {norm} rows={rows}: card "
                                      f"bits differ from the CPU's")
-        ms = timer(lambda: L.norm_apply(p, x[:4], c), iters=20)
-        print(f"norm_apply {norm} d={cfg.d_model} bf16 on the card: bits "
+        ms = timer(lambda: L.norm_apply(p, x[:4], cfg), iters=20)
+        print(f"norm_apply {cfg.name} {norm} d={cfg.d_model} bf16 on the "
+              f"card: bits "
               f"equal the CPU's at 4 and 256 rows; 4 rows {ms:.4f} ms",
               flush=True)
 
@@ -1407,14 +1514,16 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False):
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
-    from repro_torch.models.config import QuantConfig
     from repro_torch.serving import engine as E
     from repro_torch.serving.paged_cache import PagedKVPool
     cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
-    quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8,
-                        fused_linear=not contiguous)
-    path = "contiguous cache, unfused linear" if contiguous else \
-        "paged pool, fused linear"
+    # the config's own weight and activation bits, a kv8 cache (none of
+    # glm4, minicpm and deepseek sets kv_bits; the paged pool is packed)
+    quant = dataclasses.replace(cfg.quant, kv_bits=8,
+                                fused_linear=not contiguous)
+    path = ("contiguous cache, unfused linear" if contiguous else
+            "paged pool, fused linear") + \
+        f", w{quant.w_bits}/a{quant.a_bits}/kv8"
     params = M.init_params(cfg, seed=seed, device="cuda", quant=quant)
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (1, s), dtype=np.int32)
@@ -1460,6 +1569,11 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False):
     a, b = out["cuda"], out["cpu"]
     if not (torch.isfinite(a).all() and a.shape == (1, cfg.vocab_padded)):
         raise AssertionError("card logits not finite / wrong shape")
+    # the vocab's pad columns (minicpm: 122753 of 122880) are masked to
+    # -1e30 on both devices; the tolerance is taken over the real ones
+    if not torch.equal(a[:, cfg.vocab:], b[:, cfg.vocab:]):
+        raise AssertionError(f"{arch}: the vocab's pad logits differ")
+    a, b = a[:, :cfg.vocab], b[:, :cfg.vocab]
     err = (a - b).abs().max().item()
     scale = b.abs().max().item()
     if err > 0.05 * scale:
@@ -1651,26 +1765,29 @@ def _k2_step_shapes(label, step, shapes, case) -> None:
               for sh in seen), flush=True)
     if case is None:
         return
-    _, lanes, s_q, nb, window = next(c for c in K2_CASES if c[0] == case)
-    want = (len(lanes), 4 * s_q, nb, window)
+    _, lanes, s_q, nb, window, (_, group, _) = next(
+        c for c in K2_CASES if c[0] == case)
+    want = (len(lanes), group * s_q, nb, window)
     if want not in {(b, gq, nb_, w) for b, _, gq, nb_, w in seen}:
         raise AssertionError(f"{label}: phase 3 times K2 at {case!r}, "
                              f"(B, Gq, NB, window) {want}, but the traced "
                              f"{step} steps gave it {seen}")
 
 
-def _k4_step_rows(label, step, rows_seen) -> None:
+def _k4_step_rows(label, arch, step, rows_seen) -> None:
     """K4's live against capacity rows and its segment heights in a
-    traced step; phase 3's case for this step must be one of its calls."""
+    traced step of ``arch``; phase 3's case for this step must be one of
+    its calls."""
     live, cap, _ = map(sum, zip(*rows_seen))
     heights = sorted({seg for _, _, seg in rows_seen})
     print(f"{label} traced {step} step(s): K4 ran {len(rows_seen)} times over "
           f"{live} live rows of {cap} capacity rows ({100 * live / cap:.1f}% "
           f"live), segment heights {heights}", flush=True)
-    if K4_STEP_SEGS[step][1] not in heights:
+    want = K4_STEP_SEGS[arch][step][1]
+    if want not in heights:
         raise AssertionError(f"{label}: phase 3 times K4's {step} step at "
-                             f"seg={K4_STEP_SEGS[step][1]}, but the traced "
-                             f"step gave it heights {heights}")
+                             f"seg={want}, but the traced step gave it "
+                             f"heights {heights}")
 
 
 def same_tokens(label, reqs, twin_tokens) -> None:
@@ -1689,9 +1806,11 @@ def same_tokens(label, reqs, twin_tokens) -> None:
 
 def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
                 n_blocks, per_dispatch, n_pack=None, variant="fused",
-                twin_tokens=None):
-    """Serve ``arch`` at full width, end to end: load and quantize on the
-    card, then requests of ``prompt_lens`` tokens (the first and the last
+                twin_tokens=None, params=None):
+    """Serve ``arch`` at full width and depth, end to end: load and
+    quantize on the card (or serve ``params``, a fused path's quantized
+    weights, which need no second load), then requests of
+    ``prompt_lens`` tokens (the first and the last
     share a ``prefix``-token head; the last is submitted once the first
     has emitted, so its prefix is indexed), 32 greedy tokens each.  The
     launch counters are zeroed just before and read just after.  Every
@@ -1702,16 +1821,18 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     its lm_head at M = B).  ``variant="bitserial"`` serves the same
     weights through the bitserial kernels: the fused GEMM counters must
     stay 0 and the tokens must equal ``twin_tokens``, the fused run's.
-    Every GEMM counter not in ``per_dispatch`` must stay 0.  Returns the
-    counts and the tokens."""
+    Every GEMM counter not in ``per_dispatch`` must stay 0.  Weights and
+    activations at the config's own bits, a kv8 pool.  Returns the
+    counts, the tokens and the quantized weights."""
+    import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import apmm
     from repro_torch.models import model as M
-    from repro_torch.models.config import QuantConfig
     from repro_torch.serving import engine as E
     cfg = get_config(arch)
-    quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8, variant=variant)
+    # the config's own weight and activation bits, a kv8 paged pool
+    quant = dataclasses.replace(cfg.quant, kv_bits=8, variant=variant)
     label = arch if variant == "fused" else f"{arch}-{variant}"
     k1 = "apmm_fused_linear" if variant == "fused" \
         else "apmm_fused_linear_bitserial"
@@ -1726,13 +1847,16 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
             + (tokens.shape[0] <= thr)
         return forward(params, tokens, *a, **kw)
 
+    t_path = time.time()
     resident = fresh_memory(torch)
     M.forward = counting_forward
     # --- the main path: counters zeroed just before, read just after ---
     zero_counters()
     try:
-        t0 = time.time()
-        params = M.init_params(cfg, seed=seed, device="cuda", quant=quant)
+        t0, loaded = time.time(), params is None
+        if loaded:
+            params = M.init_params(cfg, seed=seed, device="cuda",
+                                   quant=quant)
         torch.cuda.synchronize()
         t_load = time.time() - t0
         eng = E.Engine(params, cfg, n_slots=4, max_len=max_len, quant=quant,
@@ -1781,7 +1905,7 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
                 else:
                     prof = step_prof
                 if rows_seen:
-                    _k4_step_rows(label, step, rows_seen)
+                    _k4_step_rows(label, arch, step, rows_seen)
                 t_prof += time.time() - tp
                 tok_prof += sum(len(r.out) for r in reqs) - n0
                 continue
@@ -1834,8 +1958,11 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     n_tok = sum(len(r.out) for r in reqs) - tok_prof
     pre, dec = step_ms["prefill"], step_ms["decode"]
     counts = {k: v for k, v in counts.items() if v}
-    print(f"end to end {label} {cfg.n_layers}L w2/a8/kv8 paged bs=16 "
-          f"chunk=256: load+quantize {t_load:.2f} s; {len(reqs)} requests "
+    load = (f"load+quantize {t_load:.2f} s" if loaded else
+            "the fused path's quantized weights")
+    print(f"end to end {label} {cfg.n_layers}L w{quant.w_bits}/"
+          f"a{quant.a_bits}/kv8 paged bs=16 "
+          f"chunk=256: {load}; {len(reqs)} requests "
           f"(prompts {[len(r.prompt) for r in reqs]}, prefix hit tokens "
           f"{rep['prefix_hit_tokens']}, window-reclaimed blocks "
           f"{rep['window_reclaimed']}), {nd} forward dispatches, launches "
@@ -1846,34 +1973,35 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
           f"steps mean {np.mean(dec):.1f} ms (median {np.median(dec):.1f} "
           f"ms); max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({resident:.2f} "
-          f"GiB allocated before the load)", flush=True)
-    del eng, params
+          f"GiB allocated before {'the load' if loaded else 'the engine'}); "
+          f"the path took {time.time() - t_path:.1f} s in all", flush=True)
+    del eng
     torch.cuda.empty_cache()
-    return counts, [list(r.out) for r in reqs]
+    return counts, [list(r.out) for r in reqs], params
 
 
-def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
-                           n_pack, variant="fused", twin_tokens=None):
-    """llama3-8b at full width served by ``Engine(paged=False, n_slots=4,
-    max_len=1024)`` with the unfused linear (K3 + K5) and K6 reading the
+def serve_contiguous_phase(torch, seed, *, n_layers, per_dispatch, n_pack,
+                           variant="fused", twin_tokens=None):
+    """llama3-8b at full width and depth ``n_layers`` served by
+    ``Engine(paged=False, n_slots=4, max_len=1024)`` with the unfused
+    linear (K3 + K5) and K6 reading the
     packed rings, the prompts of the paged llama path (600, 100, 300,
     then 200 once the first has emitted), 32 greedy tokens each.  The
     launch counters are zeroed just before and read just after; every
     forward dispatch must launch each kernel ``per_dispatch[name]`` times
-    (K3 also ``n_pack`` times at load), and K1, K2, K4 never.  Prints
-    the share of tokens equal to the paged fused path's (``paged_tokens``;
-    K2 and K6 sum in different orders, so it is not asserted).
+    (K3 also ``n_pack`` times at load), and K1, K2, K4 never.
     ``variant="bitserial"`` serves through K5's bitserial kernel; its
     tokens must equal ``twin_tokens``, the fused run's.  Every counter
     not in ``per_dispatch`` must stay 0.  Returns the counts and the
     tokens."""
+    import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.kernels import apmm
     from repro_torch.models import model as M
     from repro_torch.models.config import QuantConfig
     from repro_torch.serving import engine as E
-    cfg = get_config("llama3-8b")
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=n_layers)
     quant = QuantConfig(w_bits=2, a_bits=8, kv_bits=8, fused_linear=False,
                         variant=variant)
     label = "llama3-8b-contiguous-unfused" + (
@@ -1884,6 +2012,7 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
         n_dispatch[0] += 1
         return forward(*a, **kw)
 
+    t_path = time.time()
     resident = fresh_memory(torch)
     M.forward = counting_forward
     # --- the main path: counters zeroed just before, read just after ---
@@ -1973,10 +2102,7 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
                              f"small-M route (decode and prefill both run)")
     if twin_tokens is not None:
         same_tokens(label, reqs, twin_tokens)
-    same = sum(a == b for ra, rb in zip(reqs, paged_tokens)
-               for a, b in zip(ra.out, rb))
-    total = sum(len(r.out) for r in reqs)
-    n_tok = total - tok_prof
+    n_tok = sum(len(r.out) for r in reqs) - tok_prof
     pre, dec = step_ms["prefill"], step_ms["decode"]
     counts = {k: v for k, v in counts.items() if v}
     print(f"end to end {label} {cfg.n_layers}L "
@@ -1990,9 +2116,8 @@ def serve_contiguous_phase(torch, seed, paged_tokens, *, per_dispatch,
           f"{len(dec)} decode steps mean {np.mean(dec):.1f} ms (median "
           f"{np.median(dec):.1f} ms); max_memory_allocated "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({resident:.2f} "
-          f"GiB allocated before the load); {same} of "
-          f"{total} tokens ({100 * same / total:.1f}%) equal the paged "
-          f"fused path's at the same index", flush=True)
+          f"GiB allocated before the load); the path took "
+          f"{time.time() - t_path:.1f} s in all", flush=True)
     del eng, params
     torch.cuda.empty_cache()
     return counts, [list(r.out) for r in reqs]
@@ -2038,50 +2163,73 @@ def main() -> int:
     k6_k7_phase(torch, timer, args.seed, results)
     k7_launches = flash_attention.FLOAT_LAUNCHES - k7_before
     norm_phase(torch, timer, args.seed)
+    print(f"kernels and the norm checked at {time.time() - t_start:.1f} s",
+          flush=True)
     del timer
     torch.cuda.empty_cache()
     shallow_phase(torch, args.seed, "llama3-8b", n_layers=2, s=24)
     shallow_phase(torch, args.seed, "llama3-8b", n_layers=2, s=24,
                   contiguous=True)
     shallow_phase(torch, args.seed, "mixtral-8x7b", n_layers=1, s=8)
-    # each path, then its bit-serial twin: the same weights (the same
-    # seed), prompts and engine, through the bitserial kernels
+    shallow_phase(torch, args.seed, "glm4-9b", n_layers=2, s=24)
+    shallow_phase(torch, args.seed, "minicpm-2b", n_layers=2, s=24)
+    shallow_phase(torch, args.seed, "stablelm-3b", n_layers=2, s=24)
+    # layer 0 dense (d_ff 10944), layer 1 MoE (64 experts, top 6, shared)
+    shallow_phase(torch, args.seed, "deepseek-moe-16b", n_layers=2, s=24)
+    print(f"card vs CPU forwards done at {time.time() - t_start:.1f} s",
+          flush=True)
+    # each path, then its bit-serial twin: the same quantized weights
+    # (the fused path's, not a second load: the twin launches K3 no
+    # time), prompts and engine, through the bitserial kernels
     paths = {}
+
+    def pair(arch, per_dispatch, **kw):
+        paths[arch], tokens, params = serve_phase(
+            torch, args.seed, arch, per_dispatch=per_dispatch, **kw)
+        twin = {k + "_bitserial" if k in GEMMS else k: v
+                for k, v in per_dispatch.items()}
+        paths[arch + "-bitserial"], _, _ = serve_phase(
+            torch, args.seed, arch, variant="bitserial", twin_tokens=tokens,
+            params=params, per_dispatch=twin, **dict(kw, n_pack=0))
+
     llama_kw = dict(prompt_lens=(600, 100, 300), prefix=128, max_len=1024,
-                    n_blocks=257, n_pack=225)
-    paths["llama3-8b"], llama_tokens = serve_phase(
-        torch, args.seed, "llama3-8b",
-        per_dispatch={"apmm_fused_linear": 193, "paged_attention": 32},
-        **llama_kw)
-    paths["llama3-8b-bitserial"], _ = serve_phase(
-        torch, args.seed, "llama3-8b", variant="bitserial",
-        twin_tokens=llama_tokens,
-        per_dispatch={"apmm_fused_linear_bitserial": 193,
-                      "paged_attention": 32}, **llama_kw)
-    mixtral_kw = dict(prompt_lens=(600, 100, 300, 4300), prefix=128,
-                      max_len=4352, n_blocks=512, n_pack=897)
-    paths["mixtral-8x7b"], mixtral_tokens = serve_phase(
-        torch, args.seed, "mixtral-8x7b",
-        per_dispatch={"apmm_fused_linear": 129, "paged_attention": 32,
-                      "moe_expert_linear": 64}, **mixtral_kw)
-    paths["mixtral-8x7b-bitserial"], _ = serve_phase(
-        torch, args.seed, "mixtral-8x7b", variant="bitserial",
-        twin_tokens=mixtral_tokens,
-        per_dispatch={"apmm_fused_linear_bitserial": 129,
-                      "paged_attention": 32,
-                      "moe_expert_linear_bitserial": 64}, **mixtral_kw)
+                    n_blocks=257)
+    pair("llama3-8b", {"apmm_fused_linear": 193, "paged_attention": 32},
+         n_pack=225, **llama_kw)
+    # mixtral: K1 4 a layer (q, k, v, o) + the lm_head, K2 one a layer,
+    # K4 two; K3 at load 4 + 8 experts x 3 a layer + the lm_head
+    pair("mixtral-8x7b", {"apmm_fused_linear": 129, "paged_attention": 32,
+                          "moe_expert_linear": 64},
+         prompt_lens=(600, 100, 300, 4300), prefix=128, max_len=4352,
+         n_blocks=512, n_pack=28 * 32 + 1)
+    # deepseek-moe-16b (28 layers, the dense layer 0 then 27 MoE layers of
+    # 64 experts, top 6, and a shared expert) and stablelm-3b (32 layers,
+    # head dim 80, MHA, layernorm), each at its own w3/a8 with a kv8 pool,
+    # with llama's prompts: K1 6 a layer + the lm_head, K2 one a layer, K4
+    # two a MoE layer; K3 at load one a weight (deepseek: one an expert's)
+    pair("deepseek-moe-16b", {"apmm_fused_linear": 169,
+                              "paged_attention": 28,
+                              "moe_expert_linear": 54},
+         n_pack=27 * (4 + 64 * 3 + 3) + 7 + 1, **llama_kw)
+    pair("stablelm-3b", {"apmm_fused_linear": 193, "paged_attention": 32},
+         n_pack=225, **llama_kw)
+    # the contiguous pair at CONTIGUOUS_LAYERS layers (the run's time
+    # limit): K3 and K5 7 a layer + the lm_head, K6 one a layer
+    nl = CONTIGUOUS_LAYERS
+    contiguous_kw = dict(n_layers=nl, n_pack=7 * nl + 1)
     paths["llama3-8b-contiguous-unfused"], contiguous_tokens = \
         serve_contiguous_phase(
-            torch, args.seed, llama_tokens, n_pack=225,
-            per_dispatch={"apmm_packed": 225, "flash_attention_quantized": 32,
-                          "quantize_pack_rows": 225})
+            torch, args.seed,
+            per_dispatch={"apmm_packed": 7 * nl + 1,
+                          "flash_attention_quantized": nl,
+                          "quantize_pack_rows": 7 * nl + 1}, **contiguous_kw)
     paths["llama3-8b-contiguous-unfused-bitserial"], _ = \
         serve_contiguous_phase(
-            torch, args.seed, llama_tokens, n_pack=225, variant="bitserial",
+            torch, args.seed, variant="bitserial",
             twin_tokens=contiguous_tokens,
-            per_dispatch={"apmm_packed_bitserial": 225,
-                          "flash_attention_quantized": 32,
-                          "quantize_pack_rows": 225})
+            per_dispatch={"apmm_packed_bitserial": 7 * nl + 1,
+                          "flash_attention_quantized": nl,
+                          "quantize_pack_rows": 7 * nl + 1}, **contiguous_kw)
     for arch, c in paths.items():
         print(f"kernels ({arch} path): "
               + ", ".join(f"{k}={v}" for k, v in c.items()), flush=True)
@@ -2112,9 +2260,12 @@ def main() -> int:
             "src/repro/kernels/moe.py:273"),
     }
 
-    def entry(k, launches, **extra):
+    def entry(k, launches, path):
         source, replaces = meta[k]
-        r = results[k]
+        base = k.removesuffix("_bitserial")
+        arch = path and path.removesuffix("-bitserial")
+        case = PATH_CASES.get(arch, {}).get(base, SHARED_CASES[base])
+        r, extra = results[k, case], dict(path=path, case=case)
         if "fused_ms" in r:           # the fused kernel's time, this run
             extra["fused_ms"] = r["fused_ms"]
         return dict(name=k, **extra, route="cuda", source=source,
@@ -2123,12 +2274,13 @@ def main() -> int:
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"])
 
-    # one entry per (path, kernel): ``launches`` is that path's own count;
-    # K7 is on no path (as in the reference): its launches are phase 3's
-    kernels = [entry(k, counts[k], path=arch)
+    # one entry per (path, kernel): ``launches`` is that path's own count,
+    # the rest its phase-3 case at that path's shape (``PATH_CASES``); K7
+    # is on no path (as in the reference): its launches are phase 3's
+    kernels = [entry(k, counts[k], arch)
                for arch, counts in paths.items() for k in meta
                if counts.get(k)]
-    kernels.append(entry("flash_attention", k7_launches, path=None))
+    kernels.append(entry("flash_attention", k7_launches, None))
     if {e["name"] for e in kernels} != set(meta):
         raise AssertionError("a kernel is missing from the kernels line")
     print(f"total {time.time() - t_start:.1f} s", flush=True)

@@ -1,14 +1,17 @@
 """Architecture configs of the port (public literature; see each file).
 
 ``get_config(name)`` returns the full-scale :class:`ModelConfig`;
-``get_config(name).reduced()`` the CPU test variant.  The dense decoder
-and the MoE decoders are ported; other architectures of the reference
-package raise until their modules are ported (ROADMAP queue 1).
+``get_config(name).reduced()`` the CPU test variant.  The dense
+decoders (minicpm-2b, stablelm-3b, glm4-9b, llama3-8b) and the MoE
+decoders (deepseek-moe-16b, mixtral-8x7b) are ported, in the reference
+package's order; its SSM, hybrid, VLM and enc-dec architectures raise
+until their modules are ported (ROADMAP queue 1).
 """
 
 from importlib import import_module
 
-ARCHS = ("llama3-8b", "mixtral-8x7b", "deepseek-moe-16b")
+ARCHS = ("minicpm-2b", "stablelm-3b", "glm4-9b", "llama3-8b",
+         "deepseek-moe-16b", "mixtral-8x7b")
 
 
 def get_config(name: str):

@@ -111,8 +111,12 @@ for name in names:
 from repro_torch.configs import get_config
 for arch in ("mixtral-8x7b", "deepseek-moe-16b"):
     assert get_config(arch).family == "moe", arch
+for arch in ("glm4-9b", "stablelm-3b", "minicpm-2b"):
+    assert get_config(arch).family == "dense", arch
 assert {"repro_torch.kernels.moe", "repro_torch.configs.mixtral_8x7b",
-        "repro_torch.configs.deepseek_moe_16b"} <= set(names), names
+        "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.glm4_9b",
+        "repro_torch.configs.stablelm_3b",
+        "repro_torch.configs.minicpm_2b"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "repro" or m.startswith("repro.")
              or (m == "jax" or m.startswith("jax.")) and sys.modules[m])

@@ -970,7 +970,11 @@ def _k6_split_threshold_sq(h):
     (3, 2, 3, 232, 40, 3, None),         # short last tile, Dw 2
     (5, 1, 4, 100, 32, 8, 30),           # T < 4 tiles, a window
     (1, 8, "below", 256, 128, 8, None),  # the grid just under the threshold
-    (1, 8, "at", 256, 128, 8, None)])    # the grid that fills the card
+    (1, 8, "at", 256, 128, 8, None),     # the grid that fills the card
+    (4, 32, 1, 1024, 80, 8, None),       # stablelm-3b: d 80 (Dw 3), group 1
+    (4, 36, 1, 1024, 64, 8, None),       # minicpm-2b: d 64 (Dw 2), group 1
+    (4, 2, 16, 1024, 128, 8, None),      # glm4-9b: 2 kv heads, group 16
+    (1, 32, "at", 256, 80, 8, None)])    # a d-80 prefill that fills the card
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_quantized_attention_kernel_split_kv(device, b, h, sq, t, d, n_bits,
                                              window, dtype):
@@ -1324,3 +1328,197 @@ def test_moe_bitserial_prologue_words_equal_pack(device, seg, k, a_bits):
     assert torch.equal(planes[:, live], want[:, live])
     assert torch.equal(su[live], _su_of(xf, sf, a_bits)[live])
     assert not su[~live].any()
+
+
+# ---------------------------------------------------------------------------
+# the shapes of glm4-9b, stablelm-3b, minicpm-2b and deepseek-moe-16b
+# ---------------------------------------------------------------------------
+
+# K2 at head dims and GQA groups llama's do not have: (lanes, s_q, NB,
+# window, options) as _PAGED_CASES
+_HEAD_CASES = {
+    "stablelm decode d80 group 1": ((600,) * 4, 1, 64, None,
+                                    dict(h=32, group=1, d=80)),
+    "stablelm chunk d80": ((600,), 256, 64, None, dict(h=32, group=1, d=80)),
+    "minicpm decode d64 group 1": ((600,) * 4, 1, 64, None,
+                                   dict(h=36, group=1, d=64)),
+    "glm4 decode group 16": ((600,) * 4, 1, 64, None,
+                             dict(h=2, group=16, d=128)),
+    "glm4 chunk group 16": ((600, None), 32, 64, None,
+                            dict(h=2, group=16, d=128)),
+    "d80 window pads": ((37, None, 300, 15), 2, 32, 40,
+                        dict(h=4, group=2, d=80, n_bits=3)),
+}
+
+
+@pytest.mark.parametrize("case", list(_HEAD_CASES))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_kernel_head_dims_and_groups(device, case, dtype):
+    """K2 at head dim 80 (three packed words: the 4-byte staging path)
+    and 64 (two), and at GQA groups 1 and 16: within 1 bf16 ulp or 1e-5
+    of the plain version of the split its C entry plans, pad lanes
+    exactly 0."""
+    lanes, s_q, nb, window, kw = _HEAD_CASES[case]
+    args = _paged_case(device, len(case), lanes, s_q, nb, window,
+                       dtype=dtype, **kw)
+    b, h, gq, d = args[0].shape
+    assert args[1].shape[-1] == -(-d // 32)
+    n_split = flash_attention.paged_splits(b, h, gq, nb)
+    before = flash_attention.LAUNCHES
+    got = flash_attention.flash_attention_paged_quantized(
+        *args, d=d, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == before + 1
+    want = ref.paged_attention_split(*args, splits=n_split, d=d,
+                                     window=window)
+    assert _within_one_ulp_or(got, want)
+    assert _within_one_ulp_or(got, ref.paged_attention(*args, d=d,
+                                                       window=window))
+    pads = [i for i, ln in enumerate(lanes) if ln is None]
+    assert torch.all(got[pads] == 0)
+
+
+@pytest.mark.parametrize("seg", [1, 30])
+@pytest.mark.parametrize("linear", ["gate/up", "down"])
+def test_moe_kernel_deepseek_experts(device, seg, linear):
+    """Fused K4 and K4-bs at deepseek-moe-16b's experts (E = 64, gate/up
+    N 1408 x K 2048, down N 2048 x K 1408, w3 a8) at the segment heights
+    its decode (1 row: the decode route, the stacked route) and chunk
+    steps (30 rows: the chunk route, the stacked route's top) give them,
+    counts from a top-6 routing with the last expert empty: the integer
+    cores, the live map and dead rows equal to the plain versions' (the
+    bitserial kernel's also to the fused kernel's), the bf16 output at
+    act none equal, the dual SiLU within 1 ulp."""
+    e, (n, k) = 64, ((1408, 2048) if linear == "gate/up" else (2048, 1408))
+    dual = linear == "gate/up"
+    g_ = torch.Generator(device=device).manual_seed(seg)
+    logits = torch.randn((8 if seg == 1 else 256, e), generator=g_,
+                         device=device)
+    logits[:, e - 1] = -1e9
+    top = logits.topk(6, dim=-1).indices.reshape(-1)
+    oh = torch.nn.functional.one_hot(top, e).to(torch.int32)
+    pos = torch.gather(torch.cumsum(oh, 0) - oh, 1, top[:, None])[:, 0]
+    counts = (oh * (pos < seg)[:, None].to(torch.int32)).sum(0)
+    counts = counts[:, None].contiguous().to(torch.int32)      # (E, 1)
+    rng = np.random.default_rng(seg + n)
+    w = _expert_weight(rng, device, e, n, k, 3)
+    w2 = _expert_weight(rng, device, e, n, k, 3) if dual else None
+    x = _rand(rng, (e, seg, k), device, torch.bfloat16)
+    bc = ops.moe_row_tile(seg)
+    a_s = bipolar.absmax_scale(x.float(), 8, axis=-1)
+    dead = torch.arange(seg, device=device)[None, :] >= counts
+    assert counts[e - 1] == 0 and counts.sum() > 0
+    before = (moe.LAUNCHES, moe.BITSERIAL_LAUNCHES)
+    for wt in (w, w2) if dual else (w,):
+        fused, live = moe.moe_expert_linear(x, a_s, counts, wt, a_bits=8,
+                                            out_dtype=torch.float32, bc=bc)
+        torch.cuda.synchronize()
+        want, live_ref = moe.moe_expert_linear_plain(
+            x, a_s, counts, wt, a_bits=8, out_dtype=torch.float32, bc=bc)
+        assert torch.equal(fused, want) and torch.equal(live, live_ref)
+        assert not fused[dead].any()
+        got, live_b = moe.moe_expert_linear(x, a_s, counts, wt, a_bits=8,
+                                            variant="bitserial",
+                                            out_dtype=torch.float32, bc=bc)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fused) and torch.equal(live_b, live)
+    act = "silu" if dual else "none"
+    got, _ = moe.moe_expert_linear(x, a_s, counts, w, w2=w2, a_bits=8,
+                                   act=act, out_dtype=torch.bfloat16, bc=bc)
+    got_bs, _ = moe.moe_expert_linear(x, a_s, counts, w, w2=w2, a_bits=8,
+                                      act=act, variant="bitserial",
+                                      out_dtype=torch.bfloat16, bc=bc)
+    want = ref.ap_moe_expert_linear_ref(x, a_s, counts, w, w2=w2, a_bits=8,
+                                        act=act, out_dtype=torch.bfloat16)
+    assert torch.equal(got_bs, got)
+    assert int(_bf16_ulps(got, want).max()) <= (1 if dual else 0)
+    assert not got[dead].any()
+    n_w = 2 if dual else 1
+    assert moe.LAUNCHES == before[0] + n_w + 1
+    assert moe.BITSERIAL_LAUNCHES == before[1] + n_w + 1
+
+
+@pytest.mark.parametrize("m", [1, 4, 64, 65, 256])
+def test_apmm_kernel_non_vector_k(device, m):
+    """K1 and K1-bs at deepseek-moe-16b's dense down projection (N 2048,
+    K 10944 = 342 words, not a multiple of 4: the weight loads without
+    16-byte vectors), w3 a8, on both sides of the small-M threshold: the
+    integer core bit-exact (the bitserial kernel's also equal to the
+    fused kernel's), the residual output bit-exact."""
+    n, k = 2048, 10944
+    rng = np.random.default_rng(m)
+    w = ops.pack_weight(_rand(rng, (n, k), device), 3)
+    assert w.packed.shape[-1] == 342
+    x = _rand(rng, (m, k), device, torch.bfloat16)
+    res = _rand(rng, (m, n), device, torch.bfloat16)
+    a_s = bipolar.absmax_scale(x, 8, axis=-1).float()
+    before = apmm.SMALL_M_LAUNCHES
+    got = apmm.apmm_fused_linear(x, a_s, w, a_bits=8,
+                                 out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert apmm.SMALL_M_LAUNCHES - before == int(m <= apmm.small_m_max())
+    want = ref.ap_linear_fused_ref(x, a_s, w, a_bits=8,
+                                   out_dtype=torch.float32)
+    assert torch.equal(got, want)
+    got_bs = apmm.apmm_fused_linear(x, a_s, w, a_bits=8, variant="bitserial",
+                                    out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got_bs, want)
+    kw = dict(residual=res, a_bits=8, out_dtype=torch.bfloat16)
+    got = apmm.apmm_fused_linear(x, a_s, w, **kw)
+    assert torch.equal(got, ref.ap_linear_fused_ref(x, a_s, w, **kw))
+    assert torch.equal(apmm.apmm_fused_linear(x, a_s, w, variant="bitserial",
+                                              **kw), got)
+
+
+_DENSE_ARCHS = {
+    "glm4-9b": dict(d_head=32),          # group 4 reduced, rotary 0.5
+    "stablelm-3b": dict(d_head=80),      # its own head dim: Dw 3, layernorm
+    "minicpm-2b": dict(d_head=64),       # Dw 2, tied and scaled logits
+}
+
+
+@pytest.mark.parametrize("arch", list(_DENSE_ARCHS))
+def test_dense_config_engine_on_card_matches_cpu(device, arch):
+    """Reduced glm4-9b, stablelm-3b and minicpm-2b at their own weight
+    bits and a kv8 pool, served on the card (K1, K2) and on the CPU:
+    greedy tokens agree wherever the CPU run's top-1/top-2 margin
+    exceeds 0.05, as the other card engine tests hold them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+
+    class CpuEngine(_RecordingEngine, E.Engine):
+        pass
+
+    cfg = get_config(arch).reduced(n_layers=2, vocab=256,
+                                   **_DENSE_ARCHS[arch])
+    q = dataclasses.replace(cfg.quant, kv_bits=8)
+    params = M.init_params(cfg, seed=3, device="cpu", quant=q)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, (5 + 7 * i,), dtype=np.int32)
+               for i in range(3)]
+    outs = {}
+    before = (apmm.LAUNCHES, flash_attention.LAUNCHES)
+    for dev, cls in (("cpu", CpuEngine), ("cuda", E.Engine)):
+        p = params if dev == "cpu" else _to(params, device)
+        eng = cls(p, cfg, n_slots=2, max_len=48, quant=q, paged=True,
+                  block_size=8, chunk_tokens=8)
+        reqs = [E.Request(prompt=pr.copy(), max_new_tokens=8)
+                for pr in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        assert all(r.finish_reason == "length" for r in reqs)
+        assert eng.report()["free_blocks"] == eng.report()["n_usable"]
+        outs[dev] = (reqs, eng)
+    assert apmm.LAUNCHES > before[0] and flash_attention.LAUNCHES > before[1]
+    (rc, ec), (rg, _) = outs["cpu"], outs["cuda"]
+    for a, b in zip(rc, rg):
+        kk = next((i for i, (x, y) in enumerate(zip(a.out, b.out))
+                   if x != y), None)
+        if kk is not None:
+            top = np.sort(ec.rows[(id(a), kk)])
+            assert top[-1] - top[-2] < 0.05, (kk, a.out, b.out)

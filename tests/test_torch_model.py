@@ -218,15 +218,31 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unported_configs_and_paths_raise():
-    with pytest.raises(KeyError):
-        get_config("mamba2-130m")
+    for arch in ("mamba2-130m", "qwen2-vl-7b"):
+        with pytest.raises(KeyError):
+            get_config(arch)
     cfg = get_config("llama3-8b").reduced(n_layers=1)
     p = TM.init_params(cfg, device="cpu")
-    for kw in (dict(max_queue=4), dict(validate_every=1)):
-        for paged in (False, True):
-            with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-                TE.Engine(p, cfg, quant=QuantConfig(kv_bits=8), paged=paged,
-                          **kw)
+    # backpressure and the pool watchdog are ported: the engine builds,
+    # a submit past a full queue is shed, and the watchdog validates
+    for paged in (False, True):
+        eng = TE.Engine(p, cfg, quant=QuantConfig(kv_bits=8), paged=paged,
+                        max_len=32, block_size=8, max_queue=1)
+        reqs = [TE.Request(prompt=np.arange(3, dtype=np.int32),
+                           max_new_tokens=2) for _ in range(2)]
+        for r in reqs:
+            eng.submit(r)
+        assert reqs[1].finish_reason == "rejected" and reqs[1].retry_after > 0
+        eng.run()
+        assert reqs[0].finish_reason == "length"
+    eng = TE.Engine(p, cfg, quant=QuantConfig(kv_bits=8), paged=True,
+                    max_len=32, block_size=8, validate_every=1)
+    req = TE.Request(prompt=np.arange(3, dtype=np.int32), max_new_tokens=3)
+    eng.submit(req)
+    eng.run()
+    assert req.finish_reason == "length" and eng.steps >= 2
+    assert eng.pool.metrics.value(
+        "repro_engine_fault_watchdog_violations") == 0
     eng = TE.Engine(p, cfg, quant=QuantConfig(kv_bits=8), max_len=32,
                     block_size=8, paged=True)
     assert eng.pool.n_usable == 4 * 32 // 8

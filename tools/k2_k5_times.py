@@ -55,11 +55,12 @@ def main() -> int:
               f"{cs.split_line(split)})", flush=True)
 
     g = torch.Generator(device="cuda").manual_seed(args.seed + 2)
-    for name, lanes, s_q, nb, window in cs.K2_CASES:
-        a = cs._k2_inputs(torch, g, lanes, s_q=s_q, nb=nb, window=window)
+    for name, lanes, s_q, nb, window, (h, group, d) in cs.K2_CASES:
+        a = cs._k2_inputs(torch, g, lanes, s_q=s_q, nb=nb, window=window,
+                          h=h, group=group, d=d)
         time_case(f"K2 {name}",
                   lambda: flash_attention.flash_attention_paged_quantized(
-                      *a, d=128, window=window), 20)
+                      *a, d=d, window=window), 20)
         del a
     g = torch.Generator(device="cuda").manual_seed(args.seed + 4)
     for name, m, n, k, kw in cs.K5_CASES:

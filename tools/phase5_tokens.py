@@ -62,13 +62,13 @@ def main() -> int:
         # a checkout from before K6's split plan: no ranges to print
         cs._k6_step_shapes = lambda *a, **kw: None
     print(cs.smi_line(), flush=True)
-    _, paged = cs.serve_phase(
+    _, paged, _ = cs.serve_phase(
         torch, args.seed, "llama3-8b",
         per_dispatch={"apmm_fused_linear": 193, "paged_attention": 32},
         prompt_lens=(600, 100, 300), prefix=128, max_len=1024,
         n_blocks=257, n_pack=225)
     _, contiguous = cs.serve_contiguous_phase(
-        torch, args.seed, paged, n_pack=225,
+        torch, args.seed, n_layers=32, n_pack=225,
         per_dispatch={"apmm_packed": 225, "flash_attention_quantized": 32,
                       "quantize_pack_rows": 225})
     with open(args.out, "w") as f:
