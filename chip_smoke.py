@@ -12,9 +12,16 @@ exit and no result line):
    summary;
 3. kernels -- each hand-written kernel against its plain torch version on
    the card, at the shapes of llama3-8b's and mixtral-8x7b's serving
-   paths, and at the new shapes of deepseek-moe-16b's, stablelm-3b's and
-   glm4-9b's (K3 at deepseek's expert and stablelm's gate/up load
-   shapes, w3; K1 at deepseek's dense down projection, K = 10944: weight
+   paths, and at the new shapes of deepseek-moe-16b's, stablelm-3b's,
+   glm4-9b's, mamba2-130m's and jamba-1.5-large-398b's (K3 at deepseek's
+   expert and stablelm's gate/up load shapes, w3, at mamba2's in_proj,
+   w4, and at a jamba expert's gate, w2; K1 at mamba2's in_proj, N 3352
+   -- its last 64-column tile partial -- at M 4 and 256, and its
+   out_proj, N 768, K 1536, w4, and at jamba's in_proj, N 34944, K 8192,
+   w2, at M 4 and 256; K2 at jamba's decode, 8 kv heads of group 8; fused
+   K4 and K4-bs at jamba's 16 experts, gate/up 24576 x 8192 and down
+   8192 x 24576, w2, at its traced steps' segment heights;
+   K1 at deepseek's dense down projection, K = 10944: weight
    rows of 342 words, not a multiple of 4, at M 4 and 256, w3, and at
    stablelm's dual gate/up, N 6912, K 2560, w3, at M 4; K2 at
    stablelm's decode, 32 kv heads of head dim 80 -- three packed words --
@@ -81,26 +88,35 @@ exit and no result line):
    ``torch.matmul``), of stablelm-3b (depth 2, paged: its own w3, head
    dim 80 with partial rotary 0.25, layernorm with bias) and of
    deepseek-moe-16b (depth 2: the dense layer 0, then a MoE layer; its
-   own w3) on the card, then the same forward with
+   own w3), of mamba2-130m (depth 2, its own w4, the mamba state on slot
+   1 of the pool's state slots, tied logits) and of jamba-1.5-large-398b
+   (depth 2 with ``attn_every=2``: a mamba + MoE layer, then an attention
+   + dense layer, w2, 8 tokens) on the card, then the same forward with
    the parameters moved to the CPU (the plain versions run there because
    the device decides), logits compared within 5% of the largest and,
    for the MoE configs, the share of tokens routed to the same experts;
-5. end to end -- five main paths, each config at its own weight and
+5. end to end -- seven main paths, each config at its own weight and
    activation bits with a kv8 cache, random weights from ``--seed``
    quantized on the card (K3 at load), the launch counters zeroed just
    before and read just after each: the full 32-layer llama3-8b (4
    requests, w2), the full 32-layer mixtral-8x7b (5 requests, one of
    4,300 tokens that attends through the rolling 4,096-token window,
-   w2), the full
-   28-layer deepseek-moe-16b (w3: a dense layer 0, then 27 layers of 64
-   experts, top 6, and a shared expert) and the full 32-layer
-   stablelm-3b (w3, head dim 80, MHA, layernorm), the last two with
-   llama's prompts, each served by ``Engine(paged=True, block_size=16,
-   chunk_tokens=256)`` with the fused linear, where every forward
-   dispatch launches K1 6 times a layer (mixtral 4) and once more (the
-   lm_head), K2 once a layer and K4 twice a MoE layer, and exactly
-   the K1 launches whose M is at most ``apmm.small_m_max()`` take its
-   small-M route; then
+   w2), deepseek-moe-16b at 8 of its 28 layers (``SERVE_LAYERS``; w3: a
+   dense layer 0, then 7 layers of 64 experts, top 6, and a shared
+   expert), stablelm-3b at 8 of its 32 layers (w3, head dim 80, MHA,
+   layernorm), the full 24-layer mamba2-130m (w4, no KV: the pool is
+   state slots only, tied logits) and jamba-1.5-large-398b's first
+   hybrid group, layers 0-7 of 72 (w2: 7 mamba layers, attention at
+   layer 4, MoE at every other), the last four with llama's prompts,
+   each served by ``Engine(paged=True, block_size=16, chunk_tokens=256)``
+   with the fused linear, where every forward dispatch launches K1 6
+   times a layer (mixtral 4; mamba2 2, the in and out projections) and
+   once more (the lm_head; not mamba2's, whose tied logits are a bf16
+   matmul), jamba 27 times, K2 once an attention layer and K4 twice a
+   MoE layer, and exactly the K1 launches whose M is at most
+   ``apmm.small_m_max()`` take its small-M route (a stateful stack's
+   mixed step is one decode dispatch plus one B=1 dispatch a chunk lane;
+   it never hits the prefix cache); then
    llama3-8b at ``CONTIGUOUS_LAYERS`` (8) of its 32 layers served by
    ``Engine(paged=False, n_slots=4, max_len=1024)`` with the unfused
    linear (``llama3-8b-contiguous-unfused``), where every dispatch
@@ -116,8 +132,8 @@ exit and no result line):
    them; each path profiles one chunk step (contiguous: one admitting
    step) and three decode steps (device time by kernel, idle share); the
    paged paths print K2's shapes in those steps and the ranges it splits
-   each into, and mixtral fails if phase 3's ``K2_STEP`` case is not
-   among its decode steps' shapes; the contiguous paths print K6's shapes
+   each into, and mixtral and jamba fail if phase 3's ``K2_STEP`` case
+   is not among their decode steps' shapes; the contiguous paths print K6's shapes
    in the traced admitting and decode steps and the ranges of ring tiles
    it splits each into, and fail if phase 3's ``K6_STEP`` case is not
    among the decode steps' shapes; the contiguous fused path counts K5's
@@ -163,8 +179,13 @@ BF16_FLOPS_PER_S = 989.4e12     # dense tensor-core rate (K7's bf16 route)
 # the pad lanes routed too.  mixtral: top 2 of 8 experts; deepseek-moe-16b:
 # top 6 of 64.  Phase 3 times K4 at these shapes; phase 5 fails if its
 # traced steps gave K4 no such call.
+# jamba-1.5-large-398b: top 2 of 16, llama's 4 requests (a decode step
+# of 4 lanes); its chunk lane runs alone at B = 1 (a stateful stack's
+# mixed step splits), so a chunk is still 256 tokens.
 K4_STEP_SEGS = {"mixtral-8x7b": {"chunk": (256, 80), "decode": (8, 3)},
-                "deepseek-moe-16b": {"chunk": (256, 30), "decode": (8, 1)}}
+                "deepseek-moe-16b": {"chunk": (256, 30), "decode": (8, 1)},
+                "jamba-1.5-large-398b": {"chunk": (256, 40),
+                                         "decode": (4, 1)}}
 
 # K2's cases in phase 3: (name, tokens of each lane -- None: a pad lane on
 # an all-null table --, query tokens a lane, table width NB, window, the
@@ -178,15 +199,21 @@ K4_STEP_SEGS = {"mixtral-8x7b": {"chunk": (256, 80), "decode": (8, 3)},
 # "stablelm decode": stablelm-3b's 32 kv heads at head dim 80 (three
 # packed words: the kernel's 4-byte staging) and group 1; "deepseek
 # decode": deepseek-moe-16b's 16 kv heads at head dim 128 and group 1;
-# "glm4 decode": glm4-9b's 2 kv heads with a group of 16.
+# "glm4 decode": glm4-9b's 2 kv heads with a group of 16.  "jamba
+# decode": jamba-1.5-large-398b's 8 kv heads with a group of 8 at the shape
+# of phase 5's traced jamba decode steps (its 4 requests, NB the engine's
+# 64); phase 5 fails if those steps gave K2 no such call.
 K2_CASES = (("decode", (600,) * 4, 1, 64, None, (8, 4, 128)),
             ("chunk", (600,), 256, 64, None, (8, 4, 128)),
             ("mixtral decode window", (609, 109, 309, 4309, 209, None, None,
                                        None), 1, 272, 4096, (8, 4, 128)),
             ("stablelm decode", (600,) * 4, 1, 64, None, (32, 1, 80)),
             ("deepseek decode", (600,) * 4, 1, 64, None, (16, 1, 128)),
-            ("glm4 decode", (600,) * 4, 1, 64, None, (2, 16, 128)))
-K2_STEP = {"mixtral-8x7b": "mixtral decode window"}
+            ("glm4 decode", (600,) * 4, 1, 64, None, (2, 16, 128)),
+            ("jamba decode", (640, 140, 340, 240), 1, 64, None,
+             (8, 8, 128)))
+K2_STEP = {"mixtral-8x7b": "mixtral decode window",
+           "jamba-1.5-large-398b": "jamba decode"}
 
 # K6's cases in phase 3 (llama3-8b's shapes: 8 kv heads, GQA group 4, d
 # 128, kv8): (name, the ring of ``_ring_case``, window).  "decode" is the
@@ -200,10 +227,16 @@ K6_CASES = (("decode", dict(b=4, t=1024, live=632, s=1), None),
             ("decode window 256", dict(b=4, t=1024, live=632, s=1), 256))
 K6_STEP = "decode"
 
-# the depth of phase 5's llama3-8b contiguous pair (of its 32 layers):
-# cut so that the whole run keeps inside its time budget once the
-# deepseek-moe-16b and stablelm-3b paths run at full depth
+# the depths of phase 5's cut pairs, each of its config's layers, so that
+# the whole run keeps inside its time budget: llama3-8b's contiguous pair
+# (8 of 32), deepseek-moe-16b (8 of 28: the dense layer 0 and 7 MoE
+# layers) and stablelm-3b (8 of 32), whose widths phases 3 and 4 cover;
+# jamba-1.5-large-398b serves one hybrid group (8 of 72 layers: 7 mamba
+# and 1 attention, MoE at every other).  llama3-8b, mixtral-8x7b and
+# mamba2-130m serve at full depth.
 CONTIGUOUS_LAYERS = 8
+SERVE_LAYERS = {"deepseek-moe-16b": 8, "stablelm-3b": 8,
+                "jamba-1.5-large-398b": 8}
 
 # the phase-3 case whose numbers (ms, bound, plain, error) a path's
 # entry in the kernels line carries, by path and kernel (its bitserial
@@ -228,6 +261,13 @@ PATH_CASES = {
     "stablelm-3b": {"quantize_pack_rows": "stablelm load",
                     "apmm_fused_linear": "stablelm decode gate/up",
                     "paged_attention": "stablelm decode"},
+    "mamba2-130m": {"quantize_pack_rows": "mamba2 load",
+                    "apmm_fused_linear": "mamba2 decode in_proj"},
+    "jamba-1.5-large-398b": {"quantize_pack_rows": "jamba load",
+                             "apmm_fused_linear": "jamba decode in_proj",
+                             "paged_attention": "jamba decode",
+                             "moe_expert_linear":
+                                 "jamba decode step gate/up"},
 }
 
 # the redesigned kernels' times before the redesign, as PERF.md section 6
@@ -439,7 +479,11 @@ K3_CASES = (("load", 14336, 4096, 2, 1),
             # one deepseek-moe-16b expert's gate (1408 x 2048) and
             # stablelm-3b's gate (6912 x 2560), each at its own w3
             ("deepseek load", 1408, 2048, 3, 1),
-            ("stablelm load", 6912, 2560, 3, 1))
+            ("stablelm load", 6912, 2560, 3, 1),
+            # mamba2-130m's in_proj (3352 x 768) at its own w4, and one
+            # jamba-1.5-large-398b expert's gate (24576 x 8192), w2
+            ("mamba2 load", 3352, 768, 4, 1),
+            ("jamba load", 24576, 8192, 2, 1))
 
 
 def k3_phase(torch, timer, rng_seed, results):
@@ -666,6 +710,17 @@ def k1_phase(torch, timer, seed, results):
         # stablelm-3b's dual gate/up at its own w3, at decode
         ("stablelm decode gate/up", 4, 6912, 2560,
          dict(dual=True, act="silu", w_bits=3)),
+        # mamba2-130m's in_proj at its own w4: N 3352 = 52 x 64 + 24, the
+        # first path shape whose last 64-column tile is partial (24 live
+        # columns), at decode (small-M route) and at a chunk (tile); its
+        # out_proj (N 768, K 1536) at decode
+        ("mamba2 decode in_proj", 4, 3352, 768, dict(w_bits=4)),
+        ("mamba2 chunk in_proj", 256, 3352, 768, dict(w_bits=4)),
+        ("mamba2 decode out_proj", 4, 768, 1536, dict(w_bits=4)),
+        # jamba-1.5-large-398b's mamba in_proj, w2: N 2 x 16384 + 2 x 8 x
+        # 128 + 128 = 34944, K 8192, at decode and at a chunk
+        ("jamba decode in_proj", 4, 34944, 8192, {}),
+        ("jamba chunk in_proj", 256, 34944, 8192, {}),
     ]
     # the bitserial variant's route edge: its stacked route's last M and
     # the rows route's first, at the decode gate/up shape
@@ -678,7 +733,7 @@ def k1_phase(torch, timer, seed, results):
         r, bs = _k1_case(torch, timer, g, name, m, n, k, cache=cache, **kw)
         results["apmm_fused_linear", name] = r
         results["apmm_fused_linear_bitserial", name] = bs
-        if name == "decode lm_head":
+        if name in ("decode lm_head", "jamba chunk in_proj"):
             cache.pop((n, k, False, 2), None)
     cache.clear()
     torch.cuda.empty_cache()
@@ -1009,8 +1064,9 @@ def _k4_bitserial(torch, timer, name, x, a_s, counts, w, w2, a_bits, act,
 def k4_phase(torch, timer, seed, results):
     """K4 at mixtral-8x7b's shapes (E = 8, top 2, capacity factor 1.25),
     counts from a top-2 routing with one empty expert; then at
-    deepseek-moe-16b's (E = 64, top 6, expert_d_ff 1408, its own w3) at
-    the segment heights its traced steps give (``K4_STEP_SEGS``)."""
+    deepseek-moe-16b's (E = 64, top 6, expert_d_ff 1408, its own w3) and
+    jamba-1.5-large-398b's (E = 16, top 2, 24576 x 8192, w2) at the
+    segment heights their traced steps give (``K4_STEP_SEGS``)."""
     g_ = torch.Generator(device="cuda").manual_seed(seed + 3)
     d, f = 4096, 14336
     dec = routed_counts(torch, g_, e=8, g=1, tg=4, cap=2)       # 4 lanes
@@ -1059,6 +1115,17 @@ def k4_phase(torch, timer, seed, results):
                   (f"deepseek {kind} step down", dict(
                        e=64, groups=1, seg=seg, k=ds_f, n=ds_d, dual=False,
                        counts=counts, w_bits=3))]
+    # jamba-1.5-large-398b's experts, w2: gate/up N 24576 x K 8192, down
+    # N 8192 x K 24576
+    jb_d, jb_f = 8192, 24576
+    for kind, (tokens, seg) in K4_STEP_SEGS["jamba-1.5-large-398b"].items():
+        counts = routed_counts(torch, g_, e=16, g=1, tg=tokens, cap=seg)
+        cases += [(f"jamba {kind} step gate/up", dict(
+                       e=16, groups=1, seg=seg, k=jb_d, n=jb_f, dual=True,
+                       counts=counts)),
+                  (f"jamba {kind} step down", dict(
+                       e=16, groups=1, seg=seg, k=jb_f, n=jb_d, dual=False,
+                       counts=counts))]
     for name, kw in cases:
         r, bs = _k4_case(torch, timer, g_, name, **kw)
         results["moe_expert_linear", name] = r
@@ -1504,19 +1571,23 @@ def norm_phase(torch, timer, seed):
               flush=True)
 
 
-def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False):
-    """One full-width forward of ``s`` tokens at depth ``n_layers`` on the
-    card, then on the CPU, through the paged pool with the fused linear
-    or (``contiguous``) a contiguous cache with the unfused linear; MoE
-    layers record each token's top-k experts on both devices."""
+def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
+    """One full-width forward of ``s`` tokens at depth ``n_layers`` (and
+    the config fields ``over``) on the card, then on the CPU, through the
+    paged pool with the fused linear or (``contiguous``) a contiguous
+    cache with the unfused linear; MoE layers record each token's top-k
+    experts on both devices.  A stateful stack's mamba layers run on
+    slot 1 of the pool's state slots."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.serving import engine as E
-    from repro_torch.serving.paged_cache import PagedKVPool
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    from repro_torch.serving.paged_cache import (PagedKVPool,
+                                                 needs_state_slots)
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, **over)
+    stateful = needs_state_slots(cfg)
     # the config's own weight and activation bits, a kv8 cache (none of
     # glm4, minicpm and deepseek sets kv_bits; the paged pool is packed)
     quant = dataclasses.replace(cfg.quant, kv_bits=8,
@@ -1554,8 +1625,11 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False):
                 caches = M.init_caches(cfg, 1, nb * 16, quant=quant,
                                        device=dev)
             else:
-                caches = PagedKVPool(cfg, nb + 1, 16, quant=quant,
-                                     device=dev).step_caches(tables, lens)
+                caches = PagedKVPool(
+                    cfg, nb + 1, 16, quant=quant, device=dev,
+                    n_state_slots=1 if stateful else 0).step_caches(
+                        tables, lens, slots=np.ones(1, np.int32)
+                        if stateful else None)
             batch = {k: torch.as_tensor(v, device=dev)
                      for k, v in batch_np.items()}
             t0 = time.time()
@@ -1586,7 +1660,10 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False):
         routed = (f"; {100 * same:.1f}% of {rc.shape[0] * rc.shape[1]} "
                   f"token-layer routings pick the same top-{cfg.top_k} "
                   f"experts on the card and the CPU")
-    print(f"{arch} full width depth {n_layers} ({path}; d_model "
+    plan = "".join("A" if cfg.layer_kind(i) == "attn" else "M"
+                   for i in range(n_layers)) if stateful else ""
+    print(f"{arch} full width depth {n_layers} ({path}"
+          f"{'; layers ' + plan if plan else ''}; d_model "
           f"{cfg.d_model}, vocab {cfg.vocab}, {s} tokens): card vs CPU "
           f"logits max|err| {err:.4g} "
           f"(tol 5% of max|logit| {scale:.4g}), argmax card "
@@ -1806,19 +1883,23 @@ def same_tokens(label, reqs, twin_tokens) -> None:
 
 def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
                 n_blocks, per_dispatch, n_pack=None, variant="fused",
-                twin_tokens=None, params=None):
-    """Serve ``arch`` at full width and depth, end to end: load and
+                twin_tokens=None, params=None, n_layers=None):
+    """Serve ``arch`` at full width and depth (``n_layers``: its first
+    that many layers), end to end: load and
     quantize on the card (or serve ``params``, a fused path's quantized
     weights, which need no second load), then requests of
     ``prompt_lens`` tokens (the first and the last
     share a ``prefix``-token head; the last is submitted once the first
-    has emitted, so its prefix is indexed), 32 greedy tokens each.  The
+    has emitted, so its prefix is indexed -- a stateful stack keeps the
+    prefix cache off and must see no hit), 32 greedy tokens each.  The
     launch counters are zeroed just before and read just after.  Every
     forward dispatch must launch each kernel ``per_dispatch[name]``
     times (K3 ``n_pack`` times in all, at load), and exactly the K1
     launches at M <= ``apmm.small_m_max()`` must take K1's small-M route
     (each dispatch of ``tokens (B, S)`` runs its linears at M = B·S and
-    its lm_head at M = B).  ``variant="bitserial"`` serves the same
+    its lm_head at M = B; a stateful stack's mixed step is one decode
+    dispatch and one B=1 dispatch per chunk lane; tied embeddings run
+    the logits as a bf16 matmul, not K1).  ``variant="bitserial"`` serves the same
     weights through the bitserial kernels: the fused GEMM counters must
     stay 0 and the tokens must equal ``twin_tokens``, the fused run's.
     Every GEMM counter not in ``per_dispatch`` must stay 0.  Weights and
@@ -1830,7 +1911,11 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     from repro_torch.kernels import apmm
     from repro_torch.models import model as M
     from repro_torch.serving import engine as E
+    from repro_torch.serving.paged_cache import needs_state_slots
     cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    stateful = needs_state_slots(cfg)
     # the config's own weight and activation bits, a kv8 paged pool
     quant = dataclasses.replace(cfg.quant, kv_bits=8, variant=variant)
     label = arch if variant == "fused" else f"{arch}-{variant}"
@@ -1839,12 +1924,13 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     forward, n_dispatch, n_small = M.forward, [0], [0]
     # K1's small-M route is the fused variant's
     thr = apmm.small_m_max() if variant == "fused" else 0
-    n_body = per_dispatch[k1] - 1
+    head = 0 if cfg.tie_embeddings else 1        # the lm_head's K1 launch
+    n_body = per_dispatch[k1] - head
 
     def counting_forward(params, tokens, *a, **kw):
         n_dispatch[0] += 1
         n_small[0] += n_body * (tokens.numel() <= thr) \
-            + (tokens.shape[0] <= thr)
+            + head * (tokens.shape[0] <= thr)
         return forward(params, tokens, *a, **kw)
 
     t_path = time.time()
@@ -1897,9 +1983,10 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
                 with k4_rows() as rows_seen, k2_shapes() as k2_seen:
                     step_prof = profile_steps(
                         torch, eng, 1 if step == "chunk" else 3, kind=step)
-                _k2_step_shapes(label, step, k2_seen,
-                                K2_STEP.get(arch) if step == "decode"
-                                else None)
+                if k2_seen:
+                    _k2_step_shapes(label, step, k2_seen,
+                                    K2_STEP.get(arch) if step == "decode"
+                                    else None)
                 if step == "chunk":
                     chunk_traced = True
                 else:
@@ -1927,10 +2014,14 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
                                  f"with {len(r.out)} tokens")
         if not all(0 <= t < cfg.vocab for t in r.out):
             raise AssertionError("token outside the vocab")
-    if rep["free_blocks"] != rep["n_usable"] or rep["used_blocks"]:
+    if rep["free_blocks"] != rep["n_usable"] or rep["used_blocks"] \
+            or rep.get("used_state_slots"):
         raise AssertionError(f"pool did not drain: {rep}")
     eng.pool.validate(check_contents=True)
-    if rep["prefix_hits"] < 1:
+    if stateful and rep["prefix_hits"]:
+        raise AssertionError(f"{label}: a stateful stack hit the prefix "
+                             f"cache {rep['prefix_hits']} times")
+    if not stateful and rep["prefix_hits"] < 1:
         raise AssertionError(f"the shared {prefix}-token prefix never hit")
     if cfg.window is not None and rep["window_reclaimed"] < 1:
         raise AssertionError("no block fell out of the window")
@@ -1961,11 +2052,14 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     load = (f"load+quantize {t_load:.2f} s" if loaded else
             "the fused path's quantized weights")
     print(f"end to end {label} {cfg.n_layers}L w{quant.w_bits}/"
-          f"a{quant.a_bits}/kv8 paged bs=16 "
+          f"a{quant.a_bits}{'/kv8' if eng.pool.needs_blocks else ''} "
+          f"paged bs=16 "
           f"chunk=256: {load}; {len(reqs)} requests "
           f"(prompts {[len(r.prompt) for r in reqs]}, prefix hit tokens "
           f"{rep['prefix_hit_tokens']}, window-reclaimed blocks "
-          f"{rep['window_reclaimed']}), {nd} forward dispatches, launches "
+          f"{rep['window_reclaimed']}"
+          f"{', state slots ' + str(rep['state_slots']) if stateful else ''}"
+          f"), {nd} forward dispatches, launches "
           f"{counts} (K1 small-M route {small_m}); {n_tok} tokens outside "
           f"the traced steps in "
           f"{t_serve:.2f} s = {n_tok / t_serve:.2f} tok/s; {len(pre)} "
@@ -2176,6 +2270,12 @@ def main() -> int:
     shallow_phase(torch, args.seed, "stablelm-3b", n_layers=2, s=24)
     # layer 0 dense (d_ff 10944), layer 1 MoE (64 experts, top 6, shared)
     shallow_phase(torch, args.seed, "deepseek-moe-16b", n_layers=2, s=24)
+    # mamba2: two mamba mixers on slot 1, tied logits; jamba with
+    # attn_every=2, as the reference's tests cut it: layer 0 mamba + MoE
+    # (16 experts, top 2), layer 1 attention + the dense MLP
+    shallow_phase(torch, args.seed, "mamba2-130m", n_layers=2, s=24)
+    shallow_phase(torch, args.seed, "jamba-1.5-large-398b", n_layers=2, s=8,
+                  attn_every=2)
     print(f"card vs CPU forwards done at {time.time() - t_start:.1f} s",
           flush=True)
     # each path, then its bit-serial twin: the same quantized weights
@@ -2184,6 +2284,7 @@ def main() -> int:
     paths = {}
 
     def pair(arch, per_dispatch, **kw):
+        kw.setdefault("n_layers", SERVE_LAYERS.get(arch))
         paths[arch], tokens, params = serve_phase(
             torch, args.seed, arch, per_dispatch=per_dispatch, **kw)
         twin = {k + "_bitserial" if k in GEMMS else k: v
@@ -2202,17 +2303,33 @@ def main() -> int:
                           "moe_expert_linear": 64},
          prompt_lens=(600, 100, 300, 4300), prefix=128, max_len=4352,
          n_blocks=512, n_pack=28 * 32 + 1)
-    # deepseek-moe-16b (28 layers, the dense layer 0 then 27 MoE layers of
-    # 64 experts, top 6, and a shared expert) and stablelm-3b (32 layers,
-    # head dim 80, MHA, layernorm), each at its own w3/a8 with a kv8 pool,
-    # with llama's prompts: K1 6 a layer + the lm_head, K2 one a layer, K4
-    # two a MoE layer; K3 at load one a weight (deepseek: one an expert's)
-    pair("deepseek-moe-16b", {"apmm_fused_linear": 169,
-                              "paged_attention": 28,
-                              "moe_expert_linear": 54},
-         n_pack=27 * (4 + 64 * 3 + 3) + 7 + 1, **llama_kw)
-    pair("stablelm-3b", {"apmm_fused_linear": 193, "paged_attention": 32},
-         n_pack=225, **llama_kw)
+    # deepseek-moe-16b (the dense layer 0, then MoE layers of 64 experts,
+    # top 6, and a shared expert) and stablelm-3b (head dim 80, MHA,
+    # layernorm), each at its own w3/a8 with a kv8 pool, at
+    # SERVE_LAYERS's depth, with llama's prompts: K1 6 a layer + the
+    # lm_head, K2 one a layer, K4 two a MoE layer; K3 at load one a weight
+    # (deepseek: one an expert's)
+    nd, ns = SERVE_LAYERS["deepseek-moe-16b"], SERVE_LAYERS["stablelm-3b"]
+    pair("deepseek-moe-16b", {"apmm_fused_linear": 6 * nd + 1,
+                              "paged_attention": nd,
+                              "moe_expert_linear": 2 * (nd - 1)},
+         n_pack=(nd - 1) * (4 + 64 * 3 + 3) + 7 + 1, **llama_kw)
+    pair("stablelm-3b", {"apmm_fused_linear": 6 * ns + 1,
+                         "paged_attention": ns},
+         n_pack=7 * ns + 1, **llama_kw)
+    # mamba2-130m, its 24 layers at its own w4/a8: K1 2 a layer (in_proj,
+    # out_proj; the tied logits are a bf16 matmul), nothing else; K3 at
+    # load one a weight.  No KV: the pool is state slots only
+    pair("mamba2-130m", {"apmm_fused_linear": 48}, n_pack=48, **llama_kw)
+    # jamba-1.5-large-398b's first hybrid group (layers 0-7: mamba but at
+    # layer 4, MoE at 0, 2, 4, 6), w2/a8 with a kv8 pool: K1 2 a mamba
+    # layer (7), 4 at the attention layer, 2 a dense MLP (4) and the
+    # lm_head (27); K2 one; K4 two a MoE layer (8); K3 at load 14 + 4 +
+    # 4 x 3 + 4 x 16 x 3 + 1
+    pair("jamba-1.5-large-398b", {"apmm_fused_linear": 27,
+                                  "paged_attention": 1,
+                                  "moe_expert_linear": 8},
+         n_pack=14 + 4 + 12 + 192 + 1, **llama_kw)
     # the contiguous pair at CONTIGUOUS_LAYERS layers (the run's time
     # limit): K3 and K5 7 a layer + the lm_head, K6 one a layer
     nl = CONTIGUOUS_LAYERS

@@ -12,13 +12,19 @@ on ``device``:
   expert weight (packed ``(u, n_bits, E, N, Kw)``, scale ``(u, E, N,
   1)``) unstacks like any other packed leaf, and the f32 router with
   it;
+* a hybrid stack's unit (jamba's 8-layer group: mamba mixers, one
+  attention layer, MoE and dense FFNs) unstacks the same way, each
+  layer's leaves as they are: a mamba mixer's f32 ``A_log``/``D``/
+  ``dt_bias``/``norm_scale``, bf16 ``conv_w``/``conv_b`` and packed
+  ``in_proj``/``out_proj``;
 * packed uint32 words are viewed as int32 (same bits);
 * bfloat16 arrays (numpy's ``bfloat16`` extension dtype) are viewed bit
   for bit as ``torch.bfloat16``.
 
 :func:`caches_from_numpy` and :func:`caches_to_numpy` carry the
 reference's contiguous decode-cache tree (``prelude`` list, stacked
-``blocks``, uint32 planes) to the port's per-layer list and back.
+``blocks``, uint32 planes; a mamba layer's ``conv``/``state`` rows) to
+the port's per-layer list and back.
 
 It never imports jax: the tests hand it numpy arrays.
 """

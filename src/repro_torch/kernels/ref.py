@@ -97,22 +97,57 @@ def apply_act(y: torch.Tensor, act: str) -> torch.Tensor:
     return y
 
 
+def _plane_bits(words: torch.Tensor) -> torch.Tensor:
+    """One packed plane ``(..., Kw)`` int32 -> its bits ``(..., Kw*32)``
+    uint8, element ``32w + b`` from bit b of word w (the words' bytes
+    read little-endian, one byte per 8 elements)."""
+    by = words.contiguous().view(torch.uint8)
+    shifts = torch.arange(8, dtype=torch.uint8, device=words.device)
+    return ((by[..., None] >> shifts) & 1).flatten(-2)
+
+
+def _packed_group_values(packed: torch.Tensor, n_bits: int, group: int):
+    """Plane-group values of a packed operand ``(n_bits, ..., Kw)`` read
+    straight off its words: ``[(lo, v, size)]`` with ``v = 2 *
+    sum_i plane_{lo+i} 2^i - (2^size - 1)`` (int16), one entry per group
+    of :func:`plane_groups` (``group=1``: the bit-serial ±1 planes) --
+    the values :func:`apmm_fused` and :func:`apmm_bitserial` derive from
+    the recovered integers, without materializing them."""
+    out = []
+    for lo, size in plane_groups(n_bits, group):
+        v = None
+        for i in range(size):
+            b = _plane_bits(packed[lo + i]).to(torch.int16) << (i + 1)
+            v = b if v is None else v + b
+        out.append((lo, v - ((1 << size) - 1), size))
+    return out
+
+
 def _linear_int_core(q: torch.Tensor, w: BipolarTensor, n_a: int,
                      variant: str) -> torch.Tensor:
     """Exact int32 NT GEMM of activation *values* ``q (M, K)`` against a
     packed weight, K-pad corrected: pad columns of the weight decode to
     ``+maxw`` and of the activation to ``-maxa``, and the closed-form
-    correction removes their product."""
+    correction removes their product.  ``fused``: one GEMM per pair of
+    <=7-bit plane groups; ``bitserial``: one ±1 GEMM per bit pair."""
     k = w.shape[-1]
     assert q.shape[-1] == k, (q.shape, w.shape)
     kp = w.packed.shape[-1] * bipolar.PACK_WIDTH
-    vals = bipolar.recover(bipolar.unpack_planes(w.packed, -1, kp), w.n_bits)
     if kp > k:
         q = F.pad(q, (0, kp - k), value=-bipolar.max_value(n_a))
-    if variant == "fused":
-        y = apmm_fused(q, vals, n_a, w.n_bits)
-    else:
-        y = apmm_bitserial(q, vals, n_a, w.n_bits)
+    group = 7 if variant == "fused" else 1
+    ua = bipolar.encode(q, n_a)
+    ga = [(lo, ((((ua >> lo) & ((1 << sz) - 1)) << 1)
+                - ((1 << sz) - 1)).to(torch.float64), sz)
+          for lo, sz in plane_groups(n_a, group)]
+    y = None
+    for lo_b, vb, sz_b in _packed_group_values(w.packed, w.n_bits, group):
+        vb = vb.to(torch.float64).T          # one conversion a weight group
+        for lo_a, va, sz_a in ga:
+            assert kp * bipolar.max_value(sz_a) * bipolar.max_value(sz_b) \
+                < 2 ** 53
+            yij = (va @ vb).to(torch.int64).to(torch.int32) << (lo_a + lo_b)
+            y = yij if y is None else y + yij
     return y + bipolar.pad_correction(k, w.n_bits, n_a)
 
 
@@ -196,15 +231,19 @@ def expert_weight(w: BipolarTensor, e: int) -> BipolarTensor:
 
 
 def moe_expert_int_core(q: torch.Tensor, w: BipolarTensor, n_a: int,
-                        variant: str) -> torch.Tensor:
+                        variant: str, live: torch.Tensor) -> torch.Tensor:
     """Exact int32 batched expert NT GEMM ``(E, C, K) x (E, N, K) -> (E,
     C, N)`` of activation *values* against a stacked packed expert
     weight, K-pad corrected, one expert at a time (each the 2-D core of
     :func:`ap_linear_fused_ref`; the integers are exact, so the order
-    of experts is immaterial)."""
-    return torch.stack([_linear_int_core(q[e], expert_weight(w, e), n_a,
-                                         variant)
-                        for e in range(q.shape[0])])
+    of experts is immaterial).  Only the experts ``live`` (a bool per
+    expert) marks are computed; the rows of the others come back 0."""
+    y = torch.zeros(q.shape[:2] + (w.shape[1],), dtype=torch.int32,
+                    device=q.device)
+    for e, keep in enumerate(live.tolist()):
+        if keep:
+            y[e] = _linear_int_core(q[e], expert_weight(w, e), n_a, variant)
+    return y
 
 
 def moe_live_map(counts: torch.Tensor, seg: int, bc: int) -> torch.Tensor:
@@ -229,10 +268,12 @@ def ap_moe_expert_linear_ref(x: torch.Tensor, a_scale: torch.Tensor,
     ``G`` segments)."""
     od = out_dtype or x.dtype
     q = bipolar.quantize_values(x.float(), a_bits, a_scale)
-    yf = moe_expert_int_core(q, w, a_bits, variant).float() * a_scale \
-        * w.scale[:, None, :, 0]
+    # an expert without a live row contributes only rows masked to 0 below
+    live_e = counts.sum(1) > 0
+    yf = moe_expert_int_core(q, w, a_bits, variant, live_e).float() \
+        * a_scale * w.scale[:, None, :, 0]
     if w2 is not None:
-        y2 = moe_expert_int_core(q, w2, a_bits, variant).float() \
+        y2 = moe_expert_int_core(q, w2, a_bits, variant, live_e).float() \
             * a_scale * w2.scale[:, None, :, 0]
         yf = apply_act(yf, act) * y2
     elif act != "none":

@@ -193,17 +193,23 @@ def _rsqrt(v: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def rms_normalize(xf: torch.Tensor, scale, eps: float) -> torch.Tensor:
+    """f32 ``xf * rsqrt(mean(xf^2) + eps) * scale`` over the last axis,
+    in XLA:CPU's steps (the RMSNorm, and mamba2's gated norm)."""
+    ms = _fma(_row_sum(torch.square(xf)), _f32(1.0 / xf.shape[-1]),
+              _f32(eps))
+    return xf * _rsqrt(ms) * scale
+
+
 def norm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig):
     xf = x.float()
-    inv_d = _f32(1.0 / xf.shape[-1])
-    eps = _f32(cfg.norm_eps)
     if cfg.norm_type == "layernorm":
+        inv_d = _f32(1.0 / xf.shape[-1])
         xc = xf - _row_sum(xf) * inv_d
-        var = _fma(_row_sum(torch.square(xc)), inv_d, eps)
+        var = _fma(_row_sum(torch.square(xc)), inv_d, _f32(cfg.norm_eps))
         y = _fma(xc * _rsqrt(var), params["scale"], params["bias"])
     else:
-        ms = _fma(_row_sum(torch.square(xf)), inv_d, eps)
-        y = xf * _rsqrt(ms) * params["scale"]
+        y = rms_normalize(xf, params["scale"], cfg.norm_eps)
     return y.to(x.dtype)
 
 

@@ -1,12 +1,12 @@
-"""Model assembly of the dense and MoE decoders, in torch.
+"""Model assembly of the dense, MoE, SSM and hybrid decoders, in torch.
 
-A port of the attention-decoder path of the reference
-``repro.models.model``: the layer plan, parameter init, the block
-(pre-norm attention + a dense MLP, with the residual fused into the
-quantized linears' epilogues, or a MoE), the decode caches, the
-forward pass over the paged pool or a contiguous cache as a Python loop
-over layers, the logits, and serving-time quantization
-(:func:`quantize_params`).
+A port of the decoder path of the reference ``repro.models.model``: the
+layer plan, parameter init, the block (a pre-norm mixer -- attention,
+with the residual fused into the quantized output projection, or the
+Mamba-2 mixer of :mod:`repro_torch.models.ssm` -- then a dense MLP, a
+MoE or, for mamba2, nothing), the decode caches, the forward pass over
+the paged pool or a contiguous cache as a Python loop over layers, the
+logits, and serving-time quantization (:func:`quantize_params`).
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``layers`` (a
 list with one dict per layer, the prelude's leading dense layers first;
@@ -25,6 +25,7 @@ import torch
 from repro_torch.core.bipolar import BipolarTensor, dtype_scalar
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.config import (ModelConfig, QuantConfig,
                                        effective_kv_bits)
 
@@ -65,14 +66,15 @@ def plan_split(cfg: ModelConfig):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers the dense and MoE decoders (attention + a dense
-    or MoE FFN in every layer)."""
-    if cfg.family not in ("dense", "moe") or any(
-            mk != "attn" or fk not in ("dense", "moe")
+    """The port covers the decoders: dense, MoE, SSM and hybrid (an
+    attention or mamba mixer, then a dense, MoE or no FFN)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or any(
+            mk not in ("attn", "mamba") or fk not in ("dense", "moe", "none")
             for mk, fk in layer_plan(cfg)):
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}) is not ported yet: repro_torch "
-            f"runs dense and MoE decoders (ROADMAP queue 1, items 6-7)")
+            f"runs dense, MoE, SSM and hybrid decoders (ROADMAP queue 1, "
+            f"item 7)")
 
 
 def moe_stats_order(cfg: ModelConfig) -> list:
@@ -92,12 +94,16 @@ def moe_stats_order(cfg: ModelConfig) -> list:
 # Init
 # ---------------------------------------------------------------------------
 
-def _block_init(gen, cfg: ModelConfig, ffn_kind: str, device) -> dict:
-    return {"norm1": L.norm_init(cfg.d_model, cfg, device),
-            "mixer": L.attention_init(gen, cfg, device),
-            "norm2": L.norm_init(cfg.d_model, cfg, device),
-            "ffn": (L.moe_init(gen, cfg, device) if ffn_kind == "moe"
-                    else L.mlp_init(gen, cfg, device))}
+def _block_init(gen, cfg: ModelConfig, mixer_kind: str, ffn_kind: str,
+                device) -> dict:
+    p = {"norm1": L.norm_init(cfg.d_model, cfg, device),
+         "mixer": (L.attention_init(gen, cfg, device) if mixer_kind == "attn"
+                   else S.ssm_init(gen, cfg, device))}
+    if ffn_kind != "none":
+        p["norm2"] = L.norm_init(cfg.d_model, cfg, device)
+        p["ffn"] = (L.moe_init(gen, cfg, device) if ffn_kind == "moe"
+                    else L.mlp_init(gen, cfg, device))
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
@@ -120,8 +126,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         "final_norm": L.norm_init(cfg.d_model, cfg, dev),
         "layers": [],
     }
-    for _, ffn_kind in layer_plan(cfg):
-        params["layers"].append(finish(_block_init(gen, cfg, ffn_kind, dev)))
+    for mixer_kind, ffn_kind in layer_plan(cfg):
+        params["layers"].append(
+            finish(_block_init(gen, cfg, mixer_kind, ffn_kind, dev)))
     if not cfg.tie_embeddings:
         params["lm_head"] = finish(
             {"lm_head": L.linear_init(gen, cfg.d_model, cfg.vocab_padded,
@@ -133,24 +140,31 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
 # Forward
 # ---------------------------------------------------------------------------
 
-def _apply_block(p, x, cfg: ModelConfig, ffn_kind: str, *, positions,
-                 cache, quant=None, moe_stats: bool = False):
+def _apply_block(p, x, cfg: ModelConfig, mixer_kind: str, ffn_kind: str, *,
+                 positions, cache, quant=None, moe_stats: bool = False):
     """One pre-norm block; returns ``(x, new_cache, stats)`` (``stats``
     is :func:`repro_torch.models.layers.moe_apply`'s telemetry for a MoE
     block when ``moe_stats`` asks for it, else None).  Quantized serving with
     ``fused_linear`` (and ``residual_scale == 1``) threads the block
     input as ``residual`` into the attention output projection and the
     dense MLP's down projection, so the residual add runs in the fused
-    linear's epilogue; a MoE block adds its residual after the
-    combine."""
+    linear's epilogue; a mamba mixer and a MoE block add their residual
+    after the fact, as the reference does."""
     rs = dtype_scalar(cfg.residual_scale, x.dtype)
     fuse_res = (quant is not None and quant.enabled and quant.fused_linear
                 and cfg.residual_scale == 1.0)
     h = L.norm_apply(p["norm1"], x, cfg)
-    h, new_cache = L.attention_apply(
-        p["mixer"], h, cfg, positions=positions, cache=cache, quant=quant,
-        residual=x if fuse_res else None)
-    x = h if fuse_res else x + (h.float() * rs).to(x.dtype)
+    if mixer_kind == "attn":
+        h, new_cache = L.attention_apply(
+            p["mixer"], h, cfg, positions=positions, cache=cache,
+            quant=quant, residual=x if fuse_res else None)
+        x = h if fuse_res else x + (h.float() * rs).to(x.dtype)
+    else:
+        h, new_cache = S.ssm_apply(p["mixer"], h, cfg, cache=cache,
+                                   quant=quant)
+        x = x + (h.float() * rs).to(x.dtype)
+    if ffn_kind == "none":
+        return x, new_cache, None
     h = L.norm_apply(p["norm2"], x, cfg)
     if ffn_kind == "moe":
         h, _, stats = L.moe_apply(p["ffn"], h, cfg, quant=quant,
@@ -163,22 +177,32 @@ def _apply_block(p, x, cfg: ModelConfig, ffn_kind: str, *, positions,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                quant: Optional[QuantConfig] = None, device="cuda") -> dict:
-    """Decode caches: ``{"layers": [one KV cache per layer]}`` (prelude
-    layers first, as in ``params["layers"]``), each from
-    :func:`repro_torch.models.layers.make_kv_cache`.  ``quant.kv_bits``
-    (over ``cfg.kv_bits``) selects packed bipolar planes; without either
-    the cache holds K/V in the model's dtype.
+                quant: Optional[QuantConfig] = None, device="cuda",
+                state_batch: Optional[int] = None) -> dict:
+    """Decode caches: ``{"layers": [one cache per layer]}`` (prelude
+    layers first, as in ``params["layers"]``): an attention layer's KV
+    cache from :func:`repro_torch.models.layers.make_kv_cache`, a mamba
+    layer's conv + SSD state from :func:`repro_torch.models.ssm
+    .make_ssm_cache`.  ``quant.kv_bits`` (over ``cfg.kv_bits``) selects
+    packed bipolar planes; without either the cache holds K/V in the
+    model's dtype.
 
     The contiguous engine keeps ``batch`` request rows of ``max_len``
     slots (a ring of the window for SWA archs); the paged pool reuses
     this layout with ``batch=n_blocks, max_len=block_size`` (block 0 is
-    its null block)."""
+    its null block).  ``state_batch`` sizes the fixed-size per-request
+    SSM leaves apart from the block count: they get ``state_batch`` rows
+    (the pool's slot rows, row 0 its null slot) while attention leaves
+    keep ``batch`` blocks; None gives both ``batch`` rows (the
+    contiguous layout)."""
     check_supported(cfg)
     dev = resolve_device(device)
     kvb = effective_kv_bits(cfg, quant)
-    return {"layers": [L.make_kv_cache(cfg, batch, max_len, kvb, dev)
-                       for _ in range(cfg.n_layers)]}
+    sb = batch if state_batch is None else state_batch
+    return {"layers": [
+        L.make_kv_cache(cfg, batch, max_len, kvb, dev) if mk == "attn"
+        else S.make_ssm_cache(cfg, sb, L._dtype(cfg), dev)
+        for mk, _ in layer_plan(cfg)]}
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -200,10 +224,10 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     x = params["embed"]["w"][tokens.long()].to(L._dtype(cfg))
     x = (x.float() * dtype_scalar(cfg.emb_scale, x.dtype)).to(x.dtype)
     new_layers, layer_stats = [], {}
-    for i, (p, c, (_, fk)) in enumerate(zip(params["layers"],
-                                            caches["layers"],
-                                            layer_plan(cfg))):
-        x, nc, mst = _apply_block(p, x, cfg, fk, positions=positions,
+    for i, (p, c, (mk, fk)) in enumerate(zip(params["layers"],
+                                             caches["layers"],
+                                             layer_plan(cfg))):
+        x, nc, mst = _apply_block(p, x, cfg, mk, fk, positions=positions,
                                   cache=c, quant=quant,
                                   moe_stats=collect_moe_stats)
         new_layers.append(nc)
@@ -241,13 +265,14 @@ def _logits(params, x, cfg: ModelConfig, quant=None):
 # ---------------------------------------------------------------------------
 
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down",
-               "lm_head")
+               "in_proj", "out_proj", "lm_head")
 
 
 def quantize_params(params: Any, qcfg: QuantConfig) -> Any:
     """Replace every quantizable linear weight, and every stacked expert
-    weight ``(E, N, K)``, with packed bipolar planes (router, norms and
-    embeddings stay as they are)."""
+    weight ``(E, N, K)``, with packed bipolar planes (router, norms,
+    embeddings and the SSM's conv, decay and skip parameters stay as
+    they are)."""
     if not qcfg.enabled:
         return params
     if isinstance(params, dict):

@@ -17,12 +17,18 @@ A port of the reference ``repro.serving.engine``, in two memory regimes:
   of two, preemption with warm restart when the pool runs dry, and the
   prefix cache: admission acquires the cached blocks of a common prompt
   prefix and prefills only the suffix, directly through the block table.
+  SSM and hybrid stacks keep each request's conv + SSD state in one slot
+  of the pool's fixed-size *state slot pool*; their prompts prefill at
+  exact length (a recurrence consumes pad tokens), and they share no
+  prefix.
 
 **Chunked prefill** (``chunk_tokens``, paged only): a prompt streams
 through the step loop ``chunk_tokens`` at a time, fused with the decode
 batch into one bucketed ``(B, S)`` dispatch (:meth:`Engine._fused_dispatch`)
 whose pad rows are position-masked; running decodes emit a token every
-step while a long prompt trickles in.
+step while a long prompt trickles in.  A stateful stack's mixed step
+splits instead: one bucketed decode dispatch, plus one exact-length B=1
+dispatch per chunk lane that continues the lane's slot state.
 
 The submit/stream API (:class:`StreamHandle`, ``on_token`` callbacks,
 deadlines, cancellation), the observability hooks (``metrics=``, default
@@ -312,7 +318,7 @@ class Engine:
     the lane's row of the batched cache; decode advances all active
     lanes in lock-step.
 
-    Paged (``paged=True``, requires ``kv_bits``): requests share a
+    Paged (``paged=True``; a stack with attention needs ``kv_bits``): requests share a
     :class:`~repro_torch.serving.paged_cache.PagedKVPool` of ``n_blocks``
     blocks x ``block_size`` tokens on the parameters' device, run under
     the :class:`~repro_torch.serving.scheduler.Scheduler`, and the decode
@@ -391,7 +397,8 @@ class Engine:
         self.chunk_tokens = chunk_tokens
         self.device = params["embed"]["w"].device
         if paged:
-            from repro_torch.serving.paged_cache import PagedKVPool
+            from repro_torch.serving.paged_cache import (PagedKVPool,
+                                                         needs_state_slots)
             from repro_torch.serving.scheduler import Scheduler
             assert max_len % block_size == 0, (max_len, block_size)
             if n_blocks is None:
@@ -399,12 +406,18 @@ class Engine:
                 # the reserved null block
                 n_blocks = n_slots * (max_len // block_size) + 1
             self.max_batch = max_batch or 2 * n_slots
-            # NULL_OBS.registry is None -> the pool keeps a private
-            # registry, so report() snapshots work with metrics off
+            stateful = needs_state_slots(cfg)
+            # stateful archs keep the prefix cache off: SSM state is an
+            # order-dependent running summary, not block-addressable
+            # content, so there is no prefix to share.  NULL_OBS.registry
+            # is None -> the pool keeps a private registry, so report()
+            # snapshots work with metrics off
             self.pool = PagedKVPool(
                 cfg, n_blocks, block_size, quant=quant,
-                prefix_cache=prefix_cache, device=self.device,
-                metrics=self.obs.registry, faults=self.faults)
+                prefix_cache=prefix_cache and not stateful,
+                n_state_slots=self.max_batch if stateful else 0,
+                device=self.device, metrics=self.obs.registry,
+                faults=self.faults)
             # nested-precision serving needs packed weights to slice;
             # without w_bits every lane runs the configured quant and the
             # scheduler stays unsalted
@@ -491,7 +504,7 @@ class Engine:
         occupancy (deterministic, so shed/backoff behavior replays)."""
         if self.paged and self.pool.needs_blocks:
             occ = self.pool.used_blocks / max(self.pool.n_usable, 1)
-        elif self.paged:      # unreachable until state-slot pools land
+        elif self.paged:      # a pure-SSM pool: state slots only
             occ = (self.pool.slots.used_slots
                    / max(self.pool.slots.n_slots, 1))
         else:
@@ -690,8 +703,7 @@ class Engine:
         be trusted against the refcount map.  Every derived structure
         is then rebuilt from the surviving tables: refcounts from a
         table-reference count, the free list as the unreferenced ids,
-        the state-slot pool from the surviving slots (``pool.slots`` is
-        None for every stack the port runs).  The prefix cache is
+        the state-slot pool from the surviving slots.  The prefix cache is
         dropped wholesale (hits become misses; math unchanged) and chain
         memos reset.  Ends with a full ``validate()`` -- recovery must
         restore the invariants it is guarding, not defer them."""
@@ -706,7 +718,6 @@ class Engine:
                 if b < 1 or b > pool.n_usable or b in seen:
                     return True
                 seen.add(b)
-            # pool.slots is None until state-slot pools land: False here
             return pool.slots is not None and s.slot >= 0 \
                 and not 1 <= s.slot <= pool.slots.n_slots
         bad = [s for s in sch.running if table_corrupt(s)]
@@ -725,7 +736,7 @@ class Engine:
         pool._partial_index.clear()
         pool._free = [b for b in range(pool.n_blocks - 1, 0, -1)
                       if b not in counts]
-        if pool.slots is not None:    # unreachable until state-slot pools land
+        if pool.slots is not None:
             used = {s.slot for s in sch.running if s.slot >= 1}
             pool.slots._used = used
             pool.slots._free = [i for i in range(pool.slots.n_slots, 0, -1)
@@ -783,6 +794,16 @@ class Engine:
                 req = self.queue.pop(0)
                 self._prefill_into(req, slot)
 
+    @property
+    def _bucketable(self) -> bool:
+        """Prompt lengths may pad to pow2 buckets only when every mixer
+        masks by position: SSM/hybrid recurrences consume pad tokens
+        regardless, so those archs prefill at exact length (one rule
+        for the contiguous AND paged prefill paths -- diverging them
+        would break paged-vs-contiguous token identity)."""
+        return all(self.cfg.layer_kind(i) == "attn"
+                   for i in range(self.cfg.n_layers))
+
     def _bucketed_prefill(self, prompt: np.ndarray):
         """Prefill one prompt at B=1 with length bucketing.
 
@@ -790,13 +811,13 @@ class Engine:
         cache)``.  Pad tokens carry position -1: they are masked out of
         every attention read and land in the cache as invalid slots that
         decode overwrites (the ring index is rewound to the real length
-        below).  Every stack the port runs masks by position; SSM
-        recurrences, which would consume the pads and must prefill at
-        exact length, are not ported."""
+        below).  SSM/hybrid archs prefill at exact length -- the
+        recurrence consumes every input regardless of position, so pads
+        would corrupt the cached state."""
         s = len(prompt)
         ring = min(self.max_len, self.cfg.window) if self.cfg.window \
             else self.max_len
-        p = prefill_bucket(s, ring)
+        p = prefill_bucket(s, ring) if self._bucketable else s
         one = M.init_caches(self.cfg, 1, self.max_len, quant=self.quant,
                             device=self.device)
         toks = np.zeros(p, np.int32)
@@ -819,8 +840,11 @@ class Engine:
         ring capacity) or -- when ``p`` wraps the ring -- overwrite live
         prompt KV.  The first pad sits at ``s`` (normal write) or
         ``s - (p - ring)`` (the sliding-window tail store keeps the last
-        ``ring`` entries), i.e. ``(s - max(0, p - ring)) % ring``."""
+        ``ring`` entries), i.e. ``(s - max(0, p - ring)) % ring``.  A
+        mamba layer's conv + state cache has no ring."""
         def fix(c):
+            if "index" not in c:
+                return c
             ring = c["pos"].shape[-1]
             idx = (s - max(0, p - ring)) % ring
             return dict(c, index=torch.full_like(c["index"], idx))
@@ -923,12 +947,15 @@ class Engine:
         runs at O(log max_len) distinct shapes).  The suffix K/V lands
         directly in the request's blocks via the paged scatter write,
         and its queries attend through the shared prefix blocks and the
-        fresh suffix in the same kernel pass.  Returns the ``(1, V)``
-        f32 logits (host numpy) at the last real suffix token.
+        fresh suffix in the same kernel pass.  Stateful archs prefill at
+        exact length and continue the slot-resident conv/SSD state, so a
+        chunk picks up exactly where the last one stopped.  Returns the
+        ``(1, V)`` f32 logits (host numpy) at the last real suffix
+        token.
         """
         s = len(suffix)
         assert s >= 1, "suffix forward needs >= 1 token to compute"
-        p = prefill_bucket(s, self.max_len)
+        p = prefill_bucket(s, self.max_len) if self._bucketable else s
         toks = np.zeros(p, np.int32)
         toks[:s] = suffix
         pos = np.full(p, -1, np.int32)
@@ -941,7 +968,10 @@ class Engine:
         batch = {"tokens": self._dev(toks[None]),
                  "positions": self._dev(pos[None]),
                  "last_idx": self._dev(np.asarray([s - 1], np.int32))}
-        caches = self.pool.step_caches(tables, np.asarray([start], np.int32))
+        slots = (np.asarray([seq.slot], np.int32)
+                 if self.pool.slots is not None else None)
+        caches = self.pool.step_caches(
+            tables, np.asarray([start], np.int32), slots=slots)
         quant = self._quant_for(getattr(seq, "precision", None))
         logits, caches = self._step(prefill_step_bucketed, batch, caches,
                                     quant)
@@ -1006,11 +1036,15 @@ class Engine:
         """Run the planned step's forward pass(es); returns per-entry
         logits rows aligned with ``plan``.
 
-        Everything fuses into ONE dispatch (:meth:`_fused_forward`)
-        whenever a chunk of more than one token is in flight; otherwise
-        decodes run the ``(B, 1)`` :func:`serve_step` and a one-token
-        chunk its own suffix forward."""
-        if any(n > 1 for _, n in plan):
+        Attention-only configs fuse everything into ONE dispatch
+        (:meth:`_fused_forward`) whenever a chunk of more than one token
+        is in flight; otherwise decodes run the ``(B, 1)``
+        :func:`serve_step` and a one-token chunk its own suffix forward.
+        Stateful archs (SSM/hybrid) cannot pad the recurrence, so their
+        mixed steps split: one bucketed decode dispatch plus one
+        exact-length B=1 dispatch per chunk lane, riding the cached
+        conv/state continuation."""
+        if any(n > 1 for _, n in plan) and self._bucketable:
             return self._fused_forward(plan)
         rows: list = [None] * len(plan)
         decodes = [(i, s) for i, (s, n) in enumerate(plan)
@@ -1075,13 +1109,17 @@ class Engine:
         lens = np.zeros(bb, np.int32)
         tables = np.zeros((bb, nb), np.int32)  # 0 = the null block
         offsets = np.zeros(bb, np.int32)       # reclaimed logical blocks
+        slot_ids = np.full(bb, -1, np.int32)   # pad lanes: no slot
         for i, seq in enumerate(running):
             toks[i], pos[i], lens[i] = seq.last_tok, seq.length, seq.length
             tables[i, :len(seq.blocks)] = seq.blocks
             offsets[i] = seq.freed_prefix
+            slot_ids[i] = seq.slot
         batch = {"tokens": self._dev(toks[:, None]),
                  "positions": self._dev(pos[:, None])}
-        caches = self.pool.step_caches(tables, lens, block_offsets=offsets)
+        caches = self.pool.step_caches(
+            tables, lens, block_offsets=offsets,
+            slots=slot_ids if self.pool.slots is not None else None)
         quant = self._quant_for(running[0].precision)
         logits, caches = self._step(serve_step, batch, caches, quant)
         self.pool.absorb(caches)
@@ -1115,7 +1153,8 @@ class Engine:
         paged kernel masks causality by absolute position per row, so
         lanes of different real lengths coexist in one grid.  Per-lane
         logits are gathered at ``last_idx`` (the lane's last real
-        token)."""
+        token).  Attention-only configs (``_bucketable``); pool slots
+        never exist here."""
         bb = self._decode_bucket(len(plan))
         smax = max(n for _, n in plan)
         sq = prefill_bucket(smax, self.max_len)

@@ -2,10 +2,8 @@
 
 A port of the reference ``repro.serving.paged_cache`` over torch device
 buffers: the host logic (refcounts, copy-on-write, the prefix index, the
-LRU, ``validate``) is the reference's, and block copies and position
-resets write the pool tensors in place.  The state-slot pool (SSM state,
-enc-dec cross caches) is not ported yet: architectures that need it
-raise (ROADMAP queue 1, items 6-7).
+LRU, ``validate``, the state-slot pool) is the reference's, and block
+copies, position resets and slot resets write the pool tensors in place.
 
 The contiguous engine reserves ``max_len`` cache tokens per slot whether
 a request is 8 tokens or 8k, so the 2x-16x payload savings of ``kv_bits``
@@ -79,6 +77,17 @@ Invariants the pool maintains (see :meth:`validate`):
   ``block_tables`` / ``length`` injected per layer (:meth:`step_caches`)
   and give updated pool leaves back through :meth:`absorb`.
 
+State slot pool.  SSM conv+state leaves (mamba and hybrid mixers) are
+fixed-size per request -- nothing token-granular to page.
+:class:`StateSlotPool` allocates them in whole-request **slots**: the
+pool's state leaves carry ``n_state_slots + 1`` rows (row 0 reserved
+null, read by padded batch lanes), a request owns one slot id for its
+lifetime, and :meth:`step_caches` injects the batch's slot ids so the
+mixers gather and scatter their rows.  A pure-SSM pool has no blocks to
+speak of (``needs_blocks`` is False); a hybrid pool has both.  The
+enc-dec cross caches, the reference's other slot tenant, are not ported
+(ROADMAP queue 1, item 7).
+
 Telemetry.  Event counters (``repro_pool_*``: prefix hits/lookups, COW
 copies, evictions, window reclaims, chain-hash ops) live in a shared
 :class:`repro_torch.obs.metrics.MetricsRegistry` (pass ``metrics=``; the pool
@@ -145,10 +154,10 @@ def needs_state_slots(cfg: ModelConfig) -> bool:
 
 
 def supports_paging(cfg: ModelConfig) -> bool:
-    """The port's pool pages self-attention KV only: an architecture
-    that also carries per-request state (SSM, enc-dec cross) needs the
-    state-slot pool, which is not ported yet."""
-    return needs_blocks(cfg) and not needs_state_slots(cfg)
+    """Attention KV goes through the block pool, SSM and hybrid state
+    through the fixed-size slot pool (the enc-dec cross caches, the
+    slot pool's other tenant, are not ported: ROADMAP queue 1, item 7)."""
+    return needs_blocks(cfg) or needs_state_slots(cfg)
 
 
 @dataclasses.dataclass
@@ -196,33 +205,84 @@ class PrefixHit:
     filled: int            # valid tokens in that partial block (else 0)
 
 
+class StateSlotPool:
+    """Fixed-size per-request state slots (SSM conv+state).
+
+    The allocation unit is one request's entire state -- every mamba
+    layer's conv/state row -- addressed by a single slot id valid in all
+    layers (the slot analogue of the block pool's one-logical-id-
+    addresses-all-layers rule).  Row 0 is the reserved **null slot**:
+    never allocated; padded batch lanes gather it (zeros, contributing
+    nothing) and their writes are dropped.
+    """
+
+    def __init__(self, n_slots: int):
+        assert n_slots >= 1, "need at least one usable slot"
+        self.n_slots = n_slots
+        # LIFO free list; slot 0 reserved as the null slot
+        self._free = list(range(n_slots, 0, -1))
+        self._used: set = set()
+
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_slots(self) -> int:
+        return len(self._used)
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise RuntimeError(
+                f"slot pool exhausted: all {self.n_slots} state slots "
+                f"are owned by running requests")
+        slot = self._free.pop()
+        self._used.add(slot)
+        return slot
+
+    def free(self, slot: int) -> None:
+        slot = int(slot)
+        if slot == 0:
+            raise ValueError("free(): slot 0 is the reserved null slot")
+        if slot not in self._used:
+            raise ValueError(f"free(): double free of slot {slot}")
+        self._used.remove(slot)
+        self._free.append(slot)
+
+    def validate(self) -> None:
+        free = set(self._free)
+        assert 0 not in free and 0 not in self._used, "null slot escaped"
+        assert not (free & self._used), free & self._used
+        assert len(free) + len(self._used) == self.n_slots, \
+            (len(free), len(self._used), self.n_slots)
+
+
 class PagedKVPool:
     """Refcounted copy-on-write pool of packed bipolar KV planes on one
-    device.
+    device, plus a fixed-size slot pool for per-request SSM state.
 
     ``n_blocks`` counts physical blocks *including* the reserved null
     block 0; capacity available to requests is ``n_usable = n_blocks-1``
     blocks of ``block_size`` tokens each.  ``prefix_cache=False``: no
-    index, release destroys immediately.
+    index, release destroys immediately.  ``n_state_slots`` (required
+    for ssm and hybrid archs) sizes the :class:`StateSlotPool`.
     """
 
     def __init__(self, cfg: ModelConfig, n_blocks: int, block_size: int,
                  quant: Optional[QuantConfig] = None, *,
-                 prefix_cache: bool = True, device="cuda",
-                 metrics: Optional[MetricsRegistry] = None,
+                 prefix_cache: bool = True, n_state_slots: int = 0,
+                 device="cuda", metrics: Optional[MetricsRegistry] = None,
                  faults=None):
-        if needs_state_slots(cfg):
-            raise NotImplementedError(
-                f"{cfg.family} archs need the state-slot pool, which is "
-                f"not ported yet (ROADMAP queue 1, items 6-7)")
+        M.check_supported(cfg)
         assert supports_paging(cfg), \
-            f"no pageable KV stream for {cfg.family!r}"
+            f"no pageable KV stream or slottable state for {cfg.family!r}"
         kv_bits = effective_kv_bits(cfg, quant)
-        self.needs_blocks = True
-        self.needs_slots = False
-        assert kv_bits, "the paged pool stores packed bipolar " \
-            "planes: set kv_bits (QuantConfig.kv_bits or " \
-            "ModelConfig.kv_bits)"
+        self.needs_blocks = needs_blocks(cfg)
+        self.needs_slots = needs_state_slots(cfg)
+        if self.needs_blocks:
+            assert kv_bits, "the paged pool stores packed bipolar " \
+                "planes: set kv_bits (QuantConfig.kv_bits or " \
+                "ModelConfig.kv_bits)"
         assert n_blocks >= 2, "need at least the null block + one usable"
         if cfg.window is not None and block_size > cfg.window:
             raise ValueError(
@@ -231,6 +291,11 @@ class PagedKVPool:
                 f"attention window could hold live and dead tokens at "
                 f"once for arbitrarily long; choose block_size <= "
                 f"window (or raise ModelConfig.window)")
+        if self.needs_slots and n_state_slots < 1:
+            raise ValueError(
+                f"{cfg.family} archs carry fixed-size per-request state "
+                f"(SSM conv+state): pass n_state_slots >= 1 so the slot "
+                f"pool can hold it (Engine sizes it to max_batch)")
         self.cfg, self.quant = cfg, quant
         # fault injection facade (tests/chaos harness): site checks are
         # constant no-ops on the NULL_FAULTS twin, same contract as obs
@@ -238,10 +303,13 @@ class PagedKVPool:
         self.kv_bits = kv_bits
         self.n_blocks, self.block_size = n_blocks, block_size
         self.prefix_cache = prefix_cache
-        self.slots = None           # state-slot pool: not ported
-        self.caches = M.init_caches(cfg, batch=n_blocks, max_len=block_size,
-                                    quant=quant, device=device)
-        self.device = self.caches["layers"][0]["pos"].device
+        self.slots = (StateSlotPool(n_state_slots)
+                      if self.needs_slots else None)
+        self.caches = M.init_caches(
+            cfg, batch=n_blocks, max_len=block_size, quant=quant,
+            device=device,
+            state_batch=(n_state_slots + 1) if self.needs_slots else None)
+        self.device = next(iter(self.caches["layers"][0].values())).device
         # LIFO free list, block 0 reserved as the null block
         self._free = list(range(n_blocks - 1, 0, -1))
         self._ref: dict = {}            # block id -> refcount (>= 0)
@@ -393,6 +461,10 @@ class PagedKVPool:
             bytes_per_block=int(pool_bytes / max(self.n_blocks, 1)),
             occupancy=self.used_blocks / max(self.n_usable, 1),
         )
+        if self.slots is not None:
+            rep.update(state_slots=self.slots.n_slots,
+                       free_state_slots=self.slots.free_slots,
+                       used_state_slots=self.slots.used_slots)
         if tokens_resident is not None:
             rep["tokens_resident"] = int(tokens_resident)
             rep["fragmentation"] = (
@@ -717,7 +789,8 @@ class PagedKVPool:
         """Assert the pool's structural invariants; with
         ``check_contents`` also verify that every indexed block's
         recorded token chain agrees with the resident positions
-        (hash -> contents agreement)."""
+        (hash -> contents agreement) and that the null slot's rows are
+        still zero in every state leaf (pad lanes read them)."""
         free = set(self._free)
         live = set(self._ref)
         assert 0 not in free and 0 not in live, "null block entered the pool"
@@ -736,6 +809,8 @@ class PagedKVPool:
             meta = self._meta.get(bid)
             assert meta is not None and 0 < meta.filled < self.block_size
             assert meta.prefix_hash == h
+        if self.slots is not None:
+            self.slots.validate()
         if check_contents:
             for c in self._attn_caches():
                 pos = c["pos"].cpu().numpy()
@@ -745,49 +820,84 @@ class PagedKVPool:
                     got = pos[bid, :meta.filled]
                     assert (got == want).all(), (bid, got, want)
                 break    # one layer suffices: ids address all layers alike
+            for c in self._state_caches():
+                for key, leaf in c.items():
+                    assert not leaf[0].any(), f"null slot {key} row written"
 
-    # -- state slots (not ported) --------------------------------------------
+    # -- state slots ---------------------------------------------------------
     def alloc_slot(self) -> int:
-        raise NotImplementedError("the state-slot pool is not ported yet "
-                                  "(ROADMAP queue 1, items 6-7)")
+        """Take one state slot with its rows zeroed in place (a reused
+        slot must not leak a freed request's SSM state through the
+        recurrence).  The ``slot_fail`` fault site fires before the slot
+        pool mutates (admission rolls cleanly back)."""
+        assert self.slots is not None, "pool has no state slot pool"
+        if self.faults.slot_fail():
+            raise RuntimeError(
+                f"slot pool exhausted (injected fault): "
+                f"{self.slots.free_slots} of {self.slots.n_slots} free")
+        slot = self.slots.alloc()
+        for c in self._state_caches():
+            for leaf in c.values():
+                leaf[slot] = 0                       # in place
+        return slot
 
-    free_slot = alloc_slot
+    def free_slot(self, slot: int) -> None:
+        assert self.slots is not None, "pool has no state slot pool"
+        self.slots.free(slot)
 
     # -- tree plumbing -------------------------------------------------------
+    @staticmethod
+    def _is_attn(c) -> bool:
+        """Self-attention KV cache dict (block-addressed), vs an SSM
+        state dict (``conv``/``state``, slot-addressed)."""
+        return "conv" not in c
+
     def _attn_caches(self, caches=None):
-        """Every layer's KV pool dict (one logical block id addresses the
-        same physical index in each)."""
+        """Every attention layer's KV pool dict (one logical block id
+        addresses the same physical index in each)."""
         caches = self.caches if caches is None else caches
-        yield from caches["layers"]
+        yield from (c for c in caches["layers"] if self._is_attn(c))
+
+    def _state_caches(self, caches=None):
+        """Every mamba layer's slot-addressed conv + state dict."""
+        caches = self.caches if caches is None else caches
+        yield from (c for c in caches["layers"] if not self._is_attn(c))
 
     def _reset_pos(self, ids) -> None:
         idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         for c in self._attn_caches():
             c["pos"][idx] = -1                       # in place
 
-    _STEP_KEYS = ("block_tables", "length", "block_offset")
+    _STEP_KEYS = ("block_tables", "length", "block_offset", "slots")
 
     def step_caches(self, block_tables: np.ndarray, lengths: np.ndarray,
                     *, block_offsets: Optional[np.ndarray] = None,
                     slots: Optional[np.ndarray] = None):
-        """Pool tree for one decode/prefill step: each layer's pool dict
-        gains this batch's ``block_tables (B, NB)``, ``length (B,)`` --
-        the write offset of the step's first new token -- and
+        """Pool tree for one decode/prefill step: each attention layer's
+        pool dict gains this batch's ``block_tables (B, NB)``, ``length
+        (B,)`` -- the write offset of the step's first new token -- and
         ``block_offset (B,)``, the count of leading logical blocks
         reclaimed out-of-window (entry ``j`` maps logical block ``j +
-        offset``).  The pool tensors themselves are shared, not copied:
-        the step writes them in place."""
-        if slots is not None:
-            raise NotImplementedError("state slots are not ported yet")
+        offset``); each mamba layer's state dict gains ``slots (B,)``,
+        the batch rows' slot ids (-1 for padded lanes).  The pool
+        tensors themselves are shared, not copied: the step writes them
+        in place."""
         dev = self.device
         bt = torch.as_tensor(np.asarray(block_tables, np.int32), device=dev)
         ln = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
         off = (torch.zeros_like(ln) if block_offsets is None else
                torch.as_tensor(np.asarray(block_offsets, np.int32),
                                device=dev))
-        return {"layers": [dict(c, block_tables=bt, length=ln,
-                                block_offset=off)
-                           for c in self.caches["layers"]]}
+        sl = None if slots is None else torch.as_tensor(
+            np.asarray(slots, np.int32), device=dev)
+
+        def aug(c):
+            if self._is_attn(c):
+                return dict(c, block_tables=bt, length=ln, block_offset=off)
+            assert sl is not None, "state caches need this batch's slot ids"
+            return dict(c, slots=sl)
+
+        return {"layers": [aug(c) for c in self.caches["layers"]]}
 
     def absorb(self, new_caches) -> None:
         """Store the step's pool leaves back, stripping the per-step keys

@@ -1522,3 +1522,64 @@ def test_dense_config_engine_on_card_matches_cpu(device, arch):
         if kk is not None:
             top = np.sort(ec.rows[(id(a), kk)])
             assert top[-1] - top[-2] < 0.05, (kk, a.out, b.out)
+
+
+_STATEFUL_ARCHS = {
+    "mamba2-130m": dict(n_layers=2),                  # its own w4/a8
+    "jamba-1.5-large-398b": dict(n_layers=2, attn_every=2),   # w2, kv8
+}
+
+
+@pytest.mark.parametrize("arch", list(_STATEFUL_ARCHS))
+def test_stateful_engine_on_card_matches_cpu(device, arch):
+    """Reduced mamba2-130m (two mamba layers: K1 only) and hybrid jamba
+    (a mamba + MoE layer and an attention + dense layer: K1, K2, K4) at
+    their own weight bits, served paged with chunked prefill on the card
+    and on the CPU: the SSM state rides the slot pool on both, and the
+    greedy tokens agree wherever the CPU run's top-1/top-2 margin exceeds
+    0.05, as the other card engine tests hold them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+
+    class CpuEngine(_RecordingEngine, E.Engine):
+        pass
+
+    cfg = get_config(arch).reduced(vocab=256, **_STATEFUL_ARCHS[arch])
+    q = dataclasses.replace(cfg.quant, kv_bits=8)
+    params = M.init_params(cfg, seed=3, device="cpu", quant=q)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, 256, (5 + 7 * i,), dtype=np.int32)
+               for i in range(3)]
+    outs = {}
+    before = (apmm.LAUNCHES, flash_attention.LAUNCHES, moe.LAUNCHES)
+    for dev, cls in (("cpu", CpuEngine), ("cuda", E.Engine)):
+        p = params if dev == "cpu" else _to(params, device)
+        eng = cls(p, cfg, n_slots=2, max_len=48, quant=q, paged=True,
+                  block_size=8, chunk_tokens=8)
+        reqs = [E.Request(prompt=pr.copy(), max_new_tokens=8)
+                for pr in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        assert all(r.finish_reason == "length" for r in reqs)
+        rep = eng.report()
+        assert rep["free_blocks"] == rep["n_usable"]
+        assert rep["used_state_slots"] == 0
+        eng.pool.validate(check_contents=True)
+        outs[dev] = (reqs, eng)
+    assert apmm.LAUNCHES > before[0]
+    if arch.startswith("jamba"):
+        assert flash_attention.LAUNCHES > before[1] \
+            and moe.LAUNCHES > before[2]
+    state = outs["cuda"][1].pool.caches["layers"][0]["state"]
+    assert state.device.type == "cuda"
+    (rc, ec), (rg, _) = outs["cpu"], outs["cuda"]
+    for a, b in zip(rc, rg):
+        kk = next((i for i, (x, y) in enumerate(zip(a.out, b.out))
+                   if x != y), None)
+        if kk is not None:
+            top = np.sort(ec.rows[(id(a), kk)])
+            assert top[-1] - top[-2] < 0.05, (kk, a.out, b.out)

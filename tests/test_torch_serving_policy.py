@@ -4,12 +4,16 @@ parameters: backpressure (``max_queue``, the ``retry_after`` hint,
 nested precision tiers, sampling at temperature > 0, and greedy tokens
 at w4 and w8.
 
-The reference's own tests of these (tests/test_chaos.py,
-tests/test_precision_tiers.py) serve mamba2, which the port does not
-run; here the backpressure cases serve reduced llama3-8b (paged: kv8
-with ``free_blocks`` for the reference's ``slots.free_slots``; and the
-contiguous engine), the watchdog cases reduced mixtral-8x7b with an
-8-token window, the tier cases reduced llama3-8b at w8.  Each scenario
+The reference's own backpressure and request-lifecycle tests
+(tests/test_chaos.py: shed and resubmit, the shed rate under overload,
+double submit, cancel after finish) serve reduced mamba2-130m through
+the state slot pool, and so do their scenarios here (``*_ssm``,
+checking ``pool.slots.free_slots`` as the reference does), with a
+watchdog case that corrupts a request's slot id.  The same backpressure
+cases also serve reduced llama3-8b (paged: kv8 with ``free_blocks``;
+and the contiguous engine), the block-table watchdog cases reduced
+mixtral-8x7b with an 8-token window, the tier cases reduced llama3-8b
+at w8.  Each scenario
 runs once in each package, with XLA's excess precision off (a
 subprocess: the flag must be set before JAX starts; see
 tests/test_torch_model.py), where the logits are bit-identical; every
@@ -27,7 +31,8 @@ import pytest
 SCENARIOS = ["watchdog_repair", "watchdog_quarantine", "shed_paged",
              "shed_contiguous", "shed_rate", "tier_frozen", "tier_mixed",
              "temperature_paged", "temperature_contiguous", "greedy_w4",
-             "greedy_w8"]
+             "greedy_w8", "shed_ssm", "shed_rate_ssm", "double_submit_ssm",
+             "cancel_after_finish_ssm", "watchdog_slot_ssm"]
 
 _RUN = r"""
 import dataclasses, json, sys
@@ -236,6 +241,142 @@ def serve(S, q, *, paged, temperature=0.0):
                 seeds=[r.seed for r in reqs])
 
 
+def mamba(S):
+    return S.setup("mamba2-130m", JQ())[:2]
+
+
+def slots_drained(eng):
+    return eng.pool.slots.free_slots == eng.pool.slots.n_slots
+
+
+def shed_ssm(S):
+    cfg, params = mamba(S)
+    rng = np.random.default_rng(6)
+    p_a = rng.integers(0, cfg.vocab, (5,), dtype=np.int32)
+    p_b = rng.integers(0, cfg.vocab, (7,), dtype=np.int32)
+    base_eng = S.E.Engine(params, cfg, n_slots=2, max_len=32)
+    base = S.E.Request(prompt=p_b.copy(), max_new_tokens=4)
+    base_eng.submit(base)
+    base_eng.run()
+    eng = S.E.Engine(params, cfg, n_slots=2, max_len=32, paged=True,
+                     block_size=4, chunk_tokens=3, max_queue=1)
+    a = S.E.Request(prompt=p_a.copy(), max_new_tokens=4)
+    b = S.E.Request(prompt=p_b.copy(), max_new_tokens=4)
+    ha = eng.submit(a)                 # fills the one queue seat
+    hb = eng.submit(b)                 # shed: queue is at max_queue
+    reg = eng.pool.metrics
+    shed_state = dict(done=b.done, reason=b.finish_reason, error=b.error,
+                      handle_error=hb.error, hint=hb.retry_after,
+                      out=list(b.out),
+                      counter=reg.value("repro_sched_shed_requests"),
+                      gauge=reg.value("repro_sched_shed_retry_after"))
+    ha.result()                        # drain the queue
+    delays = []
+    hb.resubmit(sleep=delays.append)   # injectable backoff clock
+    requeued = not b.done
+    out = hb.result()
+    return dict(shed=shed_state, a_reason=a.finish_reason, a_out=list(a.out),
+                delays=delays, requeued=requeued, b_reason=out.finish_reason,
+                b_error=out.error, b_out=toks([b])[0], base=toks([base])[0],
+                drained=slots_drained(eng))
+
+
+def shed_rate_ssm(S):
+    cfg, params = mamba(S)
+    rng = np.random.default_rng(10)
+    eng = S.E.Engine(params, cfg, n_slots=2, max_len=32, paged=True,
+                     block_size=4, chunk_tokens=3, max_queue=2)
+    reqs = [S.E.Request(prompt=rng.integers(0, cfg.vocab, (5,),
+                                            dtype=np.int32),
+                        max_new_tokens=2) for _ in range(8)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run()
+    return dict(reasons=[r.finish_reason for r in reqs],
+                hints=[r.retry_after for r in reqs], out=toks(reqs),
+                shed=eng.pool.metrics.value("repro_sched_shed_requests"),
+                drained=slots_drained(eng))
+
+
+def double_submit_ssm(S):
+    cfg, params = mamba(S)
+    rng = np.random.default_rng(14)
+    eng = S.E.Engine(params, cfg, n_slots=2, max_len=32, paged=True,
+                     block_size=4, chunk_tokens=3)
+    r = S.E.Request(prompt=rng.integers(0, cfg.vocab, (5,), dtype=np.int32),
+                    max_new_tokens=4)
+    h1 = eng.submit(r)
+    h2 = eng.submit(r)                 # same engine, in flight: no-op
+    waiting = list(eng.scheduler.waiting).count(r)
+    eng.step()                         # r admitted
+    eng.submit(r)                      # still in flight: no-op again
+    requeued = r in eng.scheduler.waiting
+    h1.result()
+    eng2 = S.E.Engine(params, cfg, n_slots=2, max_len=32)
+    q = S.E.Request(prompt=rng.integers(0, cfg.vocab, (4,), dtype=np.int32),
+                    max_new_tokens=2)
+    eng2.submit(q), eng2.submit(q)
+    queued = eng2.queue.count(q)
+    eng2.run()
+    return dict(same_req=h2.req is r, waiting=waiting, requeued=requeued,
+                reason=r.finish_reason, out=toks([r])[0], drained=
+                slots_drained(eng), queued=queued, q_done=q.done,
+                q_out=toks([q])[0])
+
+
+def cancel_after_finish_ssm(S):
+    cfg, params = mamba(S)
+    rng = np.random.default_rng(15)
+    eng = S.E.Engine(params, cfg, n_slots=2, max_len=32, paged=True,
+                     block_size=4, chunk_tokens=3)
+    r = S.E.Request(prompt=rng.integers(0, cfg.vocab, (5,), dtype=np.int32),
+                    max_new_tokens=3)
+    h = eng.submit(r)
+    h.result()
+    reason, n_out = r.finish_reason, len(r.out)
+    cancels = [h.cancel(), h.cancel()]   # already finished: clean noes
+    eng.pool.validate()                  # no double release happened
+    return dict(reason=reason, n_out=n_out, cancels=cancels,
+                after=(r.finish_reason, len(r.out)), out=toks([r])[0],
+                drained=slots_drained(eng))
+
+
+def watchdog_slot_ssm(S):
+    cfg, params = mamba(S)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab, (n,), dtype=np.int32)
+               for n in (5, 9)]
+
+    def engine(**kw):
+        return S.E.Engine(params, cfg, n_slots=2, max_len=32, paged=True,
+                          block_size=4, chunk_tokens=3, **kw)
+
+    base = engine()
+    breqs = [S.E.Request(prompt=p.copy(), max_new_tokens=6) for p in prompts]
+    for r in breqs:
+        base.submit(r)
+    base.run()
+    eng = engine(validate_every=1)
+    reqs = [S.E.Request(prompt=p.copy(), max_new_tokens=6) for p in prompts]
+    for r in reqs:
+        eng.submit(r)
+    for _ in range(5):                 # get both requests decoding
+        assert eng.step()
+    seq_b = next(s for s in eng.scheduler.running if s.req is reqs[1])
+    eng.pool.slots._used.discard(seq_b.slot)   # un-balance the slot pool
+    seq_b.slot = 99                    # and give b an impossible slot
+    eng.run()
+    eng.pool.validate()
+    reg = eng.pool.metrics
+    return dict(
+        base=toks(breqs), out=toks(reqs),
+        reasons=[r.finish_reason for r in reqs],
+        errors=[r.error for r in reqs],
+        violations=reg.value("repro_engine_fault_watchdog_violations"),
+        quarantined=reg.value("repro_engine_fault_requests", kind="watchdog"),
+        drained=slots_drained(eng))
+
+
 W2 = JQ(w_bits=2, a_bits=8, kv_bits=8)
 RUNS = {
     "watchdog_repair": lambda S: watchdog(S, False),
@@ -252,6 +393,11 @@ RUNS = {
                                  paged=True),
     "greedy_w8": lambda S: serve(S, JQ(w_bits=8, a_bits=8, kv_bits=8),
                                  paged=True),
+    "shed_ssm": shed_ssm,
+    "shed_rate_ssm": shed_rate_ssm,
+    "double_submit_ssm": double_submit_ssm,
+    "cancel_after_finish_ssm": cancel_after_finish_ssm,
+    "watchdog_slot_ssm": watchdog_slot_ssm,
 }
 out = {name: {side: fn(Side(side)) for side in ("ref", "port")}
        for name, fn in RUNS.items()}
@@ -297,14 +443,14 @@ def test_watchdog_recovers_like_the_reference(runs, name):
         assert r["quarantined"] == 1
 
 
-@pytest.mark.parametrize("name", ["shed_paged", "shed_contiguous"])
+@pytest.mark.parametrize("name", ["shed_paged", "shed_contiguous", "shed_ssm"])
 def test_max_queue_sheds_with_retry_after_and_resubmit_recovers(runs, name):
     r = _same(runs, name)
     s = r["shed"]
     assert s["done"] and s["reason"] == "rejected" and s["out"] == []
     assert "queue full" in s["error"] and s["handle_error"] == s["error"]
     assert s["hint"] is not None and s["hint"] > 0
-    if name == "shed_paged":
+    if name != "shed_contiguous":
         assert s["counter"] == 1 and s["gauge"] == s["hint"]
     assert r["a_reason"] == "length"
     assert r["delays"] and r["delays"][0] >= min(2.0, max(s["hint"],
@@ -315,8 +461,9 @@ def test_max_queue_sheds_with_retry_after_and_resubmit_recovers(runs, name):
     assert r["drained"]
 
 
-def test_shed_rate_bounded_under_overload(runs):
-    r = _same(runs, "shed_rate")
+@pytest.mark.parametrize("name", ["shed_rate", "shed_rate_ssm"])
+def test_shed_rate_bounded_under_overload(runs, name):
+    r = _same(runs, name)
     shed = [i for i, x in enumerate(r["reasons"]) if x == "rejected"]
     served = [i for i, x in enumerate(r["reasons"]) if x == "length"]
     assert len(shed) + len(served) == 8 and shed and served, r
@@ -369,3 +516,29 @@ def test_greedy_engine_tokens_at_w4_and_w8_equal_reference(runs, name):
     r = _same(runs, name)
     assert r["reasons"] == ["length"] * 3
     assert all(len(o) == 8 for o in r["out"])
+
+
+def test_double_submit_is_idempotent(runs):
+    r = _same(runs, "double_submit_ssm")
+    assert r["same_req"] and r["waiting"] == 1 and not r["requeued"], r
+    assert r["reason"] == "length" and len(r["out"]) == 4
+    assert r["queued"] == 1 and r["q_done"] and len(r["q_out"]) == 2
+    assert r["drained"]
+
+
+def test_cancel_after_finish_is_a_clean_no(runs):
+    r = _same(runs, "cancel_after_finish_ssm")
+    assert r["reason"] == "length" and r["cancels"] == [False, False]
+    assert r["after"] == ["length", r["n_out"]] and r["drained"]
+
+
+def test_watchdog_quarantines_a_corrupt_slot_like_the_reference(runs):
+    """An impossible slot id on b, with the slot pool un-balanced: the
+    watchdog quarantines b, rebuilds the slot pool from the surviving
+    slots, and a keeps its fault-free tokens."""
+    r = _same(runs, "watchdog_slot_ssm")
+    assert r["violations"] == 1 and r["quarantined"] == 1, r
+    assert r["reasons"] == ["length", "error"]
+    assert "integrity" in r["errors"][1] and r["errors"][0] is None
+    assert r["out"][0] == r["base"][0]
+    assert r["drained"]
