@@ -29,11 +29,22 @@ exit and no result line):
    glm4's, 2 kv heads with a group of 16; fused K4 and K4-bs at
    deepseek's 64 experts, gate/up 1408 x 2048 and down 2048 x 1408, w3,
    at the segment heights its traced steps give, each route read off
-   the kernels that ran) (K3 words at its load shapes and at the
+   the kernels that ran; K3 at seamless-m4t-medium's GELU up projection,
+   w4, and qwen2-vl-7b's down projection, w2; K1 and K1-bs at
+   seamless's GELU up, N 4096, K 1024, w4, at M 4 and at its encoder's
+   64 and 128 frames (the small-M route and the tile), and at both
+   lm_heads, N 256256, K 1024, w4, and N 152064, K 3584, w2, at M 4; K1
+   at qwen2-vl's down projection, K = 18944 (592 words), w2, at M 4 and
+   256; K2 at qwen2-vl's decode and whole-prompt prefill, 4 kv heads of
+   group 7 (odd, not a power of two), and at seamless's decoder, 16 kv
+   heads of group 1, d 64; K6 not causal at seamless's cross-attention
+   reads, ``K6_CROSS_CASES``: the decode steps' slot rows, 128 a lane of
+   which 128 or 64 are live and the rest at position -1, and the
+   whole-prompt prefill) (K3 words at its load shapes and at the
    unfused linear's per-dispatch activation shape, the K1, K4 and K5
    integer cores of every weight, K4's bf16 output and K5's f32/bf16
    dequant bit-exact; K1 and K4 SiLU outputs within 1 bf16 ulp of the
-   plain version; K4's dead rows
+   plain version, K1's GELU within 1 bf16 ulp or 1e-5 absolute; K4's dead rows
    exactly 0 and its live map equal to the analytic one; the unfused
    linear (K3 + K5) equal to the fused one (K1) bit for bit, within 1
    ulp through the SwiGLU; K2, K6 and K7 outputs within 1 bf16 ulp or
@@ -91,7 +102,11 @@ exit and no result line):
    own w3), of mamba2-130m (depth 2, its own w4, the mamba state on slot
    1 of the pool's state slots, tied logits) and of jamba-1.5-large-398b
    (depth 2 with ``attn_every=2``: a mamba + MoE layer, then an attention
-   + dense layer, w2, 8 tokens) on the card, then the same forward with
+   + dense layer, w2, 8 tokens), of seamless-m4t-medium (2 encoder and 2
+   decoder layers, its own w4, random frames from the seed, the cross
+   caches on slot 1 of the pool's state slots) and of qwen2-vl-7b (depth
+   2, its own w2, random patch embeddings and ``(3, B, S)`` positions
+   whose axes differ) on the card, then the same forward with
    the parameters moved to the CPU (the plain versions run there because
    the device decides), logits compared within 5% of the largest and,
    for the MoE configs, the share of tokens routed to the same experts;
@@ -117,6 +132,19 @@ exit and no result line):
    ``apmm.small_m_max()`` take its small-M route (a stateful stack's
    mixed step is one decode dispatch plus one B=1 dispatch a chunk lane;
    it never hits the prefix cache); then
+   seamless-m4t-medium at full depth (12 encoder and 12 decoder layers,
+   w4; its cross-K/V in the pool's state slots) and qwen2-vl-7b at 4 of
+   its 28 layers (``SERVE_LAYERS``; w2, M-RoPE), each served by
+   ``Engine(paged=True, block_size=16, chunk_tokens=256)``, which drops
+   ``chunk_tokens`` for these families (whole-prompt prefill): a
+   seamless prefill dispatch launches K1 194 times (the frontend and
+   the encoder's 72 at M = the frames, the decoder's cross K/V
+   projections at M = the frames, 96 at M = the prompt, the lm_head), a
+   decode dispatch 97 (no encoder, no cross K/V projection), and each
+   K2 and K6 once a decoder layer; qwen2-vl K1 6 times a layer and once
+   more, K2 once a layer; neither hits the prefix cache, seamless
+   drains its slots, and it fails if phase 3's ``K6_PATH_STEP`` case is
+   not among its decode steps' K6 shapes; then
    llama3-8b at ``CONTIGUOUS_LAYERS`` (8) of its 32 layers served by
    ``Engine(paged=False, n_slots=4, max_len=1024)`` with the unfused
    linear (``llama3-8b-contiguous-unfused``), where every dispatch
@@ -211,9 +239,22 @@ K2_CASES = (("decode", (600,) * 4, 1, 64, None, (8, 4, 128)),
             ("deepseek decode", (600,) * 4, 1, 64, None, (16, 1, 128)),
             ("glm4 decode", (600,) * 4, 1, 64, None, (2, 16, 128)),
             ("jamba decode", (640, 140, 340, 240), 1, 64, None,
-             (8, 8, 128)))
+             (8, 8, 128)),
+            ("qwen2-vl decode", (640, 140, 340, 240), 1, 64, None,
+             (4, 7, 128)),
+            ("qwen2-vl prefill", (600,), 1024, 64, None, (4, 7, 128)),
+            ("seamless decode", (640, 140, 340, 240), 1, 64, None,
+             (16, 1, 64)))
+# "qwen2-vl decode" and "seamless decode": the shapes of phase 5's traced
+# decode steps of those paths (llama's 4 requests, NB the engine's 64);
+# qwen2-vl's 4 kv heads have a group of 7, seamless's 16 a group of 1 at
+# head dim 64.  "qwen2-vl prefill": the 600-token prompt's whole-prompt
+# prefill, bucketed to 1024 query rows (600 live, 424 pads at -1), Gq =
+# 7 x 1024
 K2_STEP = {"mixtral-8x7b": "mixtral decode window",
-           "jamba-1.5-large-398b": "jamba decode"}
+           "jamba-1.5-large-398b": "jamba decode",
+           "qwen2-vl-7b": "qwen2-vl decode",
+           "seamless-m4t-medium": "seamless decode"}
 
 # K6's cases in phase 3 (llama3-8b's shapes: 8 kv heads, GQA group 4, d
 # 128, kv8): (name, the ring of ``_ring_case``, window).  "decode" is the
@@ -227,16 +268,31 @@ K6_CASES = (("decode", dict(b=4, t=1024, live=632, s=1), None),
             ("decode window 256", dict(b=4, t=1024, live=632, s=1), 256))
 K6_STEP = "decode"
 
+# K6 at seamless-m4t-medium's cross-attention reads (16 heads, MHA, d 64,
+# kv8, not causal, every query at position 0): (name, each lane's live
+# encoder rows, query rows a lane, the rows T a lane holds).  "seamless
+# cross decode" is the shape of phase 5's traced seamless decode steps:
+# the 4 requests' slot rows, T = enc_len(cfg, 1024) = 128, each lane's
+# enc_len of its bucketed prompt live (600 -> 1024 -> 128; 100, 300 and
+# 200 -> 64) and the rest at position -1; phase 5 fails if those steps
+# gave K6 no call of its (B, H, Sq, T).  "seamless cross prefill": the
+# 600-token prompt's whole-prompt prefill, its 1024 bucketed query rows
+# over the 128 rows its frames give.
+K6_CROSS_CASES = (("seamless cross decode", (128, 64, 64, 64), 1, 128),
+                  ("seamless cross prefill", (128,), 1024, 128))
+K6_PATH_STEP = {"seamless-m4t-medium": "seamless cross decode"}
+
 # the depths of phase 5's cut pairs, each of its config's layers, so that
 # the whole run keeps inside its time budget: llama3-8b's contiguous pair
 # (8 of 32), deepseek-moe-16b (8 of 28: the dense layer 0 and 7 MoE
 # layers) and stablelm-3b (8 of 32), whose widths phases 3 and 4 cover;
 # jamba-1.5-large-398b serves one hybrid group (8 of 72 layers: 7 mamba
-# and 1 attention, MoE at every other).  llama3-8b, mixtral-8x7b and
-# mamba2-130m serve at full depth.
+# and 1 attention, MoE at every other); qwen2-vl-7b serves 4 of its 28
+# alike layers, the first path cut when the run outgrows its budget.  llama3-8b, mixtral-8x7b, mamba2-130m and
+# seamless-m4t-medium (12 + 12) serve at full depth.
 CONTIGUOUS_LAYERS = 8
 SERVE_LAYERS = {"deepseek-moe-16b": 8, "stablelm-3b": 8,
-                "jamba-1.5-large-398b": 8}
+                "jamba-1.5-large-398b": 8, "qwen2-vl-7b": 4}
 
 # the phase-3 case whose numbers (ms, bound, plain, error) a path's
 # entry in the kernels line carries, by path and kernel (its bitserial
@@ -268,6 +324,14 @@ PATH_CASES = {
                              "paged_attention": "jamba decode",
                              "moe_expert_linear":
                                  "jamba decode step gate/up"},
+    "qwen2-vl-7b": {"quantize_pack_rows": "qwen2-vl load",
+                    "apmm_fused_linear": "qwen2-vl decode down",
+                    "paged_attention": "qwen2-vl decode"},
+    "seamless-m4t-medium": {"quantize_pack_rows": "seamless load",
+                            "apmm_fused_linear": "seamless decode up",
+                            "paged_attention": "seamless decode",
+                            "flash_attention_quantized":
+                                "seamless cross decode"},
 }
 
 # the redesigned kernels' times before the redesign, as PERF.md section 6
@@ -483,7 +547,11 @@ K3_CASES = (("load", 14336, 4096, 2, 1),
             # mamba2-130m's in_proj (3352 x 768) at its own w4, and one
             # jamba-1.5-large-398b expert's gate (24576 x 8192), w2
             ("mamba2 load", 3352, 768, 4, 1),
-            ("jamba load", 24576, 8192, 2, 1))
+            ("jamba load", 24576, 8192, 2, 1),
+            # seamless-m4t-medium's GELU up (4096 x 1024) at its own w4,
+            # and qwen2-vl-7b's down projection (3584 x 18944), w2
+            ("seamless load", 4096, 1024, 4, 1),
+            ("qwen2-vl load", 3584, 18944, 2, 1))
 
 
 def k3_phase(torch, timer, rng_seed, results):
@@ -524,6 +592,30 @@ def k3_phase(torch, timer, rng_seed, results):
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
             bound_by=b_by, library_ms=None)
         del x, got, want
+
+
+# K1's bf16 output against its plain version, by epilogue activation:
+# act=none is bit-exact; SiLU differs only by expf, rounded once to bf16
+# at the end: at most 1 ulp an element; GELU's tanh too, except where
+# 1 + tanh nears 0 (the output is within ~1e-6 of 0 and the ulps there
+# are tiny): 1 ulp or 1e-5 absolute, the attention kernels' rule
+ACT_TOL = {"none": "0", "silu": "1", "gelu": "1 or 1e-5"}
+
+
+def _act_check(label, act, got, want):
+    """Hold K1's bf16 output ``got`` to ``want`` by ``ACT_TOL``; returns
+    (max |err|, max ulps beyond 1e-5 for gelu, else max ulps)."""
+    err = (got.float() - want.float()).abs().max().item()
+    if act == "gelu":
+        ok, err, ulps = _within(got, want)
+    else:
+        ulps = int(bf16_ulps(got, want).max())
+        ok = ulps <= (0 if act == "none" else 1)
+    if not ok:
+        raise AssertionError(f"{label} act={act}: bf16 output {ulps} ulps "
+                             f"from plain (max |err| {err}; tol "
+                             f"{ACT_TOL[act]})")
+    return err, ulps
 
 
 def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
@@ -573,13 +665,7 @@ def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
     if (route == "small-M") != (m <= apmm.small_m_max()):
         raise AssertionError(f"K1 {name} M={m}: ran the {route} route, "
                              f"threshold {apmm.small_m_max()}")
-    err = (got.float() - want.float()).abs().max().item()
-    ulps = int(bf16_ulps(got, want).max())
-    # act=none is bit-exact; SiLU differs only by expf, rounded once to
-    # bf16 at the end: at most 1 ulp per element
-    if ulps > (0 if act == "none" else 1):
-        raise AssertionError(f"K1 {name} act={act}: bf16 output {ulps} "
-                             f"ulps from plain (max |err| {err})")
+    err, ulps = _act_check(f"K1 {name}", act, got, want)
     ms = timer(run, iters=10)
     plain = timer(run_plain, iters=2, warmup=1)
     nw = 2 if dual else 1
@@ -611,7 +697,7 @@ def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
           f"w{w_bits}a{a_bits}"
           f"{' dual' if dual else ''}{' +res' if residual else ''}"
           f" act={act}, {route} route: core bit-exact, out max|err| "
-          f"{err:.3g}, {ulps} bf16 ulps (tol {0 if act == 'none' else 1}); "
+          f"{err:.3g}, {ulps} bf16 ulps (tol {ACT_TOL[act]}); "
           f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
           f"{100 * b_ms / ms:.1f}% of bound; "
           f"{versus_prev('K1 ' + name, b_ms)}), plain "
@@ -662,11 +748,7 @@ def _k1_bitserial(torch, timer, name, x, a_s, w, w2, res, a_bits, act,
     if not torch.equal(want, plain_fused):
         raise AssertionError(f"K1 bitserial {name}: plain bitserial differs "
                              f"from plain fused")
-    err = (got.float() - want.float()).abs().max().item()
-    ulps = int(bf16_ulps(got, want).max())
-    if ulps > (0 if act == "none" else 1):
-        raise AssertionError(f"K1 bitserial {name} act={act}: {ulps} ulps "
-                             f"from plain")
+    err, ulps = _act_check(f"K1 bitserial {name}", act, got, want)
     if apmm.BITSERIAL_LAUNCHES - before[0] != (3 if w2 is not None else 2) \
             or apmm.LAUNCHES - before[1] != (2 if w2 is not None else 1):
         raise AssertionError(f"K1 bitserial {name}: launch counters")
@@ -678,7 +760,7 @@ def _k1_bitserial(torch, timer, name, x, a_s, w, w2, res, a_bits, act,
           f"N={w.shape[0]} K={x.shape[1]} act={act}, {route} route: cores "
           f"bit-exact to plain and fused, out equal to the fused kernel's, "
           f"max|err| {err:.3g}, {ulps} bf16 ulps (tol "
-          f"{0 if act == 'none' else 1}); {ms:.4f} ms (bound {b_ms:.4f} ms "
+          f"{ACT_TOL[act]}); {ms:.4f} ms (bound {b_ms:.4f} ms "
           f"by {b_by}, the fused row's; {100 * b_ms / ms:.1f}% of bound; "
           f"{versus_prev('K1-bs ' + name, b_ms)}; "
           f"{bitserial_split(torch, timer, run)}), fused kernel "
@@ -721,6 +803,20 @@ def k1_phase(torch, timer, seed, results):
         # 128 + 128 = 34944, K 8192, at decode and at a chunk
         ("jamba decode in_proj", 4, 34944, 8192, {}),
         ("jamba chunk in_proj", 256, 34944, 8192, {}),
+        # seamless-m4t-medium's GELU up projection at its own w4: at decode
+        # and at its encoder's 64 (the small-M route's last M) and 128
+        # frames (the tile); its lm_head (vocab 256206 padded to 256256)
+        ("seamless decode up", 4, 4096, 1024, dict(act="gelu", w_bits=4)),
+        ("seamless encoder up 64", 64, 4096, 1024,
+         dict(act="gelu", w_bits=4)),
+        ("seamless encoder up 128", 128, 4096, 1024,
+         dict(act="gelu", w_bits=4)),
+        ("seamless decode lm_head", 4, 256256, 1024, dict(w_bits=4)),
+        # qwen2-vl-7b's down projection, w2: K = 18944, weight rows of 592
+        # words, at decode and at a chunk's 256 rows; its lm_head
+        ("qwen2-vl decode down", 4, 3584, 18944, dict(residual=True)),
+        ("qwen2-vl chunk down", 256, 3584, 18944, dict(residual=True)),
+        ("qwen2-vl decode lm_head", 4, 152064, 3584, {}),
     ]
     # the bitserial variant's route edge: its stacked route's last M and
     # the rows route's first, at the decode gate/up shape
@@ -733,8 +829,9 @@ def k1_phase(torch, timer, seed, results):
         r, bs = _k1_case(torch, timer, g, name, m, n, k, cache=cache, **kw)
         results["apmm_fused_linear", name] = r
         results["apmm_fused_linear_bitserial", name] = bs
-        if name in ("decode lm_head", "jamba chunk in_proj"):
-            cache.pop((n, k, False, 2), None)
+        if name in ("decode lm_head", "jamba chunk in_proj",
+                    "seamless decode lm_head", "qwen2-vl decode lm_head"):
+            cache.pop((n, k, False, kw.get("w_bits", 2)), None)
     cache.clear()
     torch.cuda.empty_cache()
 
@@ -746,7 +843,9 @@ def _k2_inputs(torch, g, lanes, *, s_q, nb, window, h=8, group=4, d=128,
     engine reclaims them: they are not in its table), its table padded
     to ``nb`` entries with the null block 0; None is a pad lane on an
     all-null table.  Queries: each lane's last ``s_q`` positions, the GQA
-    group folded in (pad lanes -1).  Returns the kernel's arguments."""
+    group folded in (pad lanes -1); a lane that holds fewer than ``s_q``
+    has all its positions, then pads (-1) up to ``s_q``: a bucketed whole
+    prompt.  Returns the kernel's arguments."""
     from repro_torch.kernels import ops
     spans = []
     for ctx in lanes:
@@ -786,7 +885,10 @@ def _k2_inputs(torch, g, lanes, *, s_q, nb, window, h=8, group=4, d=128,
         p = torch.arange(first * bs, (first + n_blk) * bs, dtype=torch.int32,
                          device="cuda")
         pos[ids] = torch.where(p < ctx, p, -1).reshape(n_blk, bs)
-        qp = torch.arange(ctx - s_q, ctx, dtype=torch.int32, device="cuda")
+        n_q = min(s_q, ctx)
+        qp = torch.full((s_q,), -1, dtype=torch.int32, device="cuda")
+        qp[:n_q] = torch.arange(ctx - n_q, ctx, dtype=torch.int32,
+                                device="cuda")
         q_pos[row] = qp[None, :].expand(group, s_q).reshape(-1)
     q = torch.randn((len(lanes), h, group * s_q, d), generator=g,
                     device="cuda").to(torch.bfloat16)
@@ -850,7 +952,8 @@ def k2_phase(torch, timer, seed, results):
         plain = timer(run_plain, iters=3, warmup=1)
         b_ms, b_by = _k2_bound(torch, args, window, d, n_bits)
         print(f"K2 paged attention {name} B={b} lanes={list(lanes)} "
-              f"Gq={gq} (group {group}) H={h} NB={nb} window={window} d={d} "
+              f"Gq={gq} (group {group}; {int((args[-1] >= 0).sum())} live "
+              f"query rows) H={h} NB={nb} window={window} d={d} "
               f"({-(-d // 32)} words) kv8 bs=16: "
               f"{n_split} range(s) of the table (device ms: "
               f"{split_line(split)}); max|err| {err:.3g} against the {n_split}-range plain "
@@ -1324,11 +1427,13 @@ def _within(got, want):
 
 
 def _ring_case(torch, g, *, b, t, live, s, h=8, group=4, d=128, n_bits=8,
-               prefill=False):
+               prefill=False, cross=False):
     """One contiguous ring per batch row, ``live`` slots valid (positions
-    0..live-1); ``s`` query tokens per row, the GQA group folded in.
+    0..live-1; a sequence gives each row its own count, the rest of the
+    row at -1); ``s`` query tokens per row, the GQA group folded in.
     Decode: the last ``s`` positions; prefill: positions 0..live-1 then
-    pads (-1) up to ``s`` -- the bucketed prompt."""
+    pads (-1) up to ``s`` -- the bucketed prompt; cross: every query at
+    position 0 (an enc-dec cross read, not causal)."""
     from repro_torch.kernels import ops
     kv = torch.randn((2, b, t, h, d), generator=g,
                      device="cuda").to(torch.bfloat16)
@@ -1336,8 +1441,11 @@ def _ring_case(torch, g, *, b, t, live, s, h=8, group=4, d=128, n_bits=8,
     kq, ks, vq, vs = (x.contiguous() for x in (*ops.quantize_kv(
         kv[0], n_bits), *ops.quantize_kv(kv[1], n_bits)))
     pos = torch.full((b, t), -1, dtype=torch.int32, device="cuda")
-    pos[:, :live] = torch.arange(live, dtype=torch.int32, device="cuda")
-    if prefill:
+    for row, n in enumerate([live] * b if isinstance(live, int) else live):
+        pos[row, :n] = torch.arange(n, dtype=torch.int32, device="cuda")
+    if cross:
+        tok = torch.zeros((s,), dtype=torch.int32, device="cuda")
+    elif prefill:
         tok = torch.full((s,), -1, dtype=torch.int32, device="cuda")
         tok[:live] = torch.arange(live, dtype=torch.int32, device="cuda")
     else:
@@ -1350,7 +1458,7 @@ def _ring_case(torch, g, *, b, t, live, s, h=8, group=4, d=128, n_bits=8,
 
 
 def _attn_bound(torch, q_pos, kv_pos, h, d, kv_slot_bytes, io_bytes,
-                rate, window=None):
+                rate, window=None, causal=True):
     """Bytes: each live KV slot once (``kv_slot_bytes`` per (row, slot,
     head)) plus q, out and positions; operations: 4 d flops per visible
     (query, slot) pair at ``rate`` (K6: f32; K7: the bf16 tensor-core
@@ -1358,8 +1466,68 @@ def _attn_bound(torch, q_pos, kv_pos, h, d, kv_slot_bytes, io_bytes,
     from repro_torch.kernels import ref
     live = int((kv_pos >= 0).sum()) * h
     pairs = int(ref.position_mask(q_pos[:, :, None], kv_pos[:, None, :],
-                                  True, window).sum()) * h
+                                  causal, window).sum()) * h
     return bound_ms(live * kv_slot_bytes + io_bytes, 4 * d * pairs, rate)
+
+
+def _k6_check(torch, timer, results, name, args, *, h, d, n_bits,
+              causal=True, window=None):
+    """K6 at one case: within 1 bf16 ulp or 1e-5 of its plain version and
+    of the plain version of its split plan, with the split count and the
+    kernels that ran (the combine exactly when it splits); times it and
+    its plain version against its bound and records them under
+    ``name``.  Returns its output."""
+    from repro_torch.kernels import flash_attention, ref
+    q, q_pos, pos = args[0], args[5], args[6]
+    b, sq, t = q.shape[0], q.shape[2], pos.shape[1]
+    kw = dict(d=d, causal=causal, window=window)
+
+    def run():
+        return flash_attention.flash_attention_quantized(*args, **kw)
+
+    def run_plain():
+        return ref.kv_cache_attention(*args, **kw)
+
+    n_split = flash_attention.quantized_splits(b, h, sq, t)
+    got, want = run(), run_plain()
+    ok, err, ulps = _within(got, want)
+    if not ok:
+        raise AssertionError(f"K6 {name}: beyond 1 bf16 ulp and 1e-5 "
+                             f"(max |err| {err})")
+    ok, err_s, ulps_s = _within(got, ref.kv_cache_attention_split(
+        *args, splits=n_split, **kw))
+    if not ok:
+        raise AssertionError(f"K6 {name}: beyond 1 bf16 ulp and 1e-5 of "
+                             f"the {n_split}-range plain version (max "
+                             f"|err| {err_s})")
+    split = traced_split(torch, timer, run, ["attention_kernel"])
+    ran = kernel_names(split)
+    if ("combine_kernel" in ran) != (n_split > 1):
+        raise AssertionError(f"K6 {name}: {n_split} ranges planned, but "
+                             f"the kernels that ran were {ran}")
+    ms = timer(run, iters=20)
+    plain = timer(run_plain, iters=3, warmup=1)
+    io = 2 * q.numel() * 2 + q_pos.numel() * 4 + pos.numel() * 4
+    b_ms, b_by = _attn_bound(torch, q_pos, pos, h, d,
+                             2 * (n_bits * d // 8 + 4), io,
+                             F32_FLOPS_PER_S, window, causal)
+    dev = sum(split.values())
+    lives = (pos >= 0).sum(1).tolist()
+    live = lives[0] if len(set(lives)) == 1 else lives
+    print(f"K6 flash_attention_quantized {name}"
+          f"{'' if causal else ' (not causal)'} B={b} H={h} Sq={sq} T={t} "
+          f"live={live} d={d} kv{n_bits}: {n_split} range(s) of the rows' "
+          f"tiles (device ms: {split_line(split)}); max|err| {err:.3g}, max "
+          f"{ulps} bf16 ulps beyond 1e-5 (tol 1), against the "
+          f"{n_split}-range plain version {err_s:.3g}, {ulps_s} ulps; "
+          f"{ms:.4f} ms, device {dev:.4f} ms (bound {b_ms:.4f} ms by "
+          f"{b_by}, {100 * b_ms / ms:.1f}% of bound, device "
+          f"{100 * b_ms / dev:.1f}%; {versus_prev('K6 ' + name, b_ms)}), "
+          f"plain {plain:.4f} ms", flush=True)
+    results["flash_attention_quantized", name] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None)
+    return got
 
 
 def k6_k7_phase(torch, timer, seed, results):
@@ -1380,55 +1548,12 @@ def k6_k7_phase(torch, timer, seed, results):
             q_pos = q_pos7.clone()
             q_pos[3, 0] = -1                  # a fully masked query row
         b, sq = q.shape[0], q.shape[2]
-        args = (q, *planes, q_pos, pos)
-
-        def run():
-            return flash_attention.flash_attention_quantized(
-                *args, d=d, window=window)
-
-        def run_plain():
-            return ref.kv_cache_attention(*args, d=d, window=window)
-
-        n_split = flash_attention.quantized_splits(b, h, sq, pos.shape[1])
-        got, want = run(), run_plain()
-        ok, err, ulps = _within(got, want)
-        if not ok:
-            raise AssertionError(f"K6 {name}: beyond 1 bf16 ulp and 1e-5 "
-                                 f"(max |err| {err})")
-        ok, err_s, ulps_s = _within(got, ref.kv_cache_attention_split(
-            *args, splits=n_split, d=d, window=window))
-        if not ok:
-            raise AssertionError(f"K6 {name}: beyond 1 bf16 ulp and 1e-5 of "
-                                 f"the {n_split}-range plain version (max "
-                                 f"|err| {err_s})")
-        if name == "decode" and got[3, :, 0].abs().max() != 0:
-            raise AssertionError("K6: a fully masked row is not 0")
-        split = traced_split(torch, timer, run, ["attention_kernel"])
-        ran = kernel_names(split)
-        if ("combine_kernel" in ran) != (n_split > 1):
-            raise AssertionError(f"K6 {name}: {n_split} ranges planned, but "
-                                 f"the kernels that ran were {ran}")
-        ms = timer(run, iters=20)
-        plain = timer(run_plain, iters=3, warmup=1)
-        io = 2 * q.numel() * 2 + q_pos.numel() * 4 + pos.numel() * 4
-        b_ms, b_by = _attn_bound(torch, q_pos, pos, h, d,
-                                 2 * (n_bits * d // 8 + 4), io,
-                                 F32_FLOPS_PER_S, window)
-        dev = sum(split.values())
-        print(f"K6 flash_attention_quantized {name} B={b} H={h} Sq={sq} "
-              f"T={pos.shape[1]} live={int((pos[0] >= 0).sum())} d={d} "
-              f"kv{n_bits}: {n_split} range(s) of the ring's tiles (device "
-              f"ms: {split_line(split)}); max|err| {err:.3g}, max {ulps} "
-              f"bf16 ulps beyond 1e-5 (tol 1), against the {n_split}-range "
-              f"plain version {err_s:.3g}, {ulps_s} ulps; {ms:.4f} ms, "
-              f"device {dev:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-              f"{100 * b_ms / ms:.1f}% of bound, device "
-              f"{100 * b_ms / dev:.1f}%; {versus_prev('K6 ' + name, b_ms)}), "
-              f"plain {plain:.4f} ms", flush=True)
-        results["flash_attention_quantized", name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None)
+        got = _k6_check(torch, timer, results, name,
+                        (q, *planes, q_pos, pos), h=h, d=d, n_bits=n_bits,
+                        window=window)
         if name == "decode":
+            if got[3, :, 0].abs().max() != 0:
+                raise AssertionError("K6: a fully masked row is not 0")
             _k6_vs_k2(torch, q, planes, pos, q_pos, d)
         # K7 on the same K/V in bf16, folded (B*H, T, d); its decode
         # queries have no fully masked row (the prefill's pads do)
@@ -1484,8 +1609,27 @@ def k6_k7_phase(torch, timer, seed, results):
         results["flash_attention", name] = dict(
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib)
-        del q, kv, planes, args, got, want
+        del q, kv, planes, got, want
         torch.cuda.empty_cache()
+
+
+def k6_cross_phase(torch, timer, seed, results):
+    """K6 not causal at ``K6_CROSS_CASES`` (seamless-m4t-medium's
+    cross-attention reads: 16 heads, d 64, kv8, queries at position 0,
+    each lane's rows past its live ones at position -1), through
+    ``_k6_check``."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    h, d, n_bits = 16, 64, 8
+    for name, lives, sq, t in K6_CROSS_CASES:
+        # the slot rows as the paged engine gathers them: dense (B, T, H,
+        # ...), as the model hands them to the kernel
+        q, kv, planes, pos, q_pos = _ring_case(
+            torch, g, b=len(lives), t=t, live=lives, s=sq, h=h, group=1,
+            d=d, n_bits=n_bits, cross=True)
+        _k6_check(torch, timer, results, name, (q, *planes, q_pos, pos),
+                  h=h, d=d, n_bits=n_bits, causal=False)
+        del q, kv, planes
+    torch.cuda.empty_cache()
 
 
 def _k6_vs_k2(torch, q, planes, pos, q_pos, d, bs=16):
@@ -1576,11 +1720,16 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
     the config fields ``over``) on the card, then on the CPU, through the
     paged pool with the fused linear or (``contiguous``) a contiguous
     cache with the unfused linear; MoE layers record each token's top-k
-    experts on both devices.  A stateful stack's mamba layers run on
-    slot 1 of the pool's state slots."""
+    experts on both devices.  A stateful stack's mamba layers, and an
+    enc-dec model's cross caches, run on slot 1 of the pool's state
+    slots; the enc-dec encoder takes random frames (``enc_len(cfg, s)``
+    of them), the VLM random patch embeddings and ``(3, 1, s)`` positions
+    whose axes differ (height: two tokens a row; width: twice the
+    index)."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.launch.specs import enc_len
     from repro_torch.models import layers as L
     from repro_torch.models import model as M
     from repro_torch.serving import engine as E
@@ -1600,6 +1749,16 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
     toks = rng.integers(0, cfg.vocab, (1, s), dtype=np.int32)
     batch_np = dict(tokens=toks, positions=np.arange(s, dtype=np.int32)[None],
                     last_idx=np.array([s - 1], np.int32))
+    inputs, n_frames = {}, None        # the stub frontends' inputs
+    if cfg.family == "vlm":
+        p = np.arange(s, dtype=np.int32)
+        batch_np["positions"] = np.stack([p, p // 2, 2 * p])[:, None]
+        inputs["patch_embeds"] = rng.standard_normal(
+            (1, min(cfg.n_patches, s), cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        n_frames = enc_len(cfg, s)
+        inputs["frames"] = rng.standard_normal(
+            (1, n_frames, cfg.frontend_dim)).astype(np.float32)
     nb = -(-s // 16)
     tables = np.arange(1, nb + 1, dtype=np.int32)[None]
     lens = np.zeros(1, np.int32)
@@ -1627,11 +1786,14 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
             else:
                 caches = PagedKVPool(
                     cfg, nb + 1, 16, quant=quant, device=dev,
-                    n_state_slots=1 if stateful else 0).step_caches(
+                    n_state_slots=1 if stateful else 0,
+                    enc_len=n_frames).step_caches(
                         tables, lens, slots=np.ones(1, np.int32)
                         if stateful else None)
             batch = {k: torch.as_tensor(v, device=dev)
                      for k, v in batch_np.items()}
+            batch.update({k: torch.as_tensor(v, device=dev).to(
+                torch.bfloat16) for k, v in inputs.items()})
             t0 = time.time()
             logits, _ = E.prefill_step_bucketed(p, batch, caches, cfg, quant)
             out[dev] = logits.float().cpu()
@@ -1662,8 +1824,13 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
                   f"experts on the card and the CPU")
     plan = "".join("A" if cfg.layer_kind(i) == "attn" else "M"
                    for i in range(n_layers)) if stateful else ""
-    print(f"{arch} full width depth {n_layers} ({path}"
-          f"{'; layers ' + plan if plan else ''}; d_model "
+    plan = "; layers " + plan if plan else ""
+    if cfg.family == "audio":
+        plan = (f"; {cfg.enc_layers} encoder layers on {n_frames} random "
+                f"frames, the cross caches on slot 1")
+    if cfg.family == "vlm":
+        plan = "; random patch embeddings, M-RoPE axes (t, t // 2, 2 t)"
+    print(f"{arch} full width depth {n_layers} ({path}{plan}; d_model "
           f"{cfg.d_model}, vocab {cfg.vocab}, {s} tokens): card vs CPU "
           f"logits max|err| {err:.4g} "
           f"(tol 5% of max|logit| {scale:.4g}), argmax card "
@@ -1810,10 +1977,10 @@ def k6_shapes():
                                                 k_packed.shape[1]))
 
 
-def _k6_step_shapes(label, step, shapes, case) -> None:
+def _k6_step_shapes(label, step, shapes, want, case) -> None:
     """K6's shapes in a traced step and the ranges of ring tiles its C
-    entry splits each into; phase 3's case ``case`` (a ``K6_CASES`` name)
-    must be one of them."""
+    entry splits each into; phase 3's case ``case``, of (B, H, Sq, T,
+    window) ``want``, must be one of them."""
     from repro_torch.kernels import flash_attention
     seen = sorted(set(shapes), key=str)
     print(f"{label} traced {step} step(s): K6 ran {len(shapes)} times, "
@@ -1822,8 +1989,6 @@ def _k6_step_shapes(label, step, shapes, case) -> None:
               for sh in seen), flush=True)
     if case is None:
         return
-    _, ring, window = next(c for c in K6_CASES if c[0] == case)
-    want = (ring["b"], 8, 4 * ring["s"], ring["t"], window)
     if want not in seen:
         raise AssertionError(f"{label}: phase 3 times K6 at {case!r}, "
                              f"(B, H, Sq, T, window) {want}, but the traced "
@@ -1883,7 +2048,7 @@ def same_tokens(label, reqs, twin_tokens) -> None:
 
 def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
                 n_blocks, per_dispatch, n_pack=None, variant="fused",
-                twin_tokens=None, params=None, n_layers=None):
+                twin_tokens=None, params=None, n_layers=None, k1_ms=None):
     """Serve ``arch`` at full width and depth (``n_layers``: its first
     that many layers), end to end: load and
     quantize on the card (or serve ``params``, a fused path's quantized
@@ -1899,7 +2064,14 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     (each dispatch of ``tokens (B, S)`` runs its linears at M = B·S and
     its lm_head at M = B; a stateful stack's mixed step is one decode
     dispatch and one B=1 dispatch per chunk lane; tied embeddings run
-    the logits as a bf16 matmul, not K1).  ``variant="bitserial"`` serves the same
+    the logits as a bf16 matmul, not K1).  ``k1_ms(tokens, frames)``,
+    where a dispatch's K1 launches vary with its kind (an enc-dec
+    prefill runs the encoder and the cross K/V projections at M = the
+    frames, a decode neither), gives the M of each K1 launch of a
+    dispatch instead of ``per_dispatch``'s K1 entry.  A family that
+    prefills whole prompts (vlm, audio) has its ``chunk_tokens``
+    dropped by the engine; its traced prefill step is an admitting
+    step.  ``variant="bitserial"`` serves the same
     weights through the bitserial kernels: the fused GEMM counters must
     stay 0 and the tokens must equal ``twin_tokens``, the fused run's.
     Every GEMM counter not in ``per_dispatch`` must stay 0.  Weights and
@@ -1924,13 +2096,22 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     forward, n_dispatch, n_small = M.forward, [0], [0]
     # K1's small-M route is the fused variant's
     thr = apmm.small_m_max() if variant == "fused" else 0
-    head = 0 if cfg.tie_embeddings else 1        # the lm_head's K1 launch
-    n_body = per_dispatch[k1] - head
+    if k1_ms is None:
+        head = 0 if cfg.tie_embeddings else 1    # the lm_head's K1 launch
+        n_body = per_dispatch[k1] - head
+
+        def k1_ms(tokens, frames):
+            return [tokens.numel()] * n_body + [tokens.shape[0]] * head
+    # the launches the dispatches must make, summed over the dispatches
+    want = dict.fromkeys(list(per_dispatch) + [k1], 0)
 
     def counting_forward(params, tokens, *a, **kw):
         n_dispatch[0] += 1
-        n_small[0] += n_body * (tokens.numel() <= thr) \
-            + head * (tokens.shape[0] <= thr)
+        ms = k1_ms(tokens, kw.get("frames"))
+        for name, per in per_dispatch.items():
+            want[name] += per if name != k1 else 0
+        want[k1] += len(ms)
+        n_small[0] += sum(m <= thr for m in ms)
         return forward(params, tokens, *a, **kw)
 
     t_path = time.time()
@@ -1948,6 +2129,9 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
         eng = E.Engine(params, cfg, n_slots=4, max_len=max_len, quant=quant,
                        paged=True, block_size=16, n_blocks=n_blocks,
                        chunk_tokens=256)
+        if (eng.chunk_tokens is None) != (cfg.family in ("vlm", "audio")):
+            raise AssertionError(f"{label}: chunk_tokens "
+                                 f"{eng.chunk_tokens} for {cfg.family}")
         rng = np.random.default_rng(seed)
         shared = rng.integers(0, cfg.vocab, (prefix,), dtype=np.int32)
 
@@ -1979,15 +2163,24 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
                 and len(step_ms["prefill"]) == 1)
             if traced:
                 n0, tp = sum(len(r.out) for r in reqs), time.time()
-                step = "chunk" if kind == "prefill" else "decode"
-                with k4_rows() as rows_seen, k2_shapes() as k2_seen:
+                step = "decode" if kind == "decode" else (
+                    "chunk" if eng.chunk_tokens else "admitting")
+                with k4_rows() as rows_seen, k2_shapes() as k2_seen, \
+                        k6_shapes() as k6_seen:
                     step_prof = profile_steps(
-                        torch, eng, 1 if step == "chunk" else 3, kind=step)
+                        torch, eng, 3 if step == "decode" else 1, kind=step)
                 if k2_seen:
                     _k2_step_shapes(label, step, k2_seen,
                                     K2_STEP.get(arch) if step == "decode"
                                     else None)
-                if step == "chunk":
+                if k6_seen:
+                    case = K6_PATH_STEP.get(arch) if step == "decode" \
+                        else None
+                    _k6_step_shapes(label, step, k6_seen, next(
+                        ((len(lives), 16, sq, t, None)
+                         for n, lives, sq, t in K6_CROSS_CASES
+                         if n == case), None), case)
+                if step != "decode":
                     chunk_traced = True
                 else:
                     prof = step_prof
@@ -2018,21 +2211,23 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
             or rep.get("used_state_slots"):
         raise AssertionError(f"pool did not drain: {rep}")
     eng.pool.validate(check_contents=True)
-    if stateful and rep["prefix_hits"]:
-        raise AssertionError(f"{label}: a stateful stack hit the prefix "
-                             f"cache {rep['prefix_hits']} times")
-    if not stateful and rep["prefix_hits"] < 1:
+    # stateful stacks (SSM and hybrid state, enc-dec cross caches) and
+    # VLMs keep the prefix cache off
+    if not eng.pool.prefix_cache and rep["prefix_hits"]:
+        raise AssertionError(f"{label}: the prefix cache is off, but hit "
+                             f"{rep['prefix_hits']} times")
+    if eng.pool.prefix_cache and rep["prefix_hits"] < 1:
         raise AssertionError(f"the shared {prefix}-token prefix never hit")
     if cfg.window is not None and rep["window_reclaimed"] < 1:
         raise AssertionError("no block fell out of the window")
     nd = n_dispatch[0]
-    for name, per in per_dispatch.items():
-        if counts[name] != per * nd or counts[name] <= 0:
+    for name, w in want.items():
+        if counts[name] != w or counts[name] <= 0:
             raise AssertionError(f"{label}: kernel {name} launched "
                                  f"{counts[name]} times in {nd} dispatches, "
-                                 f"not {per} per dispatch")
+                                 f"not the {w} they make")
     for name in GEMMS:
-        if name not in per_dispatch and counts[name]:
+        if name not in want and counts[name]:
             raise AssertionError(f"{label}: kernel {name} launched "
                                  f"{counts[name]} times, not 0")
     if small_m != n_small[0] or (variant == "fused" and not
@@ -2051,10 +2246,12 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     counts = {k: v for k, v in counts.items() if v}
     load = (f"load+quantize {t_load:.2f} s" if loaded else
             "the fused path's quantized weights")
-    print(f"end to end {label} {cfg.n_layers}L w{quant.w_bits}/"
+    print(f"end to end {label} {cfg.n_layers}L"
+          f"{f' (+{cfg.enc_layers} encoder)' if cfg.enc_layers else ''} "
+          f"w{quant.w_bits}/"
           f"a{quant.a_bits}{'/kv8' if eng.pool.needs_blocks else ''} "
-          f"paged bs=16 "
-          f"chunk=256: {load}; {len(reqs)} requests "
+          f"paged bs=16 chunk_tokens=256 requested, "
+          f"{eng.chunk_tokens} served: {load}; {len(reqs)} requests "
           f"(prompts {[len(r.prompt) for r in reqs]}, prefix hit tokens "
           f"{rep['prefix_hit_tokens']}, window-reclaimed blocks "
           f"{rep['window_reclaimed']}"
@@ -2153,8 +2350,12 @@ def serve_contiguous_phase(torch, seed, *, n_layers, per_dispatch, n_pack,
                         admit_traced = True
                     else:
                         prof = profile_steps(torch, eng, 3)
+                ring, window = next((c[1], c[2]) for c in K6_CASES
+                                    if c[0] == K6_STEP)
                 _k6_step_shapes(label, "admitting" if kind == "prefill"
                                 else "decode", k6_seen,
+                                (ring["b"], 8, 4 * ring["s"], ring["t"],
+                                 window),
                                 K6_STEP if kind == "decode" else None)
                 t_prof += time.time() - tp
                 tok_prof += sum(len(r.out) for r in reqs) - n0
@@ -2256,6 +2457,7 @@ def main() -> int:
     k7_before = flash_attention.FLOAT_LAUNCHES
     k6_k7_phase(torch, timer, args.seed, results)
     k7_launches = flash_attention.FLOAT_LAUNCHES - k7_before
+    k6_cross_phase(torch, timer, args.seed, results)
     norm_phase(torch, timer, args.seed)
     print(f"kernels and the norm checked at {time.time() - t_start:.1f} s",
           flush=True)
@@ -2276,6 +2478,12 @@ def main() -> int:
     shallow_phase(torch, args.seed, "mamba2-130m", n_layers=2, s=24)
     shallow_phase(torch, args.seed, "jamba-1.5-large-398b", n_layers=2, s=8,
                   attn_every=2)
+    # seamless: 2 encoder layers on random frames, 2 decoder layers with
+    # cross-attention, the cross caches on slot 1; qwen2-vl: random patch
+    # embeddings and M-RoPE positions whose axes differ
+    shallow_phase(torch, args.seed, "seamless-m4t-medium", n_layers=2, s=24,
+                  enc_layers=2)
+    shallow_phase(torch, args.seed, "qwen2-vl-7b", n_layers=2, s=24)
     print(f"card vs CPU forwards done at {time.time() - t_start:.1f} s",
           flush=True)
     # each path, then its bit-serial twin: the same quantized weights
@@ -2347,6 +2555,37 @@ def main() -> int:
             per_dispatch={"apmm_packed_bitserial": 7 * nl + 1,
                           "flash_attention_quantized": nl,
                           "quantize_pack_rows": 7 * nl + 1}, **contiguous_kw)
+    # qwen2-vl-7b at SERVE_LAYERS's depth, w2/a8/kv8, M-RoPE positions,
+    # whole-prompt prefill: K1 6 a layer + the lm_head, K2 one a layer;
+    # K3 at load 7 a layer + the lm_head
+    nq = SERVE_LAYERS["qwen2-vl-7b"]
+    pair("qwen2-vl-7b", {"apmm_fused_linear": 6 * nq + 1,
+                         "paged_attention": nq},
+         n_pack=7 * nq + 1, **llama_kw)
+    # seamless-m4t-medium at full depth, w4/a8/kv8, whole-prompt prefill:
+    # a decoder layer's K1 self q, k, v, o, cross q, o, GELU up and down
+    # at M = the dispatch's tokens; a prefill (frames given) adds the
+    # frontend and the 12 encoder layers' 6 each, and the cross k and v
+    # of each decoder layer, at M = the frames; the lm_head at M = B.  K2
+    # (self) and K6 (the cross read, not causal) once a decoder layer
+    # either way.  K3 at load: 6 a decoder layer, 4 a cross-attention,
+    # the frontend, 6 an encoder layer, the lm_head
+    from repro_torch.configs import get_config
+    scfg = get_config("seamless-m4t-medium")
+    nl_dec, nl_enc = scfg.n_layers, scfg.enc_layers
+
+    def seamless_k1(tokens, frames):
+        b, s = tokens.shape
+        ms = [b * s] * (8 * nl_dec)
+        if frames is not None:
+            t = frames.shape[0] * frames.shape[1]
+            ms += [t] * (2 * nl_dec + 1 + 6 * nl_enc)
+        return ms + [b]
+
+    pair("seamless-m4t-medium", {"paged_attention": nl_dec,
+                                 "flash_attention_quantized": nl_dec},
+         k1_ms=seamless_k1,
+         n_pack=6 * nl_dec + 4 * nl_dec + 1 + 6 * nl_enc + 1, **llama_kw)
     for arch, c in paths.items():
         print(f"kernels ({arch} path): "
               + ", ".join(f"{k}={v}" for k, v in c.items()), flush=True)

@@ -17,14 +17,20 @@ on ``device``:
   layer's leaves as they are: a mamba mixer's f32 ``A_log``/``D``/
   ``dt_bias``/``norm_scale``, bf16 ``conv_w``/``conv_b`` and packed
   ``in_proj``/``out_proj``;
+* an enc-dec model's ``encoder`` (its frontend, its stacked ``blocks``
+  -> ``layers``, one entry per encoder layer, and its final norm) and its
+  stacked ``cross`` (``n_units * unit_len`` entries: decoder layer ``j``
+  after the prelude takes entry ``j``, the order of the reference's
+  ``_restack_cross``) unstack the same way;
 * packed uint32 words are viewed as int32 (same bits);
 * bfloat16 arrays (numpy's ``bfloat16`` extension dtype) are viewed bit
   for bit as ``torch.bfloat16``.
 
 :func:`caches_from_numpy` and :func:`caches_to_numpy` carry the
 reference's contiguous decode-cache tree (``prelude`` list, stacked
-``blocks``, uint32 planes; a mamba layer's ``conv``/``state`` rows) to
-the port's per-layer list and back.
+``blocks``, uint32 planes; a mamba layer's ``conv``/``state`` rows; an
+enc-dec model's ``cross`` list of stacked caches) to the port's
+per-layer lists and back.
 
 It never imports jax: the tests hand it numpy arrays.
 """
@@ -97,6 +103,16 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
               "layers": _layers_from_tree(tree, cfg, dev)}
     if "lm_head" in tree:
         params["lm_head"] = from_numpy_tree(tree["lm_head"], dev)
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        params["encoder"] = {
+            "frontend": from_numpy_tree(enc["frontend"], dev),
+            "layers": [from_numpy_tree(_unit(enc["blocks"], u), dev)
+                       for u in range(cfg.enc_layers)],
+            "final_norm": from_numpy_tree(enc["final_norm"], dev)}
+    if "cross" in tree:
+        params["cross"] = [from_numpy_tree(_unit(tree["cross"], j), dev)
+                           for j in range(cfg.n_layers - cfg.first_dense)]
     return params
 
 
@@ -115,10 +131,18 @@ def _layers_from_tree(tree: dict, cfg: ModelConfig, dev) -> list:
 
 def caches_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
     """The reference's contiguous cache tree (numpy leaves: ``prelude``
-    layer dicts, ``blocks`` dicts whose leaves lead with the unit axis)
-    -> the port's ``{"layers": [one dict per layer]}``."""
+    layer dicts, ``blocks`` dicts whose leaves lead with the unit axis,
+    an enc-dec model's ``cross`` list laid out as ``blocks``) -> the
+    port's ``{"layers": [one dict per layer], "cross": [one dict per
+    decoder layer after the prelude]}``."""
     check_supported(cfg)
-    return {"layers": _layers_from_tree(tree, cfg, resolve_device(device))}
+    dev = resolve_device(device)
+    out = {"layers": _layers_from_tree(tree, cfg, dev)}
+    if "cross" in tree:
+        _, unit, n_units = plan_split(cfg)
+        out["cross"] = [from_numpy_tree(_unit(tree["cross"][i], u), dev)
+                        for u in range(n_units) for i in range(len(unit))]
+    return out
 
 
 def _to_numpy(key: str, t: torch.Tensor) -> np.ndarray:
@@ -140,10 +164,17 @@ def caches_to_numpy(caches: dict, cfg: ModelConfig) -> dict:
     layers = [{k: _to_numpy(k, v) for k, v in c.items()}
               for c in caches["layers"]]
     fd, ul = len(prelude), len(unit)
-    out = {"blocks": [
-        {k: np.stack([layers[fd + u * ul + i][k] for u in range(n_units)])
-         for k in layers[fd + i]}
-        for i in range(ul)]}
+
+    def stack(dicts, off):
+        return [{k: np.stack([dicts[off + u * ul + i][k]
+                              for u in range(n_units)])
+                 for k in dicts[off + i]}
+                for i in range(ul)]
+
+    out = {"blocks": stack(layers, fd)}
     if fd:
         out["prelude"] = layers[:fd]
+    if "cross" in caches:
+        out["cross"] = stack([{k: _to_numpy(k, v) for k, v in c.items()}
+                              for c in caches["cross"]], 0)
     return out

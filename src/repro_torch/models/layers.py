@@ -1,6 +1,7 @@
-"""Layers of the dense and MoE decoders, in torch: linear, embedding,
-norm, RoPE, GQA attention over the paged pool or a contiguous cache,
-SwiGLU/GELU MLP, and the top-k capacity-dispatched MoE.
+"""Layers of the decoders and the enc-dec model, in torch: linear,
+embedding, norm, RoPE and M-RoPE, GQA attention over the paged pool or a
+contiguous cache, cross-attention, SwiGLU/GELU MLP, and the top-k
+capacity-dispatched MoE.
 
 A port of the attention, MLP and MoE layers of the reference
 ``repro.models.layers``, with
@@ -18,6 +19,10 @@ planes, scattered into the request's blocks and read back through
 contiguous per-row ring cache (packed planes read through
 :func:`repro_torch.kernels.ops.ring_kv_cache_attention`, or float K/V
 through :func:`_attn_core`), or on the sequence itself with no cache.
+Positions are ``(B, S)``, or ``(3, B, S)`` for qwen2-vl's M-RoPE.  The
+enc-dec decoder's cross-attention (:func:`cross_attention_apply`) reads
+the projected encoder memory from its own cache, a slot of the pool's
+state slots when paged, through the same packed-KV kernel.
 Quantized experts run through the grouped expert GEMM
 (:func:`repro_torch.kernels.ops.ap_moe_expert_linear`, two launches per
 MoE layer).
@@ -35,7 +40,7 @@ import torch.nn.functional as F
 from repro_torch.core import bipolar
 from repro_torch.core.bipolar import BipolarTensor
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import apply_act, silu_f32
+from repro_torch.kernels.ref import apply_act, f32, fma_f32, silu_f32
 from repro_torch.models.config import ModelConfig
 
 # attention switches to online-softmax KV chunking above this length
@@ -144,20 +149,6 @@ def _row_sum(t: torch.Tensor) -> torch.Tensor:
     return _serial_sum(t)[..., None]
 
 
-def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
-    """f32 ``a * b + c`` rounded once: the f32 product is exact in f64;
-    the f64 sum rounds before the f32 cast only where its exact value
-    needs more than 53 bits, and then lands on an f32 midpoint in ~2^-29
-    of such cases."""
-    a64 = a.double()
-    b64 = b.double() if torch.is_tensor(b) else b
-    c64 = c.double() if torch.is_tensor(c) else c
-    return (a64 * b64 + c64).float()
-
-
-def _f32(v: float) -> float:
-    return torch.tensor(v, dtype=torch.float32).item()
-
 
 _RSQRT_EST: dict = {}
 
@@ -189,32 +180,32 @@ def _rsqrt(v: torch.Tensor) -> torch.Tensor:
     (-y / 2) * (v y y - 1)`` with FMAs."""
     y = _rsqrt_estimate(v)
     for _ in range(2):
-        y = _fma(y * -0.5, _fma(v * y, y, -1.0), y)
+        y = fma_f32(y * -0.5, fma_f32(v * y, y, -1.0), y)
     return y
 
 
 def rms_normalize(xf: torch.Tensor, scale, eps: float) -> torch.Tensor:
     """f32 ``xf * rsqrt(mean(xf^2) + eps) * scale`` over the last axis,
     in XLA:CPU's steps (the RMSNorm, and mamba2's gated norm)."""
-    ms = _fma(_row_sum(torch.square(xf)), _f32(1.0 / xf.shape[-1]),
-              _f32(eps))
+    ms = fma_f32(_row_sum(torch.square(xf)), f32(1.0 / xf.shape[-1]),
+                 f32(eps))
     return xf * _rsqrt(ms) * scale
 
 
 def norm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig):
     xf = x.float()
     if cfg.norm_type == "layernorm":
-        inv_d = _f32(1.0 / xf.shape[-1])
+        inv_d = f32(1.0 / xf.shape[-1])
         xc = xf - _row_sum(xf) * inv_d
-        var = _fma(_row_sum(torch.square(xc)), inv_d, _f32(cfg.norm_eps))
-        y = _fma(xc * _rsqrt(var), params["scale"], params["bias"])
+        var = fma_f32(_row_sum(torch.square(xc)), inv_d, f32(cfg.norm_eps))
+        y = fma_f32(xc * _rsqrt(var), params["scale"], params["bias"])
     else:
         y = rms_normalize(xf, params["scale"], cfg.norm_eps)
     return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
-# RoPE (standard / partial rotary)
+# RoPE (standard / partial rotary / M-RoPE)
 # ---------------------------------------------------------------------------
 
 _INV_FREQ: dict = {}
@@ -241,18 +232,34 @@ def _rope_angles(positions: torch.Tensor, rot_dim: int, theta: float):
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
-    """Rotary embedding on ``x (B, S, H, D)`` at ``positions (B, S)``; only
-    the leading ``rope_pct`` fraction of D rotates."""
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet "
-                                  "(ROADMAP queue 1, item 7)")
+    """Rotary embedding on ``x (B, S, H, D)``.
+
+    ``positions``: ``(B, S)``, or ``(3, B, S)`` for M-RoPE (qwen2-vl):
+    the rotary half splits into the (temporal, height, width) sections
+    of ``cfg.mrope_sections``, each section's frequencies turned by its
+    own axis's positions.  Only the leading ``rope_pct`` fraction of D
+    rotates."""
     d = x.shape[-1]
     rot = int(d * cfg.rope_pct)
     rot -= rot % 2
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     half = rot // 2
-    cos, sin = _rope_angles(positions, rot, cfg.rope_theta)
-    cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    if cfg.mrope_sections is not None:
+        assert positions.ndim == 3, "M-RoPE needs (3, B, S) positions"
+        sec = cfg.mrope_sections
+        assert sum(sec) == half, (sec, half)
+        cos_parts, sin_parts = [], []
+        lo = 0
+        for axis, width in enumerate(sec):
+            c, s = _rope_angles(positions[axis], rot, cfg.rope_theta)
+            cos_parts.append(c[..., lo:lo + width])
+            sin_parts.append(s[..., lo:lo + width])
+            lo += width
+        cos = torch.cat(cos_parts, -1)[:, :, None, :]
+        sin = torch.cat(sin_parts, -1)[:, :, None, :]
+    else:
+        cos, sin = _rope_angles(positions, rot, cfg.rope_theta)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     xf1, xf2 = x_rot[..., :half].float(), x_rot[..., half:].float()
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin],
                     dim=-1).to(x.dtype)
@@ -260,7 +267,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA, causal, sliding-window; paged, contiguous ring, none)
+# Attention (GQA, causal, sliding-window; paged, contiguous ring, none;
+# enc-dec cross-attention)
 # ---------------------------------------------------------------------------
 
 def attention_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
@@ -331,7 +339,8 @@ def _attn_core(q, k, v, q_pos, kv_pos, *, causal: bool,
     return acc / torch.clamp(lsum, min=1e-20)
 
 
-def _paged_write_and_read(cache, qg, qp, k, v, pos2d, cfg: ModelConfig):
+def _paged_write_and_read(cache, qg, qp, k, v, pos2d, cfg: ModelConfig,
+                          causal: bool):
     """The paged branch: scatter the step's K/V into the block pool and
     attend through the block table with the grouped queries ``qg (B, Hk,
     G*s, d)`` at ``qp (B, G*s)``.  Returns ``(o (B, Hk, G*s, d),
@@ -384,7 +393,7 @@ def _paged_write_and_read(cache, qg, qp, k, v, pos2d, cfg: ModelConfig):
     write("pos", pos2d)
     o = ops.paged_kv_cache_attention(
         qg, cache["k"], cache["k_scale"], cache["v"], cache["v_scale"],
-        cache["pos"], bt, qp, d=cfg.head_dim, causal=cfg.causal,
+        cache["pos"], bt, qp, d=cfg.head_dim, causal=causal,
         window=cfg.window)
     return o, cache
 
@@ -404,8 +413,12 @@ def _ring_write(cache: dict, key: str, new: torch.Tensor,
 
 def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, cache: Optional[dict] = None,
+                    causal: Optional[bool] = None,
                     quant=None, residual: Optional[torch.Tensor] = None):
-    """GQA attention of ``x (B, S, d_model)`` at ``positions (B, S)``.
+    """GQA attention of ``x (B, S, d_model)`` at ``positions (B, S)``, or
+    ``(3, B, S)`` for M-RoPE: those rotate q and k, and their axis 1 (the
+    height axis, as the reference takes ``positions[ndim - 2]``) is the
+    position that masks and tags the cache.
 
     * paged (``cache`` holds ``block_tables``): the step's K/V land in
       the block pool and attention reads through the table
@@ -420,19 +433,22 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     * no cache: self-attention over the sequence.
 
     Caches are updated in place (the reference returns new arrays); the
-    returned dict carries the new ``index``.  ``residual`` (the block
-    input) is fused into the output projection's epilogue.  Returns
-    ``(out, cache)``."""
+    returned dict carries the new ``index``.  ``causal`` overrides
+    ``cfg.causal`` (the enc-dec encoder's self-attention is not causal).
+    ``residual`` (the block input) is fused into the output projection's
+    epilogue.  Returns ``(out, cache)``."""
     b, s, _ = x.shape
     h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // hk
-    pos2d = positions
+    causal = cfg.causal if causal is None else causal
+    pos2d = positions[positions.ndim - 2] if positions.ndim == 3 \
+        else positions
 
     q = linear_apply(params["wq"], x, quant=quant).reshape(b, s, h, dh)
     k = linear_apply(params["wk"], x, quant=quant).reshape(b, s, hk, dh)
     v = linear_apply(params["wv"], x, quant=quant).reshape(b, s, hk, dh)
-    q = apply_rope(q, pos2d, cfg)
-    k = apply_rope(k, pos2d, cfg)
+    q = apply_rope(q, positions, cfg)
+    k = apply_rope(k, positions, cfg)
     # fold the GQA group into the query-sequence axis: (B, Hkv, G*S, D)
     qg = q.reshape(b, s, hk, g, dh).permute(0, 2, 3, 1, 4).reshape(
         b, hk, g * s, dh)
@@ -442,7 +458,7 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     quant_kv = None
     if cache is not None and "block_tables" in cache:
         o, new_cache = _paged_write_and_read(cache, qg, qp, k, v, pos2d,
-                                             cfg)
+                                             cfg, causal)
     else:
         if cache is not None:
             kv_bits = cache["k"].shape[-2] if "k_scale" in cache else None
@@ -490,7 +506,7 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             # ops.kv_cache_attention; the ring op computes the same on the
             # cache's own layout, so no step copies the ring
             o = ops.ring_kv_cache_attention(
-                qg, *quant_kv, qp, kv_pos, d=dh, causal=cfg.causal,
+                qg, *quant_kv, qp, kv_pos, d=dh, causal=causal,
                 window=cfg.window)
         else:
             # decode (s == 1) is a skinny GEMV -- direct; long prefill
@@ -498,7 +514,7 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             # score transient
             chunked = s > 1 and k.shape[1] > ATTN_CHUNK_THRESHOLD
             o = _attn_core(qg, k.transpose(1, 2), v.transpose(1, 2), qp,
-                           kv_pos, causal=cfg.causal, window=cfg.window,
+                           kv_pos, causal=causal, window=cfg.window,
                            chunked=chunked, score_bf16=cfg.attn_score_bf16)
     o = o.reshape(b, hk, g, s, dh).permute(0, 3, 1, 2, 4).reshape(
         b, s, h * dh).to(x.dtype)
@@ -542,6 +558,150 @@ def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["v"] = torch.zeros(shape + (cfg.head_dim,), dtype=_dtype(cfg),
                                  device=device)
     return cache
+
+
+def make_cross_cache(cfg: ModelConfig, batch: int, enc_len: int,
+                     kv_bits: Optional[int] = None, device="cuda") -> dict:
+    """One decoder layer's enc-dec cross-K/V cache: the projected encoder
+    memory, replayed every decode step, ``enc_len`` rows a request.  With
+    ``kv_bits`` (default ``cfg.kv_bits``) packed bipolar planes ``(batch,
+    enc_len, H, kv_bits, ceil(D/32))`` int32 + per-(token, head) f32
+    scales, the self-attention cache's format; otherwise K/V in the
+    model's dtype.  Positions start at -1 (empty): an empty row is
+    masked."""
+    kv_bits = cfg.kv_bits if kv_bits is None else kv_bits
+    shape = (batch, enc_len, cfg.n_kv_heads)
+    cache = {"pos": torch.full((batch, enc_len), -1, dtype=torch.int32,
+                               device=device)}
+    if kv_bits:
+        assert 1 <= kv_bits <= 8, f"kv_bits={kv_bits} outside 1..8"
+        packed = shape + (kv_bits, bipolar.packed_words(cfg.head_dim))
+        for key in ("k", "v"):
+            cache[key] = torch.zeros(packed, dtype=torch.int32,
+                                     device=device)
+            cache[key + "_scale"] = torch.zeros(
+                shape + (1,), dtype=torch.float32, device=device)
+    else:
+        for key in ("k", "v"):
+            cache[key] = torch.zeros(shape + (cfg.head_dim,),
+                                     dtype=_dtype(cfg), device=device)
+    return cache
+
+
+def _write_cross_slots(cache: dict, ck, cks, cv, cvs, kv_pos) -> dict:
+    """Write one batch's projected, packed cross-K/V into its slot-pool
+    rows, in place.  ``cache`` leaves are ``(rows, cap, ...)`` with
+    ``slots (B,)`` ids (-1 = a pad lane, whose write is dropped).  Rows
+    are written full width: the slots past the batch's encoder length
+    ``t`` get position -1 and stay masked, so a reused slot cannot leak
+    a freed request's memory."""
+    slots = cache["slots"]
+    cap = cache["k"].shape[1]
+    t = ck.shape[1]
+    safe = torch.clamp(slots, 0, cache["k"].shape[0] - 1).long()
+    keep = slots >= 0
+
+    def write(key, new, fill=0):
+        buf = cache[key]
+        full = torch.full((new.shape[0], cap) + tuple(new.shape[2:]), fill,
+                          dtype=buf.dtype, device=buf.device)
+        full[:, :t] = new.to(buf.dtype)
+        k = keep.reshape(keep.shape + (1,) * (full.ndim - 1))
+        # a pad lane writes row 0 back with its own contents (a masked
+        # select would need a host sync; no real lane owns row 0)
+        buf[safe] = torch.where(k, full, buf[0])
+
+    for key, new in (("k", ck), ("k_scale", cks), ("v", cv),
+                     ("v_scale", cvs)):
+        write(key, new)
+    write("pos", kv_pos, -1)
+    return cache
+
+
+def cross_attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                          *, memory: Optional[torch.Tensor] = None,
+                          cache: Optional[dict] = None, quant=None,
+                          residual: Optional[torch.Tensor] = None):
+    """Enc-dec cross-attention of ``x (B, S, d_model)`` (no RoPE, not
+    causal: every query row sees every encoder row).
+
+    Prefill: ``memory (B, T, d)`` given -> project K/V from it and fill
+    ``cache`` if one is given.  With a packed cache (``k_scale`` present)
+    K/V are quantized and the prefill attends through the planes too,
+    so every position sees decode's precision.  Decode: ``memory=None``
+    -> replay the cached K/V (the encoder does not run again).
+
+    Paged serving hands the cache as slot-pool rows: leaves ``(n_slots +
+    1, cap, ...)`` and ``slots (B,)`` mapping lanes to rows (row 0 the
+    null slot, -1 a pad lane).  Prefill writes this batch's rows in place
+    (:func:`_write_cross_slots`); decode gathers them, a pad lane the
+    null row, whose positions stay -1 (fully masked: it contributes 0).
+    Packed reads run K6 (:func:`repro_torch.kernels.ops
+    .ring_kv_cache_attention`, ``causal=False``, no window), float reads
+    :func:`_attn_core`.  A contiguous cache's leaves are replaced by the
+    prefill's, as the reference does.  ``residual`` (the block input) is
+    fused into the output projection.  Returns ``(out, cache)``."""
+    b, s, _ = x.shape
+    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    g = h // hk
+    slotted = cache is not None and "slots" in cache
+    q = linear_apply(params["wq"], x, quant=quant).reshape(b, s, h, dh)
+    qg = q.reshape(b, s, hk, g, dh).permute(0, 2, 3, 1, 4).reshape(
+        b, hk, g * s, dh)
+    qp = torch.zeros((b, g * s), dtype=torch.int32, device=x.device)
+    quant_kv = None             # (k, k_scale, v, v_scale) packed planes
+    new_cache = cache
+    if memory is not None:
+        t = memory.shape[1]
+        k = linear_apply(params["wk"], memory, quant=quant).reshape(
+            b, t, hk, dh)
+        v = linear_apply(params["wv"], memory, quant=quant).reshape(
+            b, t, hk, dh)
+        kv_pos = torch.arange(t, dtype=torch.int32,
+                              device=x.device)[None].repeat(b, 1)
+        if cache is not None:
+            if "k_scale" in cache:
+                kv_bits = cache["k"].shape[-2]
+                ck, cks = ops.quantize_kv(k, kv_bits)
+                cv, cvs = ops.quantize_kv(v, kv_bits)
+                quant_kv = (ck, cks, cv, cvs)
+                if slotted:
+                    new_cache = _write_cross_slots(cache, ck, cks, cv, cvs,
+                                                   kv_pos)
+                else:
+                    new_cache = dict(cache, k=ck, v=cv, k_scale=cks,
+                                     v_scale=cvs, pos=kv_pos)
+            else:
+                assert not slotted, \
+                    "slot-pool cross caches store packed planes: the " \
+                    "paged engine requires kv_bits for audio archs"
+                new_cache = dict(cache, k=k.to(cache["k"].dtype),
+                                 v=v.to(cache["v"].dtype), pos=kv_pos)
+    else:
+        assert cache is not None, "cross decode needs a filled cross cache"
+        if slotted:
+            safe = torch.clamp(cache["slots"], 0,
+                               cache["k"].shape[0] - 1).long()
+            quant_kv = (cache["k"][safe], cache["k_scale"][safe],
+                        cache["v"][safe], cache["v_scale"][safe])
+            kv_pos = cache["pos"][safe]
+        elif "k_scale" in cache:
+            quant_kv = (cache["k"], cache["k_scale"], cache["v"],
+                        cache["v_scale"])
+            kv_pos = cache["pos"]
+        else:
+            k, v, kv_pos = cache["k"], cache["v"], cache["pos"]
+    if quant_kv is not None:
+        o = ops.ring_kv_cache_attention(qg, *quant_kv, qp, kv_pos, d=dh,
+                                        causal=False, window=None)
+    else:
+        chunked = s > 1 and k.shape[1] > ATTN_CHUNK_THRESHOLD
+        o = _attn_core(qg, k.transpose(1, 2), v.transpose(1, 2), qp, kv_pos,
+                       causal=False, window=None, chunked=chunked)
+    o = o.reshape(b, hk, g, s, dh).permute(0, 3, 1, 2, 4).reshape(
+        b, s, h * dh).to(x.dtype)
+    return linear_apply(params["wo"], o, quant=quant,
+                        residual=residual), new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,23 +1,30 @@
-"""Model assembly of the dense, MoE, SSM and hybrid decoders, in torch.
+"""Model assembly of the decoders (dense, MoE, SSM, hybrid, the VLM
+backbone) and the enc-dec model, in torch.
 
-A port of the decoder path of the reference ``repro.models.model``: the
-layer plan, parameter init, the block (a pre-norm mixer -- attention,
-with the residual fused into the quantized output projection, or the
-Mamba-2 mixer of :mod:`repro_torch.models.ssm` -- then a dense MLP, a
-MoE or, for mamba2, nothing), the decode caches, the forward pass over
-the paged pool or a contiguous cache as a Python loop over layers, the
-logits, and serving-time quantization (:func:`quantize_params`).
+A port of the reference ``repro.models.model``: the layer plan,
+parameter init, the block (a pre-norm mixer -- attention, with the
+residual fused into the quantized output projection, or the Mamba-2
+mixer of :mod:`repro_torch.models.ssm` -- then, in an enc-dec decoder,
+cross-attention over the encoder's memory, then a dense MLP, a MoE or,
+for mamba2, nothing), the audio encoder (:func:`encode_frames`), the
+decode caches, the forward pass over the paged pool or a contiguous
+cache as a Python loop over layers, the logits, and serving-time
+quantization (:func:`quantize_params`).
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``layers`` (a
 list with one dict per layer, the prelude's leading dense layers first;
 the reference keeps those in ``prelude`` and stacks the rest for
-``lax.scan``) and ``lm_head``.  Entry points take an explicit ``device``
-and default to the card: they raise when none is present and never run
-on the CPU unless asked.
+``lax.scan``) and ``lm_head``; an enc-dec model adds ``encoder``
+(``frontend``, ``layers``: one block per encoder layer, ``final_norm``)
+and ``cross`` (one ``{attn, norm}`` per decoder layer after the
+prelude).  Entry points take an explicit ``device`` and default to the
+card: they raise when none is present and never run on the CPU unless
+asked.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional
 
 import torch
@@ -66,15 +73,17 @@ def plan_split(cfg: ModelConfig):
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port covers the decoders: dense, MoE, SSM and hybrid (an
-    attention or mamba mixer, then a dense, MoE or no FFN)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or any(
+    """The port covers every family of the reference: dense, MoE, SSM,
+    hybrid, VLM and audio (enc-dec), each layer an attention or mamba
+    mixer, then a dense, MoE or no FFN."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "vlm",
+                          "audio") or any(
             mk not in ("attn", "mamba") or fk not in ("dense", "moe", "none")
             for mk, fk in layer_plan(cfg)):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) is not ported yet: repro_torch "
-            f"runs dense, MoE, SSM and hybrid decoders (ROADMAP queue 1, "
-            f"item 7)")
+            f"{cfg.name} ({cfg.family}): repro_torch runs dense, MoE, SSM, "
+            f"hybrid, VLM and enc-dec stacks of attention or mamba mixers "
+            f"and dense, MoE or no FFNs")
 
 
 def moe_stats_order(cfg: ModelConfig) -> list:
@@ -133,6 +142,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
         params["lm_head"] = finish(
             {"lm_head": L.linear_init(gen, cfg.d_model, cfg.vocab_padded,
                                       dt, dev)})["lm_head"]
+    if cfg.family == "audio":
+        # the encoder (non-causal self-attention, MHA) behind the stub
+        # frontend's projection, and one cross-attention with its norm
+        # per decoder layer after the prelude
+        enc_cfg = dataclasses.replace(cfg, n_kv_heads=cfg.n_heads)
+        params["encoder"] = {
+            "frontend": finish({"frontend": L.linear_init(
+                gen, cfg.frontend_dim, cfg.d_model, dt, dev)})["frontend"],
+            "layers": [finish(_block_init(gen, enc_cfg, "attn", "dense",
+                                          dev))
+                       for _ in range(cfg.enc_layers)],
+            "final_norm": L.norm_init(cfg.d_model, cfg, dev)}
+        params["cross"] = [
+            finish({"attn": L.attention_init(gen, cfg, dev),
+                    "norm": L.norm_init(cfg.d_model, cfg, dev)})
+            for _ in range(cfg.n_layers - cfg.first_dense)]
     return params
 
 
@@ -141,15 +166,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
 # ---------------------------------------------------------------------------
 
 def _apply_block(p, x, cfg: ModelConfig, mixer_kind: str, ffn_kind: str, *,
-                 positions, cache, quant=None, moe_stats: bool = False):
-    """One pre-norm block; returns ``(x, new_cache, stats)`` (``stats``
-    is :func:`repro_torch.models.layers.moe_apply`'s telemetry for a MoE
-    block when ``moe_stats`` asks for it, else None).  Quantized serving with
-    ``fused_linear`` (and ``residual_scale == 1``) threads the block
-    input as ``residual`` into the attention output projection and the
-    dense MLP's down projection, so the residual add runs in the fused
-    linear's epilogue; a mamba mixer and a MoE block add their residual
-    after the fact, as the reference does."""
+                 positions, cache, quant=None, moe_stats: bool = False,
+                 causal: Optional[bool] = None, cross=None):
+    """One pre-norm block; returns ``(x, new_cache, stats, new_cross)``
+    (``stats`` is :func:`repro_torch.models.layers.moe_apply`'s telemetry
+    for a MoE block when ``moe_stats`` asks for it, else None).
+    Quantized serving with ``fused_linear`` (and ``residual_scale == 1``)
+    threads the block input as ``residual`` into the attention output
+    projection and the dense MLP's down projection, so the residual add
+    runs in the fused linear's epilogue; a mamba mixer and a MoE block
+    add their residual after the fact, as the reference does.
+
+    ``causal`` overrides ``cfg.causal`` (the encoder's blocks).  ``cross
+    = (params, memory, cache)`` runs an enc-dec decoder's cross step
+    between the mixer and the FFN: its norm, then
+    :func:`repro_torch.models.layers.cross_attention_apply` over the
+    encoder's ``memory`` (prefill) or its ``cache`` (decode), with the
+    residual fused into its output projection likewise; ``new_cross`` is
+    its cache (None without a cross step)."""
     rs = dtype_scalar(cfg.residual_scale, x.dtype)
     fuse_res = (quant is not None and quant.enabled and quant.fused_linear
                 and cfg.residual_scale == 1.0)
@@ -157,28 +191,37 @@ def _apply_block(p, x, cfg: ModelConfig, mixer_kind: str, ffn_kind: str, *,
     if mixer_kind == "attn":
         h, new_cache = L.attention_apply(
             p["mixer"], h, cfg, positions=positions, cache=cache,
-            quant=quant, residual=x if fuse_res else None)
+            causal=causal, quant=quant, residual=x if fuse_res else None)
         x = h if fuse_res else x + (h.float() * rs).to(x.dtype)
     else:
         h, new_cache = S.ssm_apply(p["mixer"], h, cfg, cache=cache,
                                    quant=quant)
         x = x + (h.float() * rs).to(x.dtype)
+    new_cross = None
+    if cross is not None:
+        xp, memory, xc = cross
+        hc = L.norm_apply(xp["norm"], x, cfg)
+        hc, new_cross = L.cross_attention_apply(
+            xp["attn"], hc, cfg, memory=memory, cache=xc, quant=quant,
+            residual=x if fuse_res else None)
+        x = hc if fuse_res else x + (hc.float() * rs).to(x.dtype)
     if ffn_kind == "none":
-        return x, new_cache, None
+        return x, new_cache, None, new_cross
     h = L.norm_apply(p["norm2"], x, cfg)
     if ffn_kind == "moe":
         h, _, stats = L.moe_apply(p["ffn"], h, cfg, quant=quant,
                                   with_stats=moe_stats)
-        return x + (h.float() * rs).to(x.dtype), new_cache, stats
+        return x + (h.float() * rs).to(x.dtype), new_cache, stats, new_cross
     h = L.mlp_apply(p["ffn"], h, cfg, quant=quant,
                     residual=x if fuse_res else None)
     x = h if fuse_res else x + (h.float() * rs).to(x.dtype)
-    return x, new_cache, None
+    return x, new_cache, None, new_cross
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 quant: Optional[QuantConfig] = None, device="cuda",
-                state_batch: Optional[int] = None) -> dict:
+                state_batch: Optional[int] = None,
+                enc_len: Optional[int] = None) -> dict:
     """Decode caches: ``{"layers": [one cache per layer]}`` (prelude
     layers first, as in ``params["layers"]``): an attention layer's KV
     cache from :func:`repro_torch.models.layers.make_kv_cache`, a mamba
@@ -194,26 +237,50 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
     SSM leaves apart from the block count: they get ``state_batch`` rows
     (the pool's slot rows, row 0 its null slot) while attention leaves
     keep ``batch`` blocks; None gives both ``batch`` rows (the
-    contiguous layout)."""
+    contiguous layout).
+
+    An enc-dec model adds ``"cross"``: one cross-K/V cache per decoder
+    layer after the prelude (:func:`repro_torch.models.layers
+    .make_cross_cache`), ``enc_len`` encoder rows each (default
+    ``launch.specs.enc_len(cfg, max_len)``; the paged pool passes its
+    own, since its ``max_len`` is the block size), with the state leaves'
+    ``state_batch`` rows: a request's cross rows are one more tenant of
+    the pool's state slots."""
     check_supported(cfg)
     dev = resolve_device(device)
     kvb = effective_kv_bits(cfg, quant)
     sb = batch if state_batch is None else state_batch
-    return {"layers": [
+    caches = {"layers": [
         L.make_kv_cache(cfg, batch, max_len, kvb, dev) if mk == "attn"
         else S.make_ssm_cache(cfg, sb, L._dtype(cfg), dev)
         for mk, _ in layer_plan(cfg)]}
+    if cfg.family == "audio":
+        if enc_len is None:
+            from repro_torch.launch.specs import enc_len as _enc_len
+            enc_len = _enc_len(cfg, max_len)
+        caches["cross"] = [L.make_cross_cache(cfg, sb, enc_len, kvb, dev)
+                           for _ in range(cfg.n_layers - cfg.first_dense)]
+    return caches
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             positions: torch.Tensor, caches: dict,
+            patch_embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
             quant: Optional[QuantConfig] = None,
             logits_mode: str = "none", collect_moe_stats: bool = False):
     """Run the stack over ``tokens (B, S)`` at ``positions (B, S)`` (-1 =
-    pad) through ``caches``: the paged pool's step caches (from
+    pad; ``(3, B, S)`` for M-RoPE) through ``caches``: the paged pool's
+    step caches (from
     :meth:`repro_torch.serving.paged_cache.PagedKVPool.step_caches`) or
     the contiguous ones of :func:`init_caches`.  Returns ``(hidden |
     last-position logits, caches)``.
+
+    ``patch_embeds (B, P, d)`` (the VLM's stub frontend) are added to the
+    first ``P`` token embeddings.  ``frames (B, T, frontend_dim)`` (the
+    audio stub frontend) run the encoder (:func:`encode_frames`), whose
+    memory every decoder layer's cross-attention projects into its
+    cache; an audio decode step without frames replays those caches.
 
     ``collect_moe_stats=True`` appends a third element: the per-MoE-layer
     capacity telemetry ``{"load": (L_moe, E), "dropped": (L_moe,),
@@ -223,21 +290,40 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     quant = quant if (quant and (quant.enabled or quant.kv_bits)) else None
     x = params["embed"]["w"][tokens.long()].to(L._dtype(cfg))
     x = (x.float() * dtype_scalar(cfg.emb_scale, x.dtype)).to(x.dtype)
-    new_layers, layer_stats = [], {}
+    if patch_embeds is not None:     # the VLM's stub frontend
+        npt = patch_embeds.shape[1]
+        x = torch.cat([x[:, :npt] + patch_embeds.to(x.dtype), x[:, npt:]],
+                      1)
+    memory = None
+    if cfg.family == "audio" and frames is not None:
+        memory = encode_frames(params, frames, cfg, quant=quant)
+    elif cfg.family == "audio":
+        assert "cross" in caches, \
+            "audio decode without frames needs filled cross caches"
+    fd = cfg.first_dense
+    new_layers, new_cross, layer_stats = [], [], {}
     for i, (p, c, (mk, fk)) in enumerate(zip(params["layers"],
                                              caches["layers"],
                                              layer_plan(cfg))):
-        x, nc, mst = _apply_block(p, x, cfg, mk, fk, positions=positions,
-                                  cache=c, quant=quant,
-                                  moe_stats=collect_moe_stats)
+        cross = None
+        if "cross" in params and i >= fd:
+            cross = (params["cross"][i - fd], memory, caches["cross"][i - fd])
+        x, nc, mst, nxc = _apply_block(
+            p, x, cfg, mk, fk, positions=positions, cache=c, quant=quant,
+            moe_stats=collect_moe_stats, cross=cross)
         new_layers.append(nc)
+        if cross is not None:
+            new_cross.append(nxc)
         if mst is not None:
             layer_stats[i] = mst
     x = L.norm_apply(params["final_norm"], x, cfg)
     out = x
     if logits_mode == "last":
         out = _logits(params, x[:, -1:, :], cfg, quant)[:, 0]
-    ret = (out, dict(caches, layers=new_layers))
+    new_caches = dict(caches, layers=new_layers)
+    if "cross" in caches:
+        new_caches["cross"] = new_cross
+    ret = (out, new_caches)
     if not collect_moe_stats:
         return ret
     moe_stats = None
@@ -246,6 +332,25 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         moe_stats = {kk: torch.stack([r[kk] for r in rows])
                      for kk in ("load", "dropped", "capacity")}
     return ret + (moe_stats,)
+
+
+def encode_frames(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
+                  quant: Optional[QuantConfig] = None) -> torch.Tensor:
+    """The enc-dec encoder: stub frontend embeddings ``frames (B, T,
+    frontend_dim)`` -> memory ``(B, T, d_model)``.  The frontend linear,
+    then each encoder block (MHA self-attention, not causal, at positions
+    ``0..T-1``, then the dense MLP), then the final norm."""
+    enc = params["encoder"]
+    x = L.linear_apply(enc["frontend"], frames.to(L._dtype(cfg)),
+                       quant=quant)
+    b, t, _ = x.shape
+    positions = torch.arange(t, dtype=torch.int32,
+                             device=x.device)[None].repeat(b, 1)
+    enc_cfg = dataclasses.replace(cfg, n_kv_heads=cfg.n_heads)
+    for p in enc["layers"]:
+        x = _apply_block(p, x, enc_cfg, "attn", "dense", positions=positions,
+                         cache=None, quant=quant, causal=False)[0]
+    return L.norm_apply(enc["final_norm"], x, cfg)
 
 
 def _logits(params, x, cfg: ModelConfig, quant=None):
@@ -265,14 +370,14 @@ def _logits(params, x, cfg: ModelConfig, quant=None):
 # ---------------------------------------------------------------------------
 
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down",
-               "in_proj", "out_proj", "lm_head")
+               "in_proj", "out_proj", "lm_head", "frontend")
 
 
 def quantize_params(params: Any, qcfg: QuantConfig) -> Any:
-    """Replace every quantizable linear weight, and every stacked expert
-    weight ``(E, N, K)``, with packed bipolar planes (router, norms,
-    embeddings and the SSM's conv, decay and skip parameters stay as
-    they are)."""
+    """Replace every quantizable linear weight (the audio frontend's
+    among them), and every stacked expert weight ``(E, N, K)``, with
+    packed bipolar planes (router, norms, embeddings and the SSM's conv,
+    decay and skip parameters stay as they are)."""
     if not qcfg.enabled:
         return params
     if isinstance(params, dict):

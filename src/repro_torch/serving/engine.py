@@ -20,7 +20,17 @@ A port of the reference ``repro.serving.engine``, in two memory regimes:
   SSM and hybrid stacks keep each request's conv + SSD state in one slot
   of the pool's fixed-size *state slot pool*; their prompts prefill at
   exact length (a recurrence consumes pad tokens), and they share no
-  prefix.
+  prefix.  An enc-dec stack (audio) keeps each request's cross-attention
+  K/V (its encoder memory, projected once at prefill) in a state slot
+  too, and shares no prefix either; a VLM shares none, since equal
+  tokens need not carry equal patch embeddings.
+
+The VLM and audio frontends are stubs, as in the reference: a prefill
+adds zero patch embeddings ``(1, min(n_patches, p), d_model)`` to the
+first tokens (``p`` the bucketed prompt length) and runs the encoder on
+zero frames ``(1, enc_len(cfg, p), frontend_dim)``; VLM positions are
+``(3, B, S)``, the same position on every M-RoPE axis.  Those families
+prefill whole prompts: ``chunk_tokens`` is dropped for them.
 
 **Chunked prefill** (``chunk_tokens``, paged only): a prompt streams
 through the step loop ``chunk_tokens`` at a time, fused with the decode
@@ -70,10 +80,13 @@ from repro_torch.serving.faults import NULL_FAULTS, RequestFault
 
 def prefill_step(params, batch: dict, caches, cfg: ModelConfig,
                  quant: Optional[QuantConfig] = None):
-    """Process a full prompt ``batch`` = tokens (B, S), positions (B, S),
-    filling the caches.  Returns ``(last_logits (B, V), caches)``."""
+    """Process a full prompt ``batch`` = tokens (B, S), positions (B, S)
+    (and the stub frontends' ``patch_embeds`` / ``frames``), filling the
+    caches.  Returns ``(last_logits (B, V), caches)``."""
     return M.forward(params, batch["tokens"], cfg,
                      positions=batch["positions"], caches=caches,
+                     patch_embeds=batch.get("patch_embeds"),
+                     frames=batch.get("frames"),
                      quant=quant, logits_mode="last")
 
 
@@ -87,6 +100,8 @@ def prefill_step_bucketed(params, batch: dict, caches, cfg: ModelConfig,
     ``moe_stats=True``."""
     out = M.forward(params, batch["tokens"], cfg,
                     positions=batch["positions"], caches=caches,
+                    patch_embeds=batch.get("patch_embeds"),
+                    frames=batch.get("frames"),
                     quant=quant, logits_mode="none",
                     collect_moe_stats=moe_stats)
     x, caches = out[:2]
@@ -302,10 +317,23 @@ def _tree_write_slot(batched: dict, single: dict, slot: int) -> dict:
     """Copy a B=1 cache tree into row ``slot`` of the batched one, in
     place (the reference returns a new tree; here each layer's cache is
     the one copy on the device).  Both trees are ``{"layers": [one dict
-    per layer]}`` with every leaf's batch dim first."""
-    for cb, cs in zip(batched["layers"], single["layers"]):
-        for key, leaf in cb.items():
-            leaf[slot] = cs[key][0]
+    per layer]}`` (an enc-dec model's also ``"cross"``) with every leaf's
+    batch dim first.  A prefilled cross cache holds the prompt's
+    ``enc_len`` rows, which may be fewer than the lane's: it lands in the
+    lane's leading rows, and the rest get position -1 (masked), as the
+    paged path's ``_write_cross_slots`` writes them, so a lane that served
+    a longer prompt cannot leak that request's encoder memory into the
+    next one."""
+    for section in ("layers", "cross"):
+        for cb, cs in zip(batched.get(section, []), single.get(section, [])):
+            for key, leaf in cb.items():
+                src = cs[key][0]
+                if src.ndim:
+                    leaf[slot, :src.shape[0]] = src
+                    if section == "cross" and key == "pos":
+                        leaf[slot, src.shape[0]:] = -1
+                else:                           # a ring's write index
+                    leaf[slot] = src
     return batched
 
 
@@ -394,6 +422,11 @@ class Engine:
             raise ValueError("chunk_tokens requires paged=True (chunked "
                              "prefill writes through the block pool)")
         M.check_supported(cfg)
+        # whole-prompt frontends (vlm patch embeds, audio encoder frames)
+        # fill their side inputs in one prefill pass: those families keep
+        # whole-prompt admission
+        if chunk_tokens is not None and cfg.family in ("vlm", "audio"):
+            chunk_tokens = None
         self.chunk_tokens = chunk_tokens
         self.device = params["embed"]["w"].device
         if paged:
@@ -407,17 +440,26 @@ class Engine:
                 n_blocks = n_slots * (max_len // block_size) + 1
             self.max_batch = max_batch or 2 * n_slots
             stateful = needs_state_slots(cfg)
-            # stateful archs keep the prefix cache off: SSM state is an
-            # order-dependent running summary, not block-addressable
-            # content, so there is no prefix to share.  NULL_OBS.registry
+            enc = None
+            if cfg.family == "audio":
+                from repro_torch.launch.specs import enc_len
+                enc = enc_len(cfg, max_len)
+            # the engine's VLM frontend is a stub (zero patch embeds), but
+            # real per-request patch embeds would make equal token
+            # prefixes carry different KV: the prefix cache stays off for
+            # vlm.  Stateful archs (ssm/hybrid/audio) keep it off too: SSM
+            # state is an order-dependent running summary, not
+            # block-addressable content, and cross caches are per
+            # request, so there is no prefix to share.  NULL_OBS.registry
             # is None -> the pool keeps a private registry, so report()
             # snapshots work with metrics off
             self.pool = PagedKVPool(
                 cfg, n_blocks, block_size, quant=quant,
-                prefix_cache=prefix_cache and not stateful,
+                prefix_cache=(prefix_cache and cfg.family != "vlm"
+                              and not stateful),
                 n_state_slots=self.max_batch if stateful else 0,
-                device=self.device, metrics=self.obs.registry,
-                faults=self.faults)
+                enc_len=enc, device=self.device,
+                metrics=self.obs.registry, faults=self.faults)
             # nested-precision serving needs packed weights to slice;
             # without w_bits every lane runs the configured quant and the
             # scheduler stays unsalted
@@ -824,12 +866,41 @@ class Engine:
         toks[:s] = np.asarray(prompt, np.int32)
         pos = np.full(p, -1, np.int32)
         pos[:s] = np.arange(s)
-        batch = {"tokens": self._dev(toks[None]),
-                 "positions": self._dev(pos[None]),
-                 "last_idx": self._dev(np.asarray([s - 1], np.int32))}
+        batch = self._prefill_batch(toks, pos, s)
         logits, one = prefill_step_bucketed(self.params, batch, one,
                                             self.cfg, self.quant)
         return logits, self._rewind_ring_index(one, s, p)
+
+    def _positions(self, pos: np.ndarray) -> torch.Tensor:
+        """``pos (B, S)`` on the device; ``(3, B, S)`` for a VLM, the
+        same position on every M-RoPE axis (the engine's text-only
+        frontend)."""
+        t = self._dev(pos)
+        if self.cfg.family == "vlm":
+            t = t[None].expand(3, *pos.shape).contiguous()
+        return t
+
+    def _prefill_batch(self, toks: np.ndarray, pos: np.ndarray,
+                       s: int) -> dict:
+        """The B=1 prefill batch of a prompt padded to ``p = len(toks)``
+        whose last real token is at ``s - 1``, with the stub frontends'
+        inputs: zero patch embeddings for a VLM, zero encoder frames
+        ``(1, enc_len(cfg, p), frontend_dim)`` for an enc-dec model."""
+        cfg, p = self.cfg, len(toks)
+        batch = {"tokens": self._dev(toks[None]),
+                 "positions": self._positions(pos[None]),
+                 "last_idx": self._dev(np.asarray([s - 1], np.int32))}
+        dt = getattr(torch, cfg.dtype)
+        if cfg.family == "vlm":
+            batch["patch_embeds"] = torch.zeros(
+                (1, min(cfg.n_patches, p), cfg.d_model), dtype=dt,
+                device=self.device)
+        if cfg.family == "audio":
+            from repro_torch.launch.specs import enc_len
+            batch["frames"] = torch.zeros(
+                (1, enc_len(cfg, p), cfg.frontend_dim), dtype=dt,
+                device=self.device)
+        return batch
 
     @staticmethod
     def _rewind_ring_index(caches, s: int, p: int):
@@ -889,7 +960,7 @@ class Engine:
             if seq is not None:
                 toks[slot], pos[slot] = seq.last_tok, seq.length
         batch = {"tokens": self._dev(toks[:, None]),
-                 "positions": self._dev(pos[:, None])}
+                 "positions": self._positions(pos[:, None])}
         logits, self.caches = serve_step(self.params, batch, self.caches,
                                          self.cfg, self.quant)
         logits = self._host(logits)
@@ -965,9 +1036,7 @@ class Engine:
         nbw = min(_next_pow2(max(len(seq.blocks), 1)), self.n_batch_blocks)
         tables = np.zeros((1, nbw), np.int32)   # pad entries: null block
         tables[0, :len(seq.blocks)] = seq.blocks
-        batch = {"tokens": self._dev(toks[None]),
-                 "positions": self._dev(pos[None]),
-                 "last_idx": self._dev(np.asarray([s - 1], np.int32))}
+        batch = self._prefill_batch(toks, pos, s)
         slots = (np.asarray([seq.slot], np.int32)
                  if self.pool.slots is not None else None)
         caches = self.pool.step_caches(
@@ -1116,7 +1185,7 @@ class Engine:
             offsets[i] = seq.freed_prefix
             slot_ids[i] = seq.slot
         batch = {"tokens": self._dev(toks[:, None]),
-                 "positions": self._dev(pos[:, None])}
+                 "positions": self._positions(pos[:, None])}
         caches = self.pool.step_caches(
             tables, lens, block_offsets=offsets,
             slots=slot_ids if self.pool.slots is not None else None)

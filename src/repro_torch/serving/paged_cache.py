@@ -77,16 +77,17 @@ Invariants the pool maintains (see :meth:`validate`):
   ``block_tables`` / ``length`` injected per layer (:meth:`step_caches`)
   and give updated pool leaves back through :meth:`absorb`.
 
-State slot pool.  SSM conv+state leaves (mamba and hybrid mixers) are
-fixed-size per request -- nothing token-granular to page.
+State slot pool.  SSM conv+state leaves (mamba and hybrid mixers) and
+enc-dec cross-K/V caches (one per decoder layer, ``enc_len`` encoder
+rows) are fixed-size per request -- nothing token-granular to page.
 :class:`StateSlotPool` allocates them in whole-request **slots**: the
 pool's state leaves carry ``n_state_slots + 1`` rows (row 0 reserved
 null, read by padded batch lanes), a request owns one slot id for its
 lifetime, and :meth:`step_caches` injects the batch's slot ids so the
-mixers gather and scatter their rows.  A pure-SSM pool has no blocks to
-speak of (``needs_blocks`` is False); a hybrid pool has both.  The
-enc-dec cross caches, the reference's other slot tenant, are not ported
-(ROADMAP queue 1, item 7).
+mixers and the cross-attention gather and scatter their rows.  A
+pure-SSM pool has no blocks to speak of (``needs_blocks`` is False); a
+hybrid or enc-dec pool has both.  A cross cache's ``pos`` rows rest at
+-1 (masked), not 0, in the null slot and in a freshly taken one.
 
 Telemetry.  Event counters (``repro_pool_*``: prefix hits/lookups, COW
 copies, evictions, window reclaims, chain-hash ops) live in a shared
@@ -139,6 +140,12 @@ def _chain_root(salt=None) -> int:
     return _chain_hash(_CHAIN_ROOT, ("precision-salt", int(salt)))
 
 
+def _rest_value(key: str) -> int:
+    """What a state slot's rows hold when no request owns them: -1 for a
+    cross cache's positions (masked), 0 for every other leaf."""
+    return -1 if key == "pos" else 0
+
+
 def needs_blocks(cfg: ModelConfig) -> bool:
     """True when the decoder owns at least one self-attention KV stream
     (pageable in token blocks).  Pure-SSM archs have none -- their pool
@@ -154,9 +161,8 @@ def needs_state_slots(cfg: ModelConfig) -> bool:
 
 
 def supports_paging(cfg: ModelConfig) -> bool:
-    """Attention KV goes through the block pool, SSM and hybrid state
-    through the fixed-size slot pool (the enc-dec cross caches, the
-    slot pool's other tenant, are not ported: ROADMAP queue 1, item 7)."""
+    """Attention KV goes through the block pool, SSM/hybrid state and
+    enc-dec cross caches through the fixed-size slot pool."""
     return needs_blocks(cfg) or needs_state_slots(cfg)
 
 
@@ -259,18 +265,24 @@ class StateSlotPool:
 
 class PagedKVPool:
     """Refcounted copy-on-write pool of packed bipolar KV planes on one
-    device, plus a fixed-size slot pool for per-request SSM state.
+    device, plus a fixed-size slot pool for per-request SSM / enc-dec
+    cross state.
 
     ``n_blocks`` counts physical blocks *including* the reserved null
     block 0; capacity available to requests is ``n_usable = n_blocks-1``
     blocks of ``block_size`` tokens each.  ``prefix_cache=False``: no
     index, release destroys immediately.  ``n_state_slots`` (required
-    for ssm and hybrid archs) sizes the :class:`StateSlotPool`.
+    for ssm, hybrid and audio archs) sizes the :class:`StateSlotPool`;
+    ``enc_len`` caps the enc-dec cross rows and is required for audio
+    archs (the engine passes the stub frontend's length for its
+    ``max_len``; the pool cannot derive it, its own ``max_len`` being
+    the block size).
     """
 
     def __init__(self, cfg: ModelConfig, n_blocks: int, block_size: int,
                  quant: Optional[QuantConfig] = None, *,
                  prefix_cache: bool = True, n_state_slots: int = 0,
+                 enc_len: Optional[int] = None,
                  device="cuda", metrics: Optional[MetricsRegistry] = None,
                  faults=None):
         M.check_supported(cfg)
@@ -294,8 +306,15 @@ class PagedKVPool:
         if self.needs_slots and n_state_slots < 1:
             raise ValueError(
                 f"{cfg.family} archs carry fixed-size per-request state "
-                f"(SSM conv+state): pass n_state_slots >= 1 so the slot "
-                f"pool can hold it (Engine sizes it to max_batch)")
+                f"(SSM conv+state / enc-dec cross caches): pass "
+                f"n_state_slots >= 1 so the slot pool can hold it (Engine "
+                f"sizes it to max_batch)")
+        if cfg.family == "audio" and enc_len is None:
+            raise ValueError(
+                "audio archs need enc_len (the cross-row capacity): the "
+                "pool passes block_size where init_caches expects "
+                "max_len, so it cannot derive the frontend length "
+                "itself -- Engine passes enc_len(cfg, max_len)")
         self.cfg, self.quant = cfg, quant
         # fault injection facade (tests/chaos harness): site checks are
         # constant no-ops on the NULL_FAULTS twin, same contract as obs
@@ -307,7 +326,7 @@ class PagedKVPool:
                       if self.needs_slots else None)
         self.caches = M.init_caches(
             cfg, batch=n_blocks, max_len=block_size, quant=quant,
-            device=device,
+            device=device, enc_len=enc_len,
             state_batch=(n_state_slots + 1) if self.needs_slots else None)
         self.device = next(iter(self.caches["layers"][0].values())).device
         # LIFO free list, block 0 reserved as the null block
@@ -790,7 +809,8 @@ class PagedKVPool:
         ``check_contents`` also verify that every indexed block's
         recorded token chain agrees with the resident positions
         (hash -> contents agreement) and that the null slot's rows are
-        still zero in every state leaf (pad lanes read them)."""
+        still at rest in every state leaf (pad lanes read them): zero,
+        and -1 in a cross cache's ``pos``."""
         free = set(self._free)
         live = set(self._ref)
         assert 0 not in free and 0 not in live, "null block entered the pool"
@@ -822,14 +842,17 @@ class PagedKVPool:
                 break    # one layer suffices: ids address all layers alike
             for c in self._state_caches():
                 for key, leaf in c.items():
-                    assert not leaf[0].any(), f"null slot {key} row written"
+                    assert leaf[0].eq(_rest_value(key)).all(), \
+                        f"null slot {key} row written"
 
     # -- state slots ---------------------------------------------------------
     def alloc_slot(self) -> int:
-        """Take one state slot with its rows zeroed in place (a reused
+        """Take one state slot with its rows reset in place (a reused
         slot must not leak a freed request's SSM state through the
-        recurrence).  The ``slot_fail`` fault site fires before the slot
-        pool mutates (admission rolls cleanly back)."""
+        recurrence, or its cross-K/V through the position mask): zero,
+        and -1 in a cross cache's ``pos``.  The ``slot_fail`` fault site
+        fires before the slot pool mutates (admission rolls cleanly
+        back)."""
         assert self.slots is not None, "pool has no state slot pool"
         if self.faults.slot_fail():
             raise RuntimeError(
@@ -837,8 +860,8 @@ class PagedKVPool:
                 f"{self.slots.free_slots} of {self.slots.n_slots} free")
         slot = self.slots.alloc()
         for c in self._state_caches():
-            for leaf in c.values():
-                leaf[slot] = 0                       # in place
+            for key, leaf in c.items():
+                leaf[slot] = _rest_value(key)        # in place
         return slot
 
     def free_slot(self, slot: int) -> None:
@@ -859,9 +882,11 @@ class PagedKVPool:
         yield from (c for c in caches["layers"] if self._is_attn(c))
 
     def _state_caches(self, caches=None):
-        """Every mamba layer's slot-addressed conv + state dict."""
+        """Every slot-addressed state dict: each mamba layer's conv +
+        state, then each enc-dec cross cache."""
         caches = self.caches if caches is None else caches
         yield from (c for c in caches["layers"] if not self._is_attn(c))
+        yield from caches.get("cross", [])
 
     def _reset_pos(self, ids) -> None:
         idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
@@ -878,10 +903,10 @@ class PagedKVPool:
         (B,)`` -- the write offset of the step's first new token -- and
         ``block_offset (B,)``, the count of leading logical blocks
         reclaimed out-of-window (entry ``j`` maps logical block ``j +
-        offset``); each mamba layer's state dict gains ``slots (B,)``,
-        the batch rows' slot ids (-1 for padded lanes).  The pool
-        tensors themselves are shared, not copied: the step writes them
-        in place."""
+        offset``); each mamba layer's state dict and each cross cache
+        gains ``slots (B,)``, the batch rows' slot ids (-1 for padded
+        lanes).  The pool tensors themselves are shared, not copied: the
+        step writes them in place."""
         dev = self.device
         bt = torch.as_tensor(np.asarray(block_tables, np.int32), device=dev)
         ln = torch.as_tensor(np.asarray(lengths, np.int32), device=dev)
@@ -897,11 +922,17 @@ class PagedKVPool:
             assert sl is not None, "state caches need this batch's slot ids"
             return dict(c, slots=sl)
 
-        return {"layers": [aug(c) for c in self.caches["layers"]]}
+        out = {"layers": [aug(c) for c in self.caches["layers"]]}
+        if "cross" in self.caches:
+            assert sl is not None, "cross caches need this batch's slot ids"
+            out["cross"] = [dict(c, slots=sl) for c in self.caches["cross"]]
+        return out
 
     def absorb(self, new_caches) -> None:
         """Store the step's pool leaves back, stripping the per-step keys
         (the leaves are the pool's own tensors, updated in place)."""
-        self.caches = {"layers": [
-            {k: v for k, v in c.items() if k not in self._STEP_KEYS}
-            for c in new_caches["layers"]]}
+        self.caches = {
+            section: [{k: v for k, v in c.items()
+                       if k not in self._STEP_KEYS}
+                      for c in new_caches[section]]
+            for section in ("layers", "cross") if section in new_caches}

@@ -115,12 +115,17 @@ for arch in ("glm4-9b", "stablelm-3b", "minicpm-2b"):
     assert get_config(arch).family == "dense", arch
 assert get_config("mamba2-130m").family == "ssm"
 assert get_config("jamba-1.5-large-398b").family == "hybrid"
+assert get_config("qwen2-vl-7b").family == "vlm"
+assert get_config("seamless-m4t-medium").family == "audio"
 assert {"repro_torch.kernels.moe", "repro_torch.configs.mixtral_8x7b",
         "repro_torch.configs.deepseek_moe_16b", "repro_torch.configs.glm4_9b",
         "repro_torch.configs.stablelm_3b",
         "repro_torch.configs.minicpm_2b", "repro_torch.models.ssm",
         "repro_torch.configs.mamba2_130m",
-        "repro_torch.configs.jamba_1_5_large_398b"} <= set(names), names
+        "repro_torch.configs.jamba_1_5_large_398b",
+        "repro_torch.configs.qwen2_vl_7b",
+        "repro_torch.configs.seamless_m4t_medium",
+        "repro_torch.launch.specs"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "repro" or m.startswith("repro.")
              or (m == "jax" or m.startswith("jax.")) and sys.modules[m])
@@ -131,8 +136,9 @@ assert not bad, bad
 
 def test_port_imports_without_jax_or_reference_package():
     """Every module of repro_torch (the MoE kernel wrapper, the SSM
-    mixer and the configs among them) imports with jax unimportable, and neither jax nor the
-    reference package is loaded afterwards."""
+    mixer, the launch specs and the configs among them) imports with jax
+    unimportable, and neither jax nor the reference package is loaded
+    afterwards."""
     import os
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(os.path.dirname(

@@ -36,6 +36,10 @@ stacked-route threshold (``apmm.bitserial_stack_max()``,
 ``moe.bitserial_stack_max()``): integer cores bit-exact to the plain
 versions and to the fused kernels, outputs equal to the fused kernels';
 their prologue's packed words equal K3's and its SU the rows' sums.
+The enc-dec and VLM shapes: K6 not causal at seamless-m4t-medium's
+cross-attention reads (pad lanes on the null row exactly 0), K2 at
+qwen2-vl-7b's GQA group 7, K1 and K1-bs at seamless's GELU up projection
+(1 bf16 ulp), and both reduced models served on the card and the CPU.
 """
 
 import numpy as np
@@ -1348,6 +1352,15 @@ _HEAD_CASES = {
                             dict(h=2, group=16, d=128)),
     "d80 window pads": ((37, None, 300, 15), 2, 32, 40,
                         dict(h=4, group=2, d=80, n_bits=3)),
+    # qwen2-vl-7b's 4 kv heads with a group of 7 (odd, not a power of
+    # two) at decode and at a 600-token whole-prompt prefill (Gq 4200),
+    # and seamless-m4t-medium's decoder, 16 kv heads of group 1 at d 64
+    "qwen2-vl decode group 7": ((640, 140, None, 240), 1, 64, None,
+                                dict(h=4, group=7, d=128)),
+    "qwen2-vl prefill group 7": ((600,), 600, 64, None,
+                                 dict(h=4, group=7, d=128)),
+    "seamless decode d64 group 1": ((640, 140, 340, 240), 1, 64, None,
+                                    dict(h=16, group=1, d=64)),
 }
 
 
@@ -1576,6 +1589,140 @@ def test_stateful_engine_on_card_matches_cpu(device, arch):
             and moe.LAUNCHES > before[2]
     state = outs["cuda"][1].pool.caches["layers"][0]["state"]
     assert state.device.type == "cuda"
+    (rc, ec), (rg, _) = outs["cpu"], outs["cuda"]
+    for a, b in zip(rc, rg):
+        kk = next((i for i, (x, y) in enumerate(zip(a.out, b.out))
+                   if x != y), None)
+        if kk is not None:
+            top = np.sort(ec.rows[(id(a), kk)])
+            assert top[-1] - top[-2] < 0.05, (kk, a.out, b.out)
+
+
+# ---------------------------------------------------------------------------
+# the shapes of seamless-m4t-medium and qwen2-vl-7b
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("lives,sq,t", [
+    ((128, 64, 64, 64, None), 1, 128),  # decode: slot rows, a pad lane
+    ((128,), 1024, 128),                # the 600-token prompt's prefill
+    ((64,), 128, 64)])                  # the 100-token prompt's prefill
+def test_quantized_attention_kernel_not_causal_cross_reads(device, lives, sq,
+                                                           t):
+    """K6 with ``causal=False`` at seamless-m4t-medium's cross-attention
+    reads (16 heads, d 64, kv8, every query at position 0): each lane's
+    rows past its encoder length at position -1, a pad lane on the null
+    row (all -1) exactly 0; within 1 bf16 ulp or 1e-5 of the plain
+    version of the split its C entry plans and of the unsplit one."""
+    rng = np.random.default_rng(sq + t)
+    h, d, n_bits = 16, 64, 8
+    b = len(lives)
+    kv = _rand(rng, (2, b, t, h, d), device)
+    kq, ks = ops.quantize_kv(kv[0], n_bits)
+    vq, vs = ops.quantize_kv(kv[1], n_bits)
+    kv_pos = torch.full((b, t), -1, dtype=torch.int32, device=device)
+    for row, live in enumerate(lives):
+        if live:
+            kv_pos[row, :live] = torch.arange(live, dtype=torch.int32)
+    q_pos = torch.zeros((b, sq), dtype=torch.int32, device=device)
+    q = _rand(rng, (b, h, sq, d), device, torch.bfloat16)
+    args = (q, kq, ks, vq, vs, q_pos, kv_pos)
+    n_split = flash_attention.quantized_splits(b, h, sq, t)
+    before = flash_attention.QUANTIZED_LAUNCHES
+    got = flash_attention.flash_attention_quantized(*args, d=d, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.QUANTIZED_LAUNCHES == before + 1
+    assert _within_one_ulp_or(got, ref.kv_cache_attention_split(
+        *args, splits=n_split, d=d, causal=False))
+    assert _within_one_ulp_or(got, ref.kv_cache_attention(
+        *args, d=d, causal=False))
+    pads = [i for i, live in enumerate(lives) if live is None]
+    assert torch.all(got[pads] == 0)
+    assert got.abs().sum() > 0
+
+
+@pytest.mark.parametrize("m", [4, 64, 128])
+def test_apmm_kernels_gelu_up_projection(device, m):
+    """K1 and K1-bs at seamless-m4t-medium's GELU up projection (N 4096,
+    K 1024, w4) at decode (M 4) and at its encoder's frames on both sides
+    of the small-M threshold (64 and 128 rows): the integer core
+    bit-exact, the GELU output within 1 bf16 ulp of the plain version
+    (tanh differs between the kernel and torch, rounded once to bf16)
+    or 1e-5 absolute (where 1 + tanh nears 0 the output is within ~1e-6
+    of 0), the bitserial output equal to the fused kernel's."""
+    rng = np.random.default_rng(m)
+    n, k = 4096, 1024
+    w = ops.pack_weight(_rand(rng, (n, k), device), 4)
+    x = _rand(rng, (m, k), device, torch.bfloat16)
+    a_s = bipolar.absmax_scale(x, 8, axis=-1).float()
+    small = apmm.SMALL_M_LAUNCHES
+    core = apmm.apmm_fused_linear(x, a_s, w, a_bits=8,
+                                  out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert (apmm.SMALL_M_LAUNCHES - small == 1) == (m <= apmm.small_m_max())
+    assert torch.equal(core, ref.ap_linear_fused_ref(
+        x, a_s, w, a_bits=8, out_dtype=torch.float32))
+    kw = dict(act="gelu", a_bits=8, out_dtype=torch.bfloat16)
+    got = apmm.apmm_fused_linear(x, a_s, w, **kw)
+    want = ref.ap_linear_fused_ref(x, a_s, w, **kw)
+    assert _within_one_ulp_or(got, want)
+    got_bs = apmm.apmm_fused_linear(x, a_s, w, variant="bitserial", **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got_bs, got)
+
+
+_ENCDEC_VLM_ARCHS = {
+    "seamless-m4t-medium": dict(n_layers=2),   # 2 + 2 layers, its own w4
+    "qwen2-vl-7b": dict(n_layers=2),           # M-RoPE, group 4, w2
+}
+
+
+@pytest.mark.parametrize("arch", list(_ENCDEC_VLM_ARCHS))
+def test_encdec_and_vlm_engines_on_card_match_cpu(device, arch):
+    """Reduced seamless-m4t-medium (the encoder on the stub frontend's
+    frames, the cross-K/V in state slots: K1, K2, K6 not causal) and
+    qwen2-vl-7b (M-RoPE positions: K1, K2) at their own weight bits and a
+    kv8 pool, served paged on the card and on the CPU (the engine drops
+    ``chunk_tokens`` for both): greedy tokens agree wherever the CPU
+    run's top-1/top-2 margin exceeds 0.05, as the other card engine
+    tests hold them."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+
+    class CpuEngine(_RecordingEngine, E.Engine):
+        pass
+
+    cfg = get_config(arch).reduced(**_ENCDEC_VLM_ARCHS[arch])
+    q = dataclasses.replace(cfg.quant, kv_bits=8)
+    params = M.init_params(cfg, seed=3, device="cpu", quant=q)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, (5 + 7 * i,), dtype=np.int32)
+               for i in range(3)]
+    outs = {}
+    before = (apmm.LAUNCHES, flash_attention.LAUNCHES,
+              flash_attention.QUANTIZED_LAUNCHES)
+    for dev, cls in (("cpu", CpuEngine), ("cuda", E.Engine)):
+        p = params if dev == "cpu" else _to(params, device)
+        eng = cls(p, cfg, n_slots=2, max_len=48, quant=q, paged=True,
+                  block_size=8, chunk_tokens=8)
+        assert eng.chunk_tokens is None
+        reqs = [E.Request(prompt=pr.copy(), max_new_tokens=8)
+                for pr in prompts]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        assert all(r.finish_reason == "length" for r in reqs)
+        rep = eng.report()
+        assert rep["free_blocks"] == rep["n_usable"]
+        assert rep.get("used_state_slots", 0) == 0
+        eng.pool.validate(check_contents=True)
+        outs[dev] = (reqs, eng)
+    assert apmm.LAUNCHES > before[0] and flash_attention.LAUNCHES > before[1]
+    if arch.startswith("seamless"):
+        assert flash_attention.QUANTIZED_LAUNCHES > before[2]
+        assert outs["cuda"][1].pool.caches["cross"][0]["k"].is_cuda
     (rc, ec), (rg, _) = outs["cpu"], outs["cuda"]
     for a, b in zip(rc, rg):
         kk = next((i for i, (x, y) in enumerate(zip(a.out, b.out))

@@ -162,8 +162,9 @@ def test_configs_copy_the_reference_fields():
     from repro_torch.configs import ARCHS as PORTED
     from repro_torch.configs import get_config
     assert PORTED == ("minicpm-2b", "stablelm-3b", "glm4-9b", "llama3-8b",
-                      "mamba2-130m", "jamba-1.5-large-398b",
-                      "deepseek-moe-16b", "mixtral-8x7b")
+                      "mamba2-130m", "jamba-1.5-large-398b", "qwen2-vl-7b",
+                      "deepseek-moe-16b", "mixtral-8x7b",
+                      "seamless-m4t-medium")
     for arch in PORTED:
         assert dataclasses.asdict(get_config(arch)) == \
             dataclasses.asdict(jget(arch)), arch

@@ -218,9 +218,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_unported_configs_and_paths_raise():
-    for arch in ("qwen2-vl-7b", "seamless-m4t-medium"):
-        with pytest.raises(KeyError, match="item 7"):
-            get_config(arch)
+    from repro_torch.configs import ARCHS
+    assert len(ARCHS) == 10
+    for arch in ARCHS:            # every reference arch is ported
+        TM.check_supported(get_config(arch))
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-2")
     cfg = get_config("llama3-8b").reduced(n_layers=1)
     p = TM.init_params(cfg, device="cpu")
     # backpressure and the pool watchdog are ported: the engine builds,
