@@ -114,10 +114,10 @@ exit and no result line):
    activation bits with a kv8 cache, random weights from ``--seed``
    quantized on the card (K3 at load), the launch counters zeroed just
    before and read just after each: the full 32-layer llama3-8b (4
-   requests, w2), the full 32-layer mixtral-8x7b (5 requests, one of
-   4,300 tokens that attends through the rolling 4,096-token window,
-   w2), deepseek-moe-16b at 8 of its 28 layers (``SERVE_LAYERS``; w3: a
-   dense layer 0, then 7 layers of 64 experts, top 6, and a shared
+   requests, w2), mixtral-8x7b at 16 of its 32 layers (``SERVE_LAYERS``;
+   5 requests, one of 4,300 tokens that attends through the rolling
+   4,096-token window, w2), deepseek-moe-16b at 8 of its 28 layers
+   (``SERVE_LAYERS``; w3: a dense layer 0, then 7 layers of 64 experts, top 6, and a shared
    expert), stablelm-3b at 8 of its 32 layers (w3, head dim 80, MHA,
    layernorm), the full 24-layer mamba2-130m (w4, no KV: the pool is
    state slots only, tied logits) and jamba-1.5-large-398b's first
@@ -169,7 +169,21 @@ exit and no result line):
    MoE paths print K4's live rows against its capacity rows and its
    segment heights in both, and fail if phase 3's case for that step
    (``K4_STEP_SEGS``) is not among those heights;
-6. the launch counts of each path, the JSON kernels line (one entry per
+6. training -- minicpm-2b (``TRAIN_ARCH``, the reference's WSD model)
+   at full width and 2 layers: one gradient step on the card against
+   the CPU from the same parameters and batch (the loss, the gradient
+   norm and every leaf's gradient within ``TRAIN_*_TOL``), and a restart
+   on the card (int8 moments: 4 steps straight against 2, a synchronous
+   checkpoint, a fresh ``Trainer`` restored from it and 2 more; the
+   losses and the final state bit-identical; the checkpoints deleted);
+   then minicpm-2b at full width and depth trains 8 steps (seq 512,
+   batch 4, WSD with warmup 2 and peak lr 1e-3, f32 moments): each
+   step's loss, the median step time, ``max_memory_allocated`` and one
+   profiled step; every loss finite, the last below the first, and no
+   kernel of K1-K7 launched (the reference trains on the float path:
+   its attention, MoE experts and linears are XLA ops, not Pallas
+   kernels);
+7. the launch counts of each path, the JSON kernels line (one entry per
    path and kernel of that path, ``launches`` that path's own count, the
    other numbers those of the phase-3 case at that path's own shape,
    named in ``case`` (``PATH_CASES``; the kernel's shared case where
@@ -284,14 +298,15 @@ K6_PATH_STEP = {"seamless-m4t-medium": "seamless cross decode"}
 
 # the depths of phase 5's cut pairs, each of its config's layers, so that
 # the whole run keeps inside its time budget: llama3-8b's contiguous pair
-# (8 of 32), deepseek-moe-16b (8 of 28: the dense layer 0 and 7 MoE
-# layers) and stablelm-3b (8 of 32), whose widths phases 3 and 4 cover;
+# (8 of 32), mixtral-8x7b (16 of 32, to make room for phase 6),
+# deepseek-moe-16b (8 of 28: the dense layer 0 and 7 MoE layers) and
+# stablelm-3b (8 of 32), whose widths phases 3 and 4 cover;
 # jamba-1.5-large-398b serves one hybrid group (8 of 72 layers: 7 mamba
 # and 1 attention, MoE at every other); qwen2-vl-7b serves 4 of its 28
-# alike layers, the first path cut when the run outgrows its budget.  llama3-8b, mixtral-8x7b, mamba2-130m and
-# seamless-m4t-medium (12 + 12) serve at full depth.
+# alike layers.  llama3-8b, mamba2-130m and seamless-m4t-medium (12 + 12)
+# serve at full depth.
 CONTIGUOUS_LAYERS = 8
-SERVE_LAYERS = {"deepseek-moe-16b": 8, "stablelm-3b": 8,
+SERVE_LAYERS = {"mixtral-8x7b": 16, "deepseek-moe-16b": 8, "stablelm-3b": 8,
                 "jamba-1.5-large-398b": 8, "qwen2-vl-7b": 4}
 
 # the phase-3 case whose numbers (ms, bound, plain, error) a path's
@@ -1852,20 +1867,19 @@ def fresh_memory(torch) -> float:
     return torch.cuda.memory_allocated() / 2**30
 
 
-def profile_steps(torch, eng, n_steps: int, kind: str = "decode") -> str:
-    """``torch.profiler`` over ``n_steps`` engine steps of ``kind``:
-    device time by kernel name and the device's busy share of the
-    window.  Only device events count (kernels, copies): a host op's row
-    repeats the device time of the kernels it launched, which have rows
-    of their own."""
+def profile_steps(torch, step, n_steps: int, kind: str = "decode"):
+    """``torch.profiler`` over ``n_steps`` calls of ``step`` (an engine's
+    or a trainer's) of ``kind``, recording the device's activity only (no
+    caller reads a host op, and recording them adds the profiler's own
+    host cost to the window): device time by kernel name and the
+    device's busy share of the window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for _ in range(n_steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
     rows = []
@@ -1890,6 +1904,256 @@ def profile_steps(torch, eng, n_steps: int, kind: str = "decode") -> str:
     for dev, cnt, key in rows[:12]:
         print(f"  {dev / 1e3:9.3f} ms  {cnt:6d} x  {key[:90]}", flush=True)
     return prof
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "minicpm-2b"      # the reference's WSD model
+TRAIN_STEPS = 8
+# card vs CPU, one step at 2 layers: the loss within 1e-6 of its value,
+# the gradient norm within 5e-5, each leaf's gradient within 2e-2 in
+# relative L2 norm (a few times the gaps measured on the H100: 2.4e-7,
+# 1.4e-5 and 9.0e-3, where cuBLAS's bf16 products round in another order
+# than the CPU's).  A control whose loss takes its logsumexp in bf16 must
+# miss one of them.  (The logits themselves are the bf16 product in both
+# packages, cast to f32 before the logsumexp.)  A second control runs
+# the attention core in bf16; its gaps are printed, not held: at random
+# initialisation they sit within 1.5x of the sound card's.
+TRAIN_LOSS_TOL, TRAIN_GNORM_TOL, TRAIN_GRAD_TOL = 1e-6, 5e-5, 2e-2
+
+
+def train_phase(torch, seed) -> None:
+    """``TRAIN_ARCH`` at full width and depth trains ``TRAIN_STEPS``
+    steps on ``DataSpec(vocab, seq_len=512, global_batch=4)`` through
+    ``Trainer.train_step`` (WSD: warmup 2, peak lr 1e-3; f32 moments;
+    step 0 runs at lr 0): each step's loss, lr, gradient norm and time,
+    the median step time (the first step, with its warm-up, left out),
+    ``max_memory_allocated``, then one profiled step (device busy and
+    idle share, the largest device rows).  Every loss must be finite and
+    the last below the first, and no kernel of K1-K7 may launch (the
+    reference trains on the float path)."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataSpec
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = get_config(TRAIN_ARCH)
+    spec = DataSpec(vocab=cfg.vocab, seq_len=512, global_batch=4, seed=seed)
+    tcfg = TrainConfig(num_steps=TRAIN_STEPS, peak_lr=1e-3, warmup_steps=2,
+                       schedule="wsd", ckpt_every=0, seed=seed)
+    fresh_memory(torch)
+    t0 = time.time()
+    trainer = Trainer(cfg, tcfg, spec, device="cuda")
+    state = trainer.init_state()
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    torch.cuda.synchronize()
+    print(f"train {TRAIN_ARCH}: {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab}, {n_params / 1e9:.3f} B "
+          f"parameters (bf16, f32 norms), f32 moments, initialised on the "
+          f"card in {time.time() - t0:.1f} s", flush=True)
+    zero_counters()
+    losses, times = [], []
+    for step in range(TRAIN_STEPS):
+        batch = trainer.batch_at(step)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, m = trainer.train_step(state, batch)
+        loss = float(m["loss"])
+        times.append(time.time() - t0)
+        losses.append(loss)
+        print(f"train {TRAIN_ARCH} step {step}: loss {loss:.4f}, lr "
+              f"{float(m['lr']):.3e}, grad norm {float(m['grad_norm']):.4f},"
+              f" {1e3 * times[-1]:.1f} ms", flush=True)
+    launched = {k: v for k, v in counters().items() if v}
+    if launched:
+        raise AssertionError(f"training launched kernels: {launched}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"training loss did not fall: {losses}")
+    steady = sorted(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = spec.global_batch * spec.seq_len
+    med = steady[len(steady) // 2]
+    print(f"train {TRAIN_ARCH}: {TRAIN_STEPS} steps of {tokens} tokens, "
+          f"median step {1e3 * med:.1f} ms ({tokens / med:.0f} tokens/s; "
+          f"the first step {1e3 * times[0]:.1f} ms), "
+          f"max_memory_allocated {peak:.2f} GiB; losses "
+          + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    batch = trainer.batch_at(TRAIN_STEPS)
+    t0 = time.time()
+    profile_steps(torch, lambda: trainer.train_step(state, batch), 1,
+                  kind="training")
+    print(f"train {TRAIN_ARCH}: the profiled step and its parse took "
+          f"{time.time() - t0:.1f} s", flush=True)
+    del trainer, state, batch, m
+    fresh_memory(torch)
+
+
+def _bf16_attn_core(torch):
+    """A control for ``train_step_gaps``: ``_attn_core`` with its
+    products, softmax and backward in bf16, the activations' dtype."""
+    import math
+
+    def core(q, k, v, q_pos, kv_pos, *, causal, window, chunked,
+             score_bf16=False):
+        s = torch.einsum("bhqd,bhtd->bhqt", q.bfloat16()
+                         * (1.0 / math.sqrt(q.shape[-1])), k.bfloat16())
+        valid = kv_pos[:, None, None, :] >= 0
+        if causal:
+            valid = valid & (kv_pos[:, None, None, :]
+                             <= q_pos[:, None, :, None])
+        if window is not None:
+            valid = valid & (kv_pos[:, None, None, :]
+                             > q_pos[:, None, :, None] - window)
+        p = torch.softmax(s.masked_fill(~valid, -math.inf), -1)
+        return torch.einsum("bhqt,bhtd->bhqd", p, v.bfloat16()).float()
+    return core
+
+
+def train_step_gaps(torch, cfg, spec, tcfg) -> dict:
+    """One gradient step from the same parameters and batch on the card
+    -- as the port computes it ("card"), with the loss's logsumexp in
+    bf16 and with the attention core in bf16 (``_bf16_attn_core``) --
+    and on the CPU.  For each card run, the relative gaps to the CPU's
+    of the loss and the gradient norm, and the worst and the median
+    leaf's relative L2 gradient gap, printed and returned by run name."""
+    from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
+    from repro_torch.models import layers
+    from repro_torch.optim.optimizer import global_norm
+    from repro_torch.train.trainer import Trainer
+    card = Trainer(cfg, tcfg, spec, device="cuda")
+    params = card.init_state()["params"]
+    lse = torch.logsumexp
+    controls = {"card": None,
+                "card with a bf16 logsumexp": (
+                    torch, "logsumexp", lambda x, *a, **kw:
+                    lse(x.bfloat16(), *a, **kw).float()),
+                "card with a bf16 attention core": (
+                    layers, "_attn_core", _bf16_attn_core(torch))}
+
+    def step(name, trainer, p, control=None):
+        if control is not None:
+            owner, attr, fn = control
+            original = getattr(owner, attr)
+            setattr(owner, attr, fn)
+        t0 = time.time()
+        try:
+            loss, grads = trainer.loss_and_grads(p, trainer.batch_at(0))
+        finally:
+            if control is not None:
+                setattr(owner, attr, original)
+        out = (float(loss), float(global_norm(grads)),
+               [g.float().cpu() for g in leaves(grads)])
+        print(f"train {cfg.name} depth {cfg.n_layers} gradient step, {name}:"
+              f" loss {out[0]:.6f}, grad norm {out[1]:.6f}, "
+              f"{time.time() - t0:.2f} s", flush=True)
+        return out
+
+    runs = {name: step(name, card, params, c)
+            for name, c in controls.items()}
+    lh, nh, gh = step("CPU", Trainer(cfg, tcfg, spec, device="cpu"),
+                      tree_map(lambda p: p.cpu(), params))
+    paths = ["/".join(map(str, p)) for p, _ in leaves_with_paths(params)]
+    out = {}
+    for name, (lc, nc, gc) in runs.items():
+        errs = {path: ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+                for path, a, b in zip(paths, gc, gh)}
+        worst = max(errs, key=errs.get)
+        g = out[name] = dict(
+            loss=abs(lc - lh) / abs(lh), grad_norm=abs(nc - nh) / nh,
+            worst_leaf=errs[worst], worst_at=worst,
+            median_leaf=sorted(errs.values())[len(errs) // 2])
+        print(f"train {cfg.name} depth {cfg.n_layers}, {name} vs CPU: loss "
+              f"rel {g['loss']:.3g}, grad norm rel {g['grad_norm']:.3g}, "
+              f"leaf gradients rel L2 worst {g['worst_leaf']:.3g} at "
+              f"{worst}, median {g['median_leaf']:.3g}", flush=True)
+    del card, params
+    return out
+
+
+def train_card_vs_cpu(torch, seed) -> None:
+    """One gradient step of ``TRAIN_ARCH`` at full width and 2 layers
+    (2 x 128 tokens) through ``train_step_gaps``: the card's gaps to the
+    CPU held to ``TRAIN_*_TOL``; the control with a bf16 logsumexp must
+    miss one of them."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataSpec
+    from repro_torch.train.trainer import TrainConfig
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    spec = DataSpec(vocab=cfg.vocab, seq_len=128, global_batch=2, seed=seed)
+    out = train_step_gaps(torch, cfg, spec, TrainConfig(seed=seed))
+    bars = {"loss": TRAIN_LOSS_TOL, "grad_norm": TRAIN_GNORM_TOL,
+            "worst_leaf": TRAIN_GRAD_TOL}
+    print(f"train {TRAIN_ARCH} depth 2 card vs CPU bars: {bars}", flush=True)
+
+    def missed(name):
+        return [k for k, tol in bars.items() if out[name][k] > tol]
+
+    if missed("card"):
+        raise AssertionError(f"card vs CPU training step beyond its bar: "
+                             f"{missed('card')}")
+    if not missed("card with a bf16 logsumexp"):
+        raise AssertionError("the card vs CPU bars pass a bf16 logsumexp")
+    fresh_memory(torch)
+
+
+def train_restart(torch, seed) -> None:
+    """``TRAIN_ARCH`` at full width and 2 layers with int8 moments on the
+    card: 4 steps straight against 2 steps, a synchronous checkpoint
+    (~1.6 GB), a fresh ``Trainer`` restored from it and 2 more steps
+    (``Trainer.run``): the losses and every leaf of the final state
+    (params, moments, scales, step) must be bit-identical.  The
+    checkpoints are deleted afterwards."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataSpec
+    from repro_torch.optim.optimizer import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+    spec = DataSpec(vocab=cfg.vocab, seq_len=128, global_batch=2, seed=seed)
+    root = os.path.join(ROOT, "build", "train_ckpt")
+
+    def run(name, num_steps, resume):
+        tcfg = TrainConfig(num_steps=num_steps, peak_lr=1e-3, warmup_steps=2,
+                           ckpt_every=0, seed=seed,
+                           adamw=AdamWConfig(state_bits=8),
+                           ckpt_dir=os.path.join(root, name))
+        return Trainer(cfg, tcfg, spec, device="cuda",
+                       async_ckpt=False).run(resume=resume)
+
+    t0 = time.time()
+    try:
+        state_full, hist_full = run("straight", 4, False)
+        run("resumed", 2, False)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(os.path.join(root, "resumed"))
+                   for f in fs)
+        state_res, hist_res = run("resumed", 4, True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    a, b = leaves(state_full), leaves(state_res)
+    same = [x.dtype == y.dtype and torch.equal(bits(x), bits(y))
+            for x, y in zip(a, b)]
+    print(f"train {TRAIN_ARCH} depth 2, int8 moments: 4 steps straight "
+          f"{' '.join(f'{x:.6f}' for x in hist_full)}; 2 + checkpoint "
+          f"({size / 1e9:.2f} GB) + restore + 2 "
+          f"{' '.join(f'{x:.6f}' for x in hist_res)}; {sum(same)} of "
+          f"{len(same)} state leaves bit-identical; {time.time() - t0:.1f} s",
+          flush=True)
+    if hist_full[2:] != hist_res or not all(same):
+        raise AssertionError("the card's restart is not bit-identical")
+    del state_full, state_res
+    fresh_memory(torch)
 
 
 GEMMS = ("apmm_fused_linear", "apmm_fused_linear_bitserial", "apmm_packed",
@@ -2168,7 +2432,8 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
                 with k4_rows() as rows_seen, k2_shapes() as k2_seen, \
                         k6_shapes() as k6_seen:
                     step_prof = profile_steps(
-                        torch, eng, 3 if step == "decode" else 1, kind=step)
+                        torch, eng.step, 3 if step == "decode" else 1,
+                        kind=step)
                 if k2_seen:
                     _k2_step_shapes(label, step, k2_seen,
                                     K2_STEP.get(arch) if step == "decode"
@@ -2346,10 +2611,10 @@ def serve_contiguous_phase(torch, seed, *, n_layers, per_dispatch, n_pack,
                 n0, tp = sum(len(r.out) for r in reqs), time.time()
                 with k6_shapes() as k6_seen:
                     if kind == "prefill":
-                        profile_steps(torch, eng, 1, kind="admitting")
+                        profile_steps(torch, eng.step, 1, kind="admitting")
                         admit_traced = True
                     else:
-                        prof = profile_steps(torch, eng, 3)
+                        prof = profile_steps(torch, eng.step, 3)
                 ring, window = next((c[1], c[2]) for c in K6_CASES
                                     if c[0] == K6_STEP)
                 _k6_step_shapes(label, "admitting" if kind == "prefill"
@@ -2505,12 +2770,15 @@ def main() -> int:
                     n_blocks=257)
     pair("llama3-8b", {"apmm_fused_linear": 193, "paged_attention": 32},
          n_pack=225, **llama_kw)
-    # mixtral: K1 4 a layer (q, k, v, o) + the lm_head, K2 one a layer,
-    # K4 two; K3 at load 4 + 8 experts x 3 a layer + the lm_head
-    pair("mixtral-8x7b", {"apmm_fused_linear": 129, "paged_attention": 32,
-                          "moe_expert_linear": 64},
+    # mixtral at SERVE_LAYERS's depth: K1 4 a layer (q, k, v, o) + the
+    # lm_head, K2 one a layer, K4 two; K3 at load 4 + 8 experts x 3 a
+    # layer + the lm_head
+    nm = SERVE_LAYERS["mixtral-8x7b"]
+    pair("mixtral-8x7b", {"apmm_fused_linear": 4 * nm + 1,
+                          "paged_attention": nm,
+                          "moe_expert_linear": 2 * nm},
          prompt_lens=(600, 100, 300, 4300), prefix=128, max_len=4352,
-         n_blocks=512, n_pack=28 * 32 + 1)
+         n_blocks=512, n_pack=28 * nm + 1)
     # deepseek-moe-16b (the dense layer 0, then MoE layers of 64 experts,
     # top 6, and a shared expert) and stablelm-3b (head dim 80, MHA,
     # layernorm), each at its own w3/a8 with a kv8 pool, at
@@ -2586,6 +2854,13 @@ def main() -> int:
                                  "flash_attention_quantized": nl_dec},
          k1_ms=seamless_k1,
          n_pack=6 * nl_dec + 4 * nl_dec + 1 + 6 * nl_enc + 1, **llama_kw)
+    print(f"serving paths done at {time.time() - t_start:.1f} s",
+          flush=True)
+    for check in (train_card_vs_cpu, train_restart, train_phase):
+        t0 = time.time()
+        check(torch, args.seed)
+        print(f"{check.__name__} took {time.time() - t0:.1f} s", flush=True)
+    print(f"training done at {time.time() - t_start:.1f} s", flush=True)
     for arch, c in paths.items():
         print(f"kernels ({arch} path): "
               + ", ".join(f"{k}={v}" for k, v in c.items()), flush=True)

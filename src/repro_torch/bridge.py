@@ -26,6 +26,11 @@ on ``device``:
 * bfloat16 arrays (numpy's ``bfloat16`` extension dtype) are viewed bit
   for bit as ``torch.bfloat16``.
 
+:func:`opt_state_from_numpy` carries an ``AdamWState`` of the reference
+(its ``step`` and its ``m``, ``v``, ``m_scale`` and ``v_scale`` trees,
+each laid out as the parameters, int8 moments included) over the same
+way, so that both packages can take one update from the same state.
+
 :func:`caches_from_numpy` and :func:`caches_to_numpy` carry the
 reference's contiguous decode-cache tree (``prelude`` list, stacked
 ``blocks``, uint32 planes; a mamba layer's ``conv``/``state`` rows; an
@@ -44,6 +49,7 @@ from repro_torch.core.bipolar import BipolarTensor
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import check_supported, plan_split, \
     resolve_device
+from repro_torch.optim.optimizer import AdamWState
 
 
 def to_tensor(arr, device) -> torch.Tensor:
@@ -114,6 +120,23 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") -> dict:
         params["cross"] = [from_numpy_tree(_unit(tree["cross"], j), dev)
                            for j in range(cfg.n_layers - cfg.first_dense)]
     return params
+
+
+def opt_state_from_numpy(state: dict, cfg: ModelConfig, device="cuda"):
+    """The reference's ``AdamWState`` as a dict of numpy trees (``step``,
+    ``m``, ``v``, ``m_scale``, ``v_scale``; the scale trees None with f32
+    moments) -> the port's
+    :class:`repro_torch.optim.optimizer.AdamWState` on ``device``."""
+    dev = resolve_device(device)
+
+    def tree(key):
+        t = state.get(key)
+        return None if t is None else params_from_numpy(t, cfg, device=dev)
+
+    return AdamWState(step=to_tensor(np.asarray(state["step"], np.int32),
+                                     dev),
+                      m=tree("m"), v=tree("v"), m_scale=tree("m_scale"),
+                      v_scale=tree("v_scale"))
 
 
 def _layers_from_tree(tree: dict, cfg: ModelConfig, dev) -> list:

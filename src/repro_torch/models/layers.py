@@ -139,7 +139,7 @@ def _serial_sum(t: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def _row_sum(t: torch.Tensor) -> torch.Tensor:
+def _tree_sum(t: torch.Tensor) -> torch.Tensor:
     """f32 row sums over the last axis (keepdim) in XLA:CPU's order."""
     while t.shape[-1] > 32:
         pad = -t.shape[-1] % 32
@@ -147,6 +147,29 @@ def _row_sum(t: torch.Tensor) -> torch.Tensor:
             t = F.pad(t, (pad // 2, pad - pad // 2))
         t = _serial_sum(t.unflatten(-1, (-1, 32)))
     return _serial_sum(t)[..., None]
+
+
+# Under autograd the norm's two reductions take the gradients the
+# reference's autodiff gives them, in one op each: a sum's gradient is
+# the upstream gradient on every element of the row (what autograd
+# through the serial adds gives too, bit for bit, but with a zero tensor,
+# a copy and an add a summed element), and rsqrt's is JAX's own rule,
+# ``g * (-0.5 * (y / v))`` (autograd through the estimate, a constant,
+# and the Newton steps would give an approximation of it).
+
+class _RowSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        ctx.width = t.shape[-1]
+        return _tree_sum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.expand(*g.shape[:-1], ctx.width)
+
+
+def _row_sum(t: torch.Tensor) -> torch.Tensor:
+    return _RowSum.apply(t)
 
 
 
@@ -174,7 +197,7 @@ def _rsqrt_estimate(v: torch.Tensor) -> torch.Tensor:
         torch.float32)
 
 
-def _rsqrt(v: torch.Tensor) -> torch.Tensor:
+def _rsqrt_newton(v: torch.Tensor) -> torch.Tensor:
     """f32 ``1 / sqrt(v)`` of positive normal ``v`` (a mean square plus
     eps) as XLA:CPU lowers ``lax.rsqrt``: the estimate, then twice ``y +=
     (-y / 2) * (v y y - 1)`` with FMAs."""
@@ -182,6 +205,23 @@ def _rsqrt(v: torch.Tensor) -> torch.Tensor:
     for _ in range(2):
         y = fma_f32(y * -0.5, fma_f32(v * y, y, -1.0), y)
     return y
+
+
+class _Rsqrt(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v):
+        y = _rsqrt_newton(v)
+        ctx.save_for_backward(v, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        v, y = ctx.saved_tensors
+        return g * ((y / v) * -0.5)
+
+
+def _rsqrt(v: torch.Tensor) -> torch.Tensor:
+    return _Rsqrt.apply(v)
 
 
 def rms_normalize(xf: torch.Tensor, scale, eps: float) -> torch.Tensor:

@@ -7,9 +7,11 @@ residual fused into the quantized output projection, or the Mamba-2
 mixer of :mod:`repro_torch.models.ssm` -- then, in an enc-dec decoder,
 cross-attention over the encoder's memory, then a dense MLP, a MoE or,
 for mamba2, nothing), the audio encoder (:func:`encode_frames`), the
-decode caches, the forward pass over the paged pool or a contiguous
-cache as a Python loop over layers, the logits, and serving-time
-quantization (:func:`quantize_params`).
+decode caches, the forward pass over the paged pool, a contiguous
+cache or no cache (training, each scan unit of the reference
+rematerialised) as a Python loop over layers, the logits, the chunked
+cross-entropy loss (:func:`loss_fn`), and serving-time quantization
+(:func:`quantize_params`).
 
 Parameters are a plain dict: ``embed``, ``final_norm``, ``layers`` (a
 list with one dict per layer, the prelude's leading dense layers first;
@@ -28,6 +30,8 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.bipolar import BipolarTensor, dtype_scalar
 from repro_torch.kernels import ops
@@ -35,6 +39,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import (ModelConfig, QuantConfig,
                                        effective_kv_bits)
+
+
+LOSS_CHUNK = 512   # sequence chunk of the CE loss (bounds logits memory)
 
 
 def resolve_device(device) -> torch.device:
@@ -167,10 +174,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
 
 def _apply_block(p, x, cfg: ModelConfig, mixer_kind: str, ffn_kind: str, *,
                  positions, cache, quant=None, moe_stats: bool = False,
-                 causal: Optional[bool] = None, cross=None):
-    """One pre-norm block; returns ``(x, new_cache, stats, new_cross)``
-    (``stats`` is :func:`repro_torch.models.layers.moe_apply`'s telemetry
-    for a MoE block when ``moe_stats`` asks for it, else None).
+                 causal: Optional[bool] = None, cross=None,
+                 with_aux: bool = False):
+    """One pre-norm block; returns ``(x, new_cache, stats, new_cross,
+    aux)`` (``stats`` is :func:`repro_torch.models.layers.moe_apply`'s
+    telemetry for a MoE block when ``moe_stats`` asks for it, ``aux`` its
+    load-balance loss when ``with_aux`` does; else None).
     Quantized serving with ``fused_linear`` (and ``residual_scale == 1``)
     threads the block input as ``residual`` into the attention output
     projection and the dense MLP's down projection, so the residual add
@@ -206,16 +215,17 @@ def _apply_block(p, x, cfg: ModelConfig, mixer_kind: str, ffn_kind: str, *,
             residual=x if fuse_res else None)
         x = hc if fuse_res else x + (hc.float() * rs).to(x.dtype)
     if ffn_kind == "none":
-        return x, new_cache, None, new_cross
+        return x, new_cache, None, new_cross, None
     h = L.norm_apply(p["norm2"], x, cfg)
     if ffn_kind == "moe":
-        h, _, stats = L.moe_apply(p["ffn"], h, cfg, quant=quant,
-                                  with_stats=moe_stats)
-        return x + (h.float() * rs).to(x.dtype), new_cache, stats, new_cross
+        h, aux, stats = L.moe_apply(p["ffn"], h, cfg, quant=quant,
+                                    with_aux=with_aux, with_stats=moe_stats)
+        return (x + (h.float() * rs).to(x.dtype), new_cache, stats,
+                new_cross, aux)
     h = L.mlp_apply(p["ffn"], h, cfg, quant=quant,
                     residual=x if fuse_res else None)
     x = h if fuse_res else x + (h.float() * rs).to(x.dtype)
-    return x, new_cache, None, new_cross
+    return x, new_cache, None, new_cross, None
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -264,17 +274,29 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            positions: torch.Tensor, caches: dict,
+            positions: Optional[torch.Tensor] = None,
+            caches: Optional[dict] = None,
             patch_embeds: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
-            quant: Optional[QuantConfig] = None,
-            logits_mode: str = "none", collect_moe_stats: bool = False):
+            quant: Optional[QuantConfig] = None, remat: bool = True,
+            logits_mode: str = "none", collect_moe_stats: bool = False,
+            with_aux: bool = False):
     """Run the stack over ``tokens (B, S)`` at ``positions (B, S)`` (-1 =
-    pad; ``(3, B, S)`` for M-RoPE) through ``caches``: the paged pool's
-    step caches (from
-    :meth:`repro_torch.serving.paged_cache.PagedKVPool.step_caches`) or
-    the contiguous ones of :func:`init_caches`.  Returns ``(hidden |
-    last-position logits, caches)``.
+    pad; ``(3, B, S)`` for M-RoPE; default ``0..S-1`` on every row)
+    through ``caches``: the paged pool's step caches (from
+    :meth:`repro_torch.serving.paged_cache.PagedKVPool.step_caches`), the
+    contiguous ones of :func:`init_caches`, or None (training, or a
+    cache-free forward: every attention layer attends over the sequence,
+    causal and windowed as the config says; every mamba mixer starts from
+    a zero state).  Returns ``(hidden | last-position logits, caches)``
+    (``caches`` None without caches).
+
+    ``remat`` (the cache-free forward under autograd only) recomputes
+    each unit of the reference's scan -- one layer of a uniform stack, a
+    hybrid stack's whole ``attn_every`` group; the leading prelude layers
+    are not rematerialised, as in the reference -- in the backward pass
+    (``torch.utils.checkpoint``): the same values, a unit's input
+    saved instead of its activations.
 
     ``patch_embeds (B, P, d)`` (the VLM's stub frontend) are added to the
     first ``P`` token embeddings.  ``frames (B, T, frontend_dim)`` (the
@@ -282,12 +304,18 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     memory every decoder layer's cross-attention projects into its
     cache; an audio decode step without frames replays those caches.
 
-    ``collect_moe_stats=True`` appends a third element: the per-MoE-layer
-    capacity telemetry ``{"load": (L_moe, E), "dropped": (L_moe,),
-    "capacity": (L_moe,)}`` (int32; rows in the reference's order, see
+    ``with_aux=True`` appends the f32 sum of the MoE layers' load-balance
+    losses (0 without MoE layers), the reference's ``aux_total``.
+    ``collect_moe_stats=True`` appends the per-MoE-layer capacity
+    telemetry ``{"load": (L_moe, E), "dropped": (L_moe,), "capacity":
+    (L_moe,)}`` (int32; rows in the reference's order, see
     :func:`moe_stats_order`; ``capacity`` comes from the shapes and lies
     on the host), or None if the stack has no MoE layers."""
     quant = quant if (quant and (quant.enabled or quant.kv_bits)) else None
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=tokens.device)[None].expand(b, s)
     x = params["embed"]["w"][tokens.long()].to(L._dtype(cfg))
     x = (x.float() * dtype_scalar(cfg.emb_scale, x.dtype)).to(x.dtype)
     if patch_embeds is not None:     # the VLM's stub frontend
@@ -298,32 +326,73 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     if cfg.family == "audio" and frames is not None:
         memory = encode_frames(params, frames, cfg, quant=quant)
     elif cfg.family == "audio":
-        assert "cross" in caches, \
+        assert caches is not None and "cross" in caches, \
             "audio decode without frames needs filled cross caches"
     fd = cfg.first_dense
+    plan = layer_plan(cfg)
+    prelude, unit, _ = plan_split(cfg)
+    n_prelude = len(prelude)
+    cache_list = [None] * len(plan) if caches is None else caches["layers"]
+
+    def run_layers(x, lo, hi):
+        """Layers ``lo..hi-1``: ``(x, new caches, stats, new cross caches,
+        aux sum or None)``."""
+        ncs, nxcs, stats, aux = [], [], {}, None
+        for i in range(lo, hi):
+            mk, fk = plan[i]
+            cross = None
+            if "cross" in params and i >= fd:
+                cross = (params["cross"][i - fd], memory,
+                         caches["cross"][i - fd] if caches is not None
+                         else None)
+            x, nc, mst, nxc, a = _apply_block(
+                params["layers"][i], x, cfg, mk, fk, positions=positions,
+                cache=cache_list[i], quant=quant,
+                moe_stats=collect_moe_stats, cross=cross, with_aux=with_aux)
+            ncs.append(nc)
+            if cross is not None:
+                nxcs.append(nxc)
+            if mst is not None:
+                stats[i] = mst
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, ncs, stats, nxcs, aux
+
+    checkpointed = remat and caches is None and torch.is_grad_enabled()
     new_layers, new_cross, layer_stats = [], [], {}
-    for i, (p, c, (mk, fk)) in enumerate(zip(params["layers"],
-                                             caches["layers"],
-                                             layer_plan(cfg))):
-        cross = None
-        if "cross" in params and i >= fd:
-            cross = (params["cross"][i - fd], memory, caches["cross"][i - fd])
-        x, nc, mst, nxc = _apply_block(
-            p, x, cfg, mk, fk, positions=positions, cache=c, quant=quant,
-            moe_stats=collect_moe_stats, cross=cross)
-        new_layers.append(nc)
-        if cross is not None:
-            new_cross.append(nxc)
-        if mst is not None:
-            layer_stats[i] = mst
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    unit_aux = []
+    spans = [(i, i + 1) for i in range(n_prelude)] + [
+        (lo, lo + len(unit)) for lo in range(n_prelude, len(plan),
+                                             len(unit))]
+    for lo, hi in spans:
+        if checkpointed and lo >= n_prelude:
+            x, ncs, stats, nxcs, aux = checkpoint(
+                run_layers, x, lo, hi, use_reentrant=False)
+        else:
+            x, ncs, stats, nxcs, aux = run_layers(x, lo, hi)
+        new_layers += ncs
+        new_cross += nxcs
+        layer_stats.update(stats)
+        if aux is not None:
+            if lo < n_prelude:
+                aux_total = aux_total + aux
+            else:
+                unit_aux.append(aux)
+    if unit_aux:    # the reference adds its scan's per-unit sums at once
+        aux_total = aux_total + torch.stack(unit_aux).sum()
     x = L.norm_apply(params["final_norm"], x, cfg)
     out = x
     if logits_mode == "last":
         out = _logits(params, x[:, -1:, :], cfg, quant)[:, 0]
-    new_caches = dict(caches, layers=new_layers)
-    if "cross" in caches:
-        new_caches["cross"] = new_cross
+    new_caches = None
+    if caches is not None:
+        new_caches = dict(caches, layers=new_layers)
+        if "cross" in caches:
+            new_caches["cross"] = new_cross
     ret = (out, new_caches)
+    if with_aux:
+        ret += (aux_total,)
     if not collect_moe_stats:
         return ret
     moe_stats = None
@@ -363,6 +432,51 @@ def _logits(params, x, cfg: ModelConfig, quant=None):
         pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Loss (chunked over the sequence: logits never materialize at (B, S, V))
+# ---------------------------------------------------------------------------
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
+            quant: Optional[QuantConfig] = None, remat: bool = True):
+    """Causal-LM cross-entropy plus the MoE load-balance loss, the
+    reference's ``loss_fn``.  ``batch``: ``tokens``, ``labels`` (B, S)
+    and optionally ``positions`` and ``mask`` (labels < 0 are masked
+    unless a mask is given).  The final hidden states go through the
+    logits ``LOSS_CHUNK`` positions at a time (the vocab's pad columns at
+    -1e30), each chunk's logits in f32 before ``logsumexp``; the summed
+    NLL is divided by ``max(count, 1)``, then the aux is added.  Dense,
+    MoE, SSM and hybrid stacks; the VLM's and enc-dec's training inputs
+    (patch embeddings, frames) are not ported."""
+    if cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): repro_torch's loss covers dense, "
+            f"MoE, SSM and hybrid stacks")
+    x, _, aux = forward(params, batch["tokens"], cfg,
+                        positions=batch.get("positions"), quant=quant,
+                        remat=remat, with_aux=True)
+    labels = batch["labels"].long()
+    mask = batch.get("mask")
+    mask = (labels >= 0) if mask is None else (mask > 0)
+    b, s, _ = x.shape
+    chunk = min(LOSS_CHUNK, s)
+    pad = -s % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        mask = F.pad(mask, (0, pad))
+    labels = torch.clamp(labels, min=0)
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, x.shape[1], chunk):
+        logits = _logits(params, x[:, lo:lo + chunk], cfg, quant).float()
+        lse = torch.logsumexp(logits, -1)
+        gold = torch.gather(logits, -1, labels[:, lo:lo + chunk, None])[..., 0]
+        ms = mask[:, lo:lo + chunk]
+        tot = tot + ((lse - gold) * ms).sum()
+        cnt = cnt + ms.sum()
+    return tot / torch.clamp(cnt, min=1.0) + aux
 
 
 # ---------------------------------------------------------------------------

@@ -125,7 +125,9 @@ assert {"repro_torch.kernels.moe", "repro_torch.configs.mixtral_8x7b",
         "repro_torch.configs.jamba_1_5_large_398b",
         "repro_torch.configs.qwen2_vl_7b",
         "repro_torch.configs.seamless_m4t_medium",
-        "repro_torch.launch.specs"} <= set(names), names
+        "repro_torch.launch.specs", "repro_torch.data.pipeline",
+        "repro_torch.optim.optimizer", "repro_torch.checkpoint.manager",
+        "repro_torch.train.trainer", "repro_torch.core.tree"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "repro" or m.startswith("repro.")
              or (m == "jax" or m.startswith("jax.")) and sys.modules[m])
@@ -136,7 +138,8 @@ assert not bad, bad
 
 def test_port_imports_without_jax_or_reference_package():
     """Every module of repro_torch (the MoE kernel wrapper, the SSM
-    mixer, the launch specs and the configs among them) imports with jax
+    mixer, the launch specs, the configs and the training stack among
+    them) imports with jax
     unimportable, and neither jax nor the reference package is loaded
     afterwards."""
     import os
