@@ -182,8 +182,24 @@ exit and no result line):
    profiled step; every loss finite, the last below the first, and no
    kernel of K1-K7 launched (the reference trains on the float path:
    its attention, MoE experts and linears are XLA ops, not Pallas
-   kernels);
-7. the launch counts of each path, the JSON kernels line (one entry per
+   kernels).  The VLM and the enc-dec model (``FAMILY_TRAIN``):
+   qwen2-vl-7b at full width and 2 layers, and seamless-m4t-medium with
+   2 encoder and 2 decoder layers, one gradient step on the card against
+   the CPU from the same parameters and a ``launch.specs.make_batch``
+   train batch (M-RoPE ``(3, B, S)`` positions and patch embeddings;
+   frames), held to ``FAMILY_*_TOL`` with a bf16-logsumexp control that
+   must miss one of them; then qwen2-vl-7b at 4 of its 28 layers and
+   seamless-m4t-medium at full depth (12 + 12) train a few steps on
+   ``make_batch`` batches: every loss finite, the last below the first,
+   the median step time, ``max_memory_allocated``, no K1-K7 launch;
+7. distributed, at world size 1 over NCCL (``init_process_group`` with
+   an in-process store, a ``(data, model)`` mesh of shape (1, 1) on the
+   card): ``sharding.sharded_step`` equal to the plain step bit for bit
+   (minicpm-2b at full width and 2 layers), ``compressed_psum``'s codes
+   and result equal to the CPU's on the same gradients, a checkpoint
+   restored onto the card mesh bit for bit, and ``pipeline_apply`` at one
+   stage against the sequential result; each check's time printed;
+8. the launch counts of each path, the JSON kernels line (one entry per
    path and kernel of that path, ``launches`` that path's own count, the
    other numbers those of the phase-3 case at that path's own shape,
    named in ``case`` (``PATH_CASES``; the kernel's shared case where
@@ -2013,13 +2029,16 @@ def _bf16_attn_core(torch):
     return core
 
 
-def train_step_gaps(torch, cfg, spec, tcfg) -> dict:
+def train_step_gaps(torch, cfg, spec, tcfg, batch=None,
+                    attn_control=True) -> dict:
     """One gradient step from the same parameters and batch on the card
     -- as the port computes it ("card"), with the loss's logsumexp in
-    bf16 and with the attention core in bf16 (``_bf16_attn_core``) --
-    and on the CPU.  For each card run, the relative gaps to the CPU's
-    of the loss and the gradient norm, and the worst and the median
-    leaf's relative L2 gradient gap, printed and returned by run name."""
+    bf16 and (``attn_control``) with the attention core in bf16
+    (``_bf16_attn_core``) -- and on the CPU.  The batch is the data
+    pipeline's first, or ``batch`` (CPU tensors, copied to each device).
+    For each card run, the relative gaps to the CPU's of the loss and the
+    gradient norm, and the worst and the median leaf's relative L2
+    gradient gap, printed and returned by run name."""
     from repro_torch.core.tree import leaves, leaves_with_paths, tree_map
     from repro_torch.models import layers
     from repro_torch.optim.optimizer import global_norm
@@ -2033,6 +2052,8 @@ def train_step_gaps(torch, cfg, spec, tcfg) -> dict:
                     lse(x.bfloat16(), *a, **kw).float()),
                 "card with a bf16 attention core": (
                     layers, "_attn_core", _bf16_attn_core(torch))}
+    if not attn_control:
+        del controls["card with a bf16 attention core"]
 
     def step(name, trainer, p, control=None):
         if control is not None:
@@ -2040,8 +2061,10 @@ def train_step_gaps(torch, cfg, spec, tcfg) -> dict:
             original = getattr(owner, attr)
             setattr(owner, attr, fn)
         t0 = time.time()
+        b = trainer.batch_at(0) if batch is None else {
+            k: v.to(trainer.device) for k, v in batch.items()}
         try:
-            loss, grads = trainer.loss_and_grads(p, trainer.batch_at(0))
+            loss, grads = trainer.loss_and_grads(p, b)
         finally:
             if control is not None:
                 setattr(owner, attr, original)
@@ -2154,6 +2177,280 @@ def train_restart(torch, seed) -> None:
         raise AssertionError("the card's restart is not bit-identical")
     del state_full, state_res
     fresh_memory(torch)
+
+
+# the VLM and the enc-dec model: one card-vs-CPU gradient step at
+# ``gap`` depth (layers, encoder layers), then ``steps`` training steps at
+# ``depth`` (None: the config's own) on ``make_batch`` batches of
+# ``batch`` x ``seq`` tokens (seamless: enc_len(seq) frames a row)
+FAMILY_TRAIN = {
+    "qwen2-vl-7b": dict(gap=(2, None), depth=(4, None), batch=4, seq=512,
+                        steps=6),
+    "seamless-m4t-medium": dict(gap=(2, 2), depth=(None, None), batch=4,
+                                seq=512, steps=6)}
+# card vs CPU bars of the families' step, set from tools/train_dist_probe.py
+# (PERF.md §6, PR 25): the gaps it measured on the H100 were 1.38e-5,
+# 6.48e-5 and 1.39e-2 (qwen2-vl-7b) and 1.13e-5, 1.61e-4 and 1.85e-2
+# (seamless-m4t-medium; its worst leaf a cross-attention norm's scale);
+# the bf16-logsumexp control's loss gaps 6.55e-4 and 1.45e-3
+FAMILY_LOSS_TOL, FAMILY_GNORM_TOL, FAMILY_GRAD_TOL = 5e-5, 4e-4, 4e-2
+
+
+def _family_cfg(arch, depth):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    n_layers, enc_layers = depth
+    over = {}
+    if n_layers is not None:
+        over["n_layers"] = n_layers
+    if enc_layers is not None:
+        over["enc_layers"] = enc_layers
+    return dataclasses.replace(cfg, **over) if over else cfg
+
+
+def family_gaps(torch, seed, arch, bars=True) -> dict:
+    """One gradient step of ``arch`` at its ``FAMILY_TRAIN`` gap depth,
+    2 x 128 tokens of a ``make_batch`` train batch, through
+    ``train_step_gaps`` (the card, a bf16-logsumexp control and the CPU);
+    with ``bars`` the card's gaps are held to ``FAMILY_*_TOL`` and the
+    control must miss one."""
+    from repro_torch.data.pipeline import DataSpec
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.train.trainer import TrainConfig
+    cfg = _family_cfg(arch, FAMILY_TRAIN[arch]["gap"])
+    batch = make_batch(cfg, 2, 128, "train", seed=seed, device="cpu")
+    print(f"train {arch} (enc layers {cfg.enc_layers}) gradient step batch: "
+          + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}"
+                      for k, v in batch.items()), flush=True)
+    spec = DataSpec(vocab=cfg.vocab, seq_len=128, global_batch=2, seed=seed)
+    out = train_step_gaps(torch, cfg, spec, TrainConfig(seed=seed),
+                          batch=batch, attn_control=False)
+    if bars:
+        tol = {"loss": FAMILY_LOSS_TOL, "grad_norm": FAMILY_GNORM_TOL,
+               "worst_leaf": FAMILY_GRAD_TOL}
+        print(f"train {arch} card vs CPU bars: {tol}", flush=True)
+
+        def missed(name):
+            return [k for k, t in tol.items() if out[name][k] > t]
+
+        if missed("card"):
+            raise AssertionError(f"{arch}: card vs CPU training step beyond "
+                                 f"its bar: {missed('card')}")
+        if not missed("card with a bf16 logsumexp"):
+            raise AssertionError(f"{arch}: the card vs CPU bars pass a bf16 "
+                                 f"logsumexp")
+    fresh_memory(torch)
+    return out
+
+
+def family_train(torch, seed, arch) -> dict:
+    """``arch`` at its ``FAMILY_TRAIN`` depth trains ``steps`` steps on
+    the card through ``Trainer.train_step`` (WSD: warmup 2, peak lr 1e-3;
+    f32 moments; step 0 at lr 0), each on a fresh ``make_batch`` train
+    batch: every loss finite, the last below the first, no K1-K7 launch;
+    the median step time (the first step left out) and
+    ``max_memory_allocated`` printed and returned."""
+    import math
+    from repro_torch.core.tree import leaves
+    from repro_torch.data.pipeline import DataSpec
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    ft = FAMILY_TRAIN[arch]
+    cfg = _family_cfg(arch, ft["depth"])
+    spec = DataSpec(vocab=cfg.vocab, seq_len=ft["seq"],
+                    global_batch=ft["batch"], seed=seed)
+    tcfg = TrainConfig(num_steps=ft["steps"], peak_lr=1e-3, warmup_steps=2,
+                       schedule="wsd", ckpt_every=0, seed=seed)
+    fresh_memory(torch)
+    trainer = Trainer(cfg, tcfg, spec, device="cuda")
+    state = trainer.init_state()
+    n_params = sum(p.numel() for p in leaves(state["params"]))
+    print(f"train {arch}: {cfg.n_layers} decoder layers (encoder "
+          f"{cfg.enc_layers}), d_model {cfg.d_model}, vocab {cfg.vocab}, "
+          f"{n_params / 1e9:.3f} B parameters, f32 moments", flush=True)
+    zero_counters()
+    losses, times = [], []
+    for step in range(ft["steps"]):
+        batch = make_batch(cfg, ft["batch"], ft["seq"], "train",
+                           seed=seed + 1000 * (step + 1), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, m = trainer.train_step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.time() - t0)
+        print(f"train {arch} step {step}: loss {losses[-1]:.4f}, lr "
+              f"{float(m['lr']):.3e}, grad norm {float(m['grad_norm']):.4f},"
+              f" {1e3 * times[-1]:.1f} ms", flush=True)
+    launched = {k: v for k, v in counters().items() if v}
+    if launched:
+        raise AssertionError(f"{arch} training launched kernels: {launched}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch} training losses not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} training loss did not fall: {losses}")
+    steady = sorted(times[1:])
+    med = steady[len(steady) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = ft["batch"] * ft["seq"]
+    print(f"train {arch}: {ft['steps']} steps of {tokens} tokens, median "
+          f"step {1e3 * med:.1f} ms ({tokens / med:.0f} tokens/s; the "
+          f"first {1e3 * times[0]:.1f} ms), max_memory_allocated "
+          f"{peak:.2f} GiB; losses " + " ".join(f"{x:.4f}" for x in losses),
+          flush=True)
+    del trainer, state, batch, m
+    fresh_memory(torch)
+    return dict(median_ms=1e3 * med, peak_gib=peak, losses=losses)
+
+
+def train_families(torch, seed) -> None:
+    for arch in FAMILY_TRAIN:
+        t0 = time.time()
+        family_gaps(torch, seed, arch)
+        family_train(torch, seed, arch)
+        print(f"train {arch} took {time.time() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: distributed, at world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+def _same_bits(torch, a, b) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return bool(torch.equal(a, b))
+
+
+def dist_phase(torch, seed) -> dict:
+    """The distributed layer on the card at world size 1: NCCL through
+    an in-process store, a ``(data, model)`` DeviceMesh of shape (1, 1)
+    (and a ``(pipe,)`` one of 1).  Each check raises on a mismatch:
+
+    * ``sharded_step`` on minicpm-2b at full width and 2 layers (2 x 128
+      tokens): loss and every gradient leaf equal to the plain step's
+      (``Trainer.loss_and_grads``) bit for bit;
+    * ``compressed_psum`` on that step's gradients: each leaf's int8
+      codes and its result equal to the CPU's (codes and dequant by
+      ``compress.int8_codes`` on the CPU copy: over one rank the
+      all-reduces are the identity);
+    * a checkpoint of the layers' parameters restored onto the mesh
+      (``restore_tree(shardings=)``): every leaf a DTensor on it, equal
+      bit for bit;
+    * ``pipeline_apply`` at one stage over 8 microbatches against the
+      sequential product, within 1e-5.
+    Returns each check's seconds."""
+    import dataclasses
+    import datetime
+    import functools
+    import shutil
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import manager as CM
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.data.pipeline import DataSpec
+    from repro_torch.distributed import compress as C
+    from repro_torch.distributed import sharding as S
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train.trainer import TrainConfig, Trainer
+    times = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0),
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
+        spec = DataSpec(vocab=cfg.vocab, seq_len=128, global_batch=2,
+                        seed=seed)
+        trainer = Trainer(cfg, TrainConfig(seed=seed), spec, device="cuda")
+        params = trainer.init_state()["params"]
+        batch = trainer.batch_at(0)
+        t0 = time.time()
+        loss0, grads0 = trainer.loss_and_grads(params, batch)
+        ps = S.shard_tree(params, mesh, S.shardings_for_params(mesh, params))
+        bs = S.shard_tree(batch, mesh, S.shardings_for_batch(mesh, batch))
+        step = S.sharded_step(functools.partial(M.loss_terms, cfg=cfg), mesh)
+        loss1, grads1 = step(ps, bs)
+        torch.cuda.synchronize()
+        times["sharded_step"] = time.time() - t0
+        same = [_same_bits(torch, g.to_local(), h)
+                for g, h in zip(leaves(grads1), leaves(grads0))]
+        n_sh = sum(any(not q.is_replicate() for q in p.placements)
+                   for p in leaves(ps))
+        print(f"dist sharded_step {TRAIN_ARCH} depth 2 on a (1, 1) mesh "
+              f"({n_sh} of {len(same)} leaves with a Shard placement): loss "
+              f"{float(loss1):.6f} vs plain {float(loss0):.6f}, "
+              f"{sum(same)} of {len(same)} gradient leaves bit-identical, "
+              f"{times['sharded_step']:.1f} s", flush=True)
+        if not (_same_bits(torch, loss1.reshape(()), loss0.reshape(()))
+                and all(same)):
+            raise AssertionError("sharded_step is not the plain step")
+
+        t0 = time.time()
+        group = mesh.get_group("data")
+        got = C.compressed_psum(grads0, group)
+        n_codes = n_out = 0
+        for g, out in zip(leaves(grads0), leaves(got)):
+            amax = torch.max(torch.abs(g.float()))
+            q, sc = C.int8_codes(g, amax)
+            gc = g.cpu()
+            qc, scc = C.int8_codes(gc, torch.max(torch.abs(gc.float())))
+            n_codes += bool(torch.equal(q.cpu(), qc))
+            want = (qc.float() * scc / 1.0).to(g.dtype)
+            n_out += _same_bits(torch, out.cpu(), want)
+        n = len(leaves(grads0))
+        times["compressed_psum"] = time.time() - t0
+        print(f"dist compressed_psum over one rank: {n_codes} of {n} "
+              f"leaves' int8 codes and {n_out} of {n} results equal to the "
+              f"CPU's, {times['compressed_psum']:.1f} s", flush=True)
+        if n_codes != n or n_out != n:
+            raise AssertionError("compressed_psum differs from the CPU's")
+        del grads0, grads1, got
+
+        t0 = time.time()
+        root = os.path.join(ROOT, "build", "dist_ckpt")
+        tree = {"layers": params["layers"]}
+        try:
+            CM.save_tree(tree, root, 1)
+            shd = S.named(mesh, S.shardings_for_params(mesh, tree), tree)
+            back, _ = CM.restore_tree(tree, root, shardings=shd)
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        ok = [isinstance(b, DTensor) and b.device_mesh is mesh
+              and _same_bits(torch, b.to_local(), a)
+              for a, b in zip(leaves(tree), leaves(back))]
+        times["restore"] = time.time() - t0
+        print(f"dist checkpoint of {len(ok)} leaves restored onto the (1, 1) "
+              f"card mesh: {sum(ok)} bit-identical DTensors, "
+              f"{times['restore']:.1f} s", flush=True)
+        if not all(ok):
+            raise AssertionError("the restore onto the card mesh differs")
+        del back, ps, bs, params, trainer
+
+        t0 = time.time()
+        pmesh = make_mesh((1,), ("pipe",))
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        ws = torch.randn((1, 256, 256), generator=g, device="cuda") / 16
+        x = torch.randn((8, 4, 256), generator=g, device="cuda")
+        run = pipeline_apply(lambda w, h: torch.tanh(h @ w), 1, 8,
+                             axis="pipe")
+        out = run(pmesh, ws, x)
+        want = torch.tanh(x @ ws[0])
+        err = float((out - want).abs().max())
+        times["pipeline"] = time.time() - t0
+        print(f"dist pipeline_apply, 1 stage x 8 microbatches: max |out - "
+              f"sequential| {err:.3g}, {times['pipeline']:.1f} s",
+              flush=True)
+        if not err <= 1e-5:
+            raise AssertionError("pipeline_apply differs from sequential")
+    finally:
+        dist.destroy_process_group()
+    fresh_memory(torch)
+    return times
 
 
 GEMMS = ("apmm_fused_linear", "apmm_fused_linear_bitserial", "apmm_packed",
@@ -2856,11 +3153,19 @@ def main() -> int:
          n_pack=6 * nl_dec + 4 * nl_dec + 1 + 6 * nl_enc + 1, **llama_kw)
     print(f"serving paths done at {time.time() - t_start:.1f} s",
           flush=True)
-    for check in (train_card_vs_cpu, train_restart, train_phase):
+    for check in (train_card_vs_cpu, train_restart, train_phase,
+                  train_families):
         t0 = time.time()
         check(torch, args.seed)
         print(f"{check.__name__} took {time.time() - t0:.1f} s", flush=True)
     print(f"training done at {time.time() - t_start:.1f} s", flush=True)
+    zero_counters()
+    dist_phase(torch, args.seed)
+    launched = {k: v for k, v in counters().items() if v}
+    if launched:
+        raise AssertionError(f"the distributed phase launched kernels: "
+                             f"{launched}")
+    print(f"distributed done at {time.time() - t_start:.1f} s", flush=True)
     for arch, c in paths.items():
         print(f"kernels ({arch} path): "
               + ", ".join(f"{k}={v}" for k, v in c.items()), flush=True)

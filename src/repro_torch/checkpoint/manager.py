@@ -12,7 +12,11 @@ read back through ``torch.int16`` and ``.view(torch.bfloat16)``, with no
 atomic ``os.rename`` of its temp directory, so a preemption mid-save
 never corrupts the latest complete one.
 
-The reference's elastic ``shardings=`` restore becomes ``device=`` here.
+``restore_tree(..., shardings=)`` is the reference's elastic restore
+onto another topology: each leaf lands as a DTensor on the mesh and with
+the placements given for it (:func:`repro_torch.distributed.sharding
+.named`), whatever mesh it was saved from.  ``device=`` lands a leaf on
+one device instead.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.core.tree import leaves_with_paths, path_key, tree_map
+from repro_torch.core.tree import get_at, leaves_with_paths, path_key, \
+    tree_map
 
 
 def _to_host(leaf) -> torch.Tensor:
@@ -107,10 +112,13 @@ def _from_numpy(arr: np.ndarray, dtype_name: Optional[str]) -> torch.Tensor:
 
 
 def restore_tree(template, directory: str, step: Optional[int] = None, *,
-                 device=None):
+                 device=None, shardings=None):
     """Restore into the structure of ``template`` (a tree of tensors).
-    Each leaf lands on ``device``, or, without one, on the device of the
-    template's leaf it replaces.  Returns ``(tree, meta)``."""
+    With ``shardings`` (a tree laid out as ``template`` holding a ``(mesh,
+    placements)`` pair at each leaf) each leaf is distributed as a
+    DTensor on its mesh, every rank reading the same file; else it lands
+    on ``device``, or, without one, on the device of the template's leaf
+    it replaces.  Returns ``(tree, meta)``."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -121,11 +129,16 @@ def restore_tree(template, directory: str, step: Optional[int] = None, *,
     sidecar = meta.get("dtypes", {})
     with np.load(os.path.join(path, "arrays.npz")) as z:
         arrays = {k: _from_numpy(z[k], sidecar.get(k)) for k in z.files}
-    restored = iter(arrays[path_key(path)]
-                    for path, _ in leaves_with_paths(template))
+    paths = [path for path, _ in leaves_with_paths(template)]
+    restored = iter([(arrays[path_key(path)], path) for path in paths])
 
     def place(leaf):         # tree_map visits the leaves in this order
-        return next(restored).to(
+        arr, path = next(restored)
+        if shardings is not None:
+            from torch.distributed.tensor import distribute_tensor
+            mesh, pl = get_at(shardings, path)
+            return distribute_tensor(arr.to(mesh.device_type), mesh, pl)
+        return arr.to(
             device if device is not None else torch.as_tensor(leaf).device)
 
     return tree_map(place, template), meta

@@ -59,3 +59,14 @@ def tree_map(fn, tree, *rest):
                           for i, v in enumerate(tree))
     return fn(tree, *rest)
 
+
+
+def get_at(tree, path: tuple):
+    """The subtree of ``tree`` at ``path`` (a path of
+    :func:`leaves_with_paths`), whatever lies there: a tree whose leaves
+    are tuples (a sharding spec, a ``(mesh, placements)`` pair) is read
+    along another tree's paths."""
+    for p in path:
+        tree = getattr(tree, p[1:]) if isinstance(p, str) and \
+            p.startswith(".") and _is_namedtuple(tree) else tree[p]
+    return tree

@@ -127,10 +127,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
     """Random parameters from ``seed`` (a ``torch.Generator`` on
     ``device``).  With ``quant`` enabled every linear is quantized right
     after its layer is made, so a full-size model never sits in bf16 at
-    once; the quantization (and its bit-plane pack) runs on ``device``."""
+    once; the quantization (and its bit-plane pack) runs on ``device``.
+    ``device="meta"`` (float parameters only) gives the tree's shapes and
+    dtypes with no storage, as the reference's ``jax.eval_shape`` of its
+    init does."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev
+                          ).manual_seed(seed)
     dt = L._dtype(cfg)
     q = quant if quant is not None and quant.enabled else None
 
@@ -322,9 +326,11 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         npt = patch_embeds.shape[1]
         x = torch.cat([x[:, :npt] + patch_embeds.to(x.dtype), x[:, npt:]],
                       1)
+    checkpointed = remat and caches is None and torch.is_grad_enabled()
     memory = None
     if cfg.family == "audio" and frames is not None:
-        memory = encode_frames(params, frames, cfg, quant=quant)
+        memory = encode_frames(params, frames, cfg, quant=quant,
+                               remat=checkpointed)
     elif cfg.family == "audio":
         assert caches is not None and "cross" in caches, \
             "audio decode without frames needs filled cross caches"
@@ -358,7 +364,6 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                 aux = a if aux is None else aux + a
         return x, ncs, stats, nxcs, aux
 
-    checkpointed = remat and caches is None and torch.is_grad_enabled()
     new_layers, new_cross, layer_stats = [], [], {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     unit_aux = []
@@ -404,11 +409,16 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
 
 
 def encode_frames(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
-                  quant: Optional[QuantConfig] = None) -> torch.Tensor:
+                  quant: Optional[QuantConfig] = None,
+                  remat: bool = False) -> torch.Tensor:
     """The enc-dec encoder: stub frontend embeddings ``frames (B, T,
     frontend_dim)`` -> memory ``(B, T, d_model)``.  The frontend linear,
     then each encoder block (MHA self-attention, not causal, at positions
-    ``0..T-1``, then the dense MLP), then the final norm."""
+    ``0..T-1``, then the dense MLP), then the final norm.  ``remat``
+    recomputes each encoder block in the backward pass (one
+    ``torch.utils.checkpoint`` a block, the reference's
+    ``jax.checkpoint`` of its scan body); :func:`forward` asks for it
+    under autograd without caches."""
     enc = params["encoder"]
     x = L.linear_apply(enc["frontend"], frames.to(L._dtype(cfg)),
                        quant=quant)
@@ -416,9 +426,15 @@ def encode_frames(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
     positions = torch.arange(t, dtype=torch.int32,
                              device=x.device)[None].repeat(b, 1)
     enc_cfg = dataclasses.replace(cfg, n_kv_heads=cfg.n_heads)
+
+    def block(x, p):
+        return _apply_block(p, x, enc_cfg, "attn", "dense",
+                            positions=positions, cache=None, quant=quant,
+                            causal=False)[0]
+
     for p in enc["layers"]:
-        x = _apply_block(p, x, enc_cfg, "attn", "dense", positions=positions,
-                         cache=None, quant=quant, causal=False)[0]
+        x = (checkpoint(block, x, p, use_reentrant=False) if remat
+             else block(x, p))
     return L.norm_apply(enc["final_norm"], x, cfg)
 
 
@@ -438,23 +454,16 @@ def _logits(params, x, cfg: ModelConfig, quant=None):
 # Loss (chunked over the sequence: logits never materialize at (B, S, V))
 # ---------------------------------------------------------------------------
 
-def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
-            quant: Optional[QuantConfig] = None, remat: bool = True):
-    """Causal-LM cross-entropy plus the MoE load-balance loss, the
-    reference's ``loss_fn``.  ``batch``: ``tokens``, ``labels`` (B, S)
-    and optionally ``positions`` and ``mask`` (labels < 0 are masked
-    unless a mask is given).  The final hidden states go through the
-    logits ``LOSS_CHUNK`` positions at a time (the vocab's pad columns at
-    -1e30), each chunk's logits in f32 before ``logsumexp``; the summed
-    NLL is divided by ``max(count, 1)``, then the aux is added.  Dense,
-    MoE, SSM and hybrid stacks; the VLM's and enc-dec's training inputs
-    (patch embeddings, frames) are not ported."""
-    if cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): repro_torch's loss covers dense, "
-            f"MoE, SSM and hybrid stacks")
+def loss_terms(params: dict, batch: dict, cfg: ModelConfig, *,
+               quant: Optional[QuantConfig] = None, remat: bool = True):
+    """The parts of :func:`loss_fn`: ``(nll, count, aux)``, the f32 sum of
+    the masked tokens' negative log-likelihoods, their count and the MoE
+    load-balance loss (0 without MoE layers).  A data-parallel step sums
+    ``nll`` and ``count`` over its ranks before it divides."""
     x, _, aux = forward(params, batch["tokens"], cfg,
-                        positions=batch.get("positions"), quant=quant,
+                        positions=batch.get("positions"),
+                        patch_embeds=batch.get("patch_embeds"),
+                        frames=batch.get("frames"), quant=quant,
                         remat=remat, with_aux=True)
     labels = batch["labels"].long()
     mask = batch.get("mask")
@@ -476,6 +485,23 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
         ms = mask[:, lo:lo + chunk]
         tot = tot + ((lse - gold) * ms).sum()
         cnt = cnt + ms.sum()
+    return tot, cnt, aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, *,
+            quant: Optional[QuantConfig] = None, remat: bool = True):
+    """Causal-LM cross-entropy plus the MoE load-balance loss, the
+    reference's ``loss_fn``.  ``batch``: ``tokens``, ``labels`` (B, S)
+    and optionally ``positions`` (``(3, B, S)`` for M-RoPE), ``mask``
+    (labels < 0 are masked unless a mask is given), the VLM's
+    ``patch_embeds`` and the enc-dec model's ``frames`` (all as
+    :func:`repro_torch.launch.specs.make_batch` lays them out).  The
+    final hidden states go through the logits ``LOSS_CHUNK`` positions
+    at a time (the vocab's pad columns at -1e30), each chunk's logits in
+    f32 before ``logsumexp``; the summed NLL is divided by ``max(count,
+    1)``, then the aux is added.  Every family: dense, MoE, SSM, hybrid,
+    VLM and enc-dec."""
+    tot, cnt, aux = loss_terms(params, batch, cfg, quant=quant, remat=remat)
     return tot / torch.clamp(cnt, min=1.0) + aux
 
 

@@ -17,6 +17,14 @@ copy, as in the reference).  Unlike the reference, which returns new
 arrays, :func:`adamw_update` writes the parameters and the moments in
 place, so a step holds one copy of each (plus one leaf's f32
 temporaries).
+
+Sharded parameters (DTensors, :mod:`repro_torch.distributed.sharding`)
+take the same step on their local shards: the moments are DTensors laid
+out as their parameter (an int8 moment's row scale replicated along the
+mesh dims that shard the last axis), the global norm counts each element
+once however many ranks hold it, and an int8 row's absmax is the max
+over every shard of the row, so the codes and scales are the ones a
+single device would compute.
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import math
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.core.tree import leaves, tree_map
 
@@ -85,8 +95,17 @@ def cosine_schedule(*, peak_lr: float, warmup_steps: int, total_steps: int,
 # int8 moment quantization
 # ---------------------------------------------------------------------------
 
-def _q8(x: torch.Tensor, signed: bool):
-    """f32 -> (int8 codes, f32 per-row scale). Rows = last axis.
+def _row_max(amax: torch.Tensor, groups) -> torch.Tensor:
+    """The max of ``amax`` over the process ``groups`` that hold the other
+    shards of its rows (none on one device)."""
+    for g in groups:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=g)
+    return amax
+
+
+def _q8(x: torch.Tensor, signed: bool, groups=()):
+    """f32 -> (int8 codes, f32 per-row scale). Rows = last axis; a row
+    whose last axis is sharded takes its absmax over the ``groups``.
 
     The second moment is quantized in the *sqrt domain*: v spans many
     orders of magnitude and a linear int8 grid collapses small entries to
@@ -96,7 +115,7 @@ def _q8(x: torch.Tensor, signed: bool):
     xf = x.float()
     if not signed:                       # v >= 0: sqrt-domain codes
         xf = torch.sqrt(xf)
-    amax = xf.abs().amax(-1, keepdim=True)
+    amax = _row_max(xf.abs().amax(-1, keepdim=True), groups)
     scale = torch.clamp(amax, min=1e-30) / 127.0
     q = torch.clamp(torch.round(xf / scale), -127 if signed else 0, 127)
     return q.to(torch.int8), scale
@@ -129,18 +148,43 @@ class AdamWState(NamedTuple):
     v_scale: Any
 
 
+def _zeros(p, shape, dtype):
+    """Zeros of ``shape`` laid out as ``p``: a DTensor on ``p``'s mesh,
+    sharded as ``p`` on each dim of the same size (replicated where the
+    size differs: a row scale's last axis), or a tensor on its device."""
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=dtype, device=p.device)
+    from torch.distributed.tensor import zeros
+    pl = [Replicate() if isinstance(q, Shard) and shape[q.dim] != p.shape[
+        q.dim] else q for q in p.placements]
+    return zeros(shape, dtype=dtype, device_mesh=p.device_mesh,
+                 placements=pl)
+
+
+def _row_groups(p) -> tuple:
+    """The process groups of the mesh dims that shard ``p``'s last axis."""
+    if not isinstance(p, DTensor):
+        return ()
+    mesh = p.device_mesh
+    return tuple(mesh.get_group(i) for i, q in enumerate(p.placements)
+                 if isinstance(q, Shard) and q.dim == p.ndim - 1)
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
     int8 = cfg.state_bits == 8
 
     def zeros_like_moment(p):
-        return torch.zeros(p.shape, dtype=torch.int8 if int8
-                           else torch.float32, device=p.device)
+        return _zeros(p, tuple(p.shape), torch.int8 if int8
+                      else torch.float32)
 
     def zeros_scale(p):
-        return torch.zeros(p.shape[:-1] + (1,), dtype=torch.float32,
-                           device=p.device)
+        return _zeros(p, tuple(p.shape[:-1]) + (1,), torch.float32)
 
-    first = leaves(params)[0]
+    first = _local(leaves(params)[0])
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=first.device),
         m=tree_map(zeros_like_moment, params),
@@ -149,9 +193,17 @@ def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
         v_scale=tree_map(zeros_scale, params) if int8 else None)
 
 
+def _square_sum(x) -> torch.Tensor:
+    """f32 sum of squares of a leaf; of a DTensor, over its whole (each
+    element once: the shards' sums are added over the mesh dims that
+    shard it, not over those that replicate it)."""
+    s = torch.sum(torch.square(x.float()))
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
 def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in leaves(tree)]).sum())
+        [_square_sum(x) for x in leaves(tree)]).sum())
 
 
 @torch.no_grad()
@@ -171,6 +223,9 @@ def adamw_update(grads, state: AdamWState, params, *, lr,
     int8 = cfg.state_bits == 8
 
     def upd(p, g, m, v, ms=None, vs=None):
+        groups = _row_groups(p)
+        p, g, m, v, ms, vs = (None if t is None else _local(t)
+                              for t in (p, g, m, v, ms, vs))
         g = g.float() * clip
         mf = _dq8(m, ms, signed=True) if int8 else m
         vf = _dq8(v, vs, signed=False) if int8 else v
@@ -183,8 +238,8 @@ def adamw_update(grads, state: AdamWState, params, *, lr,
                            + cfg.weight_decay * pf)
         p.copy_(new_p)               # the cast to p's dtype, as astype
         if int8:
-            m8, ms8 = _q8(mf, signed=True)
-            v8, vs8 = _q8(vf, signed=False)
+            m8, ms8 = _q8(mf, signed=True, groups=groups)
+            v8, vs8 = _q8(vf, signed=False, groups=groups)
             m.copy_(m8)
             ms.copy_(ms8)
             v.copy_(v8)

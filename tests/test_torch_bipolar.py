@@ -127,7 +127,11 @@ assert {"repro_torch.kernels.moe", "repro_torch.configs.mixtral_8x7b",
         "repro_torch.configs.seamless_m4t_medium",
         "repro_torch.launch.specs", "repro_torch.data.pipeline",
         "repro_torch.optim.optimizer", "repro_torch.checkpoint.manager",
-        "repro_torch.train.trainer", "repro_torch.core.tree"} <= set(names), names
+        "repro_torch.train.trainer", "repro_torch.core.tree",
+        "repro_torch.launch.mesh", "repro_torch.distributed",
+        "repro_torch.distributed.sharding",
+        "repro_torch.distributed.compress",
+        "repro_torch.distributed.pipeline"} <= set(names), names
 bad = sorted(m for m in sys.modules
              if m == "repro" or m.startswith("repro.")
              or (m == "jax" or m.startswith("jax.")) and sys.modules[m])
@@ -138,10 +142,11 @@ assert not bad, bad
 
 def test_port_imports_without_jax_or_reference_package():
     """Every module of repro_torch (the MoE kernel wrapper, the SSM
-    mixer, the launch specs, the configs and the training stack among
-    them) imports with jax
+    mixer, the launch specs and meshes, the configs, the training stack
+    and the distributed layer among them) imports with jax
     unimportable, and neither jax nor the reference package is loaded
-    afterwards."""
+    afterwards.  The walk reaches every module file of the package: one
+    it skipped would fail the count."""
     import os
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(os.path.dirname(
@@ -151,4 +156,6 @@ def test_port_imports_without_jax_or_reference_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     count = int(out.stdout.split()[0])
-    assert count >= 20, out.stdout
+    files = sum(name.endswith(".py") for _, _, names in os.walk(
+        os.path.join(src, "repro_torch")) for name in names)
+    assert count == files - 1 >= 52, (count, files, out.stdout)

@@ -43,7 +43,11 @@ qwen2-vl-7b's GQA group 7, K1 and K1-bs at seamless's GELU up projection
 Training: one gradient step of reduced llama3-8b on the card against the
 CPU (the loss within 4e-5, the gradient norm within 2e-4, each leaf's
 gradient within 2e-2 in relative L2; a bf16 logsumexp misses), and a
-restart on the card with int8 moments that is bit-exact.
+restart on the card with int8 moments that is bit-exact.  The
+distributed layer at world size 1 over NCCL (``-k distributed``; a
+one-rank group for the module): ``sharded_step`` equal to the plain step
+bit for bit, ``compressed_psum`` equal to the CPU's, a restore onto the
+card mesh bit for bit, a one-stage pipeline within 1e-5 of sequential.
 """
 
 import numpy as np
@@ -1804,3 +1808,93 @@ def test_training_restart_on_card_is_bit_exact(device, tmp_path):
     for a, b in zip(leaves(full), leaves(res)):
         assert a.is_cuda and a.dtype == b.dtype
         assert torch.equal(bits(a), bits(b))
+
+
+# --- the distributed layer at world size 1 over NCCL ------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL process group (an in-process store) and its
+    ``(data, model)`` mesh of shape (1, 1) on the card, for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0),
+                            timeout=datetime.timedelta(seconds=120))
+    yield make_mesh((1, 1), ("data", "model"))
+    dist.destroy_process_group()
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def test_distributed_sharded_step_equals_plain_step(nccl_mesh, tmp_path):
+    """``sharded_step`` on the (1, 1) mesh: the loss and every gradient
+    leaf equal to ``Trainer.loss_and_grads``'s bit for bit (reduced
+    llama3-8b); no kernel of K1-K7 launches."""
+    import functools
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models import model as M
+    tr = _trainer(tmp_path, "cuda")
+    params, batch = tr.init_state()["params"], tr.batch_at(0)
+    loss0, grads0 = tr.loss_and_grads(params, batch)
+    before = (apmm.LAUNCHES, flash_attention.FLOAT_LAUNCHES)
+    ps = S.shard_tree(params, nccl_mesh,
+                      S.shardings_for_params(nccl_mesh, params))
+    bs = S.shard_tree(batch, nccl_mesh,
+                      S.shardings_for_batch(nccl_mesh, batch))
+    loss1, grads1 = S.sharded_step(functools.partial(
+        M.loss_terms, cfg=tr.cfg), nccl_mesh)(ps, bs)
+    assert (apmm.LAUNCHES, flash_attention.FLOAT_LAUNCHES) == before
+    assert _same_bits(loss1.reshape(()), loss0.reshape(()))
+    for a, b in zip(leaves(grads1), leaves(grads0)):
+        assert _same_bits(a.to_local(), b)
+
+
+def test_distributed_compressed_psum_equals_cpu(nccl_mesh):
+    """Over one rank ``compressed_psum`` is quantize then dequantize: its
+    result and the int8 codes equal the CPU's on the same gradients."""
+    from repro_torch.distributed import compress as C
+    rng = np.random.default_rng(3)
+    tree = {"a": _rand(rng, (300, 70), "cuda", torch.bfloat16),
+            "b": _rand(rng, (129,), "cuda") * 1e-4}
+    got = C.compressed_psum(tree, nccl_mesh.get_group("data"))
+    for k, g in tree.items():
+        gc = g.cpu()
+        q, _ = C.int8_codes(g, torch.max(torch.abs(g.float())))
+        qc, sc = C.int8_codes(gc, torch.max(torch.abs(gc.float())))
+        assert torch.equal(q.cpu(), qc)
+        assert _same_bits(got[k].cpu(), (qc.float() * sc / 1.0).to(g.dtype))
+
+
+def test_distributed_restore_onto_the_card_mesh(nccl_mesh, tmp_path):
+    from torch.distributed.tensor import DTensor
+    from repro_torch.checkpoint import manager as CM
+    from repro_torch.core.tree import leaves
+    from repro_torch.distributed import sharding as S
+    params = _trainer(tmp_path, "cuda").init_state()["params"]
+    CM.save_tree(params, str(tmp_path / "ck"), 1)
+    shd = S.named(nccl_mesh, S.shardings_for_params(nccl_mesh, params),
+                  params)
+    back, _ = CM.restore_tree(params, str(tmp_path / "ck"), shardings=shd)
+    for a, b in zip(leaves(params), leaves(back)):
+        assert isinstance(b, DTensor) and b.device_mesh is nccl_mesh
+        assert b.to_local().is_cuda and _same_bits(b.to_local(), a)
+
+
+def test_distributed_pipeline_one_stage(nccl_mesh):
+    from repro_torch.distributed.pipeline import pipeline_apply
+    from repro_torch.launch.mesh import make_mesh
+    rng = np.random.default_rng(4)
+    ws = _rand(rng, (1, 64, 64), "cuda") / 8
+    x = _rand(rng, (8, 2, 64), "cuda")
+    run = pipeline_apply(lambda w, h: torch.tanh(h @ w), 1, 8, axis="pipe")
+    out = run(make_mesh((1,), ("pipe",)), ws, x)
+    assert float((out - torch.tanh(x @ ws[0])).abs().max()) <= 1e-5
