@@ -199,7 +199,23 @@ exit and no result line):
    and result equal to the CPU's on the same gradients, a checkpoint
    restored onto the card mesh bit for bit, and ``pipeline_apply`` at one
    stage against the sequential result; each check's time printed;
-8. the launch counts of each path, the JSON kernels line (one entry per
+8. the examples and the dry run: (a) each ``examples/torch_*.py`` in a
+   subprocess on the card at small arguments (``EXAMPLES``): exit 0, its
+   launch counters printed; K1, K2, K3 and K5 must each launch in one of
+   them (``torch_quickstart.py`` holds K5's bit-serial and fused products
+   to the exact integer product and K3's words to its plain version, on
+   the card); (b) the dry run's cell functions against the caching
+   allocator at world size 1: a subprocess traces minicpm-2b training (2
+   layers, 2 x 128 tokens, int8 moments) and llama3-8b decode (w2/a8/kv8,
+   caches of 4 x 1024) on meta over a one-rank fake group; the same
+   functions then run on the card over a one-rank NCCL group, and the dry
+   run's ``argument_bytes`` must equal ``torch.cuda.memory_allocated()``'s
+   growth up to the allocator's rounding (``ALLOC_ROUND`` a tensor); its
+   ``peak_bytes`` is printed beside ``max_memory_allocated()`` of one
+   step; (c) one production cell in a subprocess, ``python -m
+   repro_torch.launch.dryrun --arch llama3-8b --shape train_4k --mesh
+   single``, which must end ``ok``;
+9. the launch counts of each path, the JSON kernels line (one entry per
    path and kernel of that path, ``launches`` that path's own count, the
    other numbers those of the phase-3 case at that path's own shape,
    named in ``case`` (``PATH_CASES``; the kernel's shared case where
@@ -1843,9 +1859,6 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
     a, b = a[:, :cfg.vocab], b[:, :cfg.vocab]
     err = (a - b).abs().max().item()
     scale = b.abs().max().item()
-    if err > 0.05 * scale:
-        raise AssertionError(f"{arch} card vs CPU logits: max|err| {err} > "
-                             f"5% of {scale}")
     routed = ""
     if routes:
         rc, rg = torch.cat(routes["cpu"]), torch.cat(routes["cuda"])
@@ -1853,6 +1866,9 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
         routed = (f"; {100 * same:.1f}% of {rc.shape[0] * rc.shape[1]} "
                   f"token-layer routings pick the same top-{cfg.top_k} "
                   f"experts on the card and the CPU")
+    if err > 0.05 * scale:
+        raise AssertionError(f"{arch} card vs CPU logits: max|err| {err} > "
+                             f"5% of {scale}{routed}")
     plan = "".join("A" if cfg.layer_kind(i) == "attn" else "M"
                    for i in range(n_layers)) if stateful else ""
     plan = "; layers " + plan if plan else ""
@@ -2456,6 +2472,184 @@ def dist_phase(torch, seed) -> dict:
 GEMMS = ("apmm_fused_linear", "apmm_fused_linear_bitserial", "apmm_packed",
          "apmm_packed_bitserial", "moe_expert_linear",
          "moe_expert_linear_bitserial")
+
+
+# phase 8: the examples on the card, at small arguments
+EXAMPLES = {
+    "torch_quickstart.py": [],
+    "torch_serve_llm.py": ["--paged", "--chunk-tokens", "8",
+                           "--new-tokens", "4"],
+    "torch_train_wsd.py": ["--steps", "40"],
+    "torch_quantize_sweep.py": ["--steps", "20"],
+}
+# runs an example as ``__main__``, then prints this process's counters
+_RUN_EXAMPLE = (
+    "import json, runpy, sys\n"
+    "path = sys.argv[1]\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(path, run_name='__main__')\n"
+    "from chip_smoke import counters\n"
+    "print('launches ' + json.dumps(counters()))\n")
+
+
+def _env():
+    return dict(os.environ, PYTHONPATH=os.pathsep.join([SRC, ROOT]))
+
+
+def examples_phase(torch) -> None:
+    """Each ``EXAMPLES`` script in a subprocess at its default device (the
+    card): exit 0; K1, K2, K3 and K5 launch in at least one of them."""
+    moved: dict = {}
+    for name, args in EXAMPLES.items():
+        t0 = time.time()
+        r = subprocess.run(
+            [sys.executable, "-c", _RUN_EXAMPLE,
+             os.path.join(ROOT, "examples", name)] + args, env=_env(),
+            capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"example {name} exited {r.returncode}: "
+                                 f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+        lines = r.stdout.splitlines()
+        c = {k: v for k, v in json.loads(lines[-1][len("launches "):]).items()
+             if v}
+        for ln in lines[:-1]:
+            print(f"  | {ln.split(chr(13))[-1]}", flush=True)
+        print(f"example {name} {' '.join(args)}: exit 0 in "
+              f"{time.time() - t0:.1f} s; launches {c}", flush=True)
+        for k, v in c.items():
+            moved[k] = moved.get(k, 0) + v
+    need = {"apmm_fused_linear", "paged_attention", "quantize_pack_rows",
+            "apmm_packed"}
+    if need - set(moved):
+        raise AssertionError(f"no example launched "
+                             f"{sorted(need - set(moved))}")
+
+
+# phase 8 (b): the dry run's cell functions, traced on meta over a one-rank fake
+# group in a subprocess (a fake group and NCCL cannot share a process)
+_DRYRUN_PROBE = (
+    "import dataclasses, json\n"
+    "from repro_torch.configs import get_config\n"
+    "from repro_torch.launch import dryrun as D\n"
+    "mesh = D.fake_mesh((1, 1), ('data', 'model'))\n"
+    "cfg = dataclasses.replace(get_config('minicpm-2b'), n_layers=2)\n"
+    "out = {'train': D.measure(cfg, mesh, 'train', 2, 128),\n"
+    "       'serve': D.measure(D.cell_config('llama3-8b', ('kv8',)), mesh,\n"
+    "                          'decode', 4, 1024)}\n"
+    "print('dryrun ' + json.dumps(out))\n")
+# the caching allocator hands out blocks in multiples of 512 bytes: each
+# tensor of a tree may take up to this much more than its bytes
+ALLOC_ROUND = 512
+
+
+DRYRUN_CELL = os.path.join(ROOT, "build", "dryrun_smoke")
+
+
+def start_dryrun() -> dict:
+    """Phase 8's two host-only subprocesses, started before the examples
+    so that they run beside them: the probe of (b) and the production
+    cell of (c)."""
+    def start(cmd):
+        return subprocess.Popen(cmd, env=_env(), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    return {"probe": start([sys.executable, "-c", _DRYRUN_PROBE]),
+            "cell": start([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--arch", "llama3-8b", "--shape", "train_4k",
+                           "--mesh", "single", "--force", "--out",
+                           DRYRUN_CELL]),
+            "t0": time.time()}
+
+
+def _finished(proc, what):
+    out, err = proc.communicate(timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}: "
+                             f"{out[-2000:]}{err[-2000:]}")
+    return out
+
+
+def dryrun_phase(torch, seed, procs) -> dict:
+    """(b) and (c) of phase 8 on the subprocesses of :func:`start_dryrun`:
+    the dry run's argument bytes against the card's allocator at world
+    size 1 (a mismatch fails), its peak beside the card's, and the
+    production cell's record (it must be ``ok``).  Returns the
+    readings."""
+    import dataclasses
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_mesh
+    log = _finished(procs["probe"], "the dry run's probe")
+    meta = json.loads(log.splitlines()[-1][len("dryrun "):])
+    print(f"dryrun probe on meta (one-rank fake group): done "
+          f"{time.time() - procs['t0']:.1f} s after its start", flush=True)
+    cases = {
+        "train": (dataclasses.replace(get_config("minicpm-2b"), n_layers=2),
+                  lambda cfg, mesh: D.train_state(cfg, mesh, 2, 128,
+                                                  device="cuda", seed=seed),
+                  lambda cfg, mesh, st: D.train_step(cfg, mesh, st)),
+        "serve": (D.cell_config("llama3-8b", ("kv8",)),
+                  lambda cfg, mesh: D.serve_state(cfg, mesh, 4, 1024,
+                                                  "decode", device="cuda",
+                                                  seed=seed),
+                  lambda cfg, mesh, st: D.serve_step(cfg, mesh, st,
+                                                     "decode"))}
+    out = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0),
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for kind, (cfg, build, step) in cases.items():
+            fresh_memory(torch)
+            m0 = torch.cuda.memory_allocated()
+            state = build(cfg, mesh)
+            torch.cuda.synchronize()
+            got = torch.cuda.memory_allocated() - m0
+            args = [state[k] for k in ("params", "opt", "batch", "caches")
+                    if k in state]
+            mem = meta[kind]["memory"]
+            want, slack = mem["argument_bytes"], ALLOC_ROUND * D.n_tensors(
+                args)
+            torch.cuda.reset_peak_memory_stats()
+            step(cfg, mesh, state)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - m0
+            out[kind] = dict(argument=want, allocated=got, slack=slack,
+                             peak=mem["peak_bytes"], card_peak=peak)
+            print(f"dryrun {kind} ({cfg.name}, {cfg.n_layers} layers): "
+                  f"argument_bytes {want} (param {mem['param_bytes']}, opt "
+                  f"{mem['opt_bytes']}, batch {mem['batch_bytes']}, cache "
+                  f"{mem['cache_bytes']}) vs memory_allocated growth {got} "
+                  f"(+{got - want}, slack {slack} for {len(args)} trees); "
+                  f"peak_bytes {mem['peak_bytes']} vs max_memory_allocated "
+                  f"of one step {peak}: ratio "
+                  f"{mem['peak_bytes'] / peak:.3f}", flush=True)
+            del state, args
+            if not want <= got <= want + slack:
+                raise AssertionError(f"dry run {kind}: argument bytes {want}"
+                                     f" vs the allocator's {got}")
+    finally:
+        dist.destroy_process_group()
+    fresh_memory(torch)
+
+    _finished(procs["cell"], "the production cell")
+    with open(os.path.join(DRYRUN_CELL,
+                           "llama3-8b__train_4k__pod256.json")) as f:
+        rec = json.load(f)
+    m = rec.get("memory", {})
+    print(f"dryrun cell llama3-8b__train_4k__pod256: {rec['status']}, "
+          f"argument {m.get('argument_bytes', 0) / 2**30:.3f} GiB, gathered "
+          f"{m.get('gathered_bytes', 0) / 2**30:.2f} GiB, peak "
+          f"{m.get('peak_bytes', 0) / 2**30:.2f} GiB, flops "
+          f"{rec.get('flops', {}).get('total', 0):.4g}, trace "
+          f"{rec.get('trace_s')} s", flush=True)
+    if rec["status"] != "ok":
+        raise AssertionError(f"the pod256 llama3-8b train_4k cell: "
+                             f"{rec.get('error')}")
+    out["cell"] = m
+    return out
 
 
 def counters() -> dict:
@@ -3166,6 +3360,17 @@ def main() -> int:
         raise AssertionError(f"the distributed phase launched kernels: "
                              f"{launched}")
     print(f"distributed done at {time.time() - t_start:.1f} s", flush=True)
+    procs = start_dryrun()
+    try:
+        examples_phase(torch)
+        dryrun_phase(torch, args.seed, procs)
+    finally:
+        for p in (procs["probe"], procs["cell"]):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"examples and the dry run done at {time.time() - t_start:.1f} s",
+          flush=True)
     for arch, c in paths.items():
         print(f"kernels ({arch} path): "
               + ", ".join(f"{k}={v}" for k, v in c.items()), flush=True)

@@ -56,7 +56,7 @@ def _mean(tree, group):
     def one(g):
         s = g.float().clone()
         dist.all_reduce(s, op=dist.ReduceOp.SUM, group=group)
-        return (s / n).to(g.dtype)
+        return (s / s.new_tensor(float(n))).to(g.dtype)
 
     return tree_map(one, tree)
 
@@ -92,6 +92,6 @@ def dp_train_step(loss_fn, mesh, *, axis_name: str = "data",
         dist.all_reduce(loss, op=dist.ReduceOp.SUM, group=group)
         grads = (compressed_psum(grads, group) if compress
                  else _mean(grads, group))
-        return loss[0] / n, grads
+        return loss[0] / loss.new_tensor(float(n)), grads
 
     return step

@@ -287,16 +287,35 @@ def placements(mesh, spec) -> list:
     return out
 
 
+def local_shape(mesh, shape, pls) -> tuple:
+    """The shape of one rank's shard of a tensor of ``shape`` under the
+    placements ``pls`` (every sharded dim divides: :func:`_fit`)."""
+    out = list(shape)
+    for size, pl in zip(mesh.mesh.shape, pls):
+        if pl.is_shard():
+            assert out[pl.dim] % size == 0, (tuple(shape), pls)
+            out[pl.dim] //= size
+    return tuple(out)
+
+
 def _distribute(mesh, t, spec):
-    from torch.distributed.tensor import distribute_tensor
-    return distribute_tensor(t.to(mesh.device_type), mesh,
-                             placements(mesh, spec))
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    pls = placements(mesh, spec)
+    if t.device.type == "meta":
+        # no values to scatter: this rank's shard, as a meta tensor
+        local = torch.empty(local_shape(mesh, t.shape, pls), dtype=t.dtype,
+                            device="meta")
+        return DTensor.from_local(local, mesh, pls, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+    return distribute_tensor(t.to(mesh.device_type), mesh, pls)
 
 
 def shard_tree(tree, mesh, specs):
     """Distribute every leaf of ``tree`` as a DTensor on ``mesh`` by its
     spec in ``specs`` (a tree laid out as ``tree``, from the rules
-    above); a packed ``BipolarTensor`` has its fields distributed."""
+    above); a packed ``BipolarTensor`` has its fields distributed.  A
+    ``meta`` leaf becomes a DTensor over a ``meta`` tensor of this rank's
+    shard's shape (nothing is scattered)."""
     def one(path, leaf):
         spec = get_at(specs, path)
         if isinstance(leaf, BipolarTensor):
@@ -383,10 +402,64 @@ def sharded_step(loss_fn, mesh):
             lambda b: b.to_local() if isinstance(b, DTensor) else b, batch)
         nll, cnt, aux = loss_fn(local_params, local_batch)
         count = all_reduce_axes(cnt.detach().clone(), mesh, dp)
-        local = nll / torch.clamp(count, min=1.0) + aux / n_dp
+        local = nll / torch.clamp(count, min=1.0) + aux / aux.new_tensor(
+            float(n_dp))
         grads = torch.autograd.grad(local, handles)
         loss = all_reduce_axes(local.detach().clone(), mesh, dp)
         done = iter(grads)
         return loss, tree_map(lambda _: next(done), params)
+
+    return step
+
+
+def _map_tensors(fn, tree):
+    """``fn`` over every tensor of ``tree``, a packed ``BipolarTensor``'s
+    fields among them."""
+    def one(leaf):
+        if isinstance(leaf, BipolarTensor):
+            ws = leaf.width_scales
+            return dataclasses.replace(
+                leaf, packed=fn(leaf.packed), scale=fn(leaf.scale),
+                width_scales=None if ws is None else fn(ws))
+        return fn(leaf)
+    return tree_map(one, tree)
+
+
+def sharded_serve_step(step_fn, mesh):
+    """``step(params, batch, caches) -> (logits, caches)`` over ``mesh``:
+    the serving counterpart of :func:`sharded_step`, for
+    :func:`repro_torch.serving.engine.prefill_step` and ``serve_step``
+    (``step_fn(params, batch, caches)`` on local tensors).
+
+    ``params`` rest as DTensors under :func:`shardings_for_params` and
+    are each gathered whole for the step, as :func:`sharded_step`
+    gathers them; ``caches`` rest under :func:`shardings_for_caches` and
+    are gathered along every mesh dim but the DP ones, so each rank holds
+    the whole sequence of its batch rows (the "model" axis repeats the
+    rank's work: tensor- and sequence-parallel compute waits for ROADMAP
+    queue 1 item 13); ``batch`` is a DTensor tree under
+    :func:`shardings_for_batch` or the local shard itself.  Returns the
+    rank's logits and caches as local tensors."""
+    from torch.distributed.tensor import DTensor, Replicate
+    dp = dp_axes(mesh)
+    whole = [Replicate()] * mesh.ndim
+
+    def local(t):
+        return t.to_local() if isinstance(t, DTensor) else t
+
+    def gather(t):
+        return t.redistribute(mesh, whole).to_local() \
+            if isinstance(t, DTensor) else t
+
+    def rows(t):
+        if not isinstance(t, DTensor):
+            return t
+        pls = [pl if a in dp else Replicate()
+               for a, pl in zip(mesh.mesh_dim_names, t.placements)]
+        return t.redistribute(mesh, pls).to_local()
+
+    def step(params, batch, caches):
+        return step_fn(_map_tensors(gather, params),
+                       tree_map(local, batch), _map_tensors(rows, caches))
 
     return step

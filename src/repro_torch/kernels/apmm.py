@@ -10,7 +10,8 @@ plain versions
 (:func:`repro_torch.kernels.ref.ap_linear_fused_ref`,
 :func:`~repro_torch.kernels.ref.apmm_packed` and
 :func:`~repro_torch.kernels.ref.apmm_dequant`), CUDA tensors launch the
-kernel or raise.  At small M both fused C entries take the one
+kernel or raise, meta tensors take :mod:`repro_torch.kernels.meta` (the
+outputs' shapes, no launch).  At small M both fused C entries take the one
 weight-streaming GEMM of ``csrc/small_m.cuh`` (:func:`small_m_max`,
 :func:`packed_small_m_max`), on a workspace the wrapper allocates.
 """
@@ -23,7 +24,7 @@ import functools
 import torch
 
 from repro_torch.core.bipolar import BipolarTensor
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 LAUNCHES = 0          # K1 `fused` launches since the last reset (chip_smoke)
 SMALL_M_LAUNCHES = 0  # of those, on the small-M route (M <= small_m_max())
@@ -112,6 +113,10 @@ def apmm_fused_linear(x2: torch.Tensor, a_scale: torch.Tensor,
     contract)."""
     if x2.device.type == "cpu":
         return apmm_fused_linear_plain(
+            x2, a_scale, w, w2=w2, bias=bias, residual=residual,
+            a_bits=a_bits, variant=variant, act=act, out_dtype=out_dtype)
+    if x2.device.type == "meta":
+        return meta.apmm_fused_linear(
             x2, a_scale, w, w2=w2, bias=bias, residual=residual,
             a_bits=a_bits, variant=variant, act=act, out_dtype=out_dtype)
     if x2.device.type != "cuda":
@@ -214,6 +219,8 @@ def apmm_packed(a: BipolarTensor, b: BipolarTensor, *,
     to ``out_dtype`` (f32 or bf16)."""
     if a.packed.device.type == "cpu":
         return apmm_packed_plain(a, b, variant=variant, out_dtype=out_dtype)
+    if a.packed.device.type == "meta":
+        return meta.apmm_packed(a, b, variant=variant, out_dtype=out_dtype)
     if a.packed.device.type != "cuda":
         raise ValueError(f"apmm_packed: unsupported device {a.device}")
     if variant not in _VARIANTS:

@@ -9,11 +9,12 @@ decides: CPU tensors run the plain versions
 (:func:`repro_torch.kernels.ref.paged_attention`,
 :func:`~repro_torch.kernels.ref.kv_cache_attention`,
 :func:`~repro_torch.kernels.ref.flash_attention`), CUDA tensors launch
-the kernel or raise.  K2's C entry splits each request's block table
-across blocks, K6's splits the ring's tiles, and K7's splits T for bf16
-inputs, when the grid would not fill the card; :func:`paged_splits`,
-:func:`quantized_splits` and :func:`float_splits` report their choice,
-and the wrappers allocate the partials' workspace.
+the kernel or raise, meta tensors take :mod:`repro_torch.kernels.meta`
+(the output's shape, no launch).  K2's C entry splits each request's
+block table across blocks, K6's splits the ring's tiles, and K7's splits
+T for bf16 inputs, when the grid would not fill the card;
+:func:`paged_splits`, :func:`quantized_splits` and :func:`float_splits`
+report their choice, and the wrappers allocate the partials' workspace.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 LAUNCHES = 0            # K2 launches since the last reset (chip_smoke)
 QUANTIZED_LAUNCHES = 0  # K6 launches since the last reset
@@ -80,6 +81,10 @@ def flash_attention_paged_quantized(q, k_pool, k_scale, v_pool, v_scale,
     d)`` in q's dtype."""
     if q.device.type == "cpu":
         return flash_attention_paged_quantized_plain(
+            q, k_pool, k_scale, v_pool, v_scale, pool_pos, block_tables,
+            q_pos, d=d, causal=causal, window=window)
+    if q.device.type == "meta":
+        return meta.flash_attention_paged_quantized(
             q, k_pool, k_scale, v_pool, v_scale, pool_pos, block_tables,
             q_pos, d=d, causal=causal, window=window)
     if q.device.type != "cuda":
@@ -191,6 +196,10 @@ def flash_attention_quantized(q, k_packed, k_scale, v_packed, v_scale,
         return flash_attention_quantized_plain(
             q, k_packed, k_scale, v_packed, v_scale, q_pos, kv_pos, d=d,
             causal=causal, window=window)
+    if q.device.type == "meta":
+        return meta.flash_attention_quantized(
+            q, k_packed, k_scale, v_packed, v_scale, q_pos, kv_pos, d=d,
+            causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
     global QUANTIZED_LAUNCHES
@@ -240,6 +249,9 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, kv_pos, causal=causal,
                                      window=window)
+    if q.device.type == "meta":
+        return meta.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                    window=window)
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
     global FLOAT_LAUNCHES

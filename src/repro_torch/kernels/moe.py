@@ -6,7 +6,9 @@ variants: ``fused`` (int8 plane groups) and ``bitserial`` (the b1
 tensor-core core of ``csrc/bitserial_core.cuh``).  The device decides:
 CPU tensors run the plain version
 (:func:`repro_torch.kernels.ref.ap_moe_expert_linear_ref` and the
-analytic live map), CUDA tensors launch the kernel or raise.
+analytic live map), CUDA tensors launch the kernel or raise, meta
+tensors take :mod:`repro_torch.kernels.meta` (the output's and the live
+map's shapes, no launch).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import functools
 import torch
 
 from repro_torch.core.bipolar import BipolarTensor
-from repro_torch.kernels import _build, apmm, ref
+from repro_torch.kernels import _build, apmm, meta, ref
 
 LAUNCHES = 0            # `fused` launches since the last reset (chip_smoke)
 BITSERIAL_LAUNCHES = 0  # `bitserial` launches
@@ -106,6 +108,10 @@ def moe_expert_linear(x: torch.Tensor, a_scale: torch.Tensor,
     the tiles it ran)."""
     if x.device.type == "cpu":
         return moe_expert_linear_plain(
+            x, a_scale, counts, w, w2=w2, a_bits=a_bits, variant=variant,
+            act=act, out_dtype=out_dtype, bc=bc)
+    if x.device.type == "meta":
+        return meta.moe_expert_linear(
             x, a_scale, counts, w, w2=w2, a_bits=a_bits, variant=variant,
             act=act, out_dtype=out_dtype, bc=bc)
     if x.device.type != "cuda":

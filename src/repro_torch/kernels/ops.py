@@ -3,7 +3,10 @@ reference ``repro.kernels.ops``, dispatched by device alone.
 
 A CPU tensor runs the plain torch version of each kernel
 (:mod:`repro_torch.kernels.ref`); a CUDA tensor launches the hand-written
-kernel or raises.  There is no implementation switch and no fallback.
+kernel or raises; a ``meta`` tensor (the dry run) gets the kernel's
+output shapes and its work counted (:mod:`repro_torch.kernels.meta`),
+and ``quantize_rows`` skips its clip search there.  There is no
+implementation switch and no fallback.
 
 Ops on the dense serving path:
 
@@ -72,15 +75,23 @@ def quantize_rows(x: torch.Tensor, n_bits: int, *, pad_bit: int,
     K padded to the word boundary with ``pad_bit`` (0 for activations, 1
     for weights).  The pack runs on ``x``'s device: K3 on the card."""
     r, k = x.shape
-    if scale is None and scale_search:
-        scale = bipolar.mse_scale(x, n_bits, axis=-1)
-    if scale is None:
-        scale = bipolar.absmax_scale(x, n_bits, axis=-1, keepdims=True)
-    scale = scale.float().reshape(r, 1)
-    width_scales = None
-    if scale_search and n_bits > 1:
-        qv = bipolar.quantize_values(x, n_bits, scale)
-        width_scales = bipolar.nested_width_scales(x, qv, n_bits, scale)
+    nested = scale_search and n_bits > 1
+    if x.device.type == "meta":
+        # no values to search clips from: the scales' shapes alone
+        def empty(*shape):
+            return torch.empty(shape, dtype=torch.float32, device="meta")
+        scale = empty(r, 1) if scale is None else scale.float().reshape(r, 1)
+        width_scales = empty(n_bits, r, 1) if nested else None
+    else:
+        if scale is None and scale_search:
+            scale = bipolar.mse_scale(x, n_bits, axis=-1)
+        if scale is None:
+            scale = bipolar.absmax_scale(x, n_bits, axis=-1, keepdims=True)
+        scale = scale.float().reshape(r, 1)
+        width_scales = None
+        if nested:
+            qv = bipolar.quantize_values(x, n_bits, scale)
+            width_scales = bipolar.nested_width_scales(x, qv, n_bits, scale)
     packed = pack_kernel.quantize_pack_rows(x.float(), scale, n_bits=n_bits,
                                             pad_bit=pad_bit)
     return BipolarTensor(packed=packed, scale=scale, n_bits=n_bits,

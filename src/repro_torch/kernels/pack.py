@@ -3,7 +3,8 @@
 Port of the TPU kernel ``repro/kernels/pack.py::quantize_pack_rows``.
 The device decides: a CPU tensor runs the plain version
 (:func:`repro_torch.kernels.ref.quantize_pack_rows`), a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises, a meta tensor takes
+:mod:`repro_torch.kernels.meta` (the planes' shape, no launch).
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import ctypes
 import torch
 
 from repro_torch.core import bipolar
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, meta, ref
 
 LAUNCHES = 0          # kernel launches since the last reset (chip_smoke)
 
@@ -38,6 +39,9 @@ def quantize_pack_rows(x: torch.Tensor, scale: torch.Tensor, *, n_bits: int,
     if x.device.type == "cpu":
         return quantize_pack_rows_plain(x, scale, n_bits=n_bits,
                                         pad_bit=pad_bit)
+    if x.device.type == "meta":
+        return meta.quantize_pack_rows(x, scale, n_bits=n_bits,
+                                       pad_bit=pad_bit)
     if x.device.type != "cuda":
         raise ValueError(f"quantize_pack_rows: unsupported device {x.device}")
     global LAUNCHES

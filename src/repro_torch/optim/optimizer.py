@@ -62,8 +62,8 @@ def wsd_schedule(*, peak_lr: float, warmup_steps: int, total_steps: int,
 
     def schedule(step):
         step = _f32_step(step)
-        warm = step / max(warmup_steps, 1)
-        decay_t = (step - stable_end) / decay_steps
+        warm = step / step.new_tensor(float(max(warmup_steps, 1)))
+        decay_t = (step - stable_end) / step.new_tensor(float(decay_steps))
         decay = torch.pow(min_ratio, torch.clamp(decay_t, 0.0, 1.0))
         r = torch.where(step < warmup_steps, warm,
                         torch.where(step < stable_end, 1.0, decay))
@@ -81,9 +81,9 @@ def cosine_schedule(*, peak_lr: float, warmup_steps: int, total_steps: int,
     in 5% of values (and ``1 + cos`` doubles that near the end)."""
     def schedule(step):
         step = _f32_step(step)
-        warm = step / max(warmup_steps, 1)
-        t = torch.clamp((step - warmup_steps)
-                        / max(total_steps - warmup_steps, 1), 0.0, 1.0)
+        warm = step / step.new_tensor(float(max(warmup_steps, 1)))
+        t = torch.clamp((step - warmup_steps) / step.new_tensor(
+            float(max(total_steps - warmup_steps, 1))), 0.0, 1.0)
         c = torch.cos((math.pi * t).double()).float()
         cos = min_ratio + (1 - min_ratio) * 0.5 * (1 + c)
         return peak_lr * torch.where(step < warmup_steps, warm, cos)
@@ -116,7 +116,7 @@ def _q8(x: torch.Tensor, signed: bool, groups=()):
     if not signed:                       # v >= 0: sqrt-domain codes
         xf = torch.sqrt(xf)
     amax = _row_max(xf.abs().amax(-1, keepdim=True), groups)
-    scale = torch.clamp(amax, min=1e-30) / 127.0
+    scale = torch.clamp(amax, min=1e-30) / amax.new_tensor(127.0)
     q = torch.clamp(torch.round(xf / scale), -127 if signed else 0, 127)
     return q.to(torch.int8), scale
 

@@ -81,10 +81,11 @@ from repro_torch.serving.faults import NULL_FAULTS, RequestFault
 def prefill_step(params, batch: dict, caches, cfg: ModelConfig,
                  quant: Optional[QuantConfig] = None):
     """Process a full prompt ``batch`` = tokens (B, S), positions (B, S)
-    (and the stub frontends' ``patch_embeds`` / ``frames``), filling the
-    caches.  Returns ``(last_logits (B, V), caches)``."""
+    (default ``0..S-1``) and the stub frontends' ``patch_embeds`` /
+    ``frames``, filling the caches.  Returns ``(last_logits (B, V),
+    caches)``."""
     return M.forward(params, batch["tokens"], cfg,
-                     positions=batch["positions"], caches=caches,
+                     positions=batch.get("positions"), caches=caches,
                      patch_embeds=batch.get("patch_embeds"),
                      frames=batch.get("frames"),
                      quant=quant, logits_mode="last")

@@ -137,8 +137,8 @@ class Trainer:
                 l, g = self.loss_and_grads(params, mb)
                 loss = loss + l
                 grads = tree_map(torch.add, grads, g)
-            loss = loss / a
-            grads = tree_map(lambda g: g / a, grads)
+            loss = loss / loss.new_tensor(float(a))
+            grads = tree_map(lambda g: g / g.new_tensor(float(a)), grads)
         if self.grad_transform is not None:
             grads = self.grad_transform(grads)
         lr = self.schedule(opt.step)

@@ -131,7 +131,13 @@ assert {"repro_torch.kernels.moe", "repro_torch.configs.mixtral_8x7b",
         "repro_torch.launch.mesh", "repro_torch.distributed",
         "repro_torch.distributed.sharding",
         "repro_torch.distributed.compress",
-        "repro_torch.distributed.pipeline"} <= set(names), names
+        "repro_torch.distributed.pipeline", "repro_torch.launch.dryrun",
+        "repro_torch.kernels.meta"} <= set(names), names
+import glob, runpy
+examples = sorted(glob.glob(sys.argv[1] + "/torch_*.py"))
+assert len(examples) == 4, examples
+for path in examples:              # their imports, not their main()
+    runpy.run_path(path, run_name="example")
 bad = sorted(m for m in sys.modules
              if m == "repro" or m.startswith("repro.")
              or (m == "jax" or m.startswith("jax.")) and sys.modules[m])
@@ -142,8 +148,9 @@ assert not bad, bad
 
 def test_port_imports_without_jax_or_reference_package():
     """Every module of repro_torch (the MoE kernel wrapper, the SSM
-    mixer, the launch specs and meshes, the configs, the training stack
-    and the distributed layer among them) imports with jax
+    mixer, the launch specs and meshes, the configs, the training stack,
+    the distributed layer, the dry run and the kernels' meta route among
+    them) and the imports of every ``examples/torch_*.py`` run with jax
     unimportable, and neither jax nor the reference package is loaded
     afterwards.  The walk reaches every module file of the package: one
     it skipped would fail the count."""
@@ -152,8 +159,10 @@ def test_port_imports_without_jax_or_reference_package():
     src = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "src")
     env["PYTHONPATH"] = src
-    out = subprocess.run([sys.executable, "-c", _ISOLATION], env=env,
-                         capture_output=True, text=True, timeout=120)
+    examples = os.path.join(os.path.dirname(src), "examples")
+    out = subprocess.run([sys.executable, "-c", _ISOLATION, examples],
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     count = int(out.stdout.split()[0])
     files = sum(name.endswith(".py") for _, _, names in os.walk(

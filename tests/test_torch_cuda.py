@@ -48,6 +48,9 @@ distributed layer at world size 1 over NCCL (``-k distributed``; a
 one-rank group for the module): ``sharded_step`` equal to the plain step
 bit for bit, ``compressed_psum`` equal to the CPU's, a restore onto the
 card mesh bit for bit, a one-stage pipeline within 1e-5 of sequential.
+Divisions by a constant: ``_q8``'s int8 moment scales and codes and the
+schedules' lr on the card equal the CPU's bit for bit (the WSD decay's
+``pow`` within 2 f32 ulps).
 """
 
 import numpy as np
@@ -1808,6 +1811,60 @@ def test_training_restart_on_card_is_bit_exact(device, tmp_path):
     for a, b in zip(leaves(full), leaves(res)):
         assert a.is_cuda and a.dtype == b.dtype
         assert torch.equal(bits(a), bits(b))
+
+
+# --- a division by a constant: the card's bits equal the CPU's --------------
+
+def _reciprocal_edge_rows(rng, rows, k, root=False):
+    """``(rows, k)`` f32 rows of which most have an absmax ``a`` (of the
+    row's square root when ``root``) whose ``f32(a / 127)`` differs from
+    ``f32(a * f32(1 / 127))``: the multiply by the rounded reciprocal
+    that a Python-scalar divisor gets on the card."""
+    x = rng.standard_normal((rows, k)).astype(np.float32)
+    if root:
+        x = np.square(x)
+    mag = np.sqrt(np.abs(x)) if root else np.abs(x)
+    a = mag.max(-1)
+    inv = np.float32(1.0) / np.float32(127.0)
+    edge = (a / np.float32(127.0)) != (a * inv)
+    return torch.from_numpy(x), int(edge.sum())
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_q8_moment_codes_on_card_equal_cpu(device, signed):
+    """``_q8``'s scales and int8 codes on the card equal the CPU's bit for
+    bit, on rows whose absmax puts ``x / 127`` and ``x * (1 / 127)`` a
+    rounding apart (queue 3 fault 3: the divisor was a Python scalar)."""
+    from repro_torch.optim.optimizer import _q8
+    x, n_edge = _reciprocal_edge_rows(np.random.default_rng(11), 512, 96,
+                                      root=not signed)
+    assert n_edge >= 10, n_edge        # the case the repair is about
+    qc, sc = _q8(x, signed)
+    qg, sg = _q8(x.to(device), signed)
+    torch.cuda.synchronize()
+    assert torch.equal(sg.cpu(), sc) and torch.equal(qg.cpu(), qc)
+
+
+@pytest.mark.parametrize("kind", ["wsd", "cosine"])
+def test_schedules_on_card_equal_cpu(device, kind):
+    """The learning-rate schedules at a step count on the card equal the
+    CPU's bit for bit (their divisions by the warmup and decay lengths),
+    but for the WSD decay's power."""
+    from repro_torch.optim.optimizer import cosine_schedule, wsd_schedule
+    make = wsd_schedule if kind == "wsd" else cosine_schedule
+    sched = make(peak_lr=3e-4, warmup_steps=7, total_steps=113)
+    steps = torch.arange(0, 120, dtype=torch.int32)
+    got = torch.stack([sched(s) for s in steps.to(device)]).cpu()
+    want = torch.stack([sched(s) for s in steps])
+    if kind == "wsd":
+        # its decay phase's ``pow(min_ratio, t)``: the card's powf and
+        # the CPU's round apart (within 2 f32 ulps), no division
+        decay = steps >= 113 - 11
+        ulps = (got[decay].view(torch.int32)
+                - want[decay].view(torch.int32)).abs().max()
+        assert int(ulps) <= 2
+        got, want = got[~decay], want[~decay]
+    assert torch.equal(got, want)
 
 
 # --- the distributed layer at world size 1 over NCCL ------------------------
