@@ -7,35 +7,37 @@
 // per-output-channel scales b_s (N); optionally a second weight B2 (dual
 // gate/up mode), a bias (N) and a residual (M, N).
 //
-//   prologue : X tile -> bipolar values q = clip(round_to_odd(x / a_s))
-//              split into <=7-bit plane groups, int8, in shared memory
-//   weights  : the planes of each group recombined to int8 values
-//              v = sum_i b_i << (i - lo + 1) - (2^size - 1)
-//   products : __dp4a int8 dot products accumulated in int32 per group
-//              pair, shift-added by (lo_a + lo_b)
+//   prologue : quantize_x_kernel, once per launch: bipolar values q =
+//              clip(round_to_odd(x / a_s)) (IEEE division, as the plain
+//              version), split into <= 7-bit plane groups, int8, into a
+//              workspace of the wrapper, xq [nga][M][Kp] (pad columns 0),
+//              in int8_core.cuh's bit-sliced order
+//   GEMM     : by M, in the C entry: M <= SMALL_M_MAX the weight-streaming
+//              route of small_m.cuh (decode; shared with K5), every larger
+//              M the int8 tensor-core chunk route of int8_mma.cuh (shared
+//              with K4's and K5's chunk routes; its header note has the
+//              design: 128 MMA rows x 128 spread weight rows a block,
+//              mma.sync m16n8k32 s8, a 3-stage cp.async ring, split-K where
+//              the grid is thinner than the card)
 //   epilogue : f32 dequant acc * a_s * b_s -> + bias -> cast -> act in f32
 //              (dual: act(Y1) * cast(Y2)) -> cast -> + residual -> cast,
 //              in exactly the order and at exactly the cast points of the
-//              plain version (kernels/ref.py::ap_linear_fused_ref)
+//              plain version (kernels/ref.py::ap_linear_fused_ref); both
+//              routes run the one function (epilogue, through LinearEpi)
 //
 // K padding: the TPU kernel forces pad columns to -maxA and preloads the
 // accumulator with n_pad * maxA * maxB, which cancels the pad columns'
-// product exactly.  Here pad columns (and tile overhang past K) carry the
-// activation value 0 instead: the same integer sum, with no correction.
+// product exactly.  Here pad columns carry the activation value 0
+// instead: the same integer sum, with no correction.
 //
 // Bound on Hopper.  At decode (M <= 2 * batch) the kernel is bound by
 // bytes: the packed weight planes dominate (n_b bits per weight element).
 // At a prefill chunk (M ~ 1024) it is bound by operations: int8 multiply-
-// adds, n_groups_a * n_groups_b per weight element and row.  The C entry
-// routes by M: M <= SMALL_M_MAX takes the small-M weight-streaming route
-// (below, after the tile kernel), every larger M the tile kernel.
-// Tile kernel: a (64 x 64) output tile per block, streaming K in tiles of
-// 128 so shared memory stays ~50 KB whatever K is (the TPU kernel's
-// whole-K row block of X would not fit at K = 14336); the X tile is
-// quantized once per block and K tile and reused against every weight and
-// group; each thread owns a 4 x 4 micro-tile of int32 accumulators.
-// Tensor cores (mma int8 / wgmma), TMA and a pipelined K loop are later
-// work.
+// adds, n_groups_a * n_groups_b per weight element and row (llama3-8b's
+// chunk gate/up, M 1024, dual, w2a8: 2 x 2 x 2 x 1024 x 14336 x 4096 =
+// 481 G int8 operations, 0.243 ms at 1,979 TOP/s).  SMALL_M_MAX is where
+// tools/k1_small_m_threshold.py found the small-M route stop beating the
+// chunk route on the H100 (PERF.md).
 //
 // Built with -fmad=false; the epilogue also uses __fmul_rn / __fadd_rn, so
 // at act = none its f32 bits equal the plain version's.
@@ -65,21 +67,15 @@
 
 #include "bitserial_core.cuh"
 #include "int8_core.cuh"
+#include "int8_mma.cuh"
 #include "small_m.cuh"
 
 namespace {
-
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 128;           // K elements per tile (4 words per plane)
-constexpr int LDS = BK + 4;       // padded smem row (bytes): no bank conflicts
-constexpr int THREADS = 256;      // 16 x 16, each a 4 x 4 micro-tile
 
 using int8core::act_fn;        // the int8 steps shared with K4 and K5
 using int8core::from_f32;
 using int8core::group_word;
 using int8core::plane_group;
-using int8core::quantize_u;
 using int8core::to_f32;
 
 // round-trip through the output dtype (the plain version's cast points)
@@ -114,184 +110,15 @@ __device__ __forceinline__ void epilogue(int acc1, int acc2, int row,
   out[o] = from_f32<TO>(yo);
 }
 
-template <typename TX, typename TO>
-__global__ void __launch_bounds__(THREADS)
-apmm_fused_linear_kernel(const TX* __restrict__ x,
-                         const float* __restrict__ a_scale,
-                         const uint32_t* __restrict__ bp,
-                         const float* __restrict__ b_scale,
-                         const uint32_t* __restrict__ bp2,
-                         const float* __restrict__ b2_scale,
-                         const float* __restrict__ bias,
-                         const TO* __restrict__ residual,
-                         TO* __restrict__ out, int m, int n, int k, int kw,
-                         int n_a, int n_b, int act) {
-  extern __shared__ __align__(16) int8_t smem[];
-  const int nga = (n_a + 6) / 7;
-  const int ngb = (n_b + 6) / 7;
-  const int nw = bp2 != nullptr ? 2 : 1;
-  int8_t* s_a = smem;                            // [nga][BM][LDS]
-  int8_t* s_b = smem + nga * BM * LDS;           // [nw][ngb][BN][LDS]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int max_a = (1 << n_a) - 1;
-
-  int lo_a[2], sz_a[2], lo_b[2], sz_b[2];
-#pragma unroll
-  for (int g = 0; g < 2; ++g) {
-    plane_group(n_a, g < nga ? g : 0, &lo_a[g], &sz_a[g]);
-    plane_group(n_b, g < ngb ? g : 0, &lo_b[g], &sz_b[g]);
-  }
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int w = 0; w < 2; ++w)
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[w][i][j] = 0;
-
-  const int kp = kw * 32;
-  for (int k0 = 0; k0 < kp; k0 += BK) {
-    // -- prologue: quantize the X tile into int8 plane-group values -----
-    for (int item = tid; item < BM * (BK / 4); item += THREADS) {
-      int r = item / (BK / 4), k4 = item % (BK / 4);
-      int row = m0 + r;
-      int u[4];
-      bool live[4];
-      float s = row < m ? a_scale[row] : 1.0f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        int col = k0 + k4 * 4 + e;
-        live[e] = row < m && col < k;
-        u[e] = 0;
-        if (live[e]) u[e] = quantize_u(to_f32(x[(long long)row * k + col]),
-                                       s, max_a);
-      }
-#pragma unroll
-      for (int g = 0; g < 2; ++g) {
-        if (g >= nga) break;
-        *reinterpret_cast<uint32_t*>(s_a + (g * BM + r) * LDS + k4 * 4) =
-            group_word(u, live, lo_a[g], sz_a[g]);
-      }
-    }
-    // -- weights: recombine each group's planes into int8 values --------
-    for (int item = tid; item < nw * BN * (BK / 32); item += THREADS) {
-      int wi = item / (BN * (BK / 32));
-      int rem = item % (BN * (BK / 32));
-      int c = rem / (BK / 32), wd = rem % (BK / 32);
-      int col = n0 + c, kwi = k0 / 32 + wd;
-      const uint32_t* planes = wi == 0 ? bp : bp2;
-      bool live = col < n && kwi < kw;
-      uint32_t p[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        p[i] = (live && i < n_b)
-                   ? planes[((long long)i * n + col) * kw + kwi] : 0u;
-#pragma unroll
-      for (int g = 0; g < 2; ++g) {
-        if (g >= ngb) break;
-        int maxv = (1 << sz_b[g]) - 1;
-        int8_t* dst = s_b + ((wi * ngb + g) * BN + c) * LDS + wd * 32;
-#pragma unroll
-        for (int q4 = 0; q4 < 8; ++q4) {
-          uint32_t word = 0u;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            int b = q4 * 4 + e;
-            int acc_v = 0;
-#pragma unroll
-            for (int i = 0; i < 8; ++i)   // static indices keep p[] in registers
-              if (i >= lo_b[g] && i < lo_b[g] + sz_b[g])
-                acc_v += (int)((p[i] >> b) & 1u) << (i - lo_b[g] + 1);
-            int v = live ? acc_v - maxv : 0;
-            word |= ((uint32_t)(uint8_t)(int8_t)v) << (8 * e);
-          }
-          *reinterpret_cast<uint32_t*>(dst + q4 * 4) = word;
-        }
-      }
-    }
-    __syncthreads();
-    // -- products: int8 dp4a per group pair, shift-added ---------------
-#pragma unroll
-    for (int wi = 0; wi < 2; ++wi) {
-      if (wi >= nw) break;
-#pragma unroll
-      for (int gb = 0; gb < 2; ++gb) {
-        if (gb >= ngb) break;
-        const int8_t* sb = s_b + (wi * ngb + gb) * BN * LDS;
-#pragma unroll
-        for (int ga = 0; ga < 2; ++ga) {
-          if (ga >= nga) break;
-          const int8_t* sa = s_a + ga * BM * LDS;
-          int t[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) t[i][j] = 0;
-#pragma unroll 4
-          for (int k4 = 0; k4 < BK / 4; ++k4) {
-            int av[4], bv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              av[i] = *reinterpret_cast<const int*>(
-                  sa + (ty + 16 * i) * LDS + k4 * 4);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              bv[j] = *reinterpret_cast<const int*>(
-                  sb + (tx + 16 * j) * LDS + k4 * 4);
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) t[i][j] = __dp4a(av[i], bv[j], t[i][j]);
-          }
-          int sh = lo_a[ga] + lo_b[gb];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              if (wi == 0) acc[0][i][j] += t[i][j] << sh;
-              else acc[1][i][j] += t[i][j] << sh;
-            }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // -- epilogue ----------------------------------------------------------
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int row = m0 + ty + 16 * i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int col = n0 + tx + 16 * j;
-      if (col >= n) continue;
-      epilogue<TO>(acc[0][i][j], acc[1][i][j], row, col, n, a_scale,
-                   b_scale, b2_scale, bias, residual, bp2 != nullptr, act,
-                   out);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Small-M route (decode: M <= SMALL_M_MAX rows).  The 64 x 64 tile above
-// computes 64 rows of products for the few live ones and puts only N / 64
-// blocks on the card; at decode the weight planes are all that must move.
-// SMALL_M_MAX is the tile's own row height: on the H100 this route is the
-// faster one at every llama3-8b decode shape up to M = 96 (PERF.md, timed
-// by tools/k1_small_m_threshold.py).  So quantize_x_kernel quantizes X
-// once per launch into int8 plane-group values, xq [nga][M][Kp] (pad
-// columns 0), a workspace of the wrapper, in small_m.cuh's bit-sliced
-// order, and small_m.cuh's weight-streaming GEMM (K5's small-M route too)
-// runs with the epilogue above (LinearEpi).  The quantize step is
-// int8_core.cuh's, shared with K4's prologue.
+// The fused variant: X quantized once (quantize_x_kernel, int8_core.cuh's
+// step, shared with K4's prologue), then small_m.cuh's weight-streaming
+// GEMM (K5's small-M route too) up to SMALL_M_MAX rows or int8_mma.cuh's
+// chunk GEMM (K4's and K5's chunk routes too) above, both with the
+// epilogue above (LinearEpi)
 // ---------------------------------------------------------------------------
 
-constexpr int SMALL_M_MAX = 64;   // rows the small-M route takes
+constexpr int SMALL_M_MAX = 4;    // rows the small-M route takes
 
 // one int32 of xq per thread: (row, word kwi, j), its bytes e = 0..3 the
 // group values of elements kwi * 32 + 8 e + j
@@ -318,7 +145,7 @@ __global__ void quantize_x_kernel(const TX* __restrict__ x,
   }
 }
 
-// K1's epilogue as small_m.cuh's epi(row, col, y1, y2)
+// K1's epilogue as both GEMMs' epi(row, col, y1, y2)
 template <typename TO, int NW>
 struct LinearEpi {
   const float* a_scale;
@@ -341,48 +168,31 @@ int launch(const void* x, const void* a_scale, const void* bp,
            const void* bias, const void* residual, void* out, void* ws,
            int m, int n, int k, int kw, int n_a, int n_b, int act,
            cudaStream_t stream) {
+  if (ws == nullptr) return (int)cudaErrorInvalidValue;
+  const int kp = kw * 32, items = m * kp / 4;
+  quantize_x_kernel<TX><<<(items + 255) / 256, 256, 0, stream>>>(
+      (const TX*)x, (const float*)a_scale, (int8_t*)ws, m, k, kp, n_a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const LinearEpi<TO, 1> epi1{(const float*)a_scale, (const float*)b_scale,
+                              nullptr, (const float*)bias,
+                              (const TO*)residual, (TO*)out, n, act};
+  const LinearEpi<TO, 2> epi2{(const float*)a_scale, (const float*)b_scale,
+                              (const float*)b2_scale, (const float*)bias,
+                              (const TO*)residual, (TO*)out, n, act};
   if (m <= SMALL_M_MAX) {
-    // small-M route: quantize X once, then stream the weights
-    if (ws == nullptr) return (int)cudaErrorInvalidValue;
-    const int kp = kw * 32, items = m * kp / 4;
-    quantize_x_kernel<TX><<<(items + 255) / 256, 256, 0, stream>>>(
-        (const TX*)x, (const float*)a_scale, (int8_t*)ws, m, k, kp, n_a);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
     if (bp2 != nullptr)
-      return small_m::launch<2>(
-          ws, bp, bp2, m, n, kw, n_a, n_b,
-          LinearEpi<TO, 2>{(const float*)a_scale, (const float*)b_scale,
-                           (const float*)b2_scale, (const float*)bias,
-                           (const TO*)residual, (TO*)out, n, act},
-          stream);
-    return small_m::launch<1>(
-        ws, bp, nullptr, m, n, kw, n_a, n_b,
-        LinearEpi<TO, 1>{(const float*)a_scale, (const float*)b_scale,
-                         nullptr, (const float*)bias, (const TO*)residual,
-                         (TO*)out, n, act},
-        stream);
+      return small_m::launch<2>(ws, bp, bp2, m, n, kw, n_a, n_b, epi2,
+                                stream);
+    return small_m::launch<1>(ws, bp, nullptr, m, n, kw, n_a, n_b, epi1,
+                              stream);
   }
-  int nga = (n_a + 6) / 7, ngb = (n_b + 6) / 7, nw = bp2 ? 2 : 1;
-  int smem = (nga * BM + nw * ngb * BN) * LDS;
-  static bool configured = false;
-  if (!configured) {
-    int max_smem = (2 * BM + 2 * 2 * BN) * LDS;
-    cudaError_t e = cudaFuncSetAttribute(
-        apmm_fused_linear_kernel<TX, TO>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  apmm_fused_linear_kernel<TX, TO><<<grid, THREADS, smem, stream>>>(
-      (const TX*)x, (const float*)a_scale, (const uint32_t*)bp,
-      (const float*)b_scale, (const uint32_t*)bp2, (const float*)b2_scale,
-      (const float*)bias, (const TO*)residual, (TO*)out, m, n, k, kw, n_a,
-      n_b, act);
-  return (int)cudaGetLastError();
+  if (bp2 != nullptr)
+    return int8mma::launch_dense<2>(ws, bp, bp2, m, n, kw, n_a, n_b, epi2,
+                                    stream);
+  return int8mma::launch_dense<1>(ws, bp, nullptr, m, n, kw, n_a, n_b, epi1,
+                                  stream);
 }
-
 
 // ---------------------------------------------------------------------------
 // `bitserial` variant: X packed once (bitserial::pack_x_kernel), the b1
@@ -547,9 +357,20 @@ int launch_bitserial(const void* x, const void* a_scale, const void* bp,
 
 }  // namespace
 
-// The largest M the small-M route takes; the wrapper sizes its workspace
-// (int8 X values, ceil(n_a / 7) x M x Kw * 32 bytes) from it.
+// The largest M the small-M route takes.
 extern "C" int repro_apmm_small_m_max(void) { return SMALL_M_MAX; }
+
+// The fused variant's workspace in bytes at this shape (nw = 2: dual):
+// int8 X values, ceil(n_a / 7) x M x Kw * 32 bytes, and where the chunk
+// route splits K its int32 partial sums; -1 where the card cannot be
+// asked.
+extern "C" long long repro_apmm_fused_ws_bytes(int m, int n, int kw, int n_a,
+                                               int n_b, int nw) {
+  if (m <= SMALL_M_MAX) return (long long)((n_a + 6) / 7) * m * kw * 32;
+  int err = 0;
+  const long long b = int8mma::dense_ws_bytes(m, n, kw, n_a, n_b, nw, &err);
+  return err != 0 ? -1 : b;
+}
 
 // The largest M the bitserial variant's stacked route takes.
 extern "C" int repro_apmm_bitserial_stack_max(void) { return STACK_MAX; }
@@ -574,11 +395,10 @@ extern "C" int repro_apmm_bitserial_pack_x(const void* x, const void* a_scale,
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16.  act: 0 none, 1 silu, 2 gelu.
-// ws: variant 0, the small-M route's workspace (M <=
-// repro_apmm_small_m_max()), else unused; variant 1, the bitserial
-// workspace, n_a * M * Kw + M 32-bit words (the packed X, then SU).
-// variant: 0 = fused (the small-M route or the dp4a tile), 1 = bitserial
-// (the prologue, then the b1 core).
+// ws: variant 0, the fused workspace (repro_apmm_fused_ws_bytes); variant
+// 1, the bitserial workspace, n_a * M * Kw + M 32-bit words (the packed
+// X, then SU).  variant: 0 = fused (the prologue, then the small-M or the
+// chunk route), 1 = bitserial (the prologue, then the b1 core).
 extern "C" int repro_apmm_fused_linear(
     const void* x, const void* a_scale, const void* bp, const void* b_scale,
     const void* bp2, const void* b2_scale, const void* bias,

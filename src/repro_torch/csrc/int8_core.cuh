@@ -1,7 +1,8 @@
-// The int8 plane-group arithmetic shared by the fused kernels: K1's tile and
-// small-M routes (apmm_fused_linear.cu), K4's prologue and both of its
-// routes (moe_expert_linear.cu) and K5 (apmm_packed.cu).  One copy of each
-// step that must be bit-exact to the plain version in every kernel.
+// The int8 plane-group arithmetic shared by the fused kernels: K1's
+// prologue and both of its routes (apmm_fused_linear.cu), K4's prologue and
+// both of its routes (moe_expert_linear.cu), K5 (apmm_packed.cu), and the
+// chunk GEMM they share (int8_mma.cuh).  One copy of each step that must
+// be bit-exact to the plain version in every kernel.
 //
 // Plane groups.  An n-bit bipolar operand is split into the balanced <= 7-bit
 // groups of ref.plane_groups (plane_group): group (lo, size) has unsigned

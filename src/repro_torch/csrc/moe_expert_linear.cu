@@ -42,10 +42,10 @@
 //              shift and a mask per plane: bit slice j of the planes,
 //              shifted into place, is u of 4 elements (slice_u); the chunk
 //              route then takes v = 2 u - (2^size - 1) with one per-byte
-//              subtract (spread_slice), the decode route keeps u and
-//              corrects once per output: sum x v = 2 sum x u - maxv sum x,
-//              sum x from the prologue (xs [nga][E*C], each live row's sum
-//              of its group values).  The slice, dot and correction steps
+//              subtract (int8_mma.cuh's spread_slice), the decode route
+//              keeps u and corrects once per output: sum x v = 2 sum x u -
+//              maxv sum x, sum x from the prologue (xs [nga][E*C], each
+//              live row's sum of its group values).  The slice, dot and correction steps
 //              are int8_core.cuh's, shared with K1's small-M route.
 //   decode   : segments of up to FUSED_ROUTE_MAX rows: weight streaming, as
 //              K1's small-M route, as a persistent walk: as many blocks as
@@ -64,28 +64,15 @@
 //              experts' plane bytes; on the H100 its time grows with the
 //              live rows (the dp4a and X loads of each row), so it wins
 //              up to segments of 3 rows only.
-//   chunk    : taller segments: an int8 tensor-core GEMM over the work
-//              list (moe_fused_chunk_kernel), 128 MMA rows x 128 spread
-//              weight rows a block, 8 warps of 64 x 32.  The two 4-bit
-//              groups of an 8-bit activation row lie in MMA rows r and r +
-//              8 of a fragment, so one accumulator per weight holds both and
-//              the epilogue combines lo + (hi << 4) in the thread that has
-//              both (a single group: 16 work rows a fragment).  A row tile
-//              runs over one expert's work list, across its segments (G =
-//              32 segments of 40 rows fill 64-row tiles).  X rows and plane
-//              words are staged by cp.async (16-byte copies, zero-filled
-//              past the live rows, K and N) into a 3-stage ring; each stage
-//              (128 K elements) the plane words are spread to int8 once per
-//              block into one of two tiles that all 128 MMA rows read, the
-//              next stage's spread beside this stage's MMAs (one barrier a
-//              stage).  Shared rows
-//              are 128 bytes with their 16-byte chunks XOR-swizzled by row,
-//              so ldmatrix and the spread's 16-byte stores hit 32 distinct
-//              banks.  mma.sync m16n8k32 s8 x s8 -> s32 (no .satfinite:
-//              the sums wrap modulo 2^32 like the reference's int32).  The
-//              epilogue scatters each work row back to its (segment, row).
-//              The grid comes from the static shapes; a tile past its
-//              expert's live rows exits after reading counts.
+//   chunk    : taller segments: the int8 tensor-core GEMM of
+//              int8_mma.cuh (its header note has the design; one copy,
+//              shared with K1's and K5's chunk routes) over the work list
+//              (moe_fused_chunk_kernel): its row map is work_row over
+//              counts, so a row tile runs over one expert's work list,
+//              across its segments (G = 32 segments of 40 rows fill 64-row
+//              tiles), and its epilogue scatters each work row back to its
+//              (segment, row).  The grid comes from the static shapes; a
+//              tile past its expert's live rows exits after reading counts.
 //   epilogue : f32 throughout: (acc * a_s) * b_s as two separate
 //              multiplies; dual: the same for Y2, then act(Y1) * Y2; ONE
 //              cast to the output dtype (kernels/ref.py::
@@ -117,6 +104,7 @@
 
 #include "bitserial_core.cuh"
 #include "int8_core.cuh"
+#include "int8_mma.cuh"
 
 namespace {
 
@@ -148,19 +136,6 @@ __device__ __forceinline__ float moe_epilogue(int acc1, int acc2, float as,
 // ---------------------------------------------------------------------------
 
 constexpr int FUSED_ROUTE_MAX = 3;    // segment rows the decode route takes
-constexpr uint32_t BIT7 = 0x80808080u;
-
-// The group values v = 2 u - maxv of the same slice: 2 u <= 254 stays in
-// its byte, and the per-byte subtract (maxv <= 127) is ((w | 0x80..) -
-// maxv) ^ (~w & 0x80..): no borrow leaves a byte, and bit 7 is flipped
-// back where w's was 0.
-template <int NBM, int NGB>
-__device__ __forceinline__ uint32_t spread_slice(const uint32_t (&p)[NBM],
-                                                 int j, int gb,
-                                                 uint32_t maxv4) {
-  const uint32_t w = slice_u<NBM, NGB>(p, j, gb) << 1;
-  return ((w | BIT7) - maxv4) ^ (~w & BIT7);
-}
 
 // The capacity row of work row li of expert e (its li-th live row, the
 // segments' live rows in order), or -1 past the expert's live rows.
@@ -482,65 +457,14 @@ moe_fused_decode_kernel(const int8_t* __restrict__ xq,
   }
 }
 
-// -- chunk route: int8 tensor cores over the work list -----------------------
+// -- chunk route: int8_mma.cuh's GEMM over the work list ---------------------
 
-constexpr int CH_WARPS = 8;                 // 2 (rows) x 4 (columns)
-constexpr int CH_THREADS = CH_WARPS * 32;
-constexpr int CH_BM = 128;                  // MMA rows a block
-constexpr int CH_BK = 128;                  // K elements (bytes) a stage
-constexpr int CH_STAGES = 3;
-constexpr int CH_BROWS = 128;               // spread weight rows a block
-
-// byte offset of 16-byte chunk c of staged row r: a row is CH_BK bytes,
-// its 8 chunks XOR-swizzled by the row's low 3 bits
-__device__ __forceinline__ int ch_off(int r, int c) {
-  return r * CH_BK + ((c ^ (r & 7)) << 4);
-}
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp4(void* dst, const void* src, int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the chunk route's dynamic shared memory: the X ring, the plane-word
-// ring, two spread weight tiles
-inline int chunk_smem(int nw, int n_b, int bn) {
-  return CH_STAGES * (CH_BM * CH_BK + nw * n_b * bn * 16) +
-         2 * CH_BROWS * CH_BK;
-}
-
-// Block (row tile, column tile, expert): TR = 128 / NGA work rows x BN =
-// 128 / (NW NGB) columns.  MMA row 16 f + h of the tile is work row 8 f + h
-// % 8, group h / 8 (NGA = 2), or work row 16 f + h (NGA = 1); spread weight
-// row (w NGB + gb) BN + c is column c of weight w, group gb.  Warp (wm, wn)
-// takes MMA rows 64 wm.. and, of every (weight, group) slot, columns
-// wn BN / 4..
+// Block (row tile, column tile, expert): the TR work rows t0.. of expert e
+// (int8_mma.cuh's gemm_block; a tile past the expert's live rows exits
+// after reading counts), each live output written once with the f32
+// epilogue and one cast, scattered back to its (segment, row)
 template <typename TO, int NW, int NGB, int NGA, int NBM>
-__global__ void __launch_bounds__(CH_THREADS, 2)
+__global__ void __launch_bounds__(int8mma::THREADS, 2)
 moe_fused_chunk_kernel(const int8_t* __restrict__ xq,
                        const float* __restrict__ a_scale,
                        const int* __restrict__ counts,
@@ -551,206 +475,34 @@ moe_fused_chunk_kernel(const int8_t* __restrict__ xq,
                        TO* __restrict__ out, int n_exp, int groups, int seg,
                        int rows, int n, int kw, int n_a, int n_b, int act,
                        int vec) {
-  constexpr int BN = CH_BROWS / (NW * NGB);   // output columns a block
-  constexpr int NFS = BN / 32;                // n fragments a slot, a warp
-  constexpr int TR = CH_BM / NGA;             // work rows a block
+  constexpr int BN = int8mma::block_cols<NW, NGB>();
+  constexpr int TR = int8mma::block_rows<NGA>();
   extern __shared__ __align__(128) uint8_t smem_ch[];
-  __shared__ int s_orow[TR];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 1, wn = warp >> 1;
   const int e = blockIdx.z, n0 = blockIdx.y * BN, t0 = blockIdx.x * TR;
-  int orow = -1;
-  if (tid < TR) {
-    orow = work_row(counts, e, groups, seg, t0 + tid);
-    s_orow[tid] = orow;
-  }
-  const int n_live = __syncthreads_count(orow >= 0);
-  if (n_live == 0) return;      // a dead expert, or past its live rows
-
   const int kp = kw * 32;
-  const int n_st = (kp + CH_BK - 1) / CH_BK;
-  const int raw_words = NW * n_b * BN * 4;    // plane words a stage
-  int8_t* sa = reinterpret_cast<int8_t*>(smem_ch);  // [STAGES][BM][BK]
-  uint32_t* sraw = reinterpret_cast<uint32_t*>(
-      smem_ch + CH_STAGES * CH_BM * CH_BK);   // [STAGES][NW][n_b][BN][4]
-  int8_t* sb = reinterpret_cast<int8_t*>(
-      smem_ch + CH_STAGES * (CH_BM * CH_BK + raw_words * 4));  // [2][128][BK]
-  const int8_t* xe = xq + ((long long)e * groups * seg + t0) * kp;
-  const long long x_plane = (long long)rows * kp;
-  const long long plane_stride = (long long)n_exp * n * kw;
-  const uint32_t* wb0 = bp + ((long long)e * n + n0) * kw;
-  const uint32_t* wb1 = NW == 2 ? bp2 + ((long long)e * n + n0) * kw
-                                : nullptr;
-  const int n_lim = n - n0;
-  const uint32_t maxv4 = int8core::slice_maxv<NGB>(n_b) * BIT0;
-
-  auto load = [&](int s) {
-    int8_t* a_dst = sa + (s % CH_STAGES) * CH_BM * CH_BK;
-    const int kb0 = s * CH_BK;
-    for (int idx = tid; idx < CH_BM * 8; idx += CH_THREADS) {
-      const int r = idx >> 3, c = idx & 7;
-      const int wr = NGA == 2 ? (((r >> 4) << 3) | (r & 7)) : r;
-      const int ga = NGA == 2 ? (r >> 3) & 1 : 0;
-      if (wr >= n_live) continue;   // its MMA rows' outputs are not written
-      const bool ok = kb0 + 16 * c < kp;
-      const int8_t* src = xe + ga * x_plane + (long long)wr * kp + kb0 +
-                          16 * c;
-      cp16(a_dst + ch_off(r, c), ok ? src : xq, ok ? 16 : 0);
-    }
-    uint32_t* w_dst = sraw + (s % CH_STAGES) * raw_words;
-    const int kw0 = s * (CH_BK / 32);
-    for (int idx = tid; idx < NW * n_b * BN; idx += CH_THREADS) {
-      const int c = idx % BN, i = (idx / BN) % n_b, w = idx / (BN * n_b);
-      const uint32_t* src = (NW == 2 && w == 1 ? wb1 : wb0) +
-                            i * plane_stride + (long long)c * kw + kw0;
-      uint32_t* dst = w_dst + idx * 4;
-      // every 8 stages, the plane rows' next 8 stages (one 128-byte line
-      // each) are prefetched into L2, so the copies wait on L2, not HBM
-      if ((s & 7) == 0 && c < n_lim) {
-        if (s == 0) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(src));
-        if (kw0 + 32 < kw)
-          asm volatile("prefetch.global.L2 [%0];\n" ::"l"(src + 32));
-      }
-      if (vec) {
-        const bool ok = c < n_lim && kw0 < kw;
-        cp16(dst, ok ? src : bp, ok ? 16 : 0);
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const bool ok = c < n_lim && kw0 + q < kw;
-          cp4(dst + q, ok ? src + q : bp, ok ? 4 : 0);
-        }
-      }
-    }
-  };
-
-  // the stage's plane words -> int8 group values, once per block, into
-  // spread tile s % 2
-  auto spread = [&](int s) {
-    const uint32_t* raw = sraw + (s % CH_STAGES) * raw_words;
-    int8_t* sbs = sb + (s & 1) * CH_BROWS * CH_BK;
-    for (int idx = tid; idx < NW * BN * 4; idx += CH_THREADS) {
-      const int q = idx & 3, c = (idx >> 2) % BN, w = idx / (BN * 4);
-      uint32_t pl[NBM];
-#pragma unroll
-      for (int i = 0; i < NBM; ++i)
-        pl[i] = i < n_b ? raw[((w * n_b + i) * BN + c) * 4 + q] : 0u;
-#pragma unroll
-      for (int gb = 0; gb < NGB; ++gb) {
-        uint32_t v[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          v[j] = spread_slice<NBM, NGB>(pl, j, gb, maxv4);
-        const int row = (w * NGB + gb) * BN + c;
-        *reinterpret_cast<uint4*>(sbs + ch_off(row, 2 * q)) =
-            make_uint4(v[0], v[1], v[2], v[3]);
-        *reinterpret_cast<uint4*>(sbs + ch_off(row, 2 * q + 1)) =
-            make_uint4(v[4], v[5], v[6], v[7]);
-      }
-    }
-  };
-
-  int acc[4][4][4];
-#pragma unroll
-  for (int mf = 0; mf < 4; ++mf)
-#pragma unroll
-    for (int nf = 0; nf < 4; ++nf)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[mf][nf][r] = 0;
-
-  // a warp whose 64 MMA rows hold no live row neither loads nor
-  // multiplies (a short tile's other warps only spread)
-  const bool warp_live = (NGA == 2 ? 32 : 64) * wm < n_live;
-  auto compute = [&](int s) {
-    const int8_t* a_st = sa + (s % CH_STAGES) * CH_BM * CH_BK;
-    const int8_t* sbs = sb + (s & 1) * CH_BROWS * CH_BK;
-#pragma unroll
-    for (int ks = 0; ks < CH_BK / 32; ++ks) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mf = 0; mf < 4; ++mf) {
-        const int row = 64 * wm + 16 * mf + (lane & 7) + (lane & 8);
-        ldsm_x4(af[mf], a_st + ch_off(row, 2 * ks + (lane >> 4)));
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int nf = 2 * np + (lane >> 4);
-        const int row = (nf / NFS) * BN + wn * (BN / 4) + 8 * (nf % NFS) +
-                        (lane & 7);
-        uint32_t r4[4];
-        ldsm_x4(r4, sbs + ch_off(row, 2 * ks + ((lane >> 3) & 1)));
-        bf[2 * np][0] = r4[0];
-        bf[2 * np][1] = r4[1];
-        bf[2 * np + 1][0] = r4[2];
-        bf[2 * np + 1][1] = r4[3];
-      }
-#pragma unroll
-      for (int mf = 0; mf < 4; ++mf)
-#pragma unroll
-        for (int nf = 0; nf < 4; ++nf)
-          mma_s8(acc[mf][nf], af[mf], bf[nf][0], bf[nf][1]);
-    }
-  };
-
-  // the ring, one barrier a stage: at stage s the copies of stage s + 2
-  // are in flight while stage s + 1 is spread and stage s multiplies (the
-  // warps' spread and MMAs overlap)
-  load(0);
-  bitserial::cp_async_commit();
-  if (n_st > 1) load(1);
-  bitserial::cp_async_commit();
-  bitserial::cp_async_wait<1>();
-  __syncthreads();
-  spread(0);
-  for (int s = 0; s < n_st; ++s) {
-    bitserial::cp_async_wait<0>();
-    __syncthreads();      // stage s + 1 landed, tile s spread; stage s - 1's
-                          // slots and spread tile are free
-    if (s + 2 < n_st) load(s + 2);
-    bitserial::cp_async_commit();
-    if (s + 1 < n_st) spread(s + 1);
-    if (warp_live) compute(s);
-  }
-
-  // epilogue: group recombination in uint32 (modulo 2^32), then f32
+  int8mma::Block p;
+  p.x = xq + ((long long)e * groups * seg + t0) * kp;
+  p.x_plane = (long long)rows * kp;
+  p.w[0] = bp + ((long long)e * n + n0) * kw;
+  p.w[1] = NW == 2 ? bp2 + ((long long)e * n + n0) * kw : nullptr;
+  p.w_plane = (long long)n_exp * n * kw;
+  p.kw = kw;
+  p.n_b = n_b;
+  p.n0 = n0;
+  p.n_lim = n - n0;
+  p.st0 = 0;
+  p.st1 = (kp + int8mma::BK - 1) / int8mma::BK;
+  p.vec = vec;
   const float* ws = b_scale + (long long)e * n;
   const float* ws2 = NW == 2 ? b2_scale + (long long)e * n : nullptr;
-#pragma unroll
-  for (int mf = 0; mf < 4; ++mf)
-#pragma unroll
-    for (int half = 0; half < 3 - NGA; ++half) {
-      const int wr = NGA == 2 ? 32 * wm + 8 * mf + g
-                              : 64 * wm + 16 * mf + 8 * half + g;
-      if (wr >= n_live) continue;
-      const int o = s_orow[wr];
-      const float as = a_scale[o];
-#pragma unroll
-      for (int jn = 0; jn < NFS; ++jn)
-#pragma unroll
-        for (int cc = 0; cc < 2; ++cc) {
-          const int cl = wn * (BN / 4) + 8 * jn + 2 * t + cc;
-          if (cl >= n_lim) continue;
-          uint32_t y[NW];
-#pragma unroll
-          for (int w = 0; w < NW; ++w) {
-            y[w] = 0u;
-#pragma unroll
-            for (int gb = 0; gb < NGB; ++gb) {
-              const int nf = (w * NGB + gb) * NFS + jn;
-              const uint32_t v =
-                  NGA == 2 ? (uint32_t)acc[mf][nf][cc] +
-                                 ((uint32_t)acc[mf][nf][2 + cc] << 4)
-                           : (uint32_t)acc[mf][nf][2 * half + cc];
-              y[w] += v << (4 * gb);
-            }
-          }
-          const int col = n0 + cl;
-          out[(long long)o * n + col] = from_f32<TO>(moe_epilogue(
-              (int)y[0], (int)y[NW - 1], as, ws[col],
-              NW == 2 ? ws2[col] : 0.0f, NW == 2, act));
-        }
-    }
+  int8mma::gemm_block<NW, NGB, NGA, NBM>(
+      smem_ch, p,
+      [&](int r) { return work_row(counts, e, groups, seg, t0 + r); },
+      [&](int o, int col, int y1, int y2) {
+        out[(long long)o * n + col] = from_f32<TO>(moe_epilogue(
+            y1, y2, a_scale[o], ws[col], NW == 2 ? ws2[col] : 0.0f,
+            NW == 2, act));
+      });
 }
 
 // -- host side -----------------------------------------------------------------
@@ -803,20 +555,21 @@ int launch_chunk(const void* xq, const void*, const void* a_scale,
                  const void* b2_scale, void* out, int n_exp, int groups,
                  int seg, int rows, int n, int kw, int n_a, int n_b, int act,
                  cudaStream_t s) {
-  constexpr int BN = CH_BROWS / (NW * NGB), TR = CH_BM / NGA;
+  using namespace int8mma;
+  constexpr int BN = block_cols<NW, NGB>(), TR = block_rows<NGA>();
   auto kernel = moe_fused_chunk_kernel<TO, NW, NGB, NGA, NBM>;
   static bool configured = false;
   if (!configured) {          // the most any width pair needs (n_b = 8)
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        chunk_smem(1, 8, CH_BROWS));
+        smem_bytes(1, 8, BROWS));
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const int vec = kw % 4 == 0 && bitserial::aligned16(bp) &&
                   bitserial::aligned16(bp2);
   const dim3 grid((groups * seg + TR - 1) / TR, (n + BN - 1) / BN, n_exp);
-  kernel<<<grid, CH_THREADS, chunk_smem(NW, n_b, BN), s>>>(
+  kernel<<<grid, THREADS, smem_bytes(NW, n_b, BN), s>>>(
       (const int8_t*)xq, (const float*)a_scale, (const int*)counts,
       (const uint32_t*)bp, (const float*)b_scale, (const uint32_t*)bp2,
       (const float*)b2_scale, (TO*)out, n_exp, groups, seg, rows, n, kw,

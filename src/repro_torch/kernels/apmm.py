@@ -11,9 +11,13 @@ plain versions
 :func:`~repro_torch.kernels.ref.apmm_packed` and
 :func:`~repro_torch.kernels.ref.apmm_dequant`), CUDA tensors launch the
 kernel or raise, meta tensors take :mod:`repro_torch.kernels.meta` (the
-outputs' shapes, no launch).  At small M both fused C entries take the one
-weight-streaming GEMM of ``csrc/small_m.cuh`` (:func:`small_m_max`,
-:func:`packed_small_m_max`), on a workspace the wrapper allocates.
+outputs' shapes, no launch).  Both fused C entries write their
+activations once per launch as int8 plane-group values into a workspace
+the wrapper allocates (its size from the library, :func:`_fused_ws`),
+then take the one weight-streaming GEMM of ``csrc/small_m.cuh`` at small
+M (:func:`small_m_max`, :func:`packed_small_m_max`) and the one int8
+tensor-core chunk GEMM of ``csrc/int8_mma.cuh`` (K4's chunk route too)
+above.
 """
 
 from __future__ import annotations
@@ -41,9 +45,18 @@ _ACTS = {"none": 0, "silu": 1, "gelu": 2}
 _VARIANTS = {"fused": 0, "bitserial": 1}
 
 
+def _k1_so():
+    """K1's library (its C entry and its workspace size)."""
+    return _build.load("apmm_fused_linear")
+
+
+def _k5_so():
+    """K5's library (its C entry and its workspace size)."""
+    return _build.load("apmm_packed")
+
+
 def _lib():
-    lib = _build.load("apmm_fused_linear")
-    fn = lib.repro_apmm_fused_linear
+    fn = _k1_so().repro_apmm_fused_linear
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 \
             + [ctypes.c_void_p]
@@ -68,6 +81,20 @@ def bitserial_stack_max() -> int:
 
 def _ptr(t):
     return 0 if t is None else t.data_ptr()
+
+
+def _fused_ws(lib, entry: str, dev, *args) -> torch.Tensor:
+    """The fused variant's workspace, as many bytes as the library's
+    ``entry`` asks at this shape (the activations' int8 plane-group
+    values, and the chunk route's split-K partial sums where it splits)."""
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * len(args)
+        fn.restype = ctypes.c_longlong
+    n_bytes = fn(*args)
+    if n_bytes < 0:
+        raise RuntimeError(f"{entry}: the card's SM count could not be read")
+    return torch.empty(n_bytes, dtype=torch.uint8, device=dev)
 
 
 def _bitserial_workspace(a_bits: int, rows: int, kw: int, dev):
@@ -164,13 +191,11 @@ def apmm_fused_linear(x2: torch.Tensor, a_scale: torch.Tensor,
     fn = _lib()
     fused = variant == "fused"
     small = fused and m <= small_m_max()
-    if small:     # the small-M route's: X quantized once, int8 per group
-        xq = torch.empty((len(ref.plane_groups(a_bits)), m, kw * 32),
-                         dtype=torch.int8, device=dev)
-    elif not fused:   # the bitserial prologue's: X's planes, then SU
+    if fused:     # X quantized once, int8 per group (+ split-K's sums)
+        xq = _fused_ws(_k1_so(), "repro_apmm_fused_ws_bytes", dev, m, n, kw,
+                       a_bits, w.n_bits, 1 if w2 is None else 2)
+    else:         # the bitserial prologue's: X's planes, then SU
         xq = _bitserial_workspace(a_bits, m, kw, dev)
-    else:
-        xq = None
     err = fn(xs.data_ptr(), a_s.data_ptr(), wp.data_ptr(), ws.data_ptr(),
              _ptr(w2p), _ptr(w2s), _ptr(bs_), _ptr(res), out.data_ptr(),
              _ptr(xq), m, n, k, kw, a_bits, w.n_bits, _ACTS[act],
@@ -186,8 +211,7 @@ def apmm_fused_linear(x2: torch.Tensor, a_scale: torch.Tensor,
 
 
 def _packed_lib():
-    lib = _build.load("apmm_packed")
-    fn = lib.repro_apmm_packed
+    fn = _k5_so().repro_apmm_packed
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
             + [ctypes.c_void_p]
@@ -253,9 +277,9 @@ def apmm_packed(a: BipolarTensor, b: BipolarTensor, *,
     out = torch.empty((m, n), device=dev,
                       dtype=torch.int32 if out_dtype is None else out_dtype)
     small = variant == "fused" and m <= packed_small_m_max()
-    # the small-M route's: A's values once, int8 per plane group
-    xq = torch.empty((len(ref.plane_groups(n_a)), m, kw * 32),
-                     dtype=torch.int8, device=dev) if small else None
+    # A's values once, int8 per plane group (+ split-K's sums)
+    xq = _fused_ws(_k5_so(), "repro_apmm_packed_ws_bytes", dev, m, n, kw,
+                   n_a, n_b) if variant == "fused" else None
     err = _packed_lib()(
         ap.data_ptr(), bp.data_ptr(), _ptr(a_s), _ptr(b_s), out.data_ptr(),
         _ptr(xq), m, n, k, kw, n_a, n_b,

@@ -2,7 +2,8 @@
 needed): a library's name hashes its source, the ``csrc/*.cuh`` headers
 the source includes and the flags, so that an edited header -- the b1
 core (K1, K4 and K5; K2 takes its cp.async helpers), the int8
-plane-group steps (K1, K4, K5), the small-M GEMM (K1, K5), the
+plane-group steps (K1, K4, K5), the int8 tensor-core chunk GEMM (K1,
+K4, K5), the small-M GEMM (K1, K5), the
 split-KV combine (K2, K6/K7), the bipolar-KV attention kernel (K2, K6)
 or the quantize-and-pack (K3 and, through the b1 core, every source that
 includes it) -- rebuilds every source that includes it and nothing
@@ -24,7 +25,7 @@ def _copy_csrc(tmp_path, monkeypatch):
 
 
 def test_sources_that_include_the_core_list_it():
-    core = ["bitserial_core.cuh", "int8_core.cuh"]
+    core = ["bitserial_core.cuh", "int8_core.cuh", "int8_mma.cuh"]
     for name, extra in (("apmm_fused_linear", ["small_m.cuh"]),
                         ("apmm_packed", ["small_m.cuh"]),
                         ("moe_expert_linear", [])):
@@ -73,6 +74,8 @@ def test_editing_the_int8_core_renames_the_libraries_that_include_it(
 
 @pytest.mark.parametrize("header,users", [
     ("small_m.cuh", {"apmm_fused_linear", "apmm_packed"}),
+    ("int8_mma.cuh", {"apmm_fused_linear", "apmm_packed",
+                      "moe_expert_linear"}),
     ("split_kv.cuh", {"paged_attention", "flash_attention"}),
     ("bipolar_attention.cuh", {"paged_attention", "flash_attention"}),
     ("pack_core.cuh", {"pack", "apmm_fused_linear", "apmm_packed",

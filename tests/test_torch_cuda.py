@@ -28,6 +28,11 @@ threshold.  K3 is also held bit for bit at every width 1..8 and against
 the bit-serial prologue, which runs its warp routine.  K1's small-M route (M up to
 ``apmm.small_m_max()``): the integer core bit-exact on both sides of the
 threshold, the dual SiLU within 1 bf16 ulp, bias and residual bit-exact.
+K1's and K5's chunk route above their thresholds (the int8 tensor-core
+GEMM of ``csrc/int8_mma.cuh``, read off the kernels that ran): the same
+rules at M just above the threshold, 127, 128, 129, 256 and 1024, six
+width pairs, partial column tiles, K tails and 342-word weight rows, and
+split-K (its finish kernel seen to run) at deepseek-moe-16b's dense down.
 Fused K4 on both sides of its route threshold (``moe.fused_route_max()``:
 the weight-streaming decode route and the int8 tensor-core chunk route)
 at six width pairs: the same rules as K4's other cases.
@@ -177,8 +182,8 @@ def test_apmm_kernel_bf16_dual_silu_residual(device, m, n, k):
 
 
 def _small_m(m_case):
-    """M of a small-M case: a number (12 and 20 end in a partial group of
-    8 rows), or the route's threshold (+1)."""
+    """M of a small-M case: a number (above the threshold, 8, 12 and 20
+    run the chunk route), or the route's threshold (+1)."""
     t = apmm.small_m_max()
     return {"threshold": t, "threshold+1": t + 1}.get(m_case, m_case)
 
@@ -191,10 +196,10 @@ def _small_m(m_case):
 def test_apmm_kernel_small_m_integer_core_bit_exact(device, m_case, n, k,
                                                     a_bits, w_bits):
     """K1's decode shapes: M <= small_m_max() runs the small-M route (its
-    launch counter moves), M above it the tile kernel; the integer core
+    launch counter moves), M above it the chunk route; the integer core
     is bit-exact on both sides of the threshold."""
     m = _small_m(m_case)
-    assert apmm.small_m_max() >= 8
+    assert apmm.small_m_max() >= 4
     rng = np.random.default_rng(m * 7 + n + k + a_bits * 10 + w_bits)
     w = ops.pack_weight(_rand(rng, (n, k), device), w_bits)
     x = _rand(rng, (m, k), device, torch.bfloat16)
@@ -233,6 +238,144 @@ def test_apmm_kernel_small_m_dual_silu_residual(device, m_case, n, k):
     want = ref.ap_linear_fused_ref(x, a_s, w, residual=res, bias=bias,
                                    a_bits=8, out_dtype=torch.bfloat16)
     assert torch.equal(got, want)
+
+
+def _kernels_that_ran(fn, need):
+    """The own names of the kernels that three calls of ``fn`` launch
+    (``torch.profiler``), and what ``fn`` returns.  The profiler can drop
+    a window's first or last kernel, or a whole window, so a trace that
+    lacks one of the names ``need`` is taken again, four times at most."""
+    import re
+    import time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = fn()
+    for attempt in range(5):
+        if attempt:
+            time.sleep(0.1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        names = set()
+        for ev in prof.key_averages():
+            if ev.device_type == DeviceType.CUDA:
+                m = re.search(r"(\w+)[<(]", ev.key)
+                names.add(m.group(1) if m else ev.key)
+        if set(need) <= names:
+            break
+    return names, out
+
+
+def _chunk_m(m_case):
+    """M of a chunk-route case: a number, or the small-M threshold + 1."""
+    return apmm.small_m_max() + 1 if m_case == "threshold+1" else m_case
+
+
+CHUNK_MS = ["threshold+1", 127, 128, 129, 256, 1024]
+
+
+@pytest.mark.parametrize("m_case", CHUNK_MS)
+@pytest.mark.parametrize("n", [70, 3352, 4096])
+@pytest.mark.parametrize("k", [100, 4096, 10944])
+@pytest.mark.parametrize("a_bits,w_bits", [(8, 2), (8, 8), (4, 3), (3, 5),
+                                           (2, 8), (1, 1)])
+def test_apmm_kernel_chunk_route_integer_core_bit_exact(device, m_case, n, k,
+                                                        a_bits, w_bits):
+    """K1 above small_m_max() runs the int8 tensor-core chunk route of
+    int8_mma.cuh after one quantize (read off the kernels that ran; split-K
+    and its finish where the grid is thinner than the card): the integer
+    core bit-exact at row-tile edges, a partial last column tile (N 70,
+    3352), a K tail (K 100) and weight rows of 342 words (K 10944, the
+    4-byte copies)."""
+    m = _chunk_m(m_case)
+    rng = np.random.default_rng(m * 7 + n + k + a_bits * 10 + w_bits)
+    w = ops.pack_weight(_rand(rng, (n, k), device), w_bits)
+    x = _rand(rng, (m, k), device, torch.bfloat16)
+    a_s = bipolar.absmax_scale(x, a_bits, axis=-1).float()
+    need = {"quantize_x_kernel", "dense_chunk_kernel"}
+    ran, got = _kernels_that_ran(lambda: apmm.apmm_fused_linear(
+        x, a_s, w, a_bits=a_bits, out_dtype=torch.float32), need)
+    assert need <= ran, ran
+    assert "gemm_kernel" not in ran
+    want = ref.ap_linear_fused_ref(x, a_s, w, a_bits=a_bits,
+                                   out_dtype=torch.float32)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m_case", CHUNK_MS)
+@pytest.mark.parametrize("n,k", [(70, 100), (4096, 4096), (3352, 10944)])
+def test_apmm_kernel_chunk_route_dual_silu_bias_residual(device, m_case, n,
+                                                         k):
+    """The chunk route's epilogues: dual gate/up with SiLU within 1 bf16
+    ulp, bias and residual bit-exact."""
+    m = _chunk_m(m_case)
+    rng = np.random.default_rng(m * 13 + n + k)
+    w = ops.pack_weight(_rand(rng, (n, k), device), 2)
+    w2 = ops.pack_weight(_rand(rng, (n, k), device), 2)
+    x = _rand(rng, (m, k), device, torch.bfloat16)
+    res = _rand(rng, (m, n), device, torch.bfloat16)
+    bias = _rand(rng, (n,), device)
+    a_s = bipolar.absmax_scale(x, 8, axis=-1).float()
+    ran, got = _kernels_that_ran(lambda: apmm.apmm_fused_linear(
+        x, a_s, w, w2=w2, a_bits=8, act="silu", out_dtype=torch.bfloat16),
+        {"dense_chunk_kernel"})
+    assert "dense_chunk_kernel" in ran, ran
+    want = ref.ap_linear_fused_ref(x, a_s, w, w2=w2, a_bits=8, act="silu",
+                                   out_dtype=torch.bfloat16)
+    assert int(_bf16_ulps(got, want).max()) <= 1
+    got = apmm.apmm_fused_linear(x, a_s, w, w2=w2, a_bits=8,
+                                 out_dtype=torch.bfloat16)
+    want = ref.ap_linear_fused_ref(x, a_s, w, w2=w2, a_bits=8,
+                                   out_dtype=torch.bfloat16)
+    assert torch.equal(got, want)
+    got = apmm.apmm_fused_linear(x, a_s, w, residual=res, bias=bias,
+                                 a_bits=8, out_dtype=torch.bfloat16)
+    want = ref.ap_linear_fused_ref(x, a_s, w, residual=res, bias=bias,
+                                   a_bits=8, out_dtype=torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m", [129, 256])
+@pytest.mark.parametrize("w_bits", [3, 8])
+def test_apmm_kernel_chunk_route_split_k(device, m, w_bits):
+    """deepseek-moe-16b's chunk dense down, N 2048, K 10944 (342 words):
+    the grid is thinner than the card, so the chunk route splits K over
+    blocks and finishes the int32 sums in a second kernel; the integer
+    core, the bf16 output with a residual and the dual SiLU as the plain
+    version's."""
+    n, k = 2048, 10944
+    rng = np.random.default_rng(m + w_bits)
+    w = ops.pack_weight(_rand(rng, (n, k), device), w_bits)
+    w2 = ops.pack_weight(_rand(rng, (n, k), device), w_bits)
+    x = _rand(rng, (m, k), device, torch.bfloat16)
+    res = _rand(rng, (m, n), device, torch.bfloat16)
+    a_s = bipolar.absmax_scale(x, 8, axis=-1).float()
+    need = {"dense_chunk_kernel", "split_finish_kernel"}
+    ran, got = _kernels_that_ran(lambda: apmm.apmm_fused_linear(
+        x, a_s, w, a_bits=8, out_dtype=torch.float32), need)
+    assert need <= ran, ran
+    assert torch.equal(got, ref.ap_linear_fused_ref(
+        x, a_s, w, a_bits=8, out_dtype=torch.float32))
+    got = apmm.apmm_fused_linear(x, a_s, w, residual=res, a_bits=8,
+                                 out_dtype=torch.bfloat16)
+    assert torch.equal(got, ref.ap_linear_fused_ref(
+        x, a_s, w, residual=res, a_bits=8, out_dtype=torch.bfloat16))
+    # the dual's blocks are half as wide: w8's grid fills the card
+    ran, got = _kernels_that_ran(lambda: apmm.apmm_fused_linear(
+        x, a_s, w, w2=w2, a_bits=8, act="silu", out_dtype=torch.bfloat16),
+        {"dense_chunk_kernel"})
+    assert ("split_finish_kernel" in ran) == (w_bits != 8), ran
+    want = ref.ap_linear_fused_ref(x, a_s, w, w2=w2, a_bits=8, act="silu",
+                                   out_dtype=torch.bfloat16)
+    assert int(_bf16_ulps(got, want).max()) <= 1
+    a = ops.quantize_rows(x, 8, pad_bit=0)
+    need = {"packed_to_xq_kernel", "split_finish_kernel"}
+    ran, got = _kernels_that_ran(lambda: apmm.apmm_packed(a, w), need)
+    assert need <= ran, ran
+    assert torch.equal(got, apmm.apmm_packed_plain(a, w))
 
 
 def _pool(rng, dev, n_blocks, bs, h, n_bits, d):
@@ -641,11 +784,11 @@ def _packed_small_m(m_case):
 def test_apmm_packed_kernel_small_m_route_edges(device, m_case, n, k,
                                                 a_bits, w_bits):
     """K5 at M <= packed_small_m_max() runs its small-M route (K1's
-    weight-streaming GEMM; the counter moves), above it the dp4a tile:
+    weight-streaming GEMM; the counter moves), above it the chunk route:
     raw int32 and f32/bf16 dequant bit-exact on both sides of the
     threshold, odd K and a weight packed wider than A included."""
     m = _packed_small_m(m_case)
-    assert apmm.packed_small_m_max() >= 8
+    assert apmm.packed_small_m_max() >= 4
     rng = np.random.default_rng(m * 7 + n + k + a_bits * 10 + w_bits)
     a = _packed_operand(rng, device, m, k, a_bits, 0)
     b = _packed_operand(rng, device, n, k, w_bits, 1,
@@ -658,6 +801,36 @@ def test_apmm_packed_kernel_small_m_route_edges(device, m_case, n, k,
         assert torch.equal(got, apmm.apmm_packed_plain(a, b, out_dtype=od))
     small = m <= apmm.packed_small_m_max()
     assert apmm.PACKED_SMALL_M_LAUNCHES - before == 3 * small
+
+
+def _packed_chunk_m(m_case):
+    t = apmm.packed_small_m_max()
+    return t + 1 if m_case == "threshold+1" else m_case
+
+
+@pytest.mark.parametrize("m_case", CHUNK_MS)
+@pytest.mark.parametrize("n,k", [(70, 100), (4096, 4096), (3352, 10944)])
+@pytest.mark.parametrize("a_bits,w_bits", [(8, 2), (8, 8), (4, 3), (3, 5),
+                                           (2, 8), (1, 1)])
+def test_apmm_packed_kernel_chunk_route_bit_exact(device, m_case, n, k,
+                                                  a_bits, w_bits):
+    """K5 above packed_small_m_max() runs A's prologue, then the int8
+    tensor-core chunk route of int8_mma.cuh (read off the kernels that
+    ran): raw int32 and f32/bf16 dequant bit-exact, a weight packed wider
+    than A (K 100: two more words) and odd K included."""
+    m = _packed_chunk_m(m_case)
+    rng = np.random.default_rng(m * 7 + n + k + a_bits * 10 + w_bits)
+    a = _packed_operand(rng, device, m, k, a_bits, 0)
+    b = _packed_operand(rng, device, n, k, w_bits, 1,
+                        extra_words=2 if k == 100 else 0)
+    a, b = ops._normalize_packed_kw(a, b)
+    need = {"packed_to_xq_kernel", "dense_chunk_kernel"}
+    for od in (None, torch.float32, torch.bfloat16):
+        ran, got = _kernels_that_ran(
+            lambda: apmm.apmm_packed(a, b, out_dtype=od), need)
+        assert need <= ran, ran
+        assert "gemm_kernel" not in ran
+        assert torch.equal(got, apmm.apmm_packed_plain(a, b, out_dtype=od))
 
 
 @pytest.mark.parametrize("m", [1, 4, 5, 12, 33, 67, 130])
