@@ -219,7 +219,9 @@ exit and no result line):
    ``peak_bytes`` is printed beside ``max_memory_allocated()`` of one
    step; (c) one production cell in a subprocess, ``python -m
    repro_torch.launch.dryrun --arch llama3-8b --shape train_4k --mesh
-   single``, which must end ``ok``;
+   single``, which must end ``ok`` with at most 1 GiB of weights
+   gathered at once, at most 3.5e14 FLOPs a rank and a peak under the
+   card's 80 GB (the sharded step's tensor-parallel compute);
 9. the launch counts of each path, the JSON kernels line (one entry per
    path and kernel of that path, ``launches`` that path's own count, the
    other numbers those of the phase-3 case at that path's own shape,
@@ -2582,6 +2584,8 @@ ALLOC_ROUND = 512
 
 
 DRYRUN_CELL = os.path.join(ROOT, "build", "dryrun_smoke")
+CARD_BYTES = 80e9          # an H100's memory
+CELL_MAX_FLOPS = 3.5e14    # a rank's products in the train_4k cell
 
 
 def start_dryrun() -> dict:
@@ -2687,7 +2691,17 @@ def dryrun_phase(torch, seed, procs) -> dict:
     if rec["status"] != "ok":
         raise AssertionError(f"the pod256 llama3-8b train_4k cell: "
                              f"{rec.get('error')}")
-    out["cell"] = m
+    # the sharded step's tensor-, sequence- and expert-parallel compute:
+    # one layer's weights gathered at a time, a 16th of the batch shard's
+    # products, a peak the card holds
+    bounds = {"gathered_bytes": 2**30, "peak_bytes": CARD_BYTES}
+    over = {k: m[k] for k, v in bounds.items() if not m[k] <= v}
+    if rec["flops"]["total"] > CELL_MAX_FLOPS:
+        over["flops"] = rec["flops"]["total"]
+    if over:
+        raise AssertionError(f"the pod256 llama3-8b train_4k cell is past "
+                             f"its bounds: {over}")
+    out["cell"] = dict(m, flops=rec["flops"]["total"])
     return out
 
 

@@ -30,9 +30,11 @@ rules take a DeviceMesh or a :class:`repro_torch.launch.mesh.MeshShape`
 (names and sizes alone).
 
 :func:`sharded_step` is the training step over a mesh: parameters rest
-as DTensors, each gathered for the step and its gradient reduce-scattered
-back to the parameter's placement (ZeRO-3 style; ranks along "model"
-compute the same batch shard).
+as DTensors, each gathered at its use (FSDP over the DP axes, inside the
+checkpointed unit) and its gradient reduce-scattered back to the
+parameter's placement, while the "model" axis splits the work (tensor,
+sequence and expert parallelism: :mod:`repro_torch.distributed
+.tensor_parallel`).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.bipolar import BipolarTensor
-from repro_torch.core.tree import get_at, leaves_with_paths, tree_map
+from repro_torch.core.tree import get_at, leaves, leaves_with_paths, tree_map
 from repro_torch.launch.mesh import dp_axes, mesh_sizes
 
 # ---------------------------------------------------------------------------
@@ -136,16 +138,33 @@ def set_activation_context(mesh, rules: Optional[dict] = None, extra=()):
         default_activation_rules(mesh, extra) if mesh is not None else {})
 
 
-def constrain(x, name: str):
-    """Redistribute a DTensor ``x`` to the named activation spec, fitted
-    to its shape, if a context is installed; anything else (no context,
-    no such rule, a local tensor) passes unchanged."""
+def constrain(x, name: str, src: Optional[str] = None):
+    """Bring ``x`` to the named activation rule, fitted to its shape.
+
+    A DTensor is redistributed to the rule.  Under the sharded step's
+    tensor-parallel context (:mod:`repro_torch.distributed
+    .tensor_parallel`) a local tensor -- the rank's batch rows -- is
+    brought to the rule's layout on the "model" axis from ``src``: a
+    partial sum over "model" (``"partial"``) is reduce-scattered, a value
+    every model rank holds whole (``"replicated"``) has the rank's part
+    taken, and ``src=None`` (already laid out so) passes.  Without a
+    context, or without such a rule, ``x`` passes unchanged."""
     from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import tensor_parallel as TP
     mesh, rules = _CTX["mesh"], _CTX["rules"]
-    if mesh is None or name not in rules or not isinstance(x, DTensor):
+    if isinstance(x, DTensor):
+        if mesh is None or name not in rules:
+            return x
+        spec = _fit(mesh, x.shape, tuple(rules[name]))
+        return x.redistribute(mesh, placements(mesh, spec))
+    ctx = TP.current()
+    if ctx is None:
         return x
-    spec = _fit(mesh, x.shape, tuple(rules[name]))
-    return x.redistribute(mesh, placements(mesh, spec))
+    if mesh is None:
+        rules = default_activation_rules(ctx.mesh)
+    if name not in rules:
+        return x
+    return TP.to_layout(x, rules[name], src)
 
 
 def default_activation_rules(mesh, extra=()) -> dict:
@@ -158,13 +177,17 @@ def default_activation_rules(mesh, extra=()) -> dict:
         # experts over model in EP mode
         "moe_dispatch": ((dp, "model", None, None) if _MOE_MODE == "ep"
                          else (dp, None, None, None)),
-        # combine side: expert outputs token-local (G over DP, E
-        # replicated)
-        "moe_combine": (dp, None, None, "model"),
+        # the combine's output (B, S, d): each rank combines the rows of
+        # the experts it computed (EP) or its d_ff part of every expert's
+        # (TP), and the partial sums are reduce-scattered to the residual
+        # layout (the reference's rule, (dp, None, None, "model") on the
+        # expert outputs, moves them by all-to-all before the combine)
+        "moe_combine": (dp, "model", None),
     }
     if "attn_chunks" in extra:
-        # stacked KV chunks (nc, B, Hkv, ck, D): chunk axis unsharded
-        rules["attn_chunks"] = (None, dp, "model", None, None)
+        # the KV chunks' axis unsharded, heads over model: the port's
+        # (B, Hkv, T, D) layout (the reference stacks (nc, B, Hkv, ck, D))
+        rules["attn_chunks"] = (dp, "model", None, None)
     return rules
 
 
@@ -363,52 +386,57 @@ def sharded_step(loss_fn, mesh):
     counterpart of the reference's ``jax.jit(..., in_shardings=...)`` of
     its loss and gradients.
 
-    ``loss_fn(params, batch) -> (nll, count, aux)`` on local tensors:
-    the summed negative log-likelihood of the batch shard's tokens, their
-    count and an auxiliary loss (:func:`repro_torch.models.model
-    .loss_terms`).  ``params`` are DTensors (:func:`shard_tree` under
+    ``loss_fn(params, batch) -> (nll, count, aux)``: the summed negative
+    log-likelihood of the batch shard's tokens, their count and an
+    auxiliary loss (:func:`repro_torch.models.model.loss_terms`).
+    ``params`` are DTensors (:func:`shard_tree` under
     :func:`shardings_for_params`), ``batch`` DTensors under
     :func:`shardings_for_batch` (or the local shard itself).
 
-    Each parameter is gathered whole at the step's start (an
-    autograd-aware redistribute to ``Replicate()``) and held for the
-    step, so its gradient comes back reduce-scattered over the DP axes to
-    the parameter's placement; ranks along the other axes compute the
-    same batch shard, so their gradients are equal and are not summed.
-    (A gather inside each checkpointed unit, freed after it, waits for
-    tensor-parallel compute: ROADMAP queue 1.)  The loss is the global batch's: the NLL sum and the
-    count are summed over the DP axes before the division; the auxiliary
-    loss is the mean of the ranks' (each over its own tokens).  Returns
-    the loss (a local f32 scalar, equal on every rank) and the gradients
-    (DTensors, laid out as ``params``)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    The step runs under a tensor-parallel context
+    (:mod:`repro_torch.distributed.tensor_parallel`): the model gathers
+    each weight over the DP axes where it uses it -- a unit's layers
+    inside the unit's checkpoint, so the recompute gathers them again and
+    nothing holds them after the unit -- and splits the work over
+    "model" (tensor, sequence and expert parallelism by the rules above).
+    Each gradient comes back reduce-scattered to its parameter's
+    placement.  The loss is the global batch's: the NLL sum and the count
+    are summed over the DP axes before the division, and the MoE
+    load-balance loss is taken over the global batch inside the model
+    (it enters the objective of the model axis's rank 0 only, as every
+    model rank computes it whole).  At world size 1 the step is the
+    plain step bit for bit.  Returns the loss (a local f32 scalar, equal
+    on every rank) and the gradients (DTensors, laid out as ``params``);
+    ``step.gathered_bytes`` is the most bytes of gathered weights alive
+    at once in its last call."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import tensor_parallel as TP
     dp = dp_axes(mesh)
-    n_dp = math.prod(mesh_sizes(mesh)[a] for a in dp)
-    whole = [Replicate()] * mesh.ndim
-    grad_pl = [Partial() if a in dp else Replicate()
-               for a in mesh.mesh_dim_names]
 
     def step(params, batch):
-        handles = []
-
-        def gather(p):
-            h = p.detach().requires_grad_(True)
-            handles.append(h)
-            return h.redistribute(mesh, whole).to_local(
-                grad_placements=grad_pl)
-
-        local_params = tree_map(gather, params)
+        handles = tree_map(lambda p: TP.Param(
+            p.to_local().detach().requires_grad_(True), p.placements),
+            params)
         local_batch = tree_map(
             lambda b: b.to_local() if isinstance(b, DTensor) else b, batch)
-        nll, cnt, aux = loss_fn(local_params, local_batch)
-        count = all_reduce_axes(cnt.detach().clone(), mesh, dp)
-        local = nll / torch.clamp(count, min=1.0) + aux / aux.new_tensor(
-            float(n_dp))
-        grads = torch.autograd.grad(local, handles)
-        loss = all_reduce_axes(local.detach().clone(), mesh, dp)
+        with TP.active(mesh) as ctx:
+            nll, cnt, aux = loss_fn(handles, local_batch)
+            count = all_reduce_axes(cnt.detach().clone(), mesh, dp)
+            local = nll / torch.clamp(count, min=1.0)
+            # every model rank computes the aux whole: one counts it (the
+            # graph stays the same on all, so their collectives line up)
+            objective = local + aux * float(ctx.model_rank == 0)
+            grads = torch.autograd.grad(
+                objective, [h.local for h in leaves(handles)])
+        step.gathered_bytes = ctx.gathered_peak
+        loss = all_reduce_axes(local.detach().clone(), mesh, dp) + \
+            aux.detach()
         done = iter(grads)
-        return loss, tree_map(lambda _: next(done), params)
+        return loss, tree_map(lambda p: DTensor.from_local(
+            next(done), mesh, p.placements, run_check=False, shape=p.shape,
+            stride=p.stride()), params)
 
+    step.gathered_bytes = 0
     return step
 
 

@@ -42,10 +42,13 @@ The record, for rank 0 (every rank's shards have one shape):
 
 * ``memory``: ``param_bytes``, ``opt_bytes``, ``batch_bytes`` and
   ``cache_bytes``, the bytes of each argument tree's local shards,
-  exactly, and ``argument_bytes``, their sum; ``gathered_bytes``, the
-  bytes of every weight whole, which the step holds at once (it gathers
-  them all at its start; serve cells also ``gathered_cache_bytes``, the
-  caches gathered to the rank's batch rows); ``peak_bytes``, an estimate
+  exactly, and ``argument_bytes``, their sum; ``gathered_bytes``, in a
+  train cell the most bytes of gathered weights alive at once in the
+  step, counted by its gathers (each unit's weights are gathered inside
+  its checkpoint and freed after it), in a serve cell the bytes of every
+  weight whole, which ``sharded_serve_step`` gathers at its start (and
+  ``gathered_cache_bytes``, the caches gathered to the rank's batch
+  rows); ``peak_bytes``, an estimate
   of the step's peak: the arguments plus the most bytes of storage that
   the step's own ops held live at once (every op's new storages, each
   counted until it is freed, views counted with their base).  It leaves
@@ -100,7 +103,8 @@ from repro_torch.serving import engine as E
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 OUT_DIR = os.environ.get("DRYRUN_OUT", os.path.join(ROOT, "build", "dryrun"))
-OPTS = ("moe_tp", "kv8", "bf16serve", "bitserial", "attn_bf16")
+OPTS = ("moe_tp", "attn_chunks", "kv8", "bf16serve", "bitserial",
+        "attn_bf16")
 GIB = 2 ** 30
 
 
@@ -239,13 +243,10 @@ def _freed(ref, key, n, _):
 
 def cell_config(arch: str, opts=()):
     """``arch``'s config with the levers of ``opts`` (the reference's:
-    the KV format pinned, ``kv8`` its 8-bit bipolar cache)."""
+    the KV format pinned, ``kv8`` its 8-bit bipolar cache).
+    ``attn_chunks`` is a lever of the activation rules, not of the
+    config (:func:`measure` installs it)."""
     bad = sorted(set(opts) - set(OPTS))
-    if "attn_chunks" in bad:
-        raise ValueError("--opt attn_chunks pins an activation constraint, "
-                         "and the port's model calls no constrain yet: that "
-                         "waits for tensor-parallel compute (ROADMAP queue "
-                         "1 item 13)")
     if bad:
         raise ValueError(f"unknown --opt {bad}; the levers are {OPTS}")
     cfg = get_config(arch)
@@ -294,14 +295,16 @@ def train_state(cfg, mesh, batch, seq, *, device="meta", seed=0) -> dict:
 
 
 def train_step(cfg, mesh, state):
-    """One sharded step, then AdamW on the local shards (in place)."""
+    """One sharded step, then AdamW on the local shards (in place).
+    Returns the loss and the most bytes of gathered weights the step held
+    at once (``sharded_step``'s count)."""
     sched = wsd_schedule(peak_lr=3e-4, warmup_steps=2000,
                          total_steps=100000)
     step = S.sharded_step(functools.partial(M.loss_terms, cfg=cfg), mesh)
     loss, grads = step(state["params"], state["batch"])
     adamw_update(grads, state["opt"], state["params"],
                  lr=sched(state["opt"].step), cfg=ADAMW)
-    return loss
+    return loss, step.gathered_bytes
 
 
 def serve_state(cfg, mesh, batch, seq, mode, *, device="meta",
@@ -331,9 +334,11 @@ def serve_step(cfg, mesh, state, mode):
         return step(state["params"], state["batch"], state["caches"])
 
 
-def measure(cfg, mesh, mode, batch, seq) -> dict:
+def measure(cfg, mesh, mode, batch, seq, opts=()) -> dict:
     """Build one cell's arguments on meta over ``mesh`` and trace its step
-    under the counters: the record's measured fields."""
+    under the counters: the record's measured fields.  ``opts`` naming
+    ``attn_chunks`` installs that activation rule for the step."""
+    opts_rules = ("attn_chunks",) if "attn_chunks" in opts else ()
     if mode == "train":
         state = train_state(cfg, mesh, batch, seq)
         args = {"params": state["params"], "opt": state["opt"],
@@ -346,14 +351,16 @@ def measure(cfg, mesh, mode, batch, seq) -> dict:
            "batch_bytes": local_bytes(state["batch"]),
            "cache_bytes": local_bytes(state.get("caches"))}
     mem["argument_bytes"] = sum(mem.values())
-    mem["gathered_bytes"] = whole_bytes(state["params"])
     t0 = time.time()
+    S.set_activation_context(mesh, extra=opts_rules)
     with kmeta.tally() as tally, StepCounter(_tensors(args)) as counter:
         if mode == "train":
-            train_step(cfg, mesh, state)
+            mem["gathered_bytes"] = train_step(cfg, mesh, state)[1]
         else:
             serve_step(cfg, mesh, state, mode)
+    S.set_activation_context(None)
     if mode != "train":
+        mem["gathered_bytes"] = whole_bytes(state["params"])
         mem["gathered_cache_bytes"] = _gathered_cache_bytes(mesh,
                                                             state["caches"])
     mem["peak_bytes"] = mem["argument_bytes"] + counter.peak
@@ -424,7 +431,12 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
         try:
             mesh = production_mesh(multi_pod)
             rec.update(measure(cfg, mesh, shape["mode"], shape["batch"],
-                               shape["seq"]))
+                               shape["seq"], opts))
+            if "attn_chunks" in opts:
+                rec["attn_chunks"] = (
+                    "pins nothing the step does not already do: the "
+                    "KV-chunk axis is never sharded (a train step's heads "
+                    "are the rank's own, a serve step's whole)")
             rec["status"] = "ok"
         except Exception as e:  # noqa: BLE001 -- a failed cell is a report
             rec.update(status="failed", error=f"{type(e).__name__}: {e}",

@@ -39,6 +39,8 @@ import torch.nn.functional as F
 
 from repro_torch.core import bipolar
 from repro_torch.core.bipolar import BipolarTensor
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import apply_act, f32, fma_f32, silu_f32
 from repro_torch.models.config import ModelConfig
@@ -88,8 +90,15 @@ def linear_apply(params: dict, x: torch.Tensor, *, quant=None,
     """``y (..., N) = epi(x (..., K) @ W (N, K)^T)`` -- bf16, or the
     quantized linear when the weight leaf is a :class:`BipolarTensor`:
     the fused one-kernel linear (``quant.fused_linear``) or the unfused
-    pack + GEMM with the epilogue here.  Both give the same bits."""
+    pack + GEMM with the epilogue here.  Both give the same bits.
+
+    A weight the sharded step gathered carries its tensor-parallel kind
+    in ``params["tp"]``: the product is then :func:`repro_torch
+    .distributed.tensor_parallel.tp_linear`'s, in the weight's dtype."""
     w = params["w"]
+    if "tp" in params:
+        return _epilogue(TP.tp_linear(x, w, params["tp"]), act, residual,
+                         w.dtype)
     if _use_fused_linear(w, quant):
         return ops.ap_linear_fused(x, w, a_bits=quant.a_bits, act=act,
                                    residual=residual, variant=quant.variant,
@@ -359,6 +368,9 @@ def _attn_core(q, k, v, q_pos, kv_pos, *, causal: bool,
         k = F.pad(k, (0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, pad))
         kv_pos = F.pad(kv_pos, (0, pad), value=-1)
+    # opt-in pin: the chunk axis unsharded (heads are the rank's own
+    # under tensor parallelism, so it moves nothing)
+    k, v = constrain(k, "attn_chunks"), constrain(v, "attn_chunks")
     m = torch.full((b, hk, sq, 1), -1e30, dtype=torch.float32,
                    device=q.device)
     lsum = torch.zeros((b, hk, sq, 1), dtype=torch.float32, device=q.device)
@@ -476,16 +488,26 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     returned dict carries the new ``index``.  ``causal`` overrides
     ``cfg.causal`` (the enc-dec encoder's self-attention is not causal).
     ``residual`` (the block input) is fused into the output projection's
-    epilogue.  Returns ``(out, cache)``."""
+    epilogue.  Returns ``(out, cache)``.
+
+    Under the sharded step's tensor parallelism ``x`` is the rank's part
+    of the sequence, which each projection gathers, and the head counts
+    are the projections' rows over ``d_head``: the rank's own q heads
+    and the KV heads they read (:mod:`repro_torch.distributed
+    .tensor_parallel`)."""
     b, s, _ = x.shape
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    g = h // hk
+    dh = cfg.head_dim
     causal = cfg.causal if causal is None else causal
     pos2d = positions[positions.ndim - 2] if positions.ndim == 3 \
         else positions
 
-    q = linear_apply(params["wq"], x, quant=quant).reshape(b, s, h, dh)
-    k = linear_apply(params["wk"], x, quant=quant).reshape(b, s, hk, dh)
+    q = linear_apply(params["wq"], x, quant=quant)
+    k = linear_apply(params["wk"], x, quant=quant)
+    s = q.shape[1]      # the whole sequence, from the rank's part of it
+    h, hk = q.shape[-1] // dh, k.shape[-1] // dh
+    g = h // hk
+    q = q.reshape(b, s, h, dh)
+    k = k.reshape(b, s, hk, dh)
     v = linear_apply(params["wv"], x, quant=quant).reshape(b, s, hk, dh)
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
@@ -553,9 +575,11 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             # sequences use the KV-chunked online softmax to bound the
             # score transient
             chunked = s > 1 and k.shape[1] > ATTN_CHUNK_THRESHOLD
-            o = _attn_core(qg, k.transpose(1, 2), v.transpose(1, 2), qp,
-                           kv_pos, causal=causal, window=cfg.window,
-                           chunked=chunked, score_bf16=cfg.attn_score_bf16)
+            kt, vt = TP.shared_kv(k.transpose(1, 2), v.transpose(1, 2),
+                                  cfg.n_kv_heads)
+            o = _attn_core(qg, kt, vt, qp, kv_pos, causal=causal,
+                           window=cfg.window, chunked=chunked,
+                           score_bf16=cfg.attn_score_bf16)
     o = o.reshape(b, hk, g, s, dh).permute(0, 3, 1, 2, 4).reshape(
         b, s, h * dh).to(x.dtype)
     return linear_apply(params["wo"], o, quant=quant,
@@ -682,19 +706,24 @@ def cross_attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     prefill's, as the reference does.  ``residual`` (the block input) is
     fused into the output projection.  Returns ``(out, cache)``."""
     b, s, _ = x.shape
-    h, hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    q = linear_apply(params["wq"], x, quant=quant)
+    # the rank's heads and the whole sequence under tensor parallelism
+    # (see attention_apply)
+    s, h = q.shape[1], q.shape[-1] // dh
+    hk = max(1, h * cfg.n_kv_heads // cfg.n_heads)
     g = h // hk
     slotted = cache is not None and "slots" in cache
-    q = linear_apply(params["wq"], x, quant=quant).reshape(b, s, h, dh)
+    q = q.reshape(b, s, h, dh)
     qg = q.reshape(b, s, hk, g, dh).permute(0, 2, 3, 1, 4).reshape(
         b, hk, g * s, dh)
     qp = torch.zeros((b, g * s), dtype=torch.int32, device=x.device)
     quant_kv = None             # (k, k_scale, v, v_scale) packed planes
     new_cache = cache
     if memory is not None:
-        t = memory.shape[1]
-        k = linear_apply(params["wk"], memory, quant=quant).reshape(
-            b, t, hk, dh)
+        k = linear_apply(params["wk"], memory, quant=quant)
+        t = k.shape[1]
+        k = k.reshape(b, t, hk, dh)
         v = linear_apply(params["wv"], memory, quant=quant).reshape(
             b, t, hk, dh)
         kv_pos = torch.arange(t, dtype=torch.int32,
@@ -836,42 +865,86 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, quant=None,
     tokens per expert, ``dropped ()`` assignments lost to capacity (int32,
     on ``x``'s device) and ``capacity ()`` dispatch slots (from the
     shapes, on the host).
+
+    Under the sharded step (:mod:`repro_torch.distributed
+    .tensor_parallel`) ``x`` is the rank's part of the sequence: it is
+    gathered, and the router runs on the whole sequence of the rank's
+    batch rows, the same on every model rank.
+    The groups and the capacity are the global batch's: a rank takes its
+    ``G / n_dp`` groups, or, when a group spans several DP ranks, its
+    slots continue the per-expert counts of the group's preceding DP
+    ranks, so the drops are the single process's.  The dispatch keeps
+    the rank's experts where they divide "model" (``moe_dispatch``), or
+    every expert whole on the rank's part of the capacity rows otherwise
+    (:func:`repro_torch.distributed.tensor_parallel.expert_rows`); every
+    rank then gathers every expert's output rows, combines them as the
+    single process does and keeps its part of the tokens
+    (``moe_combine``).  ``aux`` takes its
+    token and probability sums over the DP axes before the product.
     """
-    b, s, d = x.shape
+    # the shared experts' input: under tensor parallelism the rank's part
+    # of the sequence (their projections gather it); the dispatch's and
+    # the router's are gathered apart, in f32, so that each one's
+    # gradient rounds once, and each pair's gradients meet in a view of
+    # ``x`` first, where the single process's do
+    split = TP.splits()
+    xt = x.view_as(x) if split else x.reshape(-1, x.shape[-1])
+    xrd = x.view_as(x) if split else x
+    xd, xr = TP.gather_seq(xrd, f32=True), TP.gather_seq(xrd, f32=True)
+    b, s, d = xd.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
-    if t >= 4096:
-        g = next(gg for gg in (MOE_DISPATCH_GROUPS, 16, 8, 4, 2, 1)
-                 if t % gg == 0)
+    n_dp, dp_rank = TP.dp_info()
+    t_all = t * n_dp                 # the global batch's tokens
+    if t_all >= 4096:
+        g_all = next(gg for gg in (MOE_DISPATCH_GROUPS, 16, 8, 4, 2, 1)
+                     if t_all % gg == 0)
     else:
-        g = 1
-    tg = t // g
+        g_all = 1
+    tg = t_all // g_all
     # the capacity never needs to exceed the group's routed assignments
     cap = min(int(np.ceil(k * tg * cfg.capacity_factor / e)), tg * k)
+    if g_all % n_dp == 0:
+        g = g_all // n_dp
+    elif n_dp % g_all == 0:
+        g = 1                        # a part of one group
+    else:
+        raise ValueError(f"{g_all} MoE dispatch groups over {n_dp} "
+                         f"data-parallel ranks")
+    tgl = t // g
     dev = x.device
-    xt = x.reshape(t, d)
-    xg = x.reshape(g, tg, d)
+    xg = xd.reshape(g, tgl, d)
 
-    logits = torch.einsum("gtd,ed->gte", xg.float(), params["router"]["w"])
+    logits = torch.einsum("gtd,ed->gte", (xg if xr is xd else xr.reshape(
+        g, tgl, d)).float(), params["router"]["w"])
     z = torch.exp(logits - logits.amax(-1, keepdim=True))
     probs = z / z.sum(-1, keepdim=True)
     top_p, top_e = torch.topk(probs, k, dim=-1)               # (G, Tg, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
-    flat_e = top_e.reshape(g, tg * k)                          # (G, Tg*k)
+    flat_e = top_e.reshape(g, tgl * k)                         # (G, Tg*k)
     oh = F.one_hot(flat_e, e).to(torch.int32)                  # (G, Tg*k, E)
     pos = torch.cumsum(oh, dim=1, dtype=torch.int32) - oh      # count before
+    if tgl < tg:
+        # the group's earlier tokens lie on the preceding DP ranks
+        before = TP.dp_gather(oh.sum((0, 1), dtype=torch.int32))
+        first = dp_rank - dp_rank % (n_dp // g_all)
+        pos = pos + before[first:dp_rank].sum(0, dtype=torch.int32)
     pos = torch.gather(pos, 2, flat_e[..., None])[..., 0]
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos, e * cap)      # (G, Tg*k)
 
     # dispatch: every kept slot receives exactly one row (a copy, not a
     # sum); the dropped rows all go to the overflow row e * cap
-    idx = slot[..., None].expand(g, tg * k, d)
+    idx = slot[..., None].expand(g, tgl * k, d)
     disp = torch.zeros((g, e * cap + 1, d), dtype=x.dtype, device=dev)
-    disp.scatter_(1, idx, torch.repeat_interleave(xg, k, dim=1))
-    disp_e = disp[:, :e * cap].reshape(g, e, cap, d).transpose(0, 1) \
-        .reshape(e, g * cap, d)                                # (E, G*C, d)
+    disp.scatter_(1, idx, torch.repeat_interleave(xg, k, dim=1).to(x.dtype))
+    # the rank's experts where it holds a part of them (EP)
+    ep = params["w_up"].shape[-3] < e
+    disp = constrain(disp[:, :e * cap].reshape(g, e, cap, d),
+                     "moe_dispatch", "replicated" if ep else None)
+    el = disp.shape[1]                                         # (G, El, C, d)
+    disp_e = disp.transpose(0, 1).reshape(el, g * cap, d)      # (El, G*C, d)
     counts = (oh * keep[..., None]).sum(1, dtype=torch.int32)  # (G, E)
     counts_e = counts.T.contiguous()                           # (E, G)
 
@@ -887,26 +960,38 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, quant=None,
     else:
         def bmm(w, a):
             return torch.einsum("eck,enk->ecn", a, w.to(a.dtype))
-        up, gate = bmm(params["w_up"], disp_e), bmm(params["w_gate"], disp_e)
-        h = (silu_f32(gate.float()) * up.float()).to(x.dtype)
-        out = bmm(params["w_down"], h)
+
+        def experts(a):
+            up, gate = bmm(params["w_up"], a), bmm(params["w_gate"], a)
+            h = (silu_f32(gate.float()) * up.float()).to(x.dtype)
+            return bmm(params["w_down"], h)
+        # experts not split over "model" (mixtral's 8 on 16) run whole on
+        # the rank's part of the capacity rows; every rank gets every row
+        out = (TP.expert_rows(disp_e, experts) if TP.splits() and not ep
+               else experts(disp_e))
+    # every rank's experts (EP): the combine below is the single
+    # process's, on every model rank, which keeps its part of the tokens
+    out = TP.gather_model(out, 0) if el < e else out          # (E, G*C, d)
 
     out_g = out.reshape(e, g, cap, d).transpose(0, 1)          # (G, E, C, d)
     out_flat = torch.cat([out_g.reshape(g, e * cap, d),
                           torch.zeros((g, 1, d), dtype=out.dtype,
                                       device=dev)], 1)
     y = torch.gather(out_flat, 1, idx)
-    wgt = (top_p.reshape(g, tg * k)[..., None] * keep[..., None]) \
+    wgt = (top_p.reshape(g, tgl * k)[..., None] * keep[..., None]) \
         .to(out.dtype)
-    y = (y * wgt).reshape(g, tg, k, d).sum(2).reshape(t, d)
+    y = constrain((y * wgt).reshape(g, tgl, k, d).sum(2).reshape(b, s, d),
+                  "moe_combine", "replicated")
 
     if "shared" in params:
-        y = y + mlp_apply(params["shared"], xt, cfg, quant=quant)
+        y = y + mlp_apply(params["shared"], xt, cfg, quant=quant).reshape(
+            y.shape)
 
     aux = stats = None
     if with_aux:    # Switch-style load-balance auxiliary loss
-        frac_tokens = F.one_hot(top_e[..., 0].reshape(-1), e).float().mean(0)
-        frac_probs = probs.reshape(-1, e).mean(0)
+        frac_tokens = TP.dp_sum(F.one_hot(top_e[..., 0].reshape(-1), e)
+                                .float().sum(0)) / t_all
+        frac_probs = TP.dp_sum(probs.reshape(-1, e).sum(0)) / t_all
         aux = e * torch.sum(frac_tokens * frac_probs) * cfg.router_aux_coef
     if with_stats:
         routed = oh.sum((0, 1), dtype=torch.int32)             # (E,)
@@ -914,4 +999,4 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, quant=None,
         stats = {"load": load,
                  "dropped": (routed - load).sum(dtype=torch.int32),
                  "capacity": torch.tensor(e * cap * g, dtype=torch.int32)}
-    return y.reshape(b, s, d), aux, stats
+    return y, aux, stats

@@ -34,6 +34,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.bipolar import BipolarTensor, dtype_scalar
+from repro_torch.distributed import tensor_parallel as TP
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
@@ -196,7 +198,13 @@ def _apply_block(p, x, cfg: ModelConfig, mixer_kind: str, ffn_kind: str, *,
     :func:`repro_torch.models.layers.cross_attention_apply` over the
     encoder's ``memory`` (prefill) or its ``cache`` (decode), with the
     residual fused into its output projection likewise; ``new_cross`` is
-    its cache (None without a cross step)."""
+    its cache (None without a cross step).
+
+    Under the sharded step's tensor-parallel context ``x`` is the rank's
+    part of the sequence: each norm runs on it, the mixer's and the
+    FFN's column-parallel products gather their input's sequence, and
+    their row-parallel outputs come back on ``x``'s layout
+    (:mod:`repro_torch.distributed.tensor_parallel`)."""
     rs = dtype_scalar(cfg.residual_scale, x.dtype)
     fuse_res = (quant is not None and quant.enabled and quant.fused_linear
                 and cfg.residual_scale == 1.0)
@@ -210,6 +218,7 @@ def _apply_block(p, x, cfg: ModelConfig, mixer_kind: str, ffn_kind: str, *,
         h, new_cache = S.ssm_apply(p["mixer"], h, cfg, cache=cache,
                                    quant=quant)
         x = x + (h.float() * rs).to(x.dtype)
+    x = constrain(x, "residual")     # SP: every residual write
     new_cross = None
     if cross is not None:
         xp, memory, xc = cross
@@ -221,15 +230,17 @@ def _apply_block(p, x, cfg: ModelConfig, mixer_kind: str, ffn_kind: str, *,
     if ffn_kind == "none":
         return x, new_cache, None, new_cross, None
     h = L.norm_apply(p["norm2"], x, cfg)
+    stats = aux = None
     if ffn_kind == "moe":
         h, aux, stats = L.moe_apply(p["ffn"], h, cfg, quant=quant,
                                     with_aux=with_aux, with_stats=moe_stats)
-        return (x + (h.float() * rs).to(x.dtype), new_cache, stats,
-                new_cross, aux)
-    h = L.mlp_apply(p["ffn"], h, cfg, quant=quant,
-                    residual=x if fuse_res else None)
-    x = h if fuse_res else x + (h.float() * rs).to(x.dtype)
-    return x, new_cache, None, new_cross, None
+        x = x + (h.float() * rs).to(x.dtype)
+    else:
+        h = L.mlp_apply(p["ffn"], h, cfg, quant=quant,
+                        residual=x if fuse_res else None)
+        x = h if fuse_res else x + (h.float() * rs).to(x.dtype)
+    x = constrain(x, "residual")
+    return x, new_cache, stats, new_cross, aux
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
@@ -320,12 +331,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device)[None].expand(b, s)
-    x = params["embed"]["w"][tokens.long()].to(L._dtype(cfg))
+    x, src = _embed(TP.use(params["embed"])["w"], tokens, cfg)
+    x = x.to(L._dtype(cfg))
     x = (x.float() * dtype_scalar(cfg.emb_scale, x.dtype)).to(x.dtype)
+    x = constrain(x, "residual", src)
     if patch_embeds is not None:     # the VLM's stub frontend
-        npt = patch_embeds.shape[1]
-        x = torch.cat([x[:, :npt] + patch_embeds.to(x.dtype), x[:, npt:]],
-                      1)
+        lo, hi = TP.seq_bounds(x.shape[1])
+        npt = min(max(patch_embeds.shape[1] - lo, 0), hi - lo)
+        x = torch.cat([x[:, :npt] + patch_embeds[:, lo:lo + npt].to(
+            x.dtype), x[:, npt:]], 1)
     checkpointed = remat and caches is None and torch.is_grad_enabled()
     memory = None
     if cfg.family == "audio" and frames is not None:
@@ -348,11 +362,12 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
             mk, fk = plan[i]
             cross = None
             if "cross" in params and i >= fd:
-                cross = (params["cross"][i - fd], memory,
-                         caches["cross"][i - fd] if caches is not None
+                cross = (TP.block_params(params["cross"][i - fd], cfg),
+                         memory, caches["cross"][i - fd] if caches is not None
                          else None)
             x, nc, mst, nxc, a = _apply_block(
-                params["layers"][i], x, cfg, mk, fk, positions=positions,
+                TP.block_params(params["layers"][i], cfg, mk), x, cfg, mk,
+                fk, positions=positions,
                 cache=cache_list[i], quant=quant,
                 moe_stats=collect_moe_stats, cross=cross, with_aux=with_aux)
             ncs.append(nc)
@@ -362,7 +377,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                 stats[i] = mst
             if a is not None:
                 aux = a if aux is None else aux + a
-        return x, ncs, stats, nxcs, aux
+        return constrain(x, "residual"), ncs, stats, nxcs, aux
 
     new_layers, new_cross, layer_stats = [], [], {}
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -386,7 +401,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
                 unit_aux.append(aux)
     if unit_aux:    # the reference adds its scan's per-unit sums at once
         aux_total = aux_total + torch.stack(unit_aux).sum()
-    x = L.norm_apply(params["final_norm"], x, cfg)
+    x = L.norm_apply(TP.use(params["final_norm"]), x, cfg)
     out = x
     if logits_mode == "last":
         out = _logits(params, x[:, -1:, :], cfg, quant)[:, 0]
@@ -420,32 +435,64 @@ def encode_frames(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
     ``jax.checkpoint`` of its scan body); :func:`forward` asks for it
     under autograd without caches."""
     enc = params["encoder"]
-    x = L.linear_apply(enc["frontend"], frames.to(L._dtype(cfg)),
-                       quant=quant)
-    b, t, _ = x.shape
+    # under tensor parallelism: the rank's frames, through the frontend
+    # gathered whole over "model" (a fallback: its d_out shard would
+    # leave the residual split by feature, not by position)
+    x = L.linear_apply(TP.use(enc["frontend"], keep_model=False),
+                       constrain(frames.to(L._dtype(cfg)), "residual",
+                                 "replicated"), quant=quant)
+    b, t = frames.shape[:2]
     positions = torch.arange(t, dtype=torch.int32,
                              device=x.device)[None].repeat(b, 1)
     enc_cfg = dataclasses.replace(cfg, n_kv_heads=cfg.n_heads)
 
     def block(x, p):
-        return _apply_block(p, x, enc_cfg, "attn", "dense",
-                            positions=positions, cache=None, quant=quant,
-                            causal=False)[0]
+        return _apply_block(TP.block_params(p, enc_cfg), x, enc_cfg, "attn",
+                            "dense", positions=positions, cache=None,
+                            quant=quant, causal=False)[0]
 
     for p in enc["layers"]:
         x = (checkpoint(block, x, p, use_reentrant=False) if remat
              else block(x, p))
-    return L.norm_apply(enc["final_norm"], x, cfg)
+    return L.norm_apply(TP.use(enc["final_norm"]), x, cfg)
+
+
+def _embed(w, tokens, cfg: ModelConfig):
+    """``(rows, src)``: the embedding rows of ``tokens``.  Whole, the
+    lookup (``src="replicated"``); a vocab shard over "model" (the
+    sharded step), the rows of the tokens in its range and zeros for the
+    others, a partial sum that one rank contributes to
+    (``src="partial"``)."""
+    n = w.shape[0]
+    if n == cfg.vocab_padded:
+        return w[tokens.long()], "replicated"
+    local = tokens.long() - TP.shard_bounds(n, cfg.vocab_padded)[0]
+    own = (local >= 0) & (local < n)
+    rows = w[torch.clamp(local, 0, n - 1)]
+    return torch.where(own[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype)), "partial"
 
 
 def _logits(params, x, cfg: ModelConfig, quant=None):
-    x = (x.float() * dtype_scalar(cfg.logit_scale, x.dtype)).to(x.dtype)
-    if cfg.tie_embeddings:
-        logits = torch.matmul(x, params["embed"]["w"].to(x.dtype).T)
-    else:
-        logits = L.linear_apply(params["lm_head"], x, quant=quant)
+    """Logits of the hidden states ``x``: :func:`_logit_input`, then
+    :func:`_project`."""
+    return _project(params, _logit_input(x, cfg), cfg, quant)
+
+
+def _logit_input(x, cfg: ModelConfig):
+    return (x.float() * dtype_scalar(cfg.logit_scale, x.dtype)).to(x.dtype)
+
+
+def _project(params, x, cfg: ModelConfig, quant=None):
+    """Logits of the scaled hidden states ``x`` over the vocab columns of
+    ``lm_head`` (or the tied embedding) that ``params`` holds: all of
+    them, or a shard's."""
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = L.linear_apply(head, x, quant=quant)
     if cfg.vocab_padded > cfg.vocab:    # mask vocab-padding slots
-        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
+        n = logits.shape[-1]
+        lo = TP.shard_bounds(n, cfg.vocab_padded)[0]
+        pad = torch.arange(lo, lo + n, device=x.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
 
@@ -459,12 +506,21 @@ def loss_terms(params: dict, batch: dict, cfg: ModelConfig, *,
     """The parts of :func:`loss_fn`: ``(nll, count, aux)``, the f32 sum of
     the masked tokens' negative log-likelihoods, their count and the MoE
     load-balance loss (0 without MoE layers).  A data-parallel step sums
-    ``nll`` and ``count`` over its ranks before it divides."""
+    ``nll`` and ``count`` over its ranks before it divides.  Under the
+    sharded step's tensor-parallel context the final hidden states are
+    gathered to the whole sequence and the logits are the rank's vocab
+    columns (:func:`repro_torch.distributed.tensor_parallel
+    .vocab_lse_gold`)."""
     x, _, aux = forward(params, batch["tokens"], cfg,
                         positions=batch.get("positions"),
                         patch_embeds=batch.get("patch_embeds"),
                         frames=batch.get("frames"), quant=quant,
                         remat=remat, with_aux=True)
+    # scaled on the rank's part of the sequence, then gathered (in f32,
+    # so that its gradient, summed over the vocab shards, rounds once)
+    x = TP.gather_seq(_logit_input(x, cfg), f32=True)
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    head = {key: TP.head(params[key])}
     labels = batch["labels"].long()
     mask = batch.get("mask")
     mask = (labels >= 0) if mask is None else (mask > 0)
@@ -479,9 +535,10 @@ def loss_terms(params: dict, batch: dict, cfg: ModelConfig, *,
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, x.shape[1], chunk):
-        logits = _logits(params, x[:, lo:lo + chunk], cfg, quant).float()
-        lse = torch.logsumexp(logits, -1)
-        gold = torch.gather(logits, -1, labels[:, lo:lo + chunk, None])[..., 0]
+        logits = _project(head, x[:, lo:lo + chunk], cfg, quant).float()
+        lse, gold = TP.vocab_lse_gold(
+            logits, labels[:, lo:lo + chunk],
+            TP.shard_bounds(logits.shape[-1], cfg.vocab_padded)[0])
         ms = mask[:, lo:lo + chunk]
         tot = tot + ((lse - gold) * ms).sum()
         cnt = cnt + ms.sum()

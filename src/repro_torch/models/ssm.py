@@ -164,14 +164,16 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
             buf[safe] = torch.where(k, new, buf[0])
         return y, cache
 
-    bsz, s, _ = x.shape
     di = cfg.ssm_d_inner
     h, p, n, g = (cfg.ssm_n_heads, cfg.ssm_head_dim, cfg.ssm_d_state,
                   cfg.ssm_n_groups)
     conv_dim = di + 2 * g * n
     pad = cfg.ssm_d_conv - 1
 
+    # under tensor parallelism x is the rank's part of the sequence and
+    # in_proj gathers it: the mixer runs on the whole sequence
     zxbcdt = linear_apply(params["in_proj"], x, quant=quant)
+    bsz, s, _ = zxbcdt.shape
     z, xbc, dt_raw = torch.split(zxbcdt, [di, conv_dim, h], dim=-1)
     dt = softplus(dt_raw.float() + params["dt_bias"])   # (B, S, H)
     a = -torch.exp(params["A_log"])                      # (H,) negative

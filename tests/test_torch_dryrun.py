@@ -20,9 +20,13 @@
   equals the count functions of ``kernels.meta`` applied to the CPU's
   calls; a meta tensor never reaches a kernel or moves a launch counter,
   a CPU tensor never reaches the meta route.
-* The CLI, in subprocesses: a dense and a MoE cell at full size on
-  pod256, one ``long_500k`` cell skipped with the reference's reason,
-  the resume rule, and ``--opt attn_chunks`` refused.
+* The CLI, in subprocesses: a dense and a MoE decode cell and the
+  llama3-8b train cell at full size on pod256 (the sharded step's
+  tensor-parallel compute: at most 1 GiB of weights gathered at once,
+  at most 3.5e14 FLOPs a rank, a peak under 80 GB), one ``long_500k``
+  cell skipped with the reference's reason, the resume rule, an
+  ``attn_chunks`` cell named as the reference names it, and an unknown
+  lever refused.
 """
 
 import dataclasses
@@ -500,7 +504,8 @@ def test_cli_cells_at_full_size(tmp_path):
     runs = {(a, s): _cli("--arch", a, "--shape", s, out=tmp_path)
             for a, s in (("llama3-8b", "decode_32k"),
                          ("mixtral-8x7b", "decode_32k"),
-                         ("llama3-8b", "long_500k"))}
+                         ("llama3-8b", "long_500k"),
+                         ("llama3-8b", "train_4k"))}
     for (a, s), proc in runs.items():
         rc, out, err = _done(proc)
         assert rc == 0, out[-2000:] + err[-2000:]
@@ -529,6 +534,13 @@ def test_cli_cells_at_full_size(tmp_path):
         if arch == "mixtral-8x7b":
             assert rec["int_ops"]["K4"] > 0
             assert rec["moe_rows"] == "capacity"
+    with open(tmp_path / "llama3-8b__train_4k__pod256.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok", rec.get("traceback")
+    m = rec["memory"]
+    assert 0 < m["gathered_bytes"] <= 2 ** 30, m
+    assert m["peak_bytes"] < 80e9, m
+    assert 0 < rec["flops"]["total"] <= 3.5e14, rec["flops"]
     with open(tmp_path / "llama3-8b__long_500k__pod256.json") as f:
         rec = json.load(f)
     assert rec["status"] == "skipped"
@@ -545,10 +557,23 @@ def test_cli_cells_at_full_size(tmp_path):
 
 
 def test_cli_refuses_attn_chunks(tmp_path, capsys):
+    """An unknown lever is refused (exit 2, no file); ``attn_chunks`` is
+    a lever: its cell runs, its id carries the opt as the reference's
+    does, and its record says what the pin does."""
     from repro_torch.launch import dryrun
+    proc = _cli("--arch", "llama3-8b", "--shape", "decode_32k", "--opt",
+                "attn_chunks", out=tmp_path)
     rc = dryrun.main(["--arch", "llama3-8b", "--shape", "decode_32k",
-                      "--mesh", "single", "--out", str(tmp_path), "--opt",
-                      "attn_chunks"])
+                      "--mesh", "single", "--out", str(tmp_path / "no"),
+                      "--opt", "attn_chunk"])
     assert rc == 2
-    assert "item 13" in capsys.readouterr().err
-    assert not list(tmp_path.iterdir())
+    assert "unknown --opt ['attn_chunk']" in capsys.readouterr().err
+    assert not (tmp_path / "no").exists()
+    rc, out, err = _done(proc)
+    assert rc == 0, out[-2000:] + err[-2000:]
+    cid = "llama3-8b__decode_32k__pod256__opt-attn_chunks"
+    assert f"[{cid}] ok" in out
+    with open(tmp_path / f"{cid}.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok" and rec["opts"] == ["attn_chunks"]
+    assert rec["attn_chunks"].startswith("pins nothing")
