@@ -114,12 +114,15 @@ exit and no result line):
    whose axes differ) on the card, then the same forward with
    the parameters moved to the CPU (the plain versions run there because
    the device decides), logits compared within 5% of the largest and,
-   for the MoE configs, the share of tokens routed to the same experts;
+   for the MoE configs, the share of tokens routed to the same experts,
+   and, printed before the bar, each token's top-k agreement between the
+   card and the CPU by MoE layer and the smallest router margin (so a
+   miss shows whether a route flipped);
 5. end to end -- seven main paths, each config at its own weight and
    activation bits with a kv8 cache, random weights from ``--seed``
    quantized on the card (K3 at load), the launch counters zeroed just
    before and read just after each: the full 32-layer llama3-8b (4
-   requests, w2), mixtral-8x7b at 16 of its 32 layers (``SERVE_LAYERS``;
+   requests, w2), mixtral-8x7b at 8 of its 32 layers (``SERVE_LAYERS``;
    5 requests, one of 4,300 tokens that attends through the rolling
    4,096-token window, w2), deepseek-moe-16b at 8 of its 28 layers
    (``SERVE_LAYERS``; w3: a dense layer 0, then 7 layers of 64 experts, top 6, and a shared
@@ -204,6 +207,19 @@ exit and no result line):
    and result equal to the CPU's on the same gradients, a checkpoint
    restored onto the card mesh bit for bit, and ``pipeline_apply`` at one
    stage against the sequential result; each check's time printed;
+   then the serve step's three: (a) ``sharding.sharded_serve_step`` on
+   the (1, 1) mesh, llama3-8b at full width and ``SERVE_DIST_LAYERS``
+   layers, w2/a8/kv8, a 4 x 128 prefill and 4 greedy decode steps, every
+   step's logits and every cache leaf equal to the plain
+   ``prefill_step`` / ``serve_step``'s bit for bit (a main path: the
+   launch counters zeroed just before it, K1 and K6 must launch); (b)
+   the row product's card route at llama3-8b's ``w_down`` shape (N 4096,
+   K 14336, w2/a8, +residual) at M 4 and 256, fused and bitserial: the K
+   words cut ``ROW_SPLIT`` ways, 16 raw K5 products summed in int32, then
+   the shared epilogue, equal to K1 on the whole weight bit for bit; (c)
+   K6's lse route at the "decode" case: ``o`` with the lse equal to
+   ``o`` without it, the ring's two halves combined within 1 bf16 ulp or
+   1e-5 of the unsplit output, K6's time with and without the lse;
 8. the examples and the dry run: (a) each ``examples/torch_*.py`` in a
    subprocess on the card at small arguments (``EXAMPLES``): exit 0, its
    launch counters printed; K1, K2, K3 and K5 must each launch in one of
@@ -337,7 +353,7 @@ K6_PATH_STEP = {"seamless-m4t-medium": "seamless cross decode"}
 
 # the depths of phase 5's cut pairs, each of its config's layers, so that
 # the whole run keeps inside its time budget: llama3-8b's contiguous pair
-# (8 of 32), mixtral-8x7b (16 of 32, to make room for phase 6),
+# (8 of 32), mixtral-8x7b (8 of 32, to make room for phases 6 and 7),
 # deepseek-moe-16b (8 of 28: the dense layer 0 and 7 MoE layers) and
 # stablelm-3b (8 of 32), whose widths phases 3 and 4 cover;
 # jamba-1.5-large-398b serves one hybrid group (8 of 72 layers: 7 mamba
@@ -345,7 +361,7 @@ K6_PATH_STEP = {"seamless-m4t-medium": "seamless cross decode"}
 # alike layers.  llama3-8b, mamba2-130m and seamless-m4t-medium (12 + 12)
 # serve at full depth.
 CONTIGUOUS_LAYERS = 8
-SERVE_LAYERS = {"mixtral-8x7b": 16, "deepseek-moe-16b": 8, "stablelm-3b": 8,
+SERVE_LAYERS = {"mixtral-8x7b": 8, "deepseek-moe-16b": 8, "stablelm-3b": 8,
                 "jamba-1.5-large-398b": 8, "qwen2-vl-7b": 4}
 
 # the phase-3 case whose numbers (ms, bound, plain, error) a path's
@@ -381,6 +397,7 @@ PATH_CASES = {
     "qwen2-vl-7b": {"quantize_pack_rows": "qwen2-vl load",
                     "apmm_fused_linear": "qwen2-vl decode down",
                     "paged_attention": "qwen2-vl decode"},
+    "llama3-8b-sharded-serve": {"flash_attention_quantized": "decode lse"},
     "seamless-m4t-medium": {"quantize_pack_rows": "seamless load",
                             "apmm_fused_linear": "seamless decode up",
                             "paged_attention": "seamless decode",
@@ -1851,13 +1868,19 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
     tables = np.arange(1, nb + 1, dtype=np.int32)[None]
     lens = np.zeros(1, np.int32)
     routes: dict = {}
+    margins: dict = {}
     moe_apply = L.moe_apply
 
     def recording_moe_apply(p, x, cfg_, quant=None, **kw):
         lg = torch.einsum("btd,ed->bte", x.float(), p["router"]["w"])
-        top = torch.topk(torch.softmax(lg, -1), cfg_.top_k, -1).indices
+        probs = torch.softmax(lg, -1)
+        top = torch.topk(probs, cfg_.top_k, -1).indices
         routes.setdefault(x.device.type, []).append(
             top.sort(-1).values.cpu())
+        # the router's margin: the k-th probability over the next one
+        srt = probs.sort(-1, descending=True).values
+        margins.setdefault(x.device.type, []).append(
+            (srt[..., cfg_.top_k - 1] - srt[..., cfg_.top_k]).cpu())
         return moe_apply(p, x, cfg_, quant, **kw)
 
     out = {}
@@ -1907,6 +1930,16 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
         routed = (f"; {100 * same:.1f}% of {rc.shape[0] * rc.shape[1]} "
                   f"token-layer routings pick the same top-{cfg.top_k} "
                   f"experts on the card and the CPU")
+        # each token's agreement (experts in both top-k sets), layer by
+        # layer, and the smallest router margin, before the bar: a miss
+        # then shows whether a route flipped
+        agree = [[len(set(a.tolist()) & set(b.tolist()))
+                  for a, b in zip(lc[0], lg_[0])]
+                 for lc, lg_ in zip(routes["cpu"], routes["cuda"])]
+        margin = min(float(m.min()) for m in margins["cpu"])
+        print(f"{arch} top-{cfg.top_k} agreement card vs CPU, each token "
+              f"by MoE layer: {agree}; smallest router margin (CPU, k-th "
+              f"over the next probability) {margin:.3g}", flush=True)
     if err > 0.05 * scale:
         raise AssertionError(f"{arch} card vs CPU logits: max|err| {err} > "
                              f"5% of {scale}{routed}")
@@ -2508,6 +2541,212 @@ def dist_phase(torch, seed) -> dict:
         dist.destroy_process_group()
     fresh_memory(torch)
     return times
+
+
+# (a) of the sharded serve step at world size 1: llama3-8b at full width
+# and this depth, a prefill of SERVE_DIST_B x SERVE_DIST_S tokens, then
+# SERVE_DIST_STEPS greedy decode steps
+SERVE_DIST_LAYERS, SERVE_DIST_B, SERVE_DIST_S, SERVE_DIST_STEPS = 2, 4, 128, 4
+# (b): the row product's card route at llama3-8b's w_down shape, its K
+# words cut this many ways
+ROW_SPLIT = 16
+
+
+def serve_dist_phase(torch, seed) -> dict:
+    """(a) the sharded serve step at world size 1 over NCCL (a (1, 1)
+    ``(data, model)`` mesh on the card): llama3-8b at full width and
+    ``SERVE_DIST_LAYERS`` layers, w2/a8/kv8, a prefill and greedy decode
+    steps through ``sharding.sharded_serve_step``, then the same steps
+    plain (``engine.prefill_step`` / ``serve_step``) from a copy of the
+    caches: every step's logits and every cache leaf equal bit for bit.
+    The kernel launches of the sharded steps alone are returned (the
+    path's counts; the launch counters are zeroed just before them)."""
+    import dataclasses
+    import datetime
+    import functools
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves, tree_map
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.serving import engine as E
+    cfg = dataclasses.replace(get_config("llama3-8b"),
+                              n_layers=SERVE_DIST_LAYERS)
+    q = cfg.quant
+    b, s = SERVE_DIST_B, SERVE_DIST_S
+    max_len = s + SERVE_DIST_STEPS
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0),
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        params = M.init_params(cfg, seed=seed, device="cuda", quant=q)
+        caches = M.init_caches(cfg, b, max_len, quant=q, device="cuda")
+        plain_caches = tree_map(lambda t: t.clone(), caches)
+        ps = S.shard_tree(params, mesh, S.shardings_for_params(mesh, params))
+        cs = S.shard_tree(caches, mesh, S.shardings_for_caches(mesh, caches))
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        toks = torch.randint(0, cfg.vocab, (b, s), generator=g,
+                             device="cuda", dtype=torch.int32)
+        pos = torch.arange(s, dtype=torch.int32,
+                           device="cuda")[None].expand(b, s).contiguous()
+        steps = [S.sharded_serve_step(functools.partial(
+            fn, cfg=cfg, quant=q), mesh) for fn in (E.prefill_step,
+                                                    E.serve_step)]
+        t0 = time.time()
+        zero_counters()
+        got, batch = [], {"tokens": toks, "positions": pos}
+        with torch.no_grad():
+            for i in range(SERVE_DIST_STEPS + 1):
+                logits, cs = steps[min(i, 1)](ps, batch, cs)
+                got.append(logits)
+                tok = logits[:, :cfg.vocab].float().argmax(-1).to(
+                    torch.int32)[:, None]
+                batch = {"tokens": tok, "positions": torch.full(
+                    (b, 1), s + i, dtype=torch.int32, device="cuda")}
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in counters().items() if v}
+        t_sharded = time.time() - t0
+        want, batch = [], {"tokens": toks, "positions": pos}
+        caches = plain_caches
+        with torch.no_grad():
+            for i in range(SERVE_DIST_STEPS + 1):
+                fn = E.prefill_step if i == 0 else E.serve_step
+                logits, caches = fn(params, batch, caches, cfg, q)
+                want.append(logits)
+                tok = logits[:, :cfg.vocab].float().argmax(-1).to(
+                    torch.int32)[:, None]
+                batch = {"tokens": tok, "positions": torch.full(
+                    (b, 1), s + i, dtype=torch.int32, device="cuda")}
+        n_logits = sum(_same_bits(torch, a, c) for a, c in zip(got, want))
+        mine = [t.to_local() for t in leaves(cs)]
+        n_cache = sum(_same_bits(torch, a, c)
+                      for a, c in zip(mine, leaves(caches)))
+        print(f"serve dist sharded_serve_step llama3-8b depth "
+              f"{SERVE_DIST_LAYERS} w{q.w_bits}/a{q.a_bits}/kv{q.kv_bits} "
+              f"on a (1, 1) mesh: a {b} x {s} prefill and "
+              f"{SERVE_DIST_STEPS} decode steps, {n_logits} of {len(got)} "
+              f"steps' logits and {n_cache} of {len(mine)} cache leaves "
+              f"bit-identical to the plain steps; gathered "
+              f"{steps[1].gathered_bytes} B at most; {t_sharded:.1f} s; "
+              f"launches {launched}", flush=True)
+        if n_logits != len(got) or n_cache != len(mine) or \
+                len(mine) != len(leaves(caches)):
+            raise AssertionError("sharded_serve_step is not the plain step")
+        for k in ("apmm_fused_linear", "flash_attention_quantized"):
+            if not launched.get(k):
+                raise AssertionError(f"the sharded serve step launched no "
+                                     f"{k}")
+    finally:
+        dist.destroy_process_group()
+    fresh_memory(torch)
+    return launched
+
+
+def row_product_phase(torch, timer, seed) -> None:
+    """(b) the row product's card route at llama3-8b's ``w_down`` shape (N
+    4096, K 14336, w2/a8, +residual) at M 4 and 256, fused and
+    bitserial: the K words cut ``ROW_SPLIT`` ways locally, each shard
+    K3-packed at the rows' scale and multiplied raw by K5, the int32
+    partials summed, then the fused linear's epilogue once: equal to K1
+    on the whole weight bit for bit.  Times both."""
+    import dataclasses
+    from repro_torch.distributed import tensor_parallel as TP
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    n, k = 4096, 14336
+    w = ops.pack_weight(torch.randn((n, k), generator=g, device="cuda"), 2)
+    kw = w.packed.shape[-1]
+    per = kw // ROW_SPLIT
+    shards = [dataclasses.replace(w, packed=w.packed[..., i * per:(i + 1)
+                                                     * per].contiguous(),
+                                  shape=(n, per * 32))
+              for i in range(ROW_SPLIT)]
+    for m in (4, 256):
+        x = torch.randn((m, k), generator=g, device="cuda").to(
+            torch.bfloat16)
+        res = torch.randn((m, n), generator=g, device="cuda").to(
+            torch.bfloat16)
+        for variant in ("fused", "bitserial"):
+            def whole():
+                return ops.ap_linear_fused(x, w, a_bits=8, residual=res,
+                                           variant=variant)
+
+            def split():
+                scale = TP.row_scale(x, 8)
+                y = None
+                for i, wl in enumerate(shards):
+                    part = TP.row_partial(x[:, i * per * 32:(i + 1) * per
+                                            * 32], wl, scale, a_bits=8,
+                                          variant=variant)
+                    y = part if y is None else y + part
+                return ref.linear_epilogue(y, scale, w.scale, residual=res,
+                                           out_dtype=x.dtype)
+
+            a, c = whole(), split()
+            same = _same_bits(torch, a, c)
+            print(f"row product {variant} w_down N={n} K={k} w2/a8 "
+                  f"+residual M={m}: {ROW_SPLIT} K-shards (K3 at the rows' "
+                  f"scale, raw K5, int32 sum, the shared epilogue) "
+                  f"{'bit-identical to' if same else 'DIFFERS from'} K1 on "
+                  f"the whole weight; {timer(split, iters=5):.4f} ms vs K1 "
+                  f"{timer(whole, iters=10):.4f} ms", flush=True)
+            if not same:
+                raise AssertionError(f"row product {variant} M={m} is not "
+                                     f"the fused linear")
+    del w, shards
+    torch.cuda.empty_cache()
+
+
+def k6_lse_phase(torch, timer, seed, results) -> None:
+    """(c) K6's lse route at llama3-8b's decode shape (K6_CASES' "decode"):
+    ``o`` with the lse asked for equal to ``o`` without it bit for bit;
+    the ring's two halves, each with its lse (q in f32, as the
+    sequence-parallel decode runs them), combined in f32
+    (``ref.combine_partials``) within 1 bf16 ulp or 1e-5 of the unsplit
+    output; K6's time with and without the lse (recorded as the
+    "decode lse" case)."""
+    from repro_torch.kernels import flash_attention, ref
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    name, ring, window = K6_CASES[0]
+    q, kv, (kq, ks, vq, vs), pos, q_pos = _ring_case(torch, g, **ring)
+    kw = dict(d=128, causal=True, window=window)
+
+    def run(lse=False, qq=q, sl=slice(None)):
+        return flash_attention.flash_attention_quantized(
+            qq, kq[:, sl], ks[:, sl], vq[:, sl], vs[:, sl], q_pos,
+            pos[:, sl], return_lse=lse, **kw)
+
+    o = run()
+    o2, lse = run(True)
+    same = _same_bits(torch, o, o2)
+    t = pos.shape[1]
+    parts = [run(True, q.float(), sl) for sl in (slice(0, t // 2),
+                                                 slice(t // 2, t))]
+    comb = ref.combine_partials(torch.stack([p[0] for p in parts]),
+                                torch.stack([p[1] for p in parts])
+                                ).to(o.dtype)
+    ok, err, ulps = _within(comb, o)
+    ms, ms_lse = timer(run, iters=20), timer(lambda: run(True), iters=20)
+    dev = [sum(traced_split(torch, timer, fn, ["attention_kernel"]).values())
+           for fn in (run, lambda: run(True))]
+    plain = timer(lambda: ref.kv_cache_attention(
+        q, kq, ks, vq, vs, q_pos, pos, return_lse=True, **kw), iters=3,
+        warmup=1)
+    base = results["flash_attention_quantized", name]
+    verdict = "bit-identical to" if same else "DIFFERS from"
+    print(f"K6 lse {name} B={q.shape[0]} H={q.shape[1]} Sq={q.shape[2]} "
+          f"T={t}: o with the lse {verdict} o without; two halves combined: max|err| {err:.3g}, {ulps} "
+          f"bf16 ulps beyond 1e-5 (tol 1); {ms_lse:.4f} ms with the lse, "
+          f"{ms:.4f} ms without, device {dev[1]:.4f} and {dev[0]:.4f} ms "
+          f"(bound {base['bound_ms']:.4f} ms by "
+          f"{base['bound_by']}), plain {plain:.4f} ms", flush=True)
+    if not same or not ok or not torch.isfinite(lse).all():
+        raise AssertionError("K6's lse route: o differs or the split "
+                             "misses its bar")
+    results["flash_attention_quantized", name + " lse"] = dict(
+        base, max_abs_err=err, ms=ms_lse, plain_ms=plain)
 
 
 GEMMS = ("apmm_fused_linear", "apmm_fused_linear_bitserial", "apmm_packed",
@@ -3412,6 +3651,13 @@ def main() -> int:
     if launched:
         raise AssertionError(f"the distributed phase launched kernels: "
                              f"{launched}")
+    # the sharded serve step, its row product and K6's lse route
+    paths["llama3-8b-sharded-serve"] = serve_dist_phase(torch, args.seed)
+    timer = Timer(torch)
+    row_product_phase(torch, timer, args.seed)
+    k6_lse_phase(torch, timer, args.seed, results)
+    del timer
+    torch.cuda.empty_cache()
     print(f"distributed done at {time.time() - t_start:.1f} s", flush=True)
     procs = start_dryrun()
     try:

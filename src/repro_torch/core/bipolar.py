@@ -81,9 +81,17 @@ def absmax_scale(x: torch.Tensor, n_bits: int, axis=None, keepdims=True,
             amax = amax.reshape((1,) * x.ndim)
     else:
         amax = ax.amax(dim=axis, keepdim=keepdims)
+    return scale_of_absmax(amax, n_bits, eps)
+
+
+def scale_of_absmax(amax: torch.Tensor, n_bits: int,
+                    eps: float = 1e-8) -> torch.Tensor:
+    """:func:`absmax_scale`'s scale from the absmax itself, in its dtype:
+    a tensor-parallel row product takes the max of its ranks' absmax
+    first (a max is exact in any order), then this."""
     amax = torch.clamp(amax, min=eps)
-    return (amax.float() * dtype_scalar(1.0 / max_value(n_bits), x.dtype)
-            ).to(x.dtype)
+    return (amax.float() * dtype_scalar(1.0 / max_value(n_bits), amax.dtype)
+            ).to(amax.dtype)
 
 
 _SCALARS: dict = {}

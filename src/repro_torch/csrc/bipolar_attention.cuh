@@ -129,7 +129,8 @@ template <typename TQ, int BS, bool RING>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 attention_kernel(const TQ* __restrict__ q, const Source src,
                  const int* __restrict__ q_pos, TQ* __restrict__ out,
-                 float* __restrict__ ws, int h_kv, int gq, int d, int dw,
+                 float* __restrict__ ws, float* __restrict__ lse, int h_kv,
+                 int gq, int d, int dw,
                  int n_bits, int causal, int window, float scale,
                  int n_split, int eps, int vec) {
   constexpr int LPS = 32 / BS;             // lanes per slot in Q.K^T
@@ -393,6 +394,7 @@ attention_kernel(const TQ* __restrict__ q, const Source src,
         if (c < dpl && col < d)
           o[col] = split_kv::out_of<TQ>(acc[i][c] / denom);
       }
+      if (lse != nullptr && lane == 0) lse[orow] = m_run[i] + logf(l_run[i]);
     } else {
       const long long pr = split * rows_total + orow;
       if (lane == 0) {
@@ -422,10 +424,12 @@ inline int plan(int batch, int h_kv, int gq, int nb, int max_per_split,
 }
 
 // One launch at a planned split: the kernel, then (n_split > 1) the
-// combine of its partials in ws.
+// combine of its partials in ws.  lse (null, or one f32 a query row):
+// each row's m + log(l), written by whichever of the two writes out.
 template <typename TQ, int BS, bool RING>
 int launch(const void* q, const Source& src, const void* q_pos, void* out,
-           void* ws, int batch, int h_kv, int gq, int d, int dw, int n_bits,
+           void* ws, void* lse, int batch, int h_kv, int gq, int d, int dw,
+           int n_bits,
            int causal, int window, float scale, int n_split, int eps,
            cudaStream_t s) {
   auto kernel = attention_kernel<TQ, BS, RING>;
@@ -441,13 +445,14 @@ int launch(const void* q, const Source& src, const void* q_pos, void* out,
                   bitserial::aligned16(src.v);
   dim3 grid((gq + BQ - 1) / BQ, h_kv * n_split, batch);
   kernel<<<grid, THREADS, smem_bytes(BS, dw, n_bits), s>>>(
-      (const TQ*)q, src, (const int*)q_pos, (TQ*)out, (float*)ws, h_kv, gq,
+      (const TQ*)q, src, (const int*)q_pos, (TQ*)out, (float*)ws,
+      (float*)lse, h_kv, gq,
       d, dw, n_bits, causal, window, scale, n_split, eps, vec);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || n_split == 1) return (int)e;
   const long long rows_total = (long long)batch * h_kv * gq;
   split_kv::combine_kernel<TQ><<<(unsigned)rows_total, 128, 0, s>>>(
-      (const float*)ws, (TQ*)out, rows_total, d, n_split);
+      (const float*)ws, (TQ*)out, rows_total, d, n_split, (float*)lse);
   return (int)cudaGetLastError();
 }
 

@@ -532,7 +532,8 @@ int launch_mma_t(const void* q, const void* k, const void* v,
   const long long rows_total = (long long)batch * h_kv * sq;
   split_kv::combine_kernel<__nv_bfloat16><<<(unsigned)rows_total, 128, 0,
                                             stream>>>(
-      (const float*)ws, (__nv_bfloat16*)out, rows_total, d, n_split);
+      (const float*)ws, (__nv_bfloat16*)out, rows_total, d, n_split,
+      nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -573,11 +574,12 @@ extern "C" int repro_flash_attention_quantized_splits(int batch, int h_kv,
 // q (batch * h_kv, sq, d), planes (batch, t_len, h_kv, n_bits, dw), scales
 // (batch, t_len, h_kv), q_pos (batch, sq), kv_pos (batch, t_len); ws: the
 // split workspace (see repro_flash_attention_quantized_splits), else
-// unused.
+// unused; lse: null, or (batch * h_kv, sq) f32 for each row's m + log(l)
+// (the sequence-parallel decode's partials; out is the same either way).
 extern "C" int repro_flash_attention_quantized(
     const void* q, const void* k, const void* k_scale, const void* v,
     const void* v_scale, const void* q_pos, const void* kv_pos, void* out,
-    void* ws, int batch, int h_kv, int sq, int t_len, int d, int dw,
+    void* ws, void* lse, int batch, int h_kv, int sq, int t_len, int d, int dw,
     int n_bits, int causal, int window, float scale, int q_dtype,
     void* stream) {
   if (batch == 0 || sq == 0) return 0;
@@ -593,11 +595,11 @@ extern "C" int repro_flash_attention_quantized(
   cudaStream_t s = (cudaStream_t)stream;
   if (q_dtype == 1)
     return bipolar_attention::launch<__nv_bfloat16, BT, true>(
-        q, src, q_pos, out, ws, batch, h_kv, sq, d, dw, n_bits, causal,
+        q, src, q_pos, out, ws, lse, batch, h_kv, sq, d, dw, n_bits, causal,
         window, scale, n_split, tps, s);
   if (q_dtype == 0)
     return bipolar_attention::launch<float, BT, true>(
-        q, src, q_pos, out, ws, batch, h_kv, sq, d, dw, n_bits, causal,
+        q, src, q_pos, out, ws, lse, batch, h_kv, sq, d, dw, n_bits, causal,
         window, scale, n_split, tps, s);
   return (int)cudaErrorInvalidValue;
 }

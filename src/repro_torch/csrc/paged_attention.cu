@@ -49,8 +49,9 @@ int launch(const void* q, const void* k_pool, const void* k_scale,
                        (const uint32_t*)v_pool, (const float*)v_scale,
                        (const int*)pool_pos, (const int*)block_tables, nb, 0};
 #define REPRO_PAGED(BS)                                                      \
-  ba::launch<TQ, BS, false>(q, src, q_pos, out, ws, batch, h_kv, gq, d, dw,  \
-                            n_bits, causal, window, scale, n_split, eps, s)
+  ba::launch<TQ, BS, false>(q, src, q_pos, out, ws, nullptr, batch, h_kv,  \
+                            gq, d, dw, n_bits, causal, window, scale,      \
+                            n_split, eps, s)
   switch (bs) {
     case 1: return REPRO_PAGED(1);
     case 2: return REPRO_PAGED(2);

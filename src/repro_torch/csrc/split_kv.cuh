@@ -12,7 +12,8 @@
 //   m = max_s m_s,  l = sum_s l_s e^(m_s - m),  acc = sum_s acc_s e^(m_s - m)
 // and writes acc / max(l, 1e-20): a fully masked row still returns 0
 // (kernels/ref.py::paged_attention_split, ::kv_cache_attention_split,
-// ::flash_attention_split).
+// ::flash_attention_split).  Given an lse array it also writes each row's
+// m + log(l) there (K6's return_lse: -inf for a fully masked row).
 
 #pragma once
 
@@ -56,7 +57,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 out_of<__nv_bfloat16>(
 template <typename TO>
 __global__ void combine_kernel(const float* __restrict__ ws,
                                TO* __restrict__ out, long long rows_total,
-                               int d, int n_split) {
+                               int d, int n_split, float* __restrict__ lse) {
   const long long row = blockIdx.x;
   float m_max = -1e30f;
   for (int s = 0; s < n_split; ++s)
@@ -67,6 +68,7 @@ __global__ void combine_kernel(const float* __restrict__ ws,
     l += ws[2 * pr + 1] * expf(ws[2 * pr] - m_max);
   }
   const float denom = fmaxf(l, 1e-20f);
+  if (lse != nullptr && threadIdx.x == 0) lse[row] = m_max + logf(l);
   const float* acc = ws + 2 * n_split * rows_total;
   for (int c = threadIdx.x; c < d; c += blockDim.x) {
     float a = 0.0f;

@@ -34,7 +34,10 @@ as DTensors, each gathered at its use (FSDP over the DP axes, inside the
 checkpointed unit) and its gradient reduce-scattered back to the
 parameter's placement, while the "model" axis splits the work (tensor,
 sequence and expert parallelism: :mod:`repro_torch.distributed
-.tensor_parallel`).
+.tensor_parallel`).  :func:`sharded_serve_step` is the serving step over
+a mesh: each block's weights gathered over the DP axes at their use, the
+caches on their sequence shard, the products split over "model" with
+the single process's bits.
 """
 
 from __future__ import annotations
@@ -147,8 +150,10 @@ def constrain(x, name: str, src: Optional[str] = None):
     brought to the rule's layout on the "model" axis from ``src``: a
     partial sum over "model" (``"partial"``) is reduce-scattered, a value
     every model rank holds whole (``"replicated"``) has the rank's part
-    taken, and ``src=None`` (already laid out so) passes.  Without a
-    context, or without such a rule, ``x`` passes unchanged."""
+    taken, and ``src=None`` (already laid out so) passes.  The serve
+    step's rules keep the residual whole (:func:`serve_activation_rules`):
+    a partial sum is summed whole there.  Without a context, or without
+    such a rule, ``x`` passes unchanged."""
     from torch.distributed.tensor import DTensor
     from repro_torch.distributed import tensor_parallel as TP
     mesh, rules = _CTX["mesh"], _CTX["rules"]
@@ -162,6 +167,13 @@ def constrain(x, name: str, src: Optional[str] = None):
         return x
     if mesh is None:
         rules = default_activation_rules(ctx.mesh)
+    if ctx.serve:
+        rules = serve_activation_rules(ctx.mesh, rules)
+        if name == "residual" and x.ndim == 3 and x.shape[1] > 1 \
+                and ctx.m > 1:
+            # fallback: a prefill's residual stream stays whole over
+            # "model" (the rule is a placement; the values are the same)
+            TP.fallback("residual whole over model (prefill)")
     if name not in rules:
         return x
     return TP.to_layout(x, rules[name], src)
@@ -189,6 +201,16 @@ def default_activation_rules(mesh, extra=()) -> dict:
         # (B, Hkv, T, D) layout (the reference stacks (nc, B, Hkv, ck, D))
         rules["attn_chunks"] = (dp, "model", None, None)
     return rules
+
+
+def serve_activation_rules(mesh, rules: dict) -> dict:
+    """``rules`` as the sharded serve step reads them: the residual
+    stream and the MoE combine whole over "model" (a decode step's one
+    token cannot be split; a prefill keeps it whole too, a named
+    fallback), the dispatch's experts over "model" as in training."""
+    dp = _dp_axis(mesh)
+    return dict(rules, residual=(dp, None, None),
+                moe_combine=(dp, None, None))
 
 
 # ---------------------------------------------------------------------------
@@ -457,37 +479,53 @@ def sharded_serve_step(step_fn, mesh):
     """``step(params, batch, caches) -> (logits, caches)`` over ``mesh``:
     the serving counterpart of :func:`sharded_step`, for
     :func:`repro_torch.serving.engine.prefill_step` and ``serve_step``
-    (``step_fn(params, batch, caches)`` on local tensors).
+    (``step_fn(params, batch, caches)``), the reference's ``jax.jit`` of
+    them with their inputs at rest in their shardings.
 
-    ``params`` rest as DTensors under :func:`shardings_for_params` and
-    are each gathered whole for the step, as :func:`sharded_step`
-    gathers them; ``caches`` rest under :func:`shardings_for_caches` and
-    are gathered along every mesh dim but the DP ones, so each rank holds
-    the whole sequence of its batch rows (the "model" axis repeats the
-    rank's work: tensor- and sequence-parallel compute waits for ROADMAP
-    queue 1 item 13); ``batch`` is a DTensor tree under
-    :func:`shardings_for_batch` or the local shard itself.  Returns the
-    rank's logits and caches as local tensors."""
-    from torch.distributed.tensor import DTensor, Replicate
-    dp = dp_axes(mesh)
-    whole = [Replicate()] * mesh.ndim
+    ``params`` rest as DTensors under :func:`shardings_for_params`,
+    ``caches`` under :func:`shardings_for_caches` (K/V on their sequence
+    shard over "model"), ``batch`` is a DTensor tree under
+    :func:`shardings_for_batch` or the local shard itself.  The step
+    runs under a serve context (:mod:`repro_torch.distributed
+    .tensor_parallel`, ``active(mesh, serve=True)``): parameters reach
+    the model as ``Param`` leaves, each block's gathered over the DP axes at
+    its use with its "model" shard kept, the caches as their local
+    shards, the batch as its DP shard; the products split over "model"
+    with the single process's bits (column products on the rank's rows,
+    row products on its K-shard with int32 sums), decode attention over
+    each rank's slots.  A "model" axis of 1 is the plain step on the
+    rank's batch rows, bit for bit.  Returns the rank's logits (its
+    batch rows and, where "model" splits the vocab, its vocab columns)
+    and the caches as DTensors in their resting placements (written in
+    place where the step writes them in place);
+    ``step.gathered_bytes`` is the most bytes of gathered weights alive
+    at once in its last call, ``step.fallbacks`` the named fallbacks it
+    took."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import tensor_parallel as TP
 
-    def local(t):
-        return t.to_local() if isinstance(t, DTensor) else t
-
-    def gather(t):
-        return t.redistribute(mesh, whole).to_local() \
+    def handle(t):
+        return TP.Param(t.to_local(), t.placements) \
             if isinstance(t, DTensor) else t
 
-    def rows(t):
-        if not isinstance(t, DTensor):
-            return t
-        pls = [pl if a in dp else Replicate()
-               for a, pl in zip(mesh.mesh_dim_names, t.placements)]
-        return t.redistribute(mesh, pls).to_local()
+    def rest(old, new):
+        if not isinstance(old, DTensor):
+            return new
+        if isinstance(new, DTensor):
+            return new
+        return DTensor.from_local(new, mesh, old.placements, run_check=False,
+                                  shape=old.shape, stride=old.stride())
 
     def step(params, batch, caches):
-        return step_fn(_map_tensors(gather, params),
-                       tree_map(local, batch), _map_tensors(rows, caches))
+        local_batch = tree_map(
+            lambda b: b.to_local() if isinstance(b, DTensor) else b, batch)
+        with TP.active(mesh, serve=True) as ctx:
+            logits, new = step_fn(_map_tensors(handle, params), local_batch,
+                                  tree_map(handle, caches))
+        step.gathered_bytes = ctx.gathered_peak
+        step.fallbacks = sorted(ctx.fallbacks)
+        return logits, tree_map(rest, caches, new)
 
+    step.gathered_bytes = 0
+    step.fallbacks = []
     return step

@@ -1,18 +1,21 @@
 """Tensor-, sequence- and expert-parallel compute over a mesh's "model"
-axis, and the per-use weight gathers, for the sharded training step.
+axis, and the per-use weight gathers, for the sharded training step and
+the sharded serve step.
 
 :func:`repro_torch.distributed.sharding.sharded_step` installs a
-:class:`Context` for its step (:func:`active`) and hands the model each
-parameter as a :class:`Param` (its local shard and placements); the
-model code calls the functions below, each of which is the identity (or
-returns its tree unchanged) when no context is installed, so
-single-process runs and serving never see them.  With a context on a
-mesh whose "model" axis is 1 they do the data-parallel part only
-(weights gathered over the DP axes at their use), and at world size 1
-the step is the plain step bit for bit.
+:class:`Context` for its step (:func:`active`), and
+:func:`~repro_torch.distributed.sharding.sharded_serve_step` a serve one
+(``active(mesh, serve=True)``), and each hands the model every parameter
+as a :class:`Param` (its local shard and placements); the model code
+calls the functions below, each of which is the identity (or returns its
+tree unchanged) when no context is installed, so single-process runs
+never see them.  With a context on a mesh whose "model" axis is 1 they
+do the data-parallel part only (weights gathered over the DP axes at
+their use), and at world size 1 either step is the plain step bit for
+bit.
 
-The layout is Megatron's with sequence parallelism, by the rules of
-:func:`~repro_torch.distributed.sharding.shardings_for_params`:
+Training.  The layout is Megatron's with sequence parallelism, by the
+rules of :func:`~repro_torch.distributed.sharding.shardings_for_params`:
 
 * the residual stream between blocks is ``(B_dp, S / m, d)``: the rank's
   batch rows and its part of the sequence (the "residual" rule), on
@@ -61,11 +64,43 @@ enters only the model rank 0's objective.  Each activation gradient that
 crosses ranks is summed in f32 before it is rounded, where the single
 process rounds its own product: the sharded gradients stay within the
 DP-only split's bf16 noise of the single process's.
+
+Serving (no autograd, no gradient bookkeeping).  The residual stream
+stays whole over "model" (a decode step's one token cannot be split; in
+a prefill this is a named fallback) and every product keeps the bits of
+the single process's (:func:`serve_block_params`):
+
+* a column product (q/k/v, gate/up, the shared experts', ``lm_head``)
+  multiplies the whole input by the rank's rows of the packed planes:
+  each output column is the single process's;
+* a row product (wo, w_down, out_proj) multiplies the rank's features by
+  its K-shard of the planes (:func:`row_product`): the rows' absmax is
+  taken over "model" (a max, exact), K3 packs the shard at that scale,
+  K5 returns its exact int32 partial, the partials are summed over
+  "model" in int32 (exact in any order) and K1's epilogue runs once;
+* attention at decode is sequence-parallel: the caches rest on their
+  sequence shard, the step's q/k/v heads are gathered, the rank that
+  owns the ring slot writes it, every rank attends every head to its
+  own slots and the ``(o, lse)`` partials are combined in f32 in rank
+  order (:func:`combine_over_model`); a prefill attends on the rank's
+  heads over the layer's gathered cache (:func:`gather_cache`) and
+  writes each rank's slots back (:func:`keep_cache`);
+* the embedding is looked up in the rank's vocab rows and summed over
+  "model" (one rank adds a non-zero row: exact); ``lm_head`` returns the
+  rank's vocab columns;
+* MoE: experts over "model" where they divide it (EP), else whole on the
+  rank's part of each dispatch group's rows (:func:`expert_rows`);
+* the Mamba-2 mixer runs whole, its state and conv rows gathered for the
+  layer and the rank's part kept (:func:`layer_cache`,
+  :func:`rest_cache`).
+
+Fallbacks are recorded in ``Context.fallbacks``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
 import weakref
@@ -73,16 +108,20 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.bipolar import BipolarTensor
 from repro_torch.launch.mesh import dp_axes, mesh_sizes
 
 
 class Context:
     """A mesh's groups and this rank's coordinates, and the bytes of the
     weights gathered so far: ``gathered_live`` now, ``gathered_peak`` the
-    most at once."""
+    most at once.  ``serve``: the serve step's context; ``fallbacks`` the
+    named fallbacks it took."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, serve: bool = False):
         self.mesh = mesh
+        self.serve = serve
+        self.fallbacks: set = set()
         sizes = mesh_sizes(mesh)
         # a group for each mesh dim of more than one rank
         self.groups = {a: mesh.get_group(a) if n > 1 else None
@@ -124,10 +163,11 @@ _CTX: dict = {"ctx": None}
 
 
 @contextlib.contextmanager
-def active(mesh):
-    """Install a :class:`Context` of ``mesh`` for the block; yields it."""
+def active(mesh, serve: bool = False):
+    """Install a :class:`Context` of ``mesh`` for the block (``serve``:
+    the serve step's); yields it."""
     prev = _CTX["ctx"]
-    _CTX["ctx"] = ctx = Context(mesh)
+    _CTX["ctx"] = ctx = Context(mesh, serve)
     try:
         yield ctx
     finally:
@@ -139,14 +179,35 @@ def current() -> Optional[Context]:
 
 
 def splits() -> bool:
-    """Whether a context is installed whose "model" axis splits work."""
+    """Whether a training context is installed whose "model" axis splits
+    work."""
     return _split() is not None
 
 
 def _split() -> Optional[Context]:
-    """The context if its "model" axis splits work, else None."""
+    """The training context if its "model" axis splits work, else
+    None."""
     ctx = _CTX["ctx"]
-    return ctx if ctx is not None and ctx.m > 1 else None
+    return ctx if ctx is not None and ctx.m > 1 and not ctx.serve else None
+
+
+def serving() -> bool:
+    """Whether a serve context is installed whose "model" axis splits
+    work."""
+    return _serve() is not None
+
+
+def _serve() -> Optional[Context]:
+    """The serve context if its "model" axis splits work, else None."""
+    ctx = _CTX["ctx"]
+    return ctx if ctx is not None and ctx.m > 1 and ctx.serve else None
+
+
+def fallback(name: str) -> None:
+    """Record a named fallback in the installed context."""
+    ctx = _CTX["ctx"]
+    if ctx is not None:
+        ctx.fallbacks.add(name)
 
 
 # ---------------------------------------------------------------------------
@@ -373,14 +434,18 @@ def to_layout(x: torch.Tensor, spec, src: Optional[str]) -> torch.Tensor:
     """A local tensor brought to ``spec``'s layout on the "model" axis
     (the DP dims are the rank's batch already): ``src="partial"`` (a
     partial sum over "model") is summed and scattered along the spec's
-    "model" dim, in f32 and cast back to ``x``'s dtype once;
+    "model" dim, in f32 and cast back to ``x``'s dtype once (a spec with
+    no "model" dim, in serving: summed whole);
     ``src="replicated"`` (the same on every model rank) keeps this rank's
     part of that dim; ``src=None`` (already laid out so) passes."""
-    ctx = _split()
+    ctx = _split() or _serve()
     if ctx is None or src is None:
         return x
     dim = _model_dim(x, spec)
     if dim is None:
+        if src == "partial" and ctx.serve:     # summed whole, in f32
+            return _all_reduce(x.float(), "sum", ctx.model_group).to(
+                x.dtype)
         if src == "partial":
             raise ValueError("a partial sum needs a dim on 'model' to "
                              "scatter")
@@ -398,33 +463,59 @@ def to_layout(x: torch.Tensor, spec, src: Optional[str]) -> torch.Tensor:
 def gather_seq(x: torch.Tensor, f32: bool = False) -> torch.Tensor:
     """The whole sequence (dim 1) of a sequence-sharded activation: the
     MoE's routed input, the final hidden states (``f32``: held in f32,
-    see :class:`_HeadLinear`)."""
-    return gather_model(x, 1, f32)
-
-
-def gather_model(x: torch.Tensor, dim: int, f32: bool = False):
-    """``x``'s parts on every model rank, concatenated along ``dim`` (the
-    sequence; the MoE's experts); the gradient, partial on each rank, is
-    summed and scattered back (:class:`_GatherSeq`)."""
+    see :class:`_HeadLinear`).  Serving keeps the sequence whole."""
     ctx = _split()
     if ctx is None:
         return x
-    return _GatherSeq.apply(x, dim, ctx.model_group, f32)
+    return _GatherSeq.apply(x, 1, ctx.model_group, f32)
 
 
-def expert_rows(x: torch.Tensor, fn) -> torch.Tensor:
+def gather_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x``'s parts on every model rank, concatenated along ``dim`` (the
+    MoE's experts); in training the gradient, partial on each rank, is
+    summed and scattered back (:class:`_GatherSeq`)."""
+    ctx = _split()
+    if ctx is not None:
+        return _GatherSeq.apply(x, dim, ctx.model_group, False)
+    ctx = _serve()
+    return x if ctx is None else _all_gather(x, dim, ctx.model_group)
+
+
+def expert_rows(x: torch.Tensor, fn, counts=None) -> torch.Tensor:
     """``fn`` (the experts' MLP, weights whole) on this rank's part of the
     capacity rows of ``x (E, R, d)``, the same on every model rank (R
     padded to a multiple of the model axis), then every rank's rows
-    gathered: ``(E, R, d)``, each row the single process's."""
-    ctx = _split()
+    gathered: ``(E, R, d)``, each row the single process's.
+
+    With ``counts (E, G)`` (serving's grouped kernel: ``R = G * cap``,
+    each group's live rows a prefix of its ``cap``) the rank takes its
+    part of every group's rows, ``fn(rows, counts)`` sees each part's
+    live prefix, and the parts are put back in place."""
+    ctx = _split() or _serve()
+    group = ctx.model_group
+
+    def gather(y, dim):
+        return (_all_gather(y, dim, group) if ctx.serve
+                else _GatherSeq.apply(y, dim, group, False))
+    if counts is not None:
+        e, r, d = x.shape
+        g = counts.shape[1]
+        cap = r // g
+        n = -(-cap // ctx.m)
+        xg = torch.nn.functional.pad(x.reshape(e, g, cap, d),
+                                     (0, 0, 0, n * ctx.m - cap))
+        lo = ctx.model_rank * n
+        y = fn(xg[:, :, lo:lo + n].reshape(e, g * n, d),
+               torch.clamp(counts - lo, 0, n).to(counts.dtype))
+        y = gather(y.reshape(e, g, n, -1), dim=2)
+        return y[:, :, :cap].reshape(e, r, -1)
     r = x.shape[1]
     pad = -r % ctx.m
     if pad:
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
     n = x.shape[1] // ctx.m
     y = fn(x.narrow(1, ctx.model_rank * n, n))
-    return _GatherSeq.apply(y, 1, ctx.model_group, False)[:, :r]
+    return gather(y, dim=1)[:, :r]
 
 
 def tp_linear(x: torch.Tensor, w: torch.Tensor, kind: str) -> torch.Tensor:
@@ -490,9 +581,10 @@ def shared_kv(k: torch.Tensor, v: torch.Tensor, n_kv_heads: int):
 
 
 def head(p: dict) -> dict:
-    """``lm_head`` (or the tied embedding) gathered for the loss: the
-    rank's vocab rows, marked ``"head"`` when "model" splits them (it
-    reads the gathered final hidden states)."""
+    """``lm_head`` (or the tied embedding) gathered for the logits: the
+    rank's vocab rows, marked ``"head"`` when a training step's "model"
+    splits them (the loss reads the gathered final hidden states; a
+    serve step's is a column product on the whole ones)."""
     out = use(p)
     return dict(out, tp="head") if _split() is not None else out
 
@@ -566,6 +658,8 @@ def _gather(p, keep_model: bool):
     other mesh dim (:class:`_GatherWeight`).  Anything but a
     :class:`Param` is returned as it is."""
     ctx = _CTX["ctx"]
+    if isinstance(p, BipolarTensor):
+        return _gather_packed(p, keep_model)
     if ctx is None or not isinstance(p, Param):
         return p
     gathers, partial = [], []
@@ -578,12 +672,37 @@ def _gather(p, keep_model: bool):
             gathers.append((group, pl.dim))
         else:
             partial.append(group)
-    if not gathers and not partial:
+    if ctx.serve:           # no gradient: plain all-gathers
+        t = p.local
+        for group, dim in gathers:
+            t = _all_gather(t, dim, group)
+    elif not gathers and not partial:
         return p.local
-    t = _GatherWeight.apply(p.local, gathers, partial)
+    else:
+        t = _GatherWeight.apply(p.local, gathers, partial)
     if gathers:
         ctx.count(t)
     return t
+
+
+def _gather_packed(p: BipolarTensor, keep_model: bool) -> BipolarTensor:
+    """A packed weight whose fields are :class:`Param` leaves, gathered at its
+    use: its logical ``shape`` is that of the planes kept, K the real
+    elements of the rank's words (the last words' pad excluded) where
+    "model" splits the packed words."""
+    if not isinstance(p.packed, Param):
+        return p
+    packed = _gather(p.packed, keep_model)
+    k = p.shape[-1]
+    kw = -(-k // 32)
+    if packed.shape[-1] < kw:               # the rank's K-shard of words
+        lo = model_rank() * packed.shape[-1]
+        k = min(k, (lo + packed.shape[-1]) * 32) - lo * 32
+    ws = p.width_scales
+    return dataclasses.replace(
+        p, packed=packed, scale=_gather(p.scale, keep_model),
+        width_scales=None if ws is None else _gather(ws, keep_model),
+        shape=tuple(packed.shape[1:-1]) + (k,))
 
 
 def use(tree, keep_model: bool = True):
@@ -600,8 +719,13 @@ def _col(p: dict, keep_model: bool) -> dict:
     return {"w": _gather(p["w"], keep_model), "tp": "col"}
 
 
-def _model_shard(p: Param):
-    """The dim of ``p`` sharded over "model", or None."""
+def _model_shard(p):
+    """The dim of ``p`` (a :class:`Param`, or a packed weight's planes)
+    sharded over "model", or None."""
+    if isinstance(p, BipolarTensor):
+        p = p.packed
+    if not isinstance(p, Param):
+        return None
     pl = p.placements[_CTX["ctx"].mesh.mesh_dim_names.index("model")]
     return pl.dim if pl.is_shard() else None
 
@@ -642,6 +766,8 @@ def block_params(p: dict, cfg, mixer_kind: str = "attn") -> dict:
         return p
     if ctx.m == 1:
         return use(p)
+    if ctx.serve:
+        return _serve_block(p, cfg, mixer_kind, ctx)
     out = {}
     for key, sub in p.items():
         if key == "attn" or (key == "mixer" and mixer_kind == "attn"):
@@ -674,3 +800,307 @@ def _ffn(p: dict) -> dict:
         else:
             out[k] = use(v, k == "router" or _model_shard(v) == 0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# serving: the block's weights, the row product, the caches
+# ---------------------------------------------------------------------------
+
+def _serve_block(p: dict, cfg, mixer_kind: str, ctx: Context) -> dict:
+    """:func:`block_params` in a serve context: column weights as the
+    rank's rows (or whole, where the rules leave them so), row weights as
+    their K-shard marked ``"row"`` (:func:`row_product`)."""
+    out = {}
+    for key, sub in p.items():
+        if key == "attn" or (key == "mixer" and mixer_kind == "attn"):
+            out[key] = _serve_attention(sub, cfg, ctx)
+        elif key == "mixer":
+            # fallback: the Mamba-2 mixer runs whole (in_proj's d_out shard
+            # would cut its z/x/B/C/dt sections); out_proj takes its
+            # K-shard of the whole mixer's features
+            fallback("ssm mixer whole")
+            out[key] = {k: (_serve_row(v) if k == "out_proj" else
+                            use(v, False)) for k, v in sub.items()}
+        elif key == "ffn":
+            out[key] = _serve_ffn(sub)
+        else:
+            out[key] = use(sub)
+    return out
+
+
+def _serve_attention(p: dict, cfg, ctx: Context) -> dict:
+    h, hk, m = cfg.n_heads, cfg.n_kv_heads, ctx.m
+    split = h % m == 0 and (hk % m == 0 or m % hk == 0)
+    if not split:
+        # fallback: q heads (or KV heads) that do not divide "model":
+        # whole heads, q/k/v gathered over "model"
+        fallback(f"whole heads ({h} q, {hk} kv heads on {m})")
+    kv_split = split and hk % m == 0
+    if split and not kv_split:
+        # several ranks share a KV head: k and v whole (the cache's
+        # writes need every head), each rank attends the head its q
+        # heads read
+        fallback(f"k/v projections whole ({hk} kv heads on {m})")
+    return {"wq": _serve_col(p["wq"], split),
+            "wk": _serve_col(p["wk"], kv_split),
+            "wv": _serve_col(p["wv"], kv_split), "wo": _serve_row(p["wo"])}
+
+
+def _serve_ffn(p: dict) -> dict:
+    """A dense MLP (gate/up the rank's rows, ``w_down`` a row product) or
+    a MoE (router replicated; expert stacks the rank's experts where they
+    divide "model" (EP), else gathered whole; the shared experts as an
+    MLP)."""
+    out = {}
+    for k, v in p.items():
+        if k == "shared":
+            out[k] = _serve_ffn(v)
+        elif isinstance(v, dict) and k != "router":
+            out[k] = _serve_row(v) if k == "w_down" else _serve_col(v)
+        elif k == "router":
+            out[k] = use(v, True)
+        else:
+            t = v.packed if isinstance(v, BipolarTensor) else v
+            ep = _model_shard(v) == t.local.ndim - 3 \
+                if isinstance(t, Param) else False
+            if not ep:
+                # fallback: experts that do not divide "model" run whole
+                # on the rank's part of the dispatch rows (expert_rows)
+                fallback("experts whole on dispatch-row shards")
+            out[k] = use(v, ep)
+    return out
+
+
+def _split_dim(w):
+    """The dim of a linear weight's leaf (its packed planes) that "model"
+    splits, counted from the end (-2: d_out, -1: d_in or its words), or
+    None.  The rules may split a dense MLP's planes along their plane
+    axis (they read ``(w_bits, N, Kw)`` as an expert stack where "model"
+    divides ``w_bits``): no product splits so."""
+    d = _model_shard(w)
+    t = w.packed if isinstance(w, BipolarTensor) else w
+    return None if d is None else d - t.local.ndim
+
+
+# (a packed weight split so is moved to the split its product reads by
+# one all-to-all, :func:`_planes_to`)
+
+
+def _planes_to(p: Param, dim: int) -> torch.Tensor:
+    """A packed leaf that "model" splits along its plane axis (0), its DP
+    shards gathered, then moved by one all-to-all so that "model" splits
+    ``dim`` instead: every plane of the rank's part of ``dim``."""
+    from torch.distributed import _functional_collectives as funcol
+    ctx = _CTX["ctx"]
+    t = _gather(p, True)
+    parts = torch.stack(t.chunk(ctx.m, dim)).contiguous()
+    got = _wait(funcol.all_to_all_single(parts, None, None,
+                                         ctx.model_group))
+    out = got.reshape((ctx.m * t.shape[0],) + tuple(got.shape[2:]))
+    ctx.count(out)
+    return out
+
+
+def _planes_moved(w: BipolarTensor, row: bool) -> BipolarTensor:
+    """A packed weight whose planes "model" splits (see
+    :func:`_split_dim`) as the product reads it: the rank's rows of every
+    plane (``row=False``) or the rank's K words (``row``)."""
+    packed = _planes_to(w.packed, -1 if row else -2)
+    scale = _gather(w.scale, False)
+    ws = None if w.width_scales is None else _gather(w.width_scales, False)
+    k = w.shape[-1]
+    if row:
+        lo = model_rank() * packed.shape[-1]
+        k = min(k, (lo + packed.shape[-1]) * 32) - lo * 32
+    else:                   # the scales of the rank's rows
+        n = packed.shape[-2]
+        lo = model_rank() * n
+        scale = scale[lo:lo + n]
+        ws = None if ws is None else ws[:, lo:lo + n]
+    return dataclasses.replace(
+        w, packed=packed, scale=scale, width_scales=ws,
+        shape=tuple(packed.shape[1:-1]) + (k,))
+
+
+def _serve_col(p: dict, split: bool = True) -> dict:
+    """A column weight in serving: the rank's rows where "model" splits
+    its d_out (and ``split``), else whole (a fallback named where it is
+    not the caller's)."""
+    w = p["w"]
+    d = _split_dim(w)
+    if d == -3 and split and \
+            w.packed.local.shape[-2] % _CTX["ctx"].m == 0:
+        return {"w": _planes_moved(w, False)}
+    return {"w": _gather(w, split and d == -2)}
+
+
+def _serve_row(p: dict) -> dict:
+    """A row weight in serving: its K-shard of the packed words kept over
+    "model" (``"k"``: the shard's first element and the whole K), marked
+    ``"row"``.  A float weight, or packed words the rules leave whole
+    over "model" (they do not divide it), is gathered whole: a named
+    fallback, the product the plain one on every feature."""
+    w = p["w"]
+    if isinstance(w, BipolarTensor) and _split_dim(w) == -3 \
+            and w.packed.local.shape[-1] % _CTX["ctx"].m == 0:
+        wl = _planes_moved(w, True)
+        lo = model_rank() * wl.packed.shape[-1] * 32
+        return {"w": wl, "tp": "row", "k": (lo, w.shape[-1])}
+    if isinstance(w, BipolarTensor) and _split_dim(w) == -1:
+        wl = _gather_packed(w, True)
+        lo = model_rank() * wl.packed.shape[-1] * 32
+        return {"w": wl, "tp": "row", "k": (lo, w.shape[-1])}
+    w = _gather(w, False)
+    k = w.shape[-1]
+    fallback(f"row product whole (K {k})")
+    return {"w": w, "tp": "row", "k": (0, k)}
+
+
+def row_columns(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """The columns of a row product's input that its weight's K-shard
+    multiplies (``p["k"]``): ``x`` holds every feature, or the rank's
+    even part of them (its heads, its d_ff rows), which is gathered over
+    "model" where it is not the weight's part."""
+    ctx = _serve()
+    lo, k = p["k"]
+    n = p["w"].shape[-1]
+    kx = x.shape[-1]
+    if kx != k:
+        if lo == ctx.model_rank * kx and n == kx:
+            return x
+        x = _all_gather(x, x.ndim - 1, ctx.model_group)
+    return x[..., lo:lo + n]
+
+
+def row_scale(x2: torch.Tensor, a_bits: int) -> torch.Tensor:
+    """The f32 activation scale of each row of ``x2 (M, K_l)``, a K-shard
+    of the rows: the absmax in the input dtype over "model" (a max:
+    exact), then ``ops.ap_linear_fused``'s scale of it."""
+    from repro_torch.core.bipolar import scale_of_absmax
+    amax = x2.abs().amax(-1, keepdim=True)
+    ctx = _serve()
+    if ctx is not None:
+        amax = _all_reduce(amax.float(), "max", ctx.model_group).to(
+            x2.dtype)
+    return scale_of_absmax(amax, a_bits).float()
+
+
+def row_partial(x2: torch.Tensor, w: BipolarTensor, a_scale, *,
+                a_bits: int, variant: str) -> torch.Tensor:
+    """A K-shard's exact int32 partial product: ``x2 (M, K_l)`` packed by
+    K3 at ``a_scale`` (pad bit 0), then K5's raw product with the
+    shard's planes ``w (N, K_l)`` (its own K-pad correction included, so
+    a weight's pad is counted once, in its last shard)."""
+    from repro_torch.kernels import ops
+    xq = ops.quantize_rows(x2, a_bits, pad_bit=0, scale=a_scale)
+    return ops.ap_matmul(xq, w, variant=variant, raw=True)
+
+
+def row_product(x: torch.Tensor, w: BipolarTensor, *, quant,
+                act: str = "none", residual=None, out_dtype=None):
+    """``epi(x (..., K_l) @ w (N, K_l)^T)`` for the rank's K-shard of a
+    row weight and the matching columns of the input: the rows' scale
+    over "model" (:func:`row_scale`), the shard's int32 partial
+    (:func:`row_partial`), the partials summed over "model" in int32,
+    then K1's epilogue (:func:`repro_torch.kernels.ref.linear_epilogue`)
+    once.  Bit for bit ``ops.ap_linear_fused`` (and ``ops.ap_linear``)
+    on the whole weight and every feature."""
+    from repro_torch.core.bipolar import nested_slice
+    from repro_torch.kernels.ref import linear_epilogue
+    out_dtype = out_dtype or x.dtype
+    if quant.nested_bits is not None:
+        w = nested_slice(w, quant.nested_bits)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    a_scale = row_scale(x2, quant.a_bits)
+    y = row_partial(x2, w, a_scale, a_bits=quant.a_bits,
+                    variant=quant.variant)
+    y = _all_reduce(y, "sum", _serve().model_group)
+    n = w.shape[0]
+    y = linear_epilogue(y, a_scale, w.scale, act=act, out_dtype=out_dtype,
+                        residual=None if residual is None
+                        else residual.reshape(-1, n))
+    return y.reshape(*lead, n)
+
+
+def gather_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """``t (B, S, h_l, D)``, the rank's even part of ``n_heads`` heads (or
+    every head), with every head: gathered over "model"."""
+    ctx = _serve()
+    if ctx is None or t.shape[2] == n_heads:
+        return t
+    return _all_gather(t, 2, ctx.model_group)
+
+
+def combine_over_model(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Each rank's attention partials over its own slots, ``o (..., d)``
+    f32 and ``lse (...)``, gathered over "model" and merged in f32 in
+    rank order (:func:`repro_torch.kernels.ref.combine_partials`)."""
+    from repro_torch.kernels.ref import combine_partials
+    group = _serve().model_group
+    return combine_partials(_all_gather(o.float()[None], 0, group),
+                            _all_gather(lse.float()[None], 0, group))
+
+
+# the leaves of an attention (or cross) cache that rest on their sequence
+# shard: (B, L, ...) with L over "model"
+_SEQ_LEAVES = ("k", "v", "k_scale", "v_scale", "pos")
+
+
+def layer_cache(c):
+    """``(cache, back)``: one layer's cache as the layer reads it.  Its
+    :class:`Param` leaves become local tensors: an attention cache's on
+    their sequence shard, with ``"seq_shard": (first slot, L)`` when
+    "model" splits them in serving; the SSM's ``state`` and ``conv``
+    gathered over "model" for the layer (``back`` names them for
+    :func:`rest_cache`).  Anything else passes."""
+    ctx = _CTX["ctx"]
+    if ctx is None or not isinstance(c, dict) or not any(
+            isinstance(t, Param) for t in c.values()):
+        return c, None
+    out, back = {}, []
+    for key, t in c.items():
+        dim = _model_shard(t)
+        if not isinstance(t, Param) or dim is None or _serve() is None:
+            out[key] = t.local if isinstance(t, Param) else t
+        elif key in _SEQ_LEAVES:
+            n = t.local.shape[1]
+            out[key] = t.local
+            out["seq_shard"] = (ctx.model_rank * n, n * ctx.m)
+        else:
+            out[key] = _all_gather(t.local, dim, ctx.model_group)
+            back.append((key, dim))
+    return out, back
+
+
+def rest_cache(c, back):
+    """A layer's new cache back in the placements :func:`layer_cache`
+    read it in: the gathered leaves narrowed to the rank's part, the
+    sequence-shard mark dropped."""
+    if back is None or c is None:
+        return c
+    c = {k: v for k, v in c.items() if k != "seq_shard"}
+    ctx = _CTX["ctx"]
+    for key, dim in back:
+        n = c[key].shape[dim] // ctx.m
+        c[key] = c[key].narrow(dim, ctx.model_rank * n, n).contiguous()
+    return c
+
+
+def gather_cache(c: dict) -> dict:
+    """A sequence-sharded layer cache with every slot: its leaves gathered
+    over "model" (a prefill's transient: one layer's cache of the rank's
+    batch rows)."""
+    group = _serve().model_group
+    return {k: (_all_gather(v, 1, group) if k in _SEQ_LEAVES else v)
+            for k, v in c.items() if k != "seq_shard"}
+
+
+def keep_cache(full: dict, c: dict) -> dict:
+    """The rank's slots of the whole layer cache ``full``, written into
+    its shard ``c`` in place; returns ``c`` with ``full``'s ``index``."""
+    lo = c["seq_shard"][0]
+    for k in _SEQ_LEAVES:
+        if k in c:
+            c[k].copy_(full[k][:, lo:lo + c[k].shape[1]])
+    return dict(c, index=full["index"]) if "index" in full else c

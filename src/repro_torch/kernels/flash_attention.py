@@ -141,7 +141,7 @@ def _contiguous_lib(name: str):
     lib = _build.load("flash_attention")
     fn = getattr(lib, name)
     if fn.argtypes is None:
-        n_ptr = 9 if name == "repro_flash_attention_quantized" else 7
+        n_ptr = 10 if name == "repro_flash_attention_quantized" else 7
         n_int = 9 if name == "repro_flash_attention_quantized" else 7
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -186,20 +186,23 @@ def _check_positions(q_pos, kv_pos, b, sq, t, dev):
 
 def flash_attention_quantized(q, k_packed, k_scale, v_packed, v_scale,
                               q_pos, kv_pos, *, d: int, causal: bool = True,
-                              window=None) -> torch.Tensor:
+                              window=None, return_lse: bool = False):
     """Attention of ``q (B, H, Sq, d)`` over a contiguous packed KV cache
     in its own layout: planes ``(B, T, H, n_bits, Dw)`` int32 words,
     scales ``(B, T, H, 1)`` f32, ``q_pos (B, Sq)``, ``kv_pos (B, T)``
     int32 (-1 = empty slot).  The reference's folded ``(BH, ...)``
-    layout is ``H = 1``.  Returns ``(B, H, Sq, d)`` in q's dtype."""
+    layout is ``H = 1``.  Returns ``(B, H, Sq, d)`` in q's dtype, and
+    with ``return_lse`` also each row's f32 ``m + log(l)`` ``(B, H, Sq)``
+    (-inf where no slot is visible): the partials a sequence-parallel
+    decode combines.  The output's bits do not depend on it."""
     if q.device.type == "cpu":
         return flash_attention_quantized_plain(
             q, k_packed, k_scale, v_packed, v_scale, q_pos, kv_pos, d=d,
-            causal=causal, window=window)
+            causal=causal, window=window, return_lse=return_lse)
     if q.device.type == "meta":
         return meta.flash_attention_quantized(
             q, k_packed, k_scale, v_packed, v_scale, q_pos, kv_pos, d=d,
-            causal=causal, window=window)
+            causal=causal, window=window, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"attention: unsupported device {q.device}")
     global QUANTIZED_LAUNCHES
@@ -223,6 +226,8 @@ def flash_attention_quantized(q, k_packed, k_scale, v_packed, v_scale,
     vs = v_scale.reshape(b, t, h).to(torch.float32).contiguous()
     kq, vq = k_packed.contiguous(), v_packed.contiguous()
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=dev)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=dev) \
+        if return_lse else None
     n_split = quantized_splits(b, h, sq, t)
     # split-KV partials: (m, l) and acc of every row, per range of tiles
     ws = torch.empty(n_split * b * h * sq * (d + 2), dtype=torch.float32,
@@ -230,14 +235,15 @@ def flash_attention_quantized(q, k_packed, k_scale, v_packed, v_scale,
     err = _contiguous_lib("repro_flash_attention_quantized")(
         qs.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
         vs.data_ptr(), qp.data_ptr(), kp.data_ptr(), out.data_ptr(),
-        0 if ws is None else ws.data_ptr(), b, h, sq, t, d, dw, n_bits,
+        0 if ws is None else ws.data_ptr(),
+        0 if lse is None else lse.data_ptr(), b, h, sq, t, d, dw, n_bits,
         int(causal),
         int(window) if window is not None else 0,
         float(1.0 / math.sqrt(d)), _DTYPES[q.dtype],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_attention_quantized")
     QUANTIZED_LAUNCHES += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,

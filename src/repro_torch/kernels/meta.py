@@ -211,16 +211,20 @@ def flash_attention_paged_quantized(q, k_pool, k_scale, v_pool, v_scale,
 
 
 def flash_attention_quantized(q, k_packed, k_scale, v_packed, v_scale, q_pos,
-                              kv_pos, *, d, causal=True, window=None):
+                              kv_pos, *, d, causal=True, window=None,
+                              return_lse=False):
     b, h, sq, _ = q.shape
     _, t, _, n_bits, dw = k_packed.shape
     out = _empty(tuple(q.shape), q.dtype)
     io = 2 * q.numel() * q.element_size() + (q_pos.numel()
-                                             + kv_pos.numel()) * 4
+                                             + kv_pos.numel()) * 4 \
+        + (b * h * sq * 4 if return_lse else 0)
     _record("K6", "fused",
             attention_work(b * sq, t, h, d,
                            slot_bytes=b * t * h * 2 * (n_bits * dw * 4 + 4),
                            io_bytes=io, op_type="f32"))
+    if return_lse:
+        return out, _empty((b, h, sq), torch.float32)
     return out
 
 

@@ -305,15 +305,17 @@ def ring_kv_cache_attention(qg: torch.Tensor,
                             v_packed: torch.Tensor, v_scale: torch.Tensor,
                             q_pos: torch.Tensor, kv_pos: torch.Tensor, *,
                             d: int, causal: bool = True,
-                            window=None) -> torch.Tensor:
+                            window=None, return_lse: bool = False):
     """:func:`kv_cache_attention` of grouped queries ``qg (B, H, G, d)``
     over a contiguous cache in its own layout -- planes ``(B, T, H,
     n_bits, Dw)``, scales ``(B, T, H, 1)``, ``q_pos (B, G)``, ``kv_pos
     (B, T)`` -- which equals folding the heads into the batch first,
-    without the copy the fold would make.  Returns ``(B, H, G, d)``."""
+    without the copy the fold would make.  Returns ``(B, H, G, d)``, and
+    with ``return_lse`` each row's f32 ``m + log(l)`` ``(B, H, G)`` too
+    (K6's lse output: a sequence-parallel decode's partials)."""
     return flash_kernel.flash_attention_quantized(
         qg, k_packed, k_scale, v_packed, v_scale, q_pos, kv_pos, d=d,
-        causal=causal, window=window)
+        causal=causal, window=window, return_lse=return_lse)
 
 
 def paged_kv_cache_attention(q: torch.Tensor,

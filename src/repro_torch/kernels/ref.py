@@ -215,16 +215,31 @@ def ap_linear_fused_ref(x2: torch.Tensor, a_scale: torch.Tensor,
     f32 dequant, ``+bias``, cast, act in f32 (dual: ``act(Y1) * Y2``),
     cast, ``+residual`` in the output dtype."""
     q = bipolar.quantize_values(x2.float(), a_bits, a_scale)
+    return linear_epilogue(
+        _linear_int_core(q, w, a_bits, variant), a_scale, w.scale,
+        y2=None if w2 is None else _linear_int_core(q, w2, a_bits, variant),
+        w2_scale=None if w2 is None else w2.scale, bias=bias, act=act,
+        residual=residual, out_dtype=out_dtype)
+
+
+def linear_epilogue(y: torch.Tensor, a_scale: torch.Tensor,
+                    w_scale: torch.Tensor, *, y2=None, w2_scale=None,
+                    bias=None, act: str = "none", residual=None,
+                    out_dtype=torch.float32) -> torch.Tensor:
+    """K1's epilogue on the exact int32 products ``y (M, N)`` (and the
+    dual's ``y2``), in the kernel's order: f32 dequant ``(y * a_s) *
+    w_s``, ``+bias``, cast, act in f32 (dual: ``act(Y1) * Y2``), cast,
+    ``+residual`` in the output dtype.  The fused linear's plain version
+    and the tensor-parallel row product (an int32 sum of K-shard
+    products) both end here."""
     a_s = a_scale.reshape(-1, 1).float()
-    yf = _linear_int_core(q, w, a_bits, variant).float() * a_s \
-        * w.scale.reshape(1, -1)
+    yf = y.float() * a_s * w_scale.reshape(1, -1)
     if bias is not None:
         yf = yf + bias.reshape(1, -1).float()
     yo = yf.to(out_dtype)
-    if w2 is not None:
-        y2 = _linear_int_core(q, w2, a_bits, variant).float() * a_s \
-            * w2.scale.reshape(1, -1)
-        h = apply_act(yo.float(), act) * y2.to(out_dtype).float()
+    if y2 is not None:
+        y2f = y2.float() * a_s * w2_scale.reshape(1, -1)
+        h = apply_act(yo.float(), act) * y2f.to(out_dtype).float()
         yo = h.to(out_dtype)
     elif act != "none":
         yo = apply_act(yo.float(), act).to(out_dtype)
@@ -386,9 +401,11 @@ def position_mask(qpos, kpos, causal: bool, window):
 
 
 def attention_reference(q, k, v, q_pos, kv_pos, *, causal=True,
-                        window=None):
+                        window=None, return_lse: bool = False):
     """Direct-softmax attention in the folded ``(BH, S, D)`` layout;
-    fully masked rows return 0 (denominator clamp)."""
+    fully masked rows return 0 (denominator clamp).  ``return_lse`` also
+    returns each row's f32 ``m + log(l)`` ``(BH, S)``, -inf for a fully
+    masked row."""
     d = q.shape[-1]
     s = torch.einsum("bqd,btd->bqt", q.float(), k.float()) / math.sqrt(d)
     valid = position_mask(q_pos[:, :, None], kv_pos[:, None, :], causal,
@@ -397,8 +414,9 @@ def attention_reference(q, k, v, q_pos, kv_pos, *, causal=True,
     m = torch.clamp(torch.amax(s, -1, keepdim=True), min=-1e30)
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     o = torch.einsum("bqt,btd->bqd", p, v.float())
-    o = o / torch.clamp(p.sum(-1, keepdim=True), min=1e-20)
-    return o.to(q.dtype)
+    l = p.sum(-1, keepdim=True)
+    o = (o / torch.clamp(l, min=1e-20)).to(q.dtype)
+    return (o, (m + torch.log(l))[..., 0]) if return_lse else o
 
 
 def _split_attention(q, k, v, q_pos, kv_pos, *, size: int, causal, window):
@@ -449,21 +467,42 @@ def fold_kv_heads(a: torch.Tensor) -> torch.Tensor:
 
 def kv_cache_attention(q, k_packed, k_scale, v_packed, v_scale, q_pos,
                        kv_pos, *, d: int, causal: bool = True,
-                       window=None) -> torch.Tensor:
+                       window=None, return_lse: bool = False):
     """Plain attention over a contiguous packed KV cache in its own
     layout: ``q (B, H, Sq, d)``, planes ``(B, T, H, n_bits, Dw)``, scales
     ``(B, T, H, 1)``, ``q_pos (B, Sq)``, ``kv_pos (B, T)``.  Folds the
     heads into the batch, dequantizes and runs
     :func:`attention_reference`: the reference's ``reference`` impl of
-    ``ops.kv_cache_attention``.  Returns ``(B, H, Sq, d)``."""
+    ``ops.kv_cache_attention``.  Returns ``(B, H, Sq, d)``, and with
+    ``return_lse`` each row's ``m + log(l)`` ``(B, H, Sq)`` too."""
     b, h, sq, _ = q.shape
     k = dequantize_kv(fold_kv_heads(k_packed), fold_kv_heads(k_scale), d)
     v = dequantize_kv(fold_kv_heads(v_packed), fold_kv_heads(v_scale), d)
     o = attention_reference(
         q.reshape(b * h, sq, q.shape[-1]), k, v,
         torch.repeat_interleave(q_pos, h, 0),
-        torch.repeat_interleave(kv_pos, h, 0), causal=causal, window=window)
+        torch.repeat_interleave(kv_pos, h, 0), causal=causal, window=window,
+        return_lse=return_lse)
+    if return_lse:
+        return o[0].reshape(b, h, sq, d), o[1].reshape(b, h, sq)
     return o.reshape(b, h, sq, d)
+
+
+def combine_partials(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Merge normalized attention partials over disjoint slot sets, in
+    the order of their leading axis (``o (n, ..., d)`` f32, ``lse (n,
+    ...)``), as ``csrc/split_kv.cuh``'s combine merges a split kernel's:
+    ``M = max lse``, weights ``e^(lse - M)`` summed in order, ``sum w o /
+    max(sum w, 1e-20)`` in f32.  A row no part sees (every lse -inf)
+    returns 0."""
+    mx = torch.clamp(lse.amax(0), min=-1e30)
+    acc = l = None
+    for i in range(o.shape[0]):
+        w = torch.exp(lse[i] - mx)
+        l = w if l is None else l + w
+        a = o[i].float() * w[..., None]
+        acc = a if acc is None else acc + a
+    return acc / torch.clamp(l, min=1e-20)[..., None]
 
 
 RING_TILE = 32      # ring slots a K6 tile (csrc/flash_attention.cu's BT)

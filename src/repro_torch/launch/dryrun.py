@@ -36,19 +36,24 @@ cell quantizes the parameters (``quantize_params``), makes the caches
 :func:`~repro_torch.distributed.sharding.sharded_serve_step`; the
 quantized kernels take their meta route (:mod:`repro_torch.kernels
 .meta`), which counts their work from shapes: K4's segments are taken
-as full (``moe_rows: "capacity"`` in the record).
+as full (``moe_rows: "capacity"`` in the record).  The serve step is
+tensor-, sequence- and expert-parallel over "model"
+(:mod:`repro_torch.distributed.tensor_parallel`'s serve mode): each
+block's weights gathered over the DP axes at its use with the "model"
+shard kept, column products on the rank's rows, row products on its
+K-shard, decode attention over the rank's slots of the caches, which
+stay on their sequence shard; a prefill gathers one layer's cache at a
+time.
 
 The record, for rank 0 (every rank's shards have one shape):
 
 * ``memory``: ``param_bytes``, ``opt_bytes``, ``batch_bytes`` and
   ``cache_bytes``, the bytes of each argument tree's local shards,
-  exactly, and ``argument_bytes``, their sum; ``gathered_bytes``, in a
-  train cell the most bytes of gathered weights alive at once in the
-  step, counted by its gathers (each unit's weights are gathered inside
-  its checkpoint and freed after it), in a serve cell the bytes of every
-  weight whole, which ``sharded_serve_step`` gathers at its start (and
-  ``gathered_cache_bytes``, the caches gathered to the rank's batch
-  rows); ``peak_bytes``, an estimate
+  exactly, and ``argument_bytes``, their sum; ``gathered_bytes``, the
+  most bytes of gathered weights alive at once in the step, counted by
+  its gathers (a train cell's units gather theirs inside the
+  checkpoint, a serve cell's blocks at their use; each freed after
+  it); ``peak_bytes``, an estimate
   of the step's peak: the arguments plus the most bytes of storage that
   the step's own ops held live at once (every op's new storages, each
   counted until it is freed, views counted with their base).  It leaves
@@ -64,6 +69,10 @@ The record, for rank 0 (every rank's shards have one shape):
   (``load_kernels``: K3 at ``quantize_params``).
 * ``collectives``: count and bytes (the larger of a call's input and
   output, on this rank) by collective.
+* ``fallbacks`` (a serve cell): the named fallbacks its step took
+  (whole heads, a row product whole, the SSM mixer whole, experts whole
+  on dispatch-row shards, ...); the residual stream is whole over
+  "model" in every serve cell.
 
 The reference's ``hlo`` block (XLA's op names and ``cost_analysis``)
 has no counterpart and is left out.
@@ -163,11 +172,6 @@ def local_bytes(tree) -> int:
     """Bytes of this rank's shards of every tensor of ``tree``."""
     return sum(_local(t).numel() * _local(t).element_size()
                for t in _tensors(tree))
-
-
-def whole_bytes(tree) -> int:
-    """Bytes of every tensor of ``tree`` whole."""
-    return sum(t.numel() * t.element_size() for t in _tensors(tree))
 
 
 def n_tensors(tree) -> int:
@@ -327,11 +331,17 @@ def serve_state(cfg, mesh, batch, seq, mode, *, device="meta",
 
 
 def serve_step(cfg, mesh, state, mode):
+    """One sharded prefill or decode step (:func:`repro_torch.distributed
+    .sharding.sharded_serve_step`).  Returns its logits, its caches, the
+    most bytes of gathered weights it held at once and its named
+    fallbacks."""
     fn = E.prefill_step if mode == "prefill" else E.serve_step
     step = S.sharded_serve_step(
         functools.partial(fn, cfg=cfg, quant=cfg.quant), mesh)
     with torch.no_grad():
-        return step(state["params"], state["batch"], state["caches"])
+        logits, caches = step(state["params"], state["batch"],
+                              state["caches"])
+    return logits, caches, step.gathered_bytes, step.fallbacks
 
 
 def measure(cfg, mesh, mode, batch, seq, opts=()) -> dict:
@@ -357,12 +367,9 @@ def measure(cfg, mesh, mode, batch, seq, opts=()) -> dict:
         if mode == "train":
             mem["gathered_bytes"] = train_step(cfg, mesh, state)[1]
         else:
-            serve_step(cfg, mesh, state, mode)
+            _, _, mem["gathered_bytes"], fallbacks = serve_step(
+                cfg, mesh, state, mode)
     S.set_activation_context(None)
-    if mode != "train":
-        mem["gathered_bytes"] = whole_bytes(state["params"])
-        mem["gathered_cache_bytes"] = _gathered_cache_bytes(mesh,
-                                                            state["caches"])
     mem["peak_bytes"] = mem["argument_bytes"] + counter.peak
     kernels = tally.by_kernel()
     rec = dict(
@@ -374,25 +381,11 @@ def measure(cfg, mesh, mode, batch, seq, opts=()) -> dict:
         collectives={k: dict(count=c, bytes=b)
                      for k, (c, b) in sorted(counter.collectives.items())})
     if mode != "train":
+        rec["fallbacks"] = fallbacks
         rec["load_kernels"] = state["load_kernels"]
         if any(k.startswith("K4") for k in kernels):
             rec["moe_rows"] = "capacity"
     return rec
-
-
-def _gathered_cache_bytes(mesh, caches) -> int:
-    """The caches' bytes on a rank once gathered to its batch rows (every
-    mesh dim but the DP ones replicated)."""
-    from repro_torch.launch.mesh import dp_axes
-    dp = dp_axes(mesh)
-    total = 0
-    for t in _tensors(caches):
-        n = t.numel() * t.element_size()
-        for i, (a, pl) in enumerate(zip(mesh.mesh_dim_names, t.placements)):
-            if a in dp and pl.is_shard():
-                n //= mesh.size(i)
-        total += n
-    return total
 
 
 # ---------------------------------------------------------------------------
@@ -435,8 +428,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             if "attn_chunks" in opts:
                 rec["attn_chunks"] = (
                     "pins nothing the step does not already do: the "
-                    "KV-chunk axis is never sharded (a train step's heads "
-                    "are the rank's own, a serve step's whole)")
+                    "KV-chunk axis is never sharded (a train step's and "
+                    "a serve prefill's heads are the rank's own)")
             rec["status"] = "ok"
         except Exception as e:  # noqa: BLE001 -- a failed cell is a report
             rec.update(status="failed", error=f"{type(e).__name__}: {e}",

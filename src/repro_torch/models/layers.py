@@ -94,9 +94,18 @@ def linear_apply(params: dict, x: torch.Tensor, *, quant=None,
 
     A weight the sharded step gathered carries its tensor-parallel kind
     in ``params["tp"]``: the product is then :func:`repro_torch
-    .distributed.tensor_parallel.tp_linear`'s, in the weight's dtype."""
+    .distributed.tensor_parallel.tp_linear`'s, in the weight's dtype.  A
+    serve step's row weight (its K-shard, ``params["k"]``) runs
+    :func:`~repro_torch.distributed.tensor_parallel.row_product` on the
+    input's matching columns: the same bits as the whole product."""
     w = params["w"]
-    if "tp" in params:
+    if "k" in params:
+        # a serve step's row product: the columns of x its K-shard reads
+        x = TP.row_columns(x, params)
+        if w.shape[-1] < params["k"][1]:
+            return TP.row_product(x, w, quant=quant, act=act,
+                                  residual=residual, out_dtype=x.dtype)
+    elif "tp" in params:
         return _epilogue(TP.tp_linear(x, w, params["tp"]), act, residual,
                          w.dtype)
     if _use_fused_linear(w, quant):
@@ -333,14 +342,16 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
 
 def _attn_core(q, k, v, q_pos, kv_pos, *, causal: bool,
                window: Optional[int], chunked: bool,
-               score_bf16: bool = False):
+               score_bf16: bool = False, return_lse: bool = False):
     """Online-softmax GQA core over float K/V, in plain torch (the
     reference keeps it in jnp, outside any kernel).
 
     q: (B, Hkv, Sq, D) with Sq = groups*S folded; k/v: (B, Hkv, T, D);
     q_pos: (B, Sq) absolute positions; kv_pos: (B, T), negative =
     invalid.  ``chunked`` walks the KV axis in ``ATTN_KV_CHUNK`` slots
-    with a running max and denominator.  Returns f32 (B, Hkv, Sq, D)."""
+    with a running max and denominator.  Returns f32 (B, Hkv, Sq, D), and
+    with ``return_lse`` each row's ``m + log(l)`` ``(B, Hkv, Sq)`` (-inf
+    where no slot is visible)."""
     b, hk, sq, d = q.shape
     t = k.shape[2]
     qf = q.float() * (1.0 / np.sqrt(d))
@@ -360,7 +371,9 @@ def _attn_core(q, k, v, q_pos, kv_pos, *, causal: bool,
         m = torch.clamp(s.amax(-1, keepdim=True), min=-1e30)
         p = torch.exp(s - m)          # fully-masked rows stay finite
         o = torch.einsum("bhqt,bhtd->bhqd", p, v.float())
-        return o / torch.clamp(p.sum(-1, keepdim=True), min=1e-20)
+        lsum = p.sum(-1, keepdim=True)
+        o = o / torch.clamp(lsum, min=1e-20)
+        return (o, (m + torch.log(lsum))[..., 0]) if return_lse else o
 
     nc = -(-t // ATTN_KV_CHUNK)
     pad = nc * ATTN_KV_CHUNK - t
@@ -388,7 +401,8 @@ def _attn_core(q, k, v, q_pos, kv_pos, *, causal: bool,
         acc = acc * alpha + torch.einsum(
             "bhqt,bhtd->bhqd", p.float(), v[:, :, sl].to(p.dtype).float())
         m = m_new
-    return acc / torch.clamp(lsum, min=1e-20)
+    o = acc / torch.clamp(lsum, min=1e-20)
+    return (o, (m + torch.log(lsum))[..., 0]) if return_lse else o
 
 
 def _paged_write_and_read(cache, qg, qp, k, v, pos2d, cfg: ModelConfig,
@@ -505,85 +519,202 @@ def attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
     k = linear_apply(params["wk"], x, quant=quant)
     s = q.shape[1]      # the whole sequence, from the rank's part of it
     h, hk = q.shape[-1] // dh, k.shape[-1] // dh
-    g = h // hk
     q = q.reshape(b, s, h, dh)
     k = k.reshape(b, s, hk, dh)
     v = linear_apply(params["wv"], x, quant=quant).reshape(b, s, hk, dh)
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
+    kv_heads = None         # the KV heads the rank's q heads read
+    seq = cache is not None and "seq_shard" in cache
+    if TP.serving():
+        if seq and s == 1:
+            o, new_cache = _decode_seq_parallel(cache, q, k, v, pos2d, cfg,
+                                                causal)
+            return linear_apply(params["wo"], o.to(x.dtype), quant=quant,
+                                residual=residual), new_cache
+        q, k, v, kv_heads = _serve_heads(q, k, v, cfg)
+        h = q.shape[2]
+        hk = kv_heads[1] - kv_heads[0]
+    g = h // hk
     # fold the GQA group into the query-sequence axis: (B, Hkv, G*S, D)
     qg = q.reshape(b, s, hk, g, dh).permute(0, 2, 3, 1, 4).reshape(
         b, hk, g * s, dh)
     qp = pos2d[:, None, :].expand(b, g, s).reshape(b, g * s)
 
-    new_cache = None
-    quant_kv = None
     if cache is not None and "block_tables" in cache:
         o, new_cache = _paged_write_and_read(cache, qg, qp, k, v, pos2d,
                                              cfg, causal)
+    elif cache is not None:
+        # a serve prefill: the layer's cache with every slot, the rank's
+        # slots written back after
+        whole = TP.gather_cache(cache) if seq else cache
+        o, new_cache = _ring_attend(whole, qg, qp, k, v, pos2d, cfg,
+                                    causal, kv_heads)
+        if seq:
+            new_cache = TP.keep_cache(new_cache, cache)
     else:
-        if cache is not None:
-            kv_bits = cache["k"].shape[-2] if "k_scale" in cache else None
-            cache_len = cache["k"].shape[1]
-            if s > cache_len:
-                # SWA prefill longer than the ring: attend over the
-                # in-sequence K/V directly, then store only the last
-                # cache_len entries (slot order is irrelevant -- masking
-                # is by absolute position)
-                tail_k, tail_v = k[:, -cache_len:], v[:, -cache_len:]
-                if kv_bits:
-                    for key, src in (("k", tail_k), ("v", tail_v)):
-                        planes, scale = ops.quantize_kv(src, kv_bits)
-                        cache[key].copy_(planes)
-                        cache[key + "_scale"].copy_(scale)
-                else:
-                    cache["k"].copy_(tail_k)
-                    cache["v"].copy_(tail_v)
-                cache["pos"].copy_(pos2d[:, -cache_len:])
-                new_cache = dict(cache,
-                                 index=torch.zeros_like(cache["index"]))
-                kv_pos = pos2d
-            else:
-                # write the new K/V at per-row ring positions (continuous
-                # batching: each batch row advances independently)
-                idx = cache["index"]
-                if kv_bits:
-                    for key, src in (("k", k), ("v", v)):
-                        planes, scale = ops.quantize_kv(src, kv_bits)
-                        _ring_write(cache, key, planes, idx)
-                        _ring_write(cache, key + "_scale", scale, idx)
-                    quant_kv = (cache["k"], cache["k_scale"], cache["v"],
-                                cache["v_scale"])
-                else:
-                    _ring_write(cache, "k", k, idx)
-                    _ring_write(cache, "v", v, idx)
-                    k, v = cache["k"], cache["v"]
-                _ring_write(cache, "pos", pos2d, idx)
-                new_cache = dict(cache, index=(idx + s) % cache_len)
-                kv_pos = cache["pos"]
-        else:
-            kv_pos = pos2d
-        if quant_kv is not None:
-            # the reference folds the heads into the batch and calls
-            # ops.kv_cache_attention; the ring op computes the same on the
-            # cache's own layout, so no step copies the ring
-            o = ops.ring_kv_cache_attention(
-                qg, *quant_kv, qp, kv_pos, d=dh, causal=causal,
-                window=cfg.window)
-        else:
-            # decode (s == 1) is a skinny GEMV -- direct; long prefill
-            # sequences use the KV-chunked online softmax to bound the
-            # score transient
-            chunked = s > 1 and k.shape[1] > ATTN_CHUNK_THRESHOLD
-            kt, vt = TP.shared_kv(k.transpose(1, 2), v.transpose(1, 2),
-                                  cfg.n_kv_heads)
-            o = _attn_core(qg, kt, vt, qp, kv_pos, causal=causal,
-                           window=cfg.window, chunked=chunked,
-                           score_bf16=cfg.attn_score_bf16)
+        new_cache = None
+        kt, vt = (t[:, :, slice(*kv_heads) if kv_heads else slice(None)]
+                  .transpose(1, 2) for t in (k, v))
+        kt, vt = TP.shared_kv(kt, vt, cfg.n_kv_heads)
+        o = _attn_core(qg, kt, vt, qp, pos2d, causal=causal,
+                       window=cfg.window, chunked=s > ATTN_CHUNK_THRESHOLD,
+                       score_bf16=cfg.attn_score_bf16)
     o = o.reshape(b, hk, g, s, dh).permute(0, 3, 1, 2, 4).reshape(
         b, s, h * dh).to(x.dtype)
     return linear_apply(params["wo"], o, quant=quant,
                         residual=residual), new_cache
+
+
+def _ring_attend(cache, qg, qp, k, v, pos2d, cfg: ModelConfig,
+                 causal: bool, kv_heads=None):
+    """The contiguous branch of :func:`attention_apply`: the step's K/V
+    ``(B, s, Hkv, d)`` (every KV head) written at each row's ring index,
+    then ``qg`` attends to KV heads ``kv_heads`` (``(lo, hi)``; None:
+    all) through K6 (packed planes) or :func:`_attn_core` (float).
+    Returns ``(o, new cache)``."""
+    s = pos2d.shape[1]
+    dh = cfg.head_dim
+    heads = slice(None) if kv_heads is None else slice(*kv_heads)
+    kv_bits = cache["k"].shape[-2] if "k_scale" in cache else None
+    cache_len = cache["k"].shape[1]
+    quant_kv = None
+    if s > cache_len:
+        # SWA prefill longer than the ring: attend over the in-sequence
+        # K/V directly, then store only the last cache_len entries (slot
+        # order is irrelevant -- masking is by absolute position)
+        tail_k, tail_v = k[:, -cache_len:], v[:, -cache_len:]
+        if kv_bits:
+            for key, src in (("k", tail_k), ("v", tail_v)):
+                planes, scale = ops.quantize_kv(src, kv_bits)
+                cache[key].copy_(planes)
+                cache[key + "_scale"].copy_(scale)
+        else:
+            cache["k"].copy_(tail_k)
+            cache["v"].copy_(tail_v)
+        cache["pos"].copy_(pos2d[:, -cache_len:])
+        new_cache = dict(cache, index=torch.zeros_like(cache["index"]))
+        kv_pos = pos2d
+    else:
+        # write the new K/V at per-row ring positions (continuous
+        # batching: each batch row advances independently)
+        idx = cache["index"]
+        if kv_bits:
+            for key, src in (("k", k), ("v", v)):
+                planes, scale = ops.quantize_kv(src, kv_bits)
+                _ring_write(cache, key, planes, idx)
+                _ring_write(cache, key + "_scale", scale, idx)
+            quant_kv = tuple(cache[key][:, :, heads] for key in
+                             ("k", "k_scale", "v", "v_scale"))
+        else:
+            _ring_write(cache, "k", k, idx)
+            _ring_write(cache, "v", v, idx)
+            k, v = cache["k"], cache["v"]
+        _ring_write(cache, "pos", pos2d, idx)
+        new_cache = dict(cache, index=(idx + s) % cache_len)
+        kv_pos = cache["pos"]
+    if quant_kv is not None:
+        # the reference folds the heads into the batch and calls
+        # ops.kv_cache_attention; the ring op computes the same on the
+        # cache's own layout, so no step copies the ring
+        o = ops.ring_kv_cache_attention(
+            qg, *quant_kv, qp, kv_pos, d=dh, causal=causal,
+            window=cfg.window)
+    else:
+        # decode (s == 1) is a skinny GEMV -- direct; long prefill
+        # sequences use the KV-chunked online softmax to bound the score
+        # transient
+        chunked = s > 1 and k.shape[1] > ATTN_CHUNK_THRESHOLD
+        kt, vt = TP.shared_kv(k[:, :, heads].transpose(1, 2),
+                              v[:, :, heads].transpose(1, 2),
+                              cfg.n_kv_heads)
+        o = _attn_core(qg, kt, vt, qp, kv_pos, causal=causal,
+                       window=cfg.window, chunked=chunked,
+                       score_bf16=cfg.attn_score_bf16)
+    return o, new_cache
+
+
+def _serve_heads(q, k, v, cfg: ModelConfig):
+    """A serve step's head-parallel attention: ``(q, k, v, kv_heads)``,
+    the rank's q heads, every KV head (gathered over "model" where the
+    projections gave the rank's; a cache's writes need them all) and the
+    range of KV heads its q heads read."""
+    h_all, hk_all = cfg.n_heads, cfg.n_kv_heads
+    h = q.shape[2]
+    k = TP.gather_heads(k, hk_all)
+    v = TP.gather_heads(v, hk_all)
+    g = h_all // hk_all
+    q0 = 0 if h == h_all else TP.model_rank() * h
+    return q, k, v, (q0 // g, q0 // g + max(1, h // g))
+
+
+def _ring_write_owned(buf: torch.Tensor, new: torch.Tensor,
+                      local: torch.Tensor, own: torch.Tensor) -> None:
+    """Write one token ``new (B, 1, ...)`` at each row's slot ``local`` of
+    the rank's sequence shard ``buf (B, L_l, ...)``, in place, on the
+    rows that own the slot (the others write their own value back: no
+    host sync)."""
+    b = new.shape[0]
+    rows = torch.arange(b, device=buf.device)
+    col = torch.clamp(local, 0, buf.shape[1] - 1).long()
+    keep = own.reshape((b,) + (1,) * (new.ndim - 2))
+    buf[rows, col] = torch.where(keep, new[:, 0].to(buf.dtype),
+                                 buf[rows, col])
+
+
+def _decode_seq_parallel(cache, q, k, v, pos2d, cfg: ModelConfig,
+                         causal: bool):
+    """A serve step's decode over a sequence-sharded ring: every head's
+    q, k and v (gathered over "model"), the new K/V row written by the
+    rank that owns slot ``index`` of the whole ring, every head attending
+    to the rank's own slots, and the ranks' ``(o, lse)`` combined
+    (:func:`repro_torch.distributed.tensor_parallel.combine_over_model`).
+    Returns ``(o (B, 1, H d) f32, new cache)``."""
+    b, dh = q.shape[0], cfg.head_dim
+    q = TP.gather_heads(q, cfg.n_heads)
+    k = TP.gather_heads(k, cfg.n_kv_heads)
+    v = TP.gather_heads(v, cfg.n_kv_heads)
+    h, hk = q.shape[2], k.shape[2]
+    g = h // hk
+    lo, length = cache["seq_shard"]
+    idx = cache["index"]
+    local = idx - lo
+    own = (local >= 0) & (local < cache["pos"].shape[1])
+    if "k_scale" in cache:
+        kv_bits = cache["k"].shape[-2]
+        for key, src in (("k", k), ("v", v)):
+            planes, scale = ops.quantize_kv(src, kv_bits)
+            _ring_write_owned(cache[key], planes, local, own)
+            _ring_write_owned(cache[key + "_scale"], scale, local, own)
+    else:
+        _ring_write_owned(cache["k"], k, local, own)
+        _ring_write_owned(cache["v"], v, local, own)
+    _ring_write_owned(cache["pos"], pos2d, local, own)
+    new_cache = dict(cache, index=(idx + 1) % length)
+    qg = q.reshape(b, hk, g, dh)
+    qp = pos2d.expand(b, g)
+    o = _attend_partial(cache, qg, qp, cache["pos"], cfg, causal,
+                        cfg.window)
+    return o.reshape(b, 1, h * dh), new_cache
+
+
+def _attend_partial(cache, qg, qp, kv_pos, cfg: ModelConfig, causal: bool,
+                    window):
+    """Every head's queries ``qg (B, Hkv, G, d)`` over the rank's slots of
+    ``cache``: each rank's f32 ``(o, lse)`` (K6 with its lse output on
+    packed planes, :func:`_attn_core` on float K/V), combined over
+    "model".  Returns f32 ``(B, Hkv, G, d)``."""
+    if "k_scale" in cache:
+        o, lse = ops.ring_kv_cache_attention(
+            qg.float(), cache["k"], cache["k_scale"], cache["v"],
+            cache["v_scale"], qp, kv_pos, d=cfg.head_dim, causal=causal,
+            window=window, return_lse=True)
+    else:
+        o, lse = _attn_core(qg, cache["k"].transpose(1, 2),
+                            cache["v"].transpose(1, 2), qp, kv_pos,
+                            causal=causal, window=window, chunked=False,
+                            return_lse=True)
+    return TP.combine_over_model(o, lse)
 
 
 def make_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -705,6 +836,9 @@ def cross_attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
     :func:`_attn_core`.  A contiguous cache's leaves are replaced by the
     prefill's, as the reference does.  ``residual`` (the block input) is
     fused into the output projection.  Returns ``(out, cache)``."""
+    if TP.serving():
+        return _cross_serve(params, x, cfg, memory=memory, cache=cache,
+                            quant=quant, residual=residual)
     b, s, _ = x.shape
     dh = cfg.head_dim
     q = linear_apply(params["wq"], x, quant=quant)
@@ -768,6 +902,82 @@ def cross_attention_apply(params: dict, x: torch.Tensor, cfg: ModelConfig,
         o = _attn_core(qg, k.transpose(1, 2), v.transpose(1, 2), qp, kv_pos,
                        causal=False, window=None, chunked=chunked)
     o = o.reshape(b, hk, g, s, dh).permute(0, 3, 1, 2, 4).reshape(
+        b, s, h * dh).to(x.dtype)
+    return linear_apply(params["wo"], o, quant=quant,
+                        residual=residual), new_cache
+
+
+def _cross_serve(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+                 memory, cache, quant, residual):
+    """:func:`cross_attention_apply` in a serve step over a contiguous
+    cross cache: a prefill projects the rank's heads of K/V, gathers
+    every head, keeps the cache's rows of the rank's sequence shard and
+    attends on the rank's heads; a decode attends every head to the
+    rank's encoder rows and combines the ranks' partials (as
+    :func:`_decode_seq_parallel` does, not causal)."""
+    b, dh = x.shape[0], cfg.head_dim
+    q = linear_apply(params["wq"], x, quant=quant)
+    s, h = q.shape[1], q.shape[-1] // dh
+    q = q.reshape(b, s, h, dh)
+    seq = cache is not None and "seq_shard" in cache
+    if memory is None and seq:
+        q = TP.gather_heads(q, cfg.n_heads)
+        h, hk = cfg.n_heads, cfg.n_kv_heads
+        qg = q.reshape(b, s, hk, h // hk, dh).permute(0, 2, 3, 1, 4).reshape(
+            b, hk, -1, dh)
+        qp = torch.zeros(qg.shape[:1] + qg.shape[2:3], dtype=torch.int32,
+                         device=x.device)
+        o = _attend_partial(cache, qg, qp, cache["pos"], cfg, False, None)
+        new_cache = cache
+    else:
+        g = cfg.n_heads // cfg.n_kv_heads
+        q0 = 0 if h == cfg.n_heads else TP.model_rank() * h
+        heads = slice(q0 // g, q0 // g + max(1, h // g))
+        qg = q.reshape(b, s, heads.stop - heads.start, -1, dh).permute(
+            0, 2, 3, 1, 4).reshape(b, heads.stop - heads.start, -1, dh)
+        qp = torch.zeros(qg.shape[:1] + qg.shape[2:3], dtype=torch.int32,
+                         device=x.device)
+        new_cache = cache
+        if memory is not None:
+            t = memory.shape[1]
+            k, v = (TP.gather_heads(linear_apply(params[w], memory,
+                                                 quant=quant).reshape(
+                b, t, -1, dh), cfg.n_kv_heads) for w in ("wk", "wv"))
+            kv_pos = torch.arange(t, dtype=torch.int32,
+                                  device=x.device)[None].repeat(b, 1)
+            if cache is not None and "k_scale" in cache:
+                kv_bits = cache["k"].shape[-2]
+                ck, cks = ops.quantize_kv(k, kv_bits)
+                cv, cvs = ops.quantize_kv(v, kv_bits)
+                leaves = dict(k=ck, v=cv, k_scale=cks, v_scale=cvs)
+            else:
+                leaves = dict(k=k, v=v)
+                if cache is not None:
+                    leaves = {key: t_.to(cache[key].dtype)
+                              for key, t_ in leaves.items()}
+            read = dict(leaves, pos=kv_pos)
+            if cache is not None:
+                if seq:             # the rows of the rank's shard
+                    lo, n = cache["seq_shard"][0], cache["pos"].shape[1]
+                    new_cache = dict(cache, **{key: t_[:, lo:lo + n]
+                                               for key, t_ in read.items()})
+                else:
+                    new_cache = dict(cache, **read)
+        else:
+            read = cache
+        if "k_scale" in read:
+            o = ops.ring_kv_cache_attention(
+                qg, *(read[key][:, :, heads] for key in
+                      ("k", "k_scale", "v", "v_scale")), qp, read["pos"],
+                d=dh, causal=False, window=None)
+        else:
+            kk, vv = read["k"][:, :, heads], read["v"][:, :, heads]
+            o = _attn_core(qg, kk.transpose(1, 2), vv.transpose(1, 2), qp,
+                           read["pos"], causal=False, window=None,
+                           chunked=s > 1 and kk.shape[1]
+                           > ATTN_CHUNK_THRESHOLD)
+    hk = qg.shape[1]
+    o = o.reshape(b, hk, -1, s, dh).permute(0, 3, 1, 2, 4).reshape(
         b, s, h * dh).to(x.dtype)
     return linear_apply(params["wo"], o, quant=quant,
                         residual=residual), new_cache
@@ -879,7 +1089,9 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, quant=None,
     (:func:`repro_torch.distributed.tensor_parallel.expert_rows`); every
     rank then gathers every expert's output rows, combines them as the
     single process does and keeps its part of the tokens
-    (``moe_combine``).  ``aux`` takes its
+    (``moe_combine``).  The sharded serve step keeps ``x`` whole and
+    splits the experts likewise, K4 on the rank's experts or on its part
+    of each group's rows.  ``aux`` takes its
     token and probability sums over the DP axes before the product.
     """
     # the shared experts' input: under tensor parallelism the rank's part
@@ -925,11 +1137,13 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, quant=None,
     flat_e = top_e.reshape(g, tgl * k)                         # (G, Tg*k)
     oh = F.one_hot(flat_e, e).to(torch.int32)                  # (G, Tg*k, E)
     pos = torch.cumsum(oh, dim=1, dtype=torch.int32) - oh      # count before
+    off = None
     if tgl < tg:
         # the group's earlier tokens lie on the preceding DP ranks
         before = TP.dp_gather(oh.sum((0, 1), dtype=torch.int32))
         first = dp_rank - dp_rank % (n_dp // g_all)
-        pos = pos + before[first:dp_rank].sum(0, dtype=torch.int32)
+        off = before[first:dp_rank].sum(0, dtype=torch.int32)
+        pos = pos + off
     pos = torch.gather(pos, 2, flat_e[..., None])[..., 0]
     keep = pos < cap
     slot = torch.where(keep, flat_e * cap + pos, e * cap)      # (G, Tg*k)
@@ -946,17 +1160,33 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, quant=None,
     el = disp.shape[1]                                         # (G, El, C, d)
     disp_e = disp.transpose(0, 1).reshape(el, g * cap, d)      # (El, G*C, d)
     counts = (oh * keep[..., None]).sum(1, dtype=torch.int32)  # (G, E)
-    counts_e = counts.T.contiguous()                           # (E, G)
+    # the grouped kernel's live rows: a segment's kept rows, or where the
+    # group continues the preceding DP ranks' (its rows start at ``off``)
+    # every row up to the rank's last (the ones below ``off`` are zeros
+    # no token reads)
+    live = counts if off is None else torch.clamp(
+        oh.sum(1, dtype=torch.int32) + off, max=cap)
+    counts_e = live.T.contiguous()                             # (E, G)
 
     if isinstance(params["w_up"], BipolarTensor):
-        h = ops.ap_moe_expert_linear(
-            disp_e, params["w_gate"], w2=params["w_up"], counts=counts_e,
-            a_bits=quant.a_bits, act="silu", variant=quant.variant,
-            out_dtype=x.dtype, w_bits=quant.nested_bits)
-        out = ops.ap_moe_expert_linear(
-            h, params["w_down"], counts=counts_e, a_bits=quant.a_bits,
-            variant=quant.variant, out_dtype=x.dtype,
-            w_bits=quant.nested_bits)                          # (E, G*C, d)
+        def q_experts(a, cnt):
+            h = ops.ap_moe_expert_linear(
+                a, params["w_gate"], w2=params["w_up"], counts=cnt,
+                a_bits=quant.a_bits, act="silu", variant=quant.variant,
+                out_dtype=x.dtype, w_bits=quant.nested_bits)
+            return ops.ap_moe_expert_linear(
+                h, params["w_down"], counts=cnt, a_bits=quant.a_bits,
+                variant=quant.variant, out_dtype=x.dtype,
+                w_bits=quant.nested_bits)                      # (E, G*C, d)
+        if el < e:          # the rank's experts (EP)
+            lo = TP.model_rank() * el
+            out = q_experts(disp_e, counts_e[lo:lo + el])
+        elif TP.serving():
+            # experts not split over "model" (mixtral's 8 on 16) run
+            # whole on the rank's part of each group's rows
+            out = TP.expert_rows(disp_e, q_experts, counts_e)
+        else:
+            out = q_experts(disp_e, counts_e)
     else:
         def bmm(w, a):
             return torch.einsum("eck,enk->ecn", a, w.to(a.dtype))
@@ -967,7 +1197,8 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, quant=None,
             return bmm(params["w_down"], h)
         # experts not split over "model" (mixtral's 8 on 16) run whole on
         # the rank's part of the capacity rows; every rank gets every row
-        out = (TP.expert_rows(disp_e, experts) if TP.splits() and not ep
+        out = (TP.expert_rows(disp_e, experts)
+               if (TP.splits() or TP.serving()) and not ep
                else experts(disp_e))
     # every rank's experts (EP): the combine below is the single
     # process's, on every model rank, which keeps its part of the tokens

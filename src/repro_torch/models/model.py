@@ -204,7 +204,9 @@ def _apply_block(p, x, cfg: ModelConfig, mixer_kind: str, ffn_kind: str, *,
     part of the sequence: each norm runs on it, the mixer's and the
     FFN's column-parallel products gather their input's sequence, and
     their row-parallel outputs come back on ``x``'s layout
-    (:mod:`repro_torch.distributed.tensor_parallel`)."""
+    (:mod:`repro_torch.distributed.tensor_parallel`).  Under the serve
+    step's ``x`` is whole and the products split over "model" with the
+    single process's bits."""
     rs = dtype_scalar(cfg.residual_scale, x.dtype)
     fuse_res = (quant is not None and quant.enabled and quant.fused_linear
                 and cfg.residual_scale == 1.0)
@@ -360,19 +362,21 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
         ncs, nxcs, stats, aux = [], [], {}, None
         for i in range(lo, hi):
             mk, fk = plan[i]
-            cross = None
+            cross = xback = None
             if "cross" in params and i >= fd:
+                xc, xback = TP.layer_cache(
+                    caches["cross"][i - fd] if caches is not None else None)
                 cross = (TP.block_params(params["cross"][i - fd], cfg),
-                         memory, caches["cross"][i - fd] if caches is not None
-                         else None)
+                         memory, xc)
+            cache, back = TP.layer_cache(cache_list[i])
             x, nc, mst, nxc, a = _apply_block(
                 TP.block_params(params["layers"][i], cfg, mk), x, cfg, mk,
                 fk, positions=positions,
-                cache=cache_list[i], quant=quant,
+                cache=cache, quant=quant,
                 moe_stats=collect_moe_stats, cross=cross, with_aux=with_aux)
-            ncs.append(nc)
+            ncs.append(TP.rest_cache(nc, back))
             if cross is not None:
-                nxcs.append(nxc)
+                nxcs.append(TP.rest_cache(nxc, xback))
             if mst is not None:
                 stats[i] = mst
             if a is not None:
@@ -486,8 +490,10 @@ def _logit_input(x, cfg: ModelConfig):
 def _project(params, x, cfg: ModelConfig, quant=None):
     """Logits of the scaled hidden states ``x`` over the vocab columns of
     ``lm_head`` (or the tied embedding) that ``params`` holds: all of
-    them, or a shard's."""
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    them, or a shard's (a serve step's: the rank's vocab rows of the
+    weight, a column product)."""
+    head = TP.head(params["embed"] if cfg.tie_embeddings
+                   else params["lm_head"])
     logits = L.linear_apply(head, x, quant=quant)
     if cfg.vocab_padded > cfg.vocab:    # mask vocab-padding slots
         n = logits.shape[-1]

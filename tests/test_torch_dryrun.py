@@ -20,8 +20,12 @@
   equals the count functions of ``kernels.meta`` applied to the CPU's
   calls; a meta tensor never reaches a kernel or moves a launch counter,
   a CPU tensor never reaches the meta route.
-* The CLI, in subprocesses: a dense and a MoE decode cell and the
-  llama3-8b train cell at full size on pod256 (the sharded step's
+* The CLI, in subprocesses: a dense and a MoE decode cell, llama3-8b's
+  prefill cell and its train cell at full size on pod256 (the sharded
+  serve step: at most an eighth of the weights' bytes gathered at once;
+  llama3-8b's decode within 6 GiB at its peak, 0.25 GiB gathered and
+  an eighth of the FLOPs the step took before it split over "model",
+  its prefill within 12 GiB; the sharded training step's
   tensor-parallel compute: at most 1 GiB of weights gathered at once,
   at most 3.5e14 FLOPs a rank, a peak under 80 GB), one ``long_500k``
   cell skipped with the reference's reason, the resume rule, an
@@ -51,6 +55,7 @@ from repro_torch.serving import engine as E
 from test_torch_sharding_rules import _ref_path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GIB = 2 ** 30
 SRC = os.path.join(ROOT, "src")
 
 
@@ -500,10 +505,18 @@ def _done(proc):
     return proc.returncode, out, err
 
 
+# the serve cells before their step split over "model" (pod256, the
+# parent of the sharded serve step): every weight gathered whole at the
+# step's start, in GiB, and llama3-8b decode_32k's FLOPs a rank
+_WHOLE_GIB = {"llama3-8b": 2.7436, "mixtral-8x7b": 11.19}
+_PARENT_DECODE_FLOPS = 1.374e11
+
+
 def test_cli_cells_at_full_size(tmp_path):
     runs = {(a, s): _cli("--arch", a, "--shape", s, out=tmp_path)
             for a, s in (("llama3-8b", "decode_32k"),
                          ("mixtral-8x7b", "decode_32k"),
+                         ("llama3-8b", "prefill_32k"),
                          ("llama3-8b", "long_500k"),
                          ("llama3-8b", "train_4k"))}
     for (a, s), proc in runs.items():
@@ -526,7 +539,10 @@ def test_cli_cells_at_full_size(tmp_path):
                            "cache_bytes"))
         assert m["opt_bytes"] == 0 and m["cache_bytes"] > 0
         assert m["peak_bytes"] > m["argument_bytes"]
-        assert m["gathered_bytes"] > 100 * m["param_bytes"]
+        # the serve step gathers one block's weights at a time, its
+        # "model" shard kept
+        assert 0 < m["gathered_bytes"] <= _WHOLE_GIB[arch] * GIB / 8, m
+        assert isinstance(rec["fallbacks"], list)
         assert rec["int_ops"]["K1"] > 0 and rec["kernels"]["K1"]["calls"]
         assert rec["flops"]["total"] > 0
         assert rec["collectives"]["all_gather_into_tensor"]["count"] > 0
@@ -534,6 +550,17 @@ def test_cli_cells_at_full_size(tmp_path):
         if arch == "mixtral-8x7b":
             assert rec["int_ops"]["K4"] > 0
             assert rec["moe_rows"] == "capacity"
+            assert "experts whole on dispatch-row shards" in rec[
+                "fallbacks"]
+        else:
+            # sequence-parallel decode: the caches stay on their shard
+            assert m["peak_bytes"] <= 6 * GIB, m
+            assert m["gathered_bytes"] <= GIB / 4, m
+            assert 0 < rec["flops"]["total"] <= _PARENT_DECODE_FLOPS / 8
+    with open(tmp_path / "llama3-8b__prefill_32k__pod256.json") as f:
+        rec = json.load(f)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["memory"]["peak_bytes"] <= 12 * GIB, rec["memory"]
     with open(tmp_path / "llama3-8b__train_4k__pod256.json") as f:
         rec = json.load(f)
     assert rec["status"] == "ok", rec.get("traceback")
