@@ -48,11 +48,17 @@ exit and no result line):
    exactly 0 and its live map equal to the analytic one; the unfused
    linear (K3 + K5) equal to the fused one (K1) bit for bit, within 1
    ulp through the SwiGLU; K2, K6 and K7 outputs within 1 bf16 ulp or
-   1e-5, and K6 against K2 on the same K/V; K7's fully masked rows 0),
+   1e-5, and K6 against K2 on the same K/V; K7's fully masked rows 0;
+   K7's f32 route, ``float_attention_kernel``, at the same three cases
+   with f32 q/K/V, within 1e-5 absolute or 1e-6 relative, seen to run
+   alone in the profile and counted as its own kernel,
+   ``flash_attention_f32``),
    with its time (CUDA events, L2 flushed before every launch), its
-   bound on this card (K7's operations at the bf16 tensor-core rate),
+   bound on this card (K7's operations at the bf16 tensor-core rate, its
+   f32 route's at 67 TFLOP/s),
    the plain version's time and the yardsticks (K7: one
-   ``scaled_dot_product_attention`` call, the same function); K1's
+   ``scaled_dot_product_attention`` call in the same dtype, the same
+   function); K1's
    decode cases must run its small-M route and its chunk cases the int8
    tensor-core chunk route of ``csrc/int8_mma.cuh`` (read off the
    kernels that ran, against the library's own ``apmm.small_m_max()``;
@@ -84,7 +90,10 @@ exit and no result line):
    to 8, 3 rows on mixtral and 1 on deepseek); the
    ``bitserial``
    variants of K1, K4 and K5 (the b1 tensor-core core) at the same cases
-   (K5 also at the width pairs a2w8, a8w8, a1w1, a3w5, odd M/N/K):
+   (K5 also at the width pairs a2w8, a8w8, a1w1, a3w5, odd M/N/K; K5-bs's
+   route, its stacked kernel up to ``apmm.packed_bitserial_stack_max()``
+   rows and its rows kernel above, read off the kernels that ran with
+   their device time):
    integer cores bit-exact to their plain versions and to the fused
    kernels, outputs equal to the fused kernels' bit for bit and within
    their tolerance of plain, K4's live map and dead rows as the fused
@@ -172,7 +181,9 @@ exit and no result line):
    is not among their decode steps' shapes; the contiguous paths print K6's shapes
    in the traced admitting and decode steps and the ranges of ring tiles
    it splits each into, and fail if phase 3's ``K6_STEP`` case is not
-   among the decode steps' shapes; the contiguous fused path counts K5's
+   among the decode steps' shapes, and print K5's device ms and launches
+   by kernel in the traced admitting step and decode steps; the
+   contiguous fused path counts K5's
    small-M launches (decode) beside its chunk-route launches (prefill); the
    MoE paths print K4's live rows against its capacity rows and its
    segment heights in both, and fail if phase 3's case for that step
@@ -242,7 +253,8 @@ exit and no result line):
    path and kernel of that path, ``launches`` that path's own count, the
    other numbers those of the phase-3 case at that path's own shape,
    named in ``case`` (``PATH_CASES``; the kernel's shared case where
-   the path has none); K7, on no path, with its phase-3 launches), the
+   the path has none); K7's two routes, on no path, with their phase-3
+   launches), the
    ``nvidia-smi`` line and, last, the JSON device line.
 
 It imports nothing of JAX and nothing of the reference package.
@@ -431,11 +443,16 @@ PREV_MS = {
     "K1-bs chunk down": 11.9667,
     "K4-bs decode gate/up": 0.9255, "K4-bs decode down": 0.8463,
     "K4-bs chunk gate/up": 34.0367, "K4-bs G=32 down": 123.8199,
-    "K5-bs decode q": 0.1162, "K5-bs decode gate": 0.1183,
-    "K5-bs decode down": 0.2986, "K5-bs decode lm_head": 0.5225,
-    "K5-bs chunk q": 0.8467, "K5-bs chunk gate": 2.7359,
-    "K5-bs odd a2w8": 0.0559, "K5-bs odd a8w8": 0.1700,
-    "K5-bs odd a1w1": 0.0622, "K5-bs odd a3w5": 0.0803,
+    # K5-bs on the rows route alone (16 x 64 tiles up to M = 32, 64 x 64
+    # above), before its stacked route: the parent's medians in one
+    # tools/bitserial_ab.py call beside it (PERF.md section 6)
+    "K5-bs decode q": 0.0896, "K5-bs decode gate": 0.0939,
+    "K5-bs decode down": 0.1972, "K5-bs decode lm_head": 0.6482,
+    "K5-bs chunk q": 0.5607, "K5-bs chunk gate": 1.8051,
+    "K5-bs odd, unequal Kw": 0.0500, "K5-bs odd a2w8": 0.0750,
+    "K5-bs odd a8w8": 0.1127, "K5-bs odd a1w1": 0.0538,
+    "K5-bs odd a3w5": 0.0795, "K5-bs stack edge gate": 0.2037,
+    "K5-bs rows edge gate": 0.1642,
     # K2 (one block per q-tile, head and request walking the whole table)
     # and fused K5 (the dp4a tile at every M) before their redesign: the
     # mean of two runs of tools/k2_k5_times.py on that code at these cases
@@ -509,6 +526,13 @@ def bf16_ulps(a, b):
     return (ordinal(a) - ordinal(b)).abs()
 
 
+def device_us(ev) -> float:
+    """A profiler event's own device time, µs (the attribute's name
+    differs between torch versions)."""
+    dev = getattr(ev, "self_device_time_total", None)
+    return getattr(ev, "self_cuda_time_total", 0.0) if dev is None else dev
+
+
 def device_split(torch, timer, fn, iters: int = 10) -> dict:
     """Device ms per call of each kernel ``fn`` launches, by name
     (``torch.profiler``; L2 flushed before each call, as the Timer does;
@@ -532,10 +556,7 @@ def device_split(torch, timer, fn, iters: int = 10) -> dict:
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or ev.key in flush:
             continue
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0.0)
-        out[ev.key] = dev / iters / 1e3
+        out[ev.key] = device_us(ev) / iters / 1e3
     return out
 
 
@@ -1447,13 +1468,32 @@ def _k5_bitserial(torch, timer, name, a, w, fused_ms, b_ms, b_by):
     err = (got.float() - want.float()).abs().max().item()
     if apmm.PACKED_BITSERIAL_LAUNCHES - before != 3:
         raise AssertionError(f"K5 bitserial {name}: launch counter")
-    ms = timer(lambda: apmm.apmm_packed(a, w, variant="bitserial",
-                                        out_dtype=torch.bfloat16), iters=10)
+
+    def run():
+        return apmm.apmm_packed(a, w, variant="bitserial",
+                                out_dtype=torch.bfloat16)
+
+    # the route, read off the kernels that ran: the stacked kernel up to
+    # the library's threshold, the rows kernel above (no SU kernel: the
+    # stacked route sums SU from A's staged words)
+    m = a.shape[0]
+    route = "stacked" if m <= apmm.packed_bitserial_stack_max() else "rows"
+    kernels = {r: f"apmm_packed_bitserial_{r}_kernel"
+               for r in ("stacked", "rows")}
+    split = traced_split(torch, timer, run, list(kernels.values()))
+    ran = [k for k in kernel_names(split) if k in kernels.values()]
+    if ran != [kernels[route]]:
+        raise AssertionError(f"K5 bitserial {name}: ran {ran}, but the "
+                             f"threshold "
+                             f"{apmm.packed_bitserial_stack_max()} gives "
+                             f"M={m} the {route} route alone")
+    ms = timer(run, iters=10)
     plain = timer(lambda: apmm.apmm_packed_plain(
         a, w, variant="bitserial", out_dtype=torch.bfloat16), iters=2,
         warmup=1)
-    print(f"K5 apmm_packed_bitserial {name} a{a.n_bits}w{w.n_bits}: raw "
-          f"int32 and f32/bf16 dequant bit-exact to plain and fused; "
+    print(f"K5 apmm_packed_bitserial {name} M={m} a{a.n_bits}w{w.n_bits}: "
+          f"raw int32 and f32/bf16 dequant bit-exact to plain and fused; "
+          f"{route} route (device ms: {split_line(split)}); "
           f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, the fused row's; "
           f"{100 * b_ms / ms:.1f}% of bound; "
           f"{versus_prev('K5-bs ' + name, b_ms)}), fused kernel "
@@ -1506,8 +1546,14 @@ K5_CASES = (("decode q", 4, 4096, 4096, {}),
 
 
 def k5_phase(torch, timer, seed, results):
+    from repro_torch.kernels import apmm
     g = torch.Generator(device="cuda").manual_seed(seed + 4)
-    for name, m, n, k, kw in K5_CASES:
+    # the bitserial variant's route edge: its stacked route's last M and
+    # the rows route's first, at the decode gate shape
+    edge = apmm.packed_bitserial_stack_max()
+    cases = list(K5_CASES) + [("stack edge gate", edge, 14336, 4096, {}),
+                              ("rows edge gate", edge + 1, 14336, 4096, {})]
+    for name, m, n, k, kw in cases:
         r, bs = _k5_case(torch, timer, g, name, m, n, k, **kw)
         results["apmm_packed", name] = r
         results["apmm_packed_bitserial", name] = bs
@@ -1635,16 +1681,106 @@ def _k6_check(torch, timer, results, name, args, *, h, d, n_bits,
     return got
 
 
+def _k7_case(torch, timer, results, name, qf, kf, vf, qpf, kpf, window):
+    """K7 at one K6 case's folded K/V in qf's dtype: bf16 takes the
+    tensor-core route (``flash_attention_mma_kernel``, split over T where
+    its C entry plans it), f32 the SIMT route (``float_attention_kernel``,
+    never split), read off the kernels that ran.  Within 1 bf16 ulp or
+    1e-5 of the plain version (f32: 1e-5 absolute or 1e-6 relative, the
+    card tests' f32 rule), fully masked rows exactly 0; its time against
+    its bound (bf16: the tensor-core rate; f32: 67 TFLOP/s) and against
+    one SDPA call in the same dtype.  Records it under ``flash_attention``
+    (bf16) or ``flash_attention_f32``; returns its launches."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, ref
+    bf16 = qf.dtype == torch.bfloat16
+    bh, sq, d = qf.shape
+    key, tag = ("flash_attention", "") if bf16 else \
+        ("flash_attention_f32", " f32")
+    before = flash_attention.FLOAT_LAUNCHES
+
+    def run7():
+        return flash_attention.flash_attention(qf, kf, vf, qpf, kpf,
+                                               window=window)
+
+    def run7_plain():
+        return ref.flash_attention(qf, kf, vf, qpf, kpf, window=window)
+
+    got, want = run7(), run7_plain()
+    if bf16:
+        ok, err, ulps = _within(got, want)
+        tol = f"max {ulps} bf16 ulps beyond 1e-5 (tol 1)"
+    else:
+        diff = (got - want).abs()
+        ok = bool(((diff <= 1e-5) | (diff <= 1e-6 * want.abs())).all())
+        err = diff.max().item()
+        tol = "tol 1e-5 absolute or 1e-6 relative"
+    if not ok:
+        raise AssertionError(f"K7{tag} {name}: beyond its tolerance (max "
+                             f"|err| {err})")
+    pads = qpf < 0                        # the prefill's padded rows
+    if pads.any() and got[pads].abs().max() != 0:
+        raise AssertionError(f"K7{tag} {name}: a fully masked row is not 0")
+    if flash_attention.FLOAT_LAUNCHES - before != 1:
+        raise AssertionError(f"K7{tag} {name}: launch counter")
+    n_split = flash_attention.float_splits(bh, sq, kf.shape[1], qf.dtype)
+    if not bf16:
+        split = traced_split(torch, timer, run7, ["float_attention_kernel"])
+        ran = [k for k in kernel_names(split) if k in (
+            "float_attention_kernel", "flash_attention_mma_kernel",
+            "combine_kernel")]
+        if ran != ["float_attention_kernel"] or n_split != 1:
+            raise AssertionError(f"K7 f32 {name}: ran {ran}, {n_split} T "
+                                 f"range(s), not float_attention_kernel "
+                                 f"alone")
+    ms = timer(run7, iters=20)
+    plain = timer(run7_plain, iters=3, warmup=1)
+    size = qf.element_size()
+    io = 2 * qf.numel() * size + qpf.numel() * 4 + kpf.numel() * 4
+    b_ms, b_by = _attn_bound(torch, qpf, kpf, 1, d, 2 * size * d, io,
+                             BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S,
+                             window)
+    # the library yardstick: one SDPA call with the boolean position mask
+    # computes K7's function on query rows that see some slot (SDPA turns
+    # a fully masked row into NaN; K7 into 0)
+    seen = ref.position_mask(qpf[:, :, None], kpf[:, None, :], True,
+                             window).any(-1).all(0)
+    qs, qps = qf[:, seen], qpf[:, seen]
+    mask = ref.position_mask(qps[:, :, None], kpf[:, None, :], True, window)
+    lib = timer(lambda: F.scaled_dot_product_attention(
+        qs, kf, vf, attn_mask=mask), iters=20)
+    lib_err = (F.scaled_dot_product_attention(qs, kf, vf, attn_mask=mask)
+               .float() - want[:, seen].float()).abs().max().item()
+    route = (f"mma route, {n_split} T range(s)" if bf16 else
+             f"SIMT route (device ms: {split_line(split)})")
+    print(f"K7 flash_attention {name} BH={bh} Sq={sq} T={kf.shape[1]} "
+          f"d={d} {'bf16' if bf16 else 'f32'}, {route}: max|err| "
+          f"{err:.3g}, {tol}; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+          f"{100 * b_ms / ms:.1f}% of bound; "
+          f"{versus_prev('K7' + tag + ' ' + name, b_ms)}), plain "
+          f"{plain:.4f} ms; "
+          f"library: scaled_dot_product_attention with a boolean mask "
+          f"over the {qs.shape[1]} of {sq} query rows that see a slot "
+          f"{lib:.4f} ms (max|err| vs plain {lib_err:.3g})", flush=True)
+    results[key, name] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+    launches = flash_attention.FLOAT_LAUNCHES - before
+    del got, want
+    return launches
+
+
 def k6_k7_phase(torch, timer, seed, results):
     """K6 over a contiguous packed ring and K7 over the same K/V in
     bf16, at llama3-8b's shapes (8 kv heads, GQA group 4, d 128): decode
     (4 rows, ring 1024 with 632 live slots), the bucketed prefill of the
     600-token prompt (4 x 1024 query rows, T 1024), a 256-slot window,
-    and a fully masked query row; K6 against K2 on the same K/V."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, ref
+    and a fully masked query row; K6 against K2 on the same K/V; K7's
+    bf16 (tensor-core) and f32 (SIMT) routes at each case (``_k7_case``).
+    Returns K7's launches by route."""
+    from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
     h, d, n_bits = 8, 128, 8
+    launches = {torch.bfloat16: 0, torch.float32: 0}
     for name, kw, window in K6_CASES:
         q, kv, planes, pos, q_pos7 = _ring_case(torch, g, h=h, d=d,
                                                 n_bits=n_bits, **kw)
@@ -1660,62 +1796,20 @@ def k6_k7_phase(torch, timer, seed, results):
             if got[3, :, 0].abs().max() != 0:
                 raise AssertionError("K6: a fully masked row is not 0")
             _k6_vs_k2(torch, q, planes, pos, q_pos, d)
-        # K7 on the same K/V in bf16, folded (B*H, T, d); its decode
-        # queries have no fully masked row (the prefill's pads do)
+        # K7 on the same K/V in bf16, then in f32, folded (B*H, T, d); its
+        # decode queries have no fully masked row (the prefill's pads do)
         qf = q.reshape(b * h, sq, d)
         kf, vf = (ref.fold_kv_heads(x) for x in (kv[0], kv[1]))
         qpf = q_pos7.repeat_interleave(h, 0)
         kpf = pos.repeat_interleave(h, 0)
-
-        def run7():
-            return flash_attention.flash_attention(qf, kf, vf, qpf, kpf,
-                                                   window=window)
-
-        def run7_plain():
-            return ref.flash_attention(qf, kf, vf, qpf, kpf, window=window)
-
-        got, want = run7(), run7_plain()
-        ok, err, ulps = _within(got, want)
-        if not ok:
-            raise AssertionError(f"K7 {name}: beyond 1 bf16 ulp and 1e-5 "
-                                 f"(max |err| {err})")
-        pads = qpf < 0                        # the prefill's padded rows
-        if pads.any() and got[pads].abs().max() != 0:
-            raise AssertionError(f"K7 {name}: a fully masked row is not 0")
-        ms = timer(run7, iters=20)
-        plain = timer(run7_plain, iters=3, warmup=1)
-        io = 2 * qf.numel() * 2 + qpf.numel() * 4 + kpf.numel() * 4
-        b_ms, b_by = _attn_bound(torch, qpf, kpf, 1, d, 2 * 2 * d, io,
-                                 BF16_FLOPS_PER_S, window)
-        # the library yardstick: one SDPA call with the boolean position
-        # mask computes K7's function on query rows that see some slot
-        # (SDPA turns a fully masked row into NaN; K7 into 0)
-        seen = ref.position_mask(qpf[:, :, None], kpf[:, None, :], True,
-                                 window).any(-1).all(0)
-        qs, qps = qf[:, seen], qpf[:, seen]
-        mask = ref.position_mask(qps[:, :, None], kpf[:, None, :], True,
-                                 window)
-        lib = timer(lambda: F.scaled_dot_product_attention(
-            qs, kf, vf, attn_mask=mask), iters=20)
-        lib_err = (F.scaled_dot_product_attention(qs, kf, vf, attn_mask=mask)
-                   .float() - want[:, seen].float()).abs().max().item()
-        n_split = flash_attention.float_splits(b * h, sq, kf.shape[1],
-                                               qf.dtype)
-        print(f"K7 flash_attention {name} BH={b * h} Sq={sq} T={kf.shape[1]} "
-              f"d={d} bf16, mma route, {n_split} T range(s): max|err| "
-              f"{err:.3g}, max {ulps} bf16 ulps beyond 1e-5 (tol 1); "
-              f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-              f"{100 * b_ms / ms:.1f}% of bound; "
-              f"{versus_prev('K7 ' + name, b_ms)}), plain "
-              f"{plain:.4f} ms; "
-              f"library: scaled_dot_product_attention with a boolean mask "
-              f"over the {qs.shape[1]} of {sq} query rows that see a slot "
-              f"{lib:.4f} ms (max|err| vs plain {lib_err:.3g})", flush=True)
-        results["flash_attention", name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
-            bound_by=b_by, library_ms=lib)
-        del q, kv, planes, got, want
+        for dt in (torch.bfloat16, torch.float32):
+            launches[dt] += _k7_case(torch, timer, results, name,
+                                     *(x.to(dt) for x in (qf, kf, vf)), qpf,
+                                     kpf, window)
+        del q, kv, planes, got
         torch.cuda.empty_cache()
+    return {"flash_attention": launches[torch.bfloat16],
+            "flash_attention_f32": launches[torch.float32]}
 
 
 def k6_cross_phase(torch, timer, seed, results):
@@ -1993,9 +2087,7 @@ def profile_steps(torch, step, n_steps: int, kind: str = "decode"):
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0.0)
+        dev = device_us(ev)
         if dev > 0:
             rows.append((dev, ev.count, ev.key))
             busy += dev
@@ -2010,6 +2102,21 @@ def profile_steps(torch, step, n_steps: int, kind: str = "decode"):
     for dev, cnt, key in rows[:12]:
         print(f"  {dev / 1e3:9.3f} ms  {cnt:6d} x  {key[:90]}", flush=True)
     return prof
+
+
+def traced_kernels(torch, prof, pattern: str) -> dict:
+    """Device ms and launches of each kernel of a ``profile_steps`` trace
+    whose name matches ``pattern`` (a regular expression), by its own
+    name."""
+    from torch.autograd import DeviceType
+    out: dict = {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or not re.search(pattern,
+                                                              ev.key):
+            continue
+        ms, n = out.get(kernel_name(ev.key), (0.0, 0))
+        out[kernel_name(ev.key)] = (ms + device_us(ev) / 1e3, n + ev.count)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3380,6 +3487,7 @@ def serve_contiguous_phase(torch, seed, *, n_layers, per_dispatch, n_pack,
             eng.submit(r)
         step_ms = {"prefill": [], "decode": []}
         prof, t_prof, tok_prof, admit_traced = None, 0.0, 0, False
+        prof_admit = None
         t_serve = time.time()
         while eng._has_work() or not late.done:
             if reqs[0].out and getattr(late, "_engine", None) is None:
@@ -3394,7 +3502,8 @@ def serve_contiguous_phase(torch, seed, *, n_layers, per_dispatch, n_pack,
                 n0, tp = sum(len(r.out) for r in reqs), time.time()
                 with k6_shapes() as k6_seen:
                     if kind == "prefill":
-                        profile_steps(torch, eng.step, 1, kind="admitting")
+                        prof_admit = profile_steps(torch, eng.step, 1,
+                                                   kind="admitting")
                         admit_traced = True
                     else:
                         prof = profile_steps(torch, eng.step, 3)
@@ -3445,6 +3554,16 @@ def serve_contiguous_phase(torch, seed, *, n_layers, per_dispatch, n_pack,
                              f"small-M route (decode and prefill both run)")
     if twin_tokens is not None:
         same_tokens(label, reqs, twin_tokens)
+    # K5's device time in the traced steps, by kernel (its route)
+    k5 = "apmm_packed_bitserial" if variant == "bitserial" else \
+        "packed_to_xq|small_m::gemm_kernel|dense_chunk|split_finish"
+    for what, p in (("admitting step", prof_admit),
+                    ("3 decode steps", prof)):
+        rows = traced_kernels(torch, p, k5)
+        print(f"{label}: K5 in the traced {what}: "
+              f"{sum(ms for ms, _ in rows.values()):.3f} device ms in "
+              + ", ".join(f"{k} {ms:.3f} ms / {n} launches"
+                          for k, (ms, n) in rows.items()), flush=True)
     n_tok = sum(len(r.out) for r in reqs) - tok_prof
     pre, dec = step_ms["prefill"], step_ms["decode"]
     counts = {k: v for k, v in counts.items() if v}
@@ -3501,10 +3620,7 @@ def main() -> int:
     k2_phase(torch, timer, args.seed, results)
     k4_phase(torch, timer, args.seed, results)
     k5_phase(torch, timer, args.seed, results)
-    from repro_torch.kernels import flash_attention
-    k7_before = flash_attention.FLOAT_LAUNCHES
-    k6_k7_phase(torch, timer, args.seed, results)
-    k7_launches = flash_attention.FLOAT_LAUNCHES - k7_before
+    k7_launches = k6_k7_phase(torch, timer, args.seed, results)
     k6_cross_phase(torch, timer, args.seed, results)
     norm_phase(torch, timer, args.seed)
     print(f"kernels and the norm checked at {time.time() - t_start:.1f} s",
@@ -3689,6 +3805,9 @@ def main() -> int:
             "src/repro/kernels/flash_attention.py:234"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:124"),
+        # K7's f32 route: the same pallas_call, its SIMT kernel
+        "flash_attention_f32": ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:124"),
         # the bitserial variants: the same pallas_call, their own kernels
         "apmm_fused_linear_bitserial": (
             "src/repro_torch/csrc/apmm_fused_linear.cu",
@@ -3702,7 +3821,7 @@ def main() -> int:
 
     def entry(k, launches, path):
         source, replaces = meta[k]
-        base = k.removesuffix("_bitserial")
+        base = k.removesuffix("_bitserial").removesuffix("_f32")
         arch = path and path.removesuffix("-bitserial")
         case = PATH_CASES.get(arch, {}).get(base, SHARED_CASES[base])
         r, extra = results[k, case], dict(path=path, case=case)
@@ -3716,11 +3835,12 @@ def main() -> int:
 
     # one entry per (path, kernel): ``launches`` is that path's own count,
     # the rest its phase-3 case at that path's shape (``PATH_CASES``); K7
-    # is on no path (as in the reference): its launches are phase 3's
+    # is on no path (as in the reference): its launches are phase 3's, by
+    # route
     kernels = [entry(k, counts[k], arch)
                for arch, counts in paths.items() for k in meta
                if counts.get(k)]
-    kernels.append(entry("flash_attention", k7_launches, None))
+    kernels += [entry(k, n, None) for k, n in k7_launches.items()]
     if {e["name"] for e in kernels} != set(meta):
         raise AssertionError("a kernel is missing from the kernels line")
     print(f"total {time.time() - t_start:.1f} s", flush=True)

@@ -37,16 +37,36 @@
 // equal the plain version's.
 //
 // `bitserial` variant (the TPU body's per-bit-pair branch, apmm.py:137-150
-// and the shift-add at :155-162): apmm_packed_bitserial_kernel below runs
-// the shared b1 core (bitserial_core.cuh: .and.popc, cp.async staging) on
-// both operands' planes as they lie in device memory -- no unpacking at
-// all -- with the core's rows route, SU from its packed A planes (an MMA
-// of each A fragment against an all-ones B fragment) and SW from the
-// weight words, and the same from_acc output.  Its bound is the fused
+// and the shift-add at :155-162), on the shared b1 core
+// (bitserial_core.cuh: .and.popc, cp.async staging, its header note has
+// the design), reading both operands' planes as they lie in device memory
+// -- K3's words with pad bit 0 -- with no prologue and no workspace; SW
+// from the staged weight words, the same from_acc output (PackedEpi):
+//   M <= STACK_MAX : apmm_packed_bitserial_stacked_kernel, the core's
+//                    stacked route with K1-bs's geometry (stacked_rows,
+//                    stacked_frags, stacked_nt over the card's SMs,
+//                    stacked_smem): the (plane, row) pairs fill the MMA's
+//                    16 rows, so llama decode (M 4, a8) multiplies two
+//                    fragments of 16 live rows, blocks of 8 nt columns
+//                    fill the card and split K over 8 / nt warps.  SU:
+//                    the core accumulates it from the staged A words (an
+//                    MMA against an all-ones B fragment by the warps of
+//                    column tile 0) and reduces it with P and SW in the
+//                    recovery pass -- no SU kernel, no workspace, the C
+//                    entry's signature unchanged; K1-bs and K4-bs pass
+//                    their prologue's SU and compile as before
+//   M >  STACK_MAX : apmm_packed_bitserial_rows_kernel, the rows route's
+//                    64 x 64 tile (ROWS_WM x ROWS_NJ), SU from an MMA of
+//                    each A fragment against an all-ones B fragment
+// STACK_MAX is where tools/b1_stack_threshold.py --kernel K5 found the
+// stacked route stop beating the rows route on the H100 at llama3-8b's
+// q, gate, down and lm_head (w2 a8): faster at every M up to 32, slower
+// at 48 (gate, lm_head; PERF.md).  The 16 x 64 tile the rows route took
+// up to M = 32 before beat neither route there (one tie, within 0.2%, that
+// a second reading did not repeat) and is gone.  Its bound is the fused
 // variant's, since the function and its work are the same: bytes at
-// decode, operations (counted as the fused variant's int8 plane-group
-// products) at a chunk.  Tiles: 16 x 64 outputs a block up to M = 32, 64 x
-// 64 above.
+// decode (the weight planes, n_b bits a weight element), operations
+// (counted as the fused variant's int8 plane-group products) at a chunk.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,26 +170,23 @@ int launch_fused(const void* ap, const void* bp, const void* a_scale,
 }
 
 // ---------------------------------------------------------------------------
-// `bitserial` variant: the b1 core on the packed planes (header note)
+// `bitserial` variant: the b1 core on the packed planes, its stacked route
+// up to M = STACK_MAX rows and its rows route above (header note)
 // ---------------------------------------------------------------------------
 
-template <typename TO, int WM, int NJ>
-__global__ void __launch_bounds__(bitserial::THREADS)
-apmm_packed_bitserial_kernel(const uint32_t* __restrict__ ap,
-                             const uint32_t* __restrict__ bp,
-                             const float* __restrict__ a_scale,
-                             const float* __restrict__ b_scale,
-                             TO* __restrict__ out, int m, int n, int kw,
-                             int n_a, int n_b, uint32_t c0, int kstg,
-                             int vec) {
-  constexpr int BM = 16 * WM, BN = 8 * NJ * (bitserial::WARPS / WM);
-  extern __shared__ __align__(16) uint32_t smem_b1[];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+constexpr int STACK_MAX = 32;             // rows the stacked route takes
+constexpr int ROWS_WM = 4, ROWS_NJ = 4;   // the rows route's 64 x 64 tile
+
+// the core's arguments for the block at row m0, column n0: A's planes as
+// they lie (SU from A: Args::su null), one weight
+__device__ __forceinline__ bitserial::Args packed_args(
+    const uint32_t* ap, const uint32_t* bp, int m, int n, int kw, int n_a,
+    int n_b, uint32_t c0, int kstg, int vec, int m0, int n0) {
   bitserial::Args p;
   p.a = ap + (long long)m0 * kw;
   p.a_plane = (long long)m * kw;
   p.a_lim = m - m0;
-  p.su = nullptr;                   // SU from the A planes (an MMA)
+  p.su = nullptr;
   p.b[0] = bp + (long long)n0 * kw;
   p.b[1] = nullptr;
   p.b_plane = (long long)n * kw;
@@ -180,53 +197,101 @@ apmm_packed_bitserial_kernel(const uint32_t* __restrict__ ap,
   p.c0 = c0;
   p.vec = vec != 0;
   p.geo = bitserial::geo_of(kstg);
-  bitserial::gemm_rows<WM, NJ, 1, true>(
-      smem_b1, p, m - m0, [&](int r, int c, int y, int) {
-        const int row = m0 + r, col = n0 + c;
-        const float as = a_scale != nullptr ? a_scale[row] : 1.0f;
-        const float bs = b_scale != nullptr ? b_scale[col] : 1.0f;
-        out[(long long)row * n + col] = from_acc<TO>(y, as, bs);
-      });
+  return p;
+}
+
+template <typename TO>
+__global__ void __launch_bounds__(bitserial::THREADS, 2)
+apmm_packed_bitserial_stacked_kernel(const uint32_t* __restrict__ ap,
+                                     const uint32_t* __restrict__ bp,
+                                     const float* __restrict__ a_scale,
+                                     const float* __restrict__ b_scale,
+                                     TO* __restrict__ out, int m, int n,
+                                     int kw, int n_a, int n_b, uint32_t c0,
+                                     int mr, int nf, int nt, int kstg,
+                                     int vec) {
+  extern __shared__ __align__(16) uint32_t smem_b1[];
+  const int m0 = blockIdx.y * mr, n0 = blockIdx.x * 8 * nt;
+  const bitserial::Args p = packed_args(ap, bp, m, n, kw, n_a, n_b, c0,
+                                        kstg, vec, m0, n0);
+  const int r_out = m - m0 < mr ? m - m0 : mr;
+  const PackedEpi<TO> epi{a_scale, b_scale, out, n};
+  bitserial::gemm_stacked<1, true>(
+      smem_b1, p, mr, nf, nt, r_out,
+      [&](int r, int c, int y, int) { epi(m0 + r, n0 + c, y, y); });
 }
 
 template <typename TO, int WM, int NJ>
-int launch_bitserial_tile(const void* ap, const void* bp, const void* a_scale,
-                          const void* b_scale, void* out, int m, int n,
-                          int kw, int n_a, int n_b, uint32_t c0,
-                          cudaStream_t stream) {
-  using namespace bitserial;
-  constexpr int BM = 16 * WM, BN = 8 * NJ * (WARPS / WM);
-  auto kernel = apmm_packed_bitserial_kernel<TO, WM, NJ>;
-  static bool configured = false;
-  int e = allow_smem(kernel, &configured);
-  if (e != 0) return e;
-  const int rows = n_a * BM + n_b * BN;
-  const int kstg = kstg_for(rows, (kw + KSTEP - 1) / KSTEP);
-  const int vec = kw % 4 == 0 && aligned16(ap) && aligned16(bp);
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kernel<<<grid, THREADS, ring_bytes(rows, kstg), stream>>>(
-      (const uint32_t*)ap, (const uint32_t*)bp, (const float*)a_scale,
-      (const float*)b_scale, (TO*)out, m, n, kw, n_a, n_b, c0, kstg, vec);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(bitserial::THREADS)
+apmm_packed_bitserial_rows_kernel(const uint32_t* __restrict__ ap,
+                                  const uint32_t* __restrict__ bp,
+                                  const float* __restrict__ a_scale,
+                                  const float* __restrict__ b_scale,
+                                  TO* __restrict__ out, int m, int n, int kw,
+                                  int n_a, int n_b, uint32_t c0, int kstg,
+                                  int vec) {
+  constexpr int BM = 16 * WM, BN = 8 * NJ * (bitserial::WARPS / WM);
+  extern __shared__ __align__(16) uint32_t smem_b1[];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const bitserial::Args p = packed_args(ap, bp, m, n, kw, n_a, n_b, c0,
+                                        kstg, vec, m0, n0);
+  const PackedEpi<TO> epi{a_scale, b_scale, out, n};
+  bitserial::gemm_rows<WM, NJ, 1, true>(
+      smem_b1, p, m - m0,
+      [&](int r, int c, int y, int) { epi(m0 + r, n0 + c, y, y); });
 }
 
-// 16-row tiles up to M = 32 (decode), 64-row tiles above
 template <typename TO>
 int launch_bitserial(const void* ap, const void* bp, const void* a_scale,
                      const void* b_scale, void* out, int m, int n, int k,
                      int kw, int n_a, int n_b, cudaStream_t s) {
-  const uint32_t c0 = bitserial::c0_of(k, kw, n_a, n_b);
-  if (m <= 32)
-    return launch_bitserial_tile<TO, 1, 1>(ap, bp, a_scale, b_scale, out, m,
-                                           n, kw, n_a, n_b, c0, s);
-  return launch_bitserial_tile<TO, 4, 4>(ap, bp, a_scale, b_scale, out, m, n,
-                                         kw, n_a, n_b, c0, s);
+  using namespace bitserial;
+  const uint32_t c0 = c0_of(k, kw, n_a, n_b);
+  const int vec = kw % 4 == 0 && aligned16(ap) && aligned16(bp);
+  const int n_steps = (kw + KSTEP - 1) / KSTEP;
+  if (m <= STACK_MAX) {
+    // blocks of 8 nt columns, at least one on every SM (K1-bs's geometry)
+    int n_sm = 0, e = sm_count(&n_sm);
+    if (e != 0) return e;
+    const int mr = stacked_rows(m, n_a), nf = stacked_frags(mr, n_a);
+    const int n_rg = (m + mr - 1) / mr;
+    const int nt = stacked_nt(n_rg, n, n_sm);
+    int kstg = 0;
+    const int smem = stacked_smem(1, n_b, nf, nt, n_steps, true, &kstg);
+    auto kernel = apmm_packed_bitserial_stacked_kernel<TO>;
+    static bool configured = false;
+    e = allow_smem(kernel, &configured);
+    if (e != 0) return e;
+    const dim3 grid((n + 8 * nt - 1) / (8 * nt), n_rg);
+    kernel<<<grid, THREADS, smem, s>>>(
+        (const uint32_t*)ap, (const uint32_t*)bp, (const float*)a_scale,
+        (const float*)b_scale, (TO*)out, m, n, kw, n_a, n_b, c0, mr, nf, nt,
+        kstg, vec);
+    return (int)cudaGetLastError();
+  }
+  constexpr int BM = 16 * ROWS_WM, BN = 8 * ROWS_NJ * (WARPS / ROWS_WM);
+  auto kernel = apmm_packed_bitserial_rows_kernel<TO, ROWS_WM, ROWS_NJ>;
+  static bool configured = false;
+  int e = allow_smem(kernel, &configured);
+  if (e != 0) return e;
+  const int rows = n_a * BM + n_b * BN;
+  const int kstg = kstg_for(rows, n_steps);
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  kernel<<<grid, THREADS, ring_bytes(rows, kstg), s>>>(
+      (const uint32_t*)ap, (const uint32_t*)bp, (const float*)a_scale,
+      (const float*)b_scale, (TO*)out, m, n, kw, n_a, n_b, c0, kstg, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // The largest M the small-M route takes.
 extern "C" int repro_apmm_packed_small_m_max(void) { return SMALL_M_MAX; }
+
+// The largest M the bitserial variant's stacked route takes.
+extern "C" int repro_apmm_packed_bitserial_stack_max(void) {
+  return STACK_MAX;
+}
 
 // The fused variant's workspace in bytes at this shape: int8 A values,
 // ceil(n_a / 7) x M x Kw * 32 bytes, and where the chunk route splits K
@@ -244,7 +309,7 @@ extern "C" long long repro_apmm_packed_ws_bytes(int m, int n, int kw,
 // out (m, n); k is the unpadded reduction length (k <= 32 kw).  ws: the
 // fused workspace (variant 0, repro_apmm_packed_ws_bytes), else unused.
 // variant: 0 = fused (the prologue, then the small-M or the chunk route),
-// 1 = bitserial (the b1 core).
+// 1 = bitserial (the b1 core's stacked or rows route; no workspace).
 extern "C" int repro_apmm_packed(const void* ap, const void* bp,
                                  const void* a_scale, const void* b_scale,
                                  void* out, void* ws, int m, int n, int k,

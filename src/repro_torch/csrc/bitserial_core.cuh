@@ -32,8 +32,13 @@
 // from the staged weight words: one more MMA per weight fragment, with an
 // all-ones A fragment; K-pad words are all ones and count, words past Kw
 // are zero on both sides and add nothing.  SU comes from K1's and K4's
-// prologue (below) or, for K5, from an MMA of each activation fragment
-// against an all-ones B fragment.
+// prologue (below) or, for K5 (Args::su == nullptr, A_SUMS), from an MMA
+// of each staged activation fragment against an all-ones B fragment: the
+// rows route shifts it by the fragment's plane; the stacked route adds it
+// per stacked row (the warps of column tile 0, which between their K
+// slices see every K step once) and, after the K loop, reduces it in the
+// same shared-memory pass as P and SW, SU = sum_i 2^i su[i mr + m] -- no
+// launch, no workspace.
 //
 // The prologue (K1, K4).  pack_x_kernel quantizes the float activations
 // once per launch through K3's warp routine (pack_core.cuh: one lane per
@@ -362,12 +367,14 @@ __device__ __forceinline__ void gemm_rows(uint32_t* smem, const Args& p,
 // stacked route: mr rows x 8 nt columns a block, staged row i * mr + m
 // ---------------------------------------------------------------------------
 
-// One K step of a warp's nf stacked fragments against its 8 columns.
-template <int NW>
+// One K step of a warp's nf stacked fragments against its 8 columns;
+// with A_SUMS and `sums` (column tile 0) also each stacked row's popcount
+// (an all-ones B fragment).
+template <int NW, bool A_SUMS>
 __device__ __forceinline__ void kstep_stacked(
     const uint32_t* sa, const uint32_t* sb, int bn, const Args& p, int nf,
-    int ks, int col, int lane, uint32_t (&acc)[NW][4][4],
-    uint32_t (&sw)[NW][2]) {
+    int ks, int col, bool sums, int lane, uint32_t (&acc)[NW][4][4],
+    uint32_t (&sw)[NW][2], uint32_t (&su)[4][2]) {
   const Geo& geo = p.geo;
   const int g = lane >> 2, t = lane & 3;
   const uint32_t ones_a[4] = {~0u, ~0u, ~0u, ~0u};
@@ -375,6 +382,17 @@ __device__ __forceinline__ void kstep_stacked(
 #pragma unroll
   for (int f = 0; f < 4; ++f)
     if (f < nf) load_a(a[f], sa, 16 * f + g, ks, geo, t);
+  if (A_SUMS && sums) {
+    const uint32_t ones_b[2] = {~0u, ~0u};
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      if (f >= nf) continue;
+      uint32_t du[4] = {};
+      mma_and(du, a[f], ones_b);
+      su[f][0] += du[0];
+      su[f][1] += du[2];
+    }
+  }
   for (int j = 0; j < p.n_b; ++j)
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
@@ -400,8 +418,8 @@ __device__ __forceinline__ void kstep_stacked(
 // steps k with k % (8 / nt) == w / nt.  After the K loop the K slices'
 // sums and the planes' shift-add meet in shared memory (the drained
 // ring), and outputs (row < r_out, column < n_lim) go to epi(row, col,
-// y1, y2).
-template <int NW, class Epi>
+// y1, y2).  A_SUMS: SU from the staged A words (p.su unused; header note).
+template <int NW, bool A_SUMS = false, class Epi>
 __device__ __forceinline__ void gemm_stacked(uint32_t* smem, const Args& p,
                                              int mr, int nf, int nt,
                                              int r_out, Epi epi) {
@@ -418,7 +436,7 @@ __device__ __forceinline__ void gemm_stacked(uint32_t* smem, const Args& p,
   for (int s = 0; s < STAGES; ++s)
     for (int idx = tid; idx < (sr - live_rows) * geo.rw; idx += THREADS)
       smem[s * stage_words + live_rows * geo.rw + idx] = 0u;
-  uint32_t acc[NW][4][4] = {}, sw[NW][2] = {};
+  uint32_t acc[NW][4][4] = {}, sw[NW][2] = {}, su[4][2] = {};
   pipeline(
       n_st,
       [&](int s) {
@@ -439,14 +457,27 @@ __device__ __forceinline__ void gemm_stacked(uint32_t* smem, const Args& p,
         const int k0 = s * geo.kstg;
         for (int ks = ((kq - k0) % ksplit + ksplit) % ksplit;
              ks < geo.kstg && k0 + ks < n_steps; ks += ksplit)
-          kstep_stacked<NW>(base, base + sr * geo.rw, bn, p, nf, ks,
-                            8 * ntile + g, lane, acc, sw);
+          kstep_stacked<NW, A_SUMS>(base, base + sr * geo.rw, bn, p, nf,
+                                    ks, 8 * ntile + g, ntile == 0, lane,
+                                    acc, sw, su);
       });
   // recovery in the drained ring
   uint32_t* red = smem;                      // [NW][sr][bn]
   uint32_t* red_w = smem + NW * sr * bn;     // [NW][bn]
-  for (int idx = tid; idx < NW * (sr + 1) * bn; idx += THREADS) red[idx] = 0u;
+  uint32_t* red_u = red_w + NW * bn;         // [sr] (A_SUMS)
+  for (int idx = tid; idx < NW * (sr + 1) * bn + (A_SUMS ? sr : 0);
+       idx += THREADS)
+    red[idx] = 0u;
   __syncthreads();
+  if (A_SUMS && ntile == 0 && t == 0) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      if (f >= nf) continue;
+      if (16 * f + g < live_rows) atomicAdd(&red_u[16 * f + g], su[f][0]);
+      if (16 * f + g + 8 < live_rows)
+        atomicAdd(&red_u[16 * f + g + 8], su[f][1]);
+    }
+  }
 #pragma unroll
   for (int w = 0; w < NW; ++w) {
 #pragma unroll
@@ -469,13 +500,19 @@ __device__ __forceinline__ void gemm_stacked(uint32_t* smem, const Args& p,
   for (int o = tid; o < r_out * bn; o += THREADS) {
     const int m = o / bn, c = o % bn;
     if (c >= p.n_lim) continue;
+    uint32_t s_u = 0u;
+    if (A_SUMS) {
+      for (int i = 0; i < p.n_a; ++i) s_u += red_u[i * mr + m] << i;
+    } else {
+      s_u = (uint32_t)p.su[m];
+    }
     int y[2];
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
       uint32_t pp = 0u;
       for (int i = 0; i < p.n_a; ++i)
         pp += red[(w * sr + i * mr + m) * bn + c] << i;
-      y[w] = recover(p, pp, (uint32_t)p.su[m], red_w[w * bn + c]);
+      y[w] = recover(p, pp, s_u, red_w[w * bn + c]);
     }
     epi(m, c, y[0], y[NW - 1]);
   }
@@ -526,6 +563,19 @@ inline int stacked_nt(long long sharers, int n, long long min_blocks) {
     if ((long long)((n + 8 * nt - 1) / (8 * nt)) * sharers >= min_blocks)
       return nt;
   return 1;
+}
+
+// the stacked route's dynamic shared memory, the larger of its ring
+// (16 nf stacked rows and nw n_b 8 nt weight rows, *kstg K steps a stage)
+// and the recovery pass in the drained ring (P [nw][16 nf][8 nt], SW
+// [nw][8 nt] and, with a_sums, SU [16 nf])
+inline int stacked_smem(int nw, int n_b, int nf, int nt, int n_steps,
+                        bool a_sums, int* kstg) {
+  const int rows = 16 * nf + nw * n_b * 8 * nt;
+  *kstg = kstg_for(rows, n_steps);
+  const int ring = ring_bytes(rows, *kstg);
+  const int red = (nw * (16 * nf + 1) * 8 * nt + (a_sums ? 16 * nf : 0)) * 4;
+  return ring > red ? ring : red;
 }
 
 // the card's SM count (asked once): 0, or the CUDA error

@@ -804,11 +804,8 @@ int launch_bitserial_gemm(const void* ws, const void* a_scale,
     const int mr = stacked_rows(seg, n_a), nf = stacked_frags(mr, n_a);
     const int n_rg = (seg + mr - 1) / mr;
     const int nt = stacked_nt((long long)n_rg * n_eg, n, 2LL * n_sm);
-    const int rows = 16 * nf + NW * n_b * 8 * nt;
-    const int kstg = kstg_for(rows, n_steps);
-    const int ring = ring_bytes(rows, kstg);
-    const int red = NW * (16 * nf + 1) * 8 * nt * 4;
-    const int smem = ring > red ? ring : red;
+    int kstg = 0;
+    const int smem = stacked_smem(NW, n_b, nf, nt, n_steps, false, &kstg);
     auto kernel = moe_bitserial_stacked_kernel<TO, NW>;
     static bool configured = false;
     e = allow_smem(kernel, &configured);

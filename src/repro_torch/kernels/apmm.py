@@ -17,7 +17,9 @@ the wrapper allocates (its size from the library, :func:`_fused_ws`),
 then take the one weight-streaming GEMM of ``csrc/small_m.cuh`` at small
 M (:func:`small_m_max`, :func:`packed_small_m_max`) and the one int8
 tensor-core chunk GEMM of ``csrc/int8_mma.cuh`` (K4's chunk route too)
-above.
+above.  The bitserial variants take the b1 core's stacked route up to
+:func:`bitserial_stack_max` (K1) and :func:`packed_bitserial_stack_max`
+(K5) rows and its rows route above.
 """
 
 from __future__ import annotations
@@ -225,6 +227,15 @@ def packed_small_m_max() -> int:
     weight-streaming GEMM; the library's own threshold; builds the
     library)."""
     return int(_build.load("apmm_packed").repro_apmm_packed_small_m_max())
+
+
+@functools.cache
+def packed_bitserial_stack_max() -> int:
+    """The largest M that K5's C entry sends to the bitserial variant's
+    stacked route (the b1 core's, with SU from A's staged words; the
+    library's own threshold; builds the library)."""
+    return int(_build.load("apmm_packed")
+               .repro_apmm_packed_bitserial_stack_max())
 
 
 def apmm_packed_plain(a: BipolarTensor, b: BipolarTensor, *,

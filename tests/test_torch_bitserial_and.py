@@ -10,7 +10,10 @@ the constant ``C0 = (2 Kp - K) maxA maxB``, both routes' recovery -- the
 rows route's per-K-step diagonal chaining and the stacked route's
 (plane, row) stacking with K slices summed and shift-added after the K
 loop -- and the wrap modulo 2^32, then
-``Y = C0 + 4 P - 2 maxB SU - 2 maxA SW``.  The reference is the JAX
+``Y = C0 + 4 P - 2 maxB SU - 2 maxA SW``.  K5's form (``K5-<M>`` cases)
+has no prologue: it multiplies the packer's own planes (pad bit 0) and
+its stacked route sums SU from the staged A words, per stacked row and K
+slice, reduced after the K loop with P.  The reference is the JAX
 package's bitserial GEMM on the same packed operands
 (``ops.ap_matmul(raw=True, variant="bitserial")``, its jnp path as
 ``tests/test_torch_bitserial.py`` runs it with ``impl="reference"``,
@@ -86,11 +89,15 @@ def stacked_route(a, b, su, k, *, mr, ksplit):
     row m) pairs fill staged row i * mr + m (padded to whole 16-row
     fragments), each K slice (the K steps ks % ksplit == kq) sums
     ``popc << j`` per weight plane j, the slices add, and each output is
-    recovered once: P = sum_i 2^i acc[i * mr + m]."""
+    recovered once: P = sum_i 2^i acc[i * mr + m].  ``su`` None: K5's
+    form, SU from the staged words -- each K slice also sums each stacked
+    row's popcount (an all-ones B fragment), the slices add, and SU =
+    sum_i 2^i su[i * mr + m]."""
     n_a, n_b, kw = a.shape[0], b.shape[0], a.shape[-1]
     m_rows, n = a.shape[1], b.shape[1]
     sb = _steps(b)
     p = np.zeros((m_rows, n), U32)
+    su_a = np.zeros(m_rows, U32)
     for m0 in range(0, m_rows, mr):
         rows = min(mr, m_rows - m0)
         sr = 16 * -(-(n_a * mr) // 16)
@@ -99,15 +106,20 @@ def stacked_route(a, b, su, k, *, mr, ksplit):
             stacked[i * mr:i * mr + rows] = a[i, m0:m0 + rows]
         ss = _steps(stacked[None])[0]
         acc = np.zeros((sr, n), U32)
+        acc_u = np.zeros(sr, U32)
         for kq in range(ksplit):
             part = np.zeros_like(acc)
+            part_u = np.zeros_like(acc_u)
             for ks in range(kq, ss.shape[1], ksplit):
                 for j in range(n_b):
                     part += _pair_popc(ss[:, ks], sb[j, :, ks]) << U32(j)
+                part_u += _popc(ss[:, ks]).sum(-1, dtype=U32)
             acc += part
+            acc_u += part_u
         for i in range(n_a):
             p[m0:m0 + rows] += acc[i * mr:i * mr + rows] << U32(i)
-    return _recover(p, su, _sw(b), k, kw, n_a, n_b)
+            su_a[m0:m0 + rows] += acc_u[i * mr:i * mr + rows] << U32(i)
+    return _recover(p, su_a if su is None else su, _sw(b), k, kw, n_a, n_b)
 
 
 def prologue(x, scale, n_a, kw):
@@ -131,12 +143,15 @@ def prologue(x, scale, n_a, kw):
 
 @functools.cache
 def _case(a_bits, w_bits, k):
-    """Seeded operands at M = 17, N = 23 and the reference's raw
+    """Seeded operands at M = 32, N = 23 and the reference's raw
     bitserial product; smaller M are their leading rows (each row of the
-    product depends on its own row alone)."""
+    product depends on its own row alone).  Rows 17..31 are drawn after
+    the weights."""
     rng = np.random.default_rng(a_bits * 100 + w_bits * 10 + k)
     x = (rng.standard_normal((17, k)) * 2).astype(np.float32)
     w = rng.standard_normal((23, k)).astype(np.float32)
+    x = np.concatenate([x, (rng.standard_normal((15, k)) * 2)
+                        .astype(np.float32)])
 
     @jax.jit
     def ref(x, w):
@@ -150,22 +165,36 @@ def _case(a_bits, w_bits, k):
             np.asarray(pb).view(U32), np.asarray(want))
 
 
-@pytest.mark.parametrize("m", [1, 4, 5, 17])
-@pytest.mark.parametrize("k", [1000, 4096])
+# K5's form, as cases of the one test below: the packer's planes at its
+# decode M and up to its stacked route's threshold (32)
+K5_ROWS = [pytest.param(("K5", m), id=f"K5-{m}") for m in (1, 4, 17, 32)]
+
+
+@pytest.mark.parametrize("m", [1, 4, 5, 17] + K5_ROWS)
+@pytest.mark.parametrize("k", [1000, 4096, 1100])   # Kw 32, 128, 35
 @pytest.mark.parametrize("a_bits,w_bits", PAIRS)
 def test_and_popc_core_bit_exact_vs_reference(a_bits, w_bits, k, m):
+    form, m = m if isinstance(m, tuple) else ("K1", m)
     x, scale, a, b, want = _case(a_bits, w_bits, k)
     kw = a.shape[-1]
     x, scale, a, want = x[:m], scale[:m], a[:, :m], want[:m]
+    # SU is sum_i 2^i popc(u_i) (the rows route's all-ones B fragment)
+    su_words = sum(_popc(a[i]).sum(-1, dtype=U32) << U32(i)
+                   for i in range(a_bits))
+    mr = min(m, 64 // a_bits)          # the C entry's rows per block
+    if form == "K5":
+        # no prologue: the packer's planes as they lie, SU from the
+        # staged words; K split over 8 / nt warps, nt in 8, 4, 2, 1
+        np.testing.assert_array_equal(rows_route(a, b, su_words, k), want)
+        for ksplit in (1, 2, 4, 8):
+            np.testing.assert_array_equal(
+                stacked_route(a, b, None, k, mr=mr, ksplit=ksplit), want)
+        return
     # the prologue packs the reference's words and sums U
     planes, su = prologue(x, scale, a_bits, kw)
     np.testing.assert_array_equal(planes, a)
-    # SU is also sum_i 2^i popc(u_i) (K5's all-ones B fragment)
-    su_words = sum(_popc(a[i]).sum(-1, dtype=U32) << U32(i)
-                   for i in range(a_bits))
     np.testing.assert_array_equal(su, su_words)
     np.testing.assert_array_equal(rows_route(a, b, su, k), want)
-    mr = min(m, 64 // a_bits)          # the C entry's rows per block
     for ksplit in (1, 4, 8):
         np.testing.assert_array_equal(
             stacked_route(a, b, su, k, mr=mr, ksplit=ksplit), want)

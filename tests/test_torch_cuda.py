@@ -36,11 +36,14 @@ split-K (its finish kernel seen to run) at deepseek-moe-16b's dense down.
 Fused K4 on both sides of its route threshold (``moe.fused_route_max()``:
 the weight-streaming decode route and the int8 tensor-core chunk route)
 at six width pairs: the same rules as K4's other cases.
-The bitserial variants of K1 and K4 on both sides of the b1 core's
+The bitserial variants of K1, K4 and K5 on both sides of the b1 core's
 stacked-route threshold (``apmm.bitserial_stack_max()``,
-``moe.bitserial_stack_max()``): integer cores bit-exact to the plain
-versions and to the fused kernels, outputs equal to the fused kernels';
-their prologue's packed words equal K3's and its SU the rows' sums.
+``moe.bitserial_stack_max()``, ``apmm.packed_bitserial_stack_max()``):
+integer cores bit-exact to the plain versions and to the fused kernels,
+outputs equal to the fused kernels'; K1's and K4's prologue's packed
+words equal K3's and its SU the rows' sums.  K7's f32 route within 1e-5
+absolute or 1e-6 relative of one f32 SDPA call on rows that see every
+live slot.
 The enc-dec and VLM shapes: K6 not causal at seamless-m4t-medium's
 cross-attention reads (pad lanes on the null row exactly 0), K2 at
 qwen2-vl-7b's GQA group 7, K1 and K1-bs at seamless's GELU up projection
@@ -1078,6 +1081,39 @@ def test_contiguous_attention_kernels_match_plain(device, b, t, sq, d,
     assert flash_attention.FLOAT_LAUNCHES >= 1
 
 
+def test_float_attention_f32_route_vs_sdpa(device):
+    """K7's f32 route (``float_attention_kernel``) at llama3-8b's decode
+    shape (32 folded heads, 4 query rows of a GQA group, a ring of 1024
+    with 632 live slots), the K/V in f32: on the rows that see every
+    live slot within 1e-5 absolute or 1e-6 relative of one SDPA call in
+    f32 with the same boolean position mask, and of the plain version."""
+    import torch.nn.functional as F
+    rng = np.random.default_rng(632)
+    bh, sq, t, live, d = 32, 4, 1024, 632, 128
+    q, k, v = (_rand(rng, (bh, n_, d), device) for n_ in (sq, t, t))
+    kv_pos = torch.full((bh, t), -1, dtype=torch.int32)
+    kv_pos[:, :live] = torch.arange(live, dtype=torch.int32)
+    q_pos = torch.full((bh, sq), live - 1, dtype=torch.int32)
+    q_pos, kv_pos = q_pos.to(device), kv_pos.to(device)
+    assert flash_attention.float_splits(bh, sq, t, torch.float32) == 1
+    before = flash_attention.FLOAT_LAUNCHES
+    got = flash_attention.flash_attention(q, k, v, q_pos, kv_pos)
+    torch.cuda.synchronize()
+    assert flash_attention.FLOAT_LAUNCHES == before + 1
+    mask = ref.position_mask(q_pos[:, :, None], kv_pos[:, None, :], True,
+                             None)
+    assert bool(mask.sum(-1).eq(live).all())
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lib = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert _within_one_ulp_or(got, lib)
+    assert _within_one_ulp_or(got, ref.flash_attention(q, k, v, q_pos,
+                                                       kv_pos))
+
+
 @pytest.mark.parametrize("bh,sq,t,live,d,window", [
     (32, 4, 1024, 300, 128, None),      # decode: most T ranges see nothing
     (32, 4, 1024, 300, 128, 64),        # decode, sliding window
@@ -1407,6 +1443,33 @@ def test_k4_bitserial_route_boundaries(device, seg_case, a_bits, w_bits):
     assert torch.equal(got, fused)
     assert int(_bf16_ulps(got, want).max()) <= 1
     assert moe.BITSERIAL_LAUNCHES == before + 3
+
+
+@pytest.mark.parametrize("m_case", [1, 4, "max", "max+1"])
+@pytest.mark.parametrize("a_bits,w_bits", [(1, 1), (8, 8), (3, 5)])
+def test_k5_bitserial_route_boundaries(device, m_case, a_bits, w_bits):
+    """K5-bs on both sides of its stacked route's threshold
+    (``apmm.packed_bitserial_stack_max()``; the stacked route sums SU from
+    A's staged words) at an odd N and K whose weight is packed three words
+    wider (Kw 35: the core's 4-byte copies): raw int32 and f32/bf16
+    dequant bit-exact to the plain bitserial version and to fused K5, one
+    launch a call."""
+    m = _rows_case(m_case, apmm.packed_bitserial_stack_max())
+    n, k = 999, 1001
+    rng = np.random.default_rng(m * 13 + a_bits * 10 + w_bits)
+    a = _packed_operand(rng, device, m, k, a_bits, 0)
+    b = _packed_operand(rng, device, n, k, w_bits, 1, extra_words=3)
+    a, b = ops._normalize_packed_kw(a, b)
+    assert a.packed.shape[-1] == 35
+    for od in (None, torch.float32, torch.bfloat16):
+        before = apmm.PACKED_BITSERIAL_LAUNCHES
+        got = apmm.apmm_packed(a, b, variant="bitserial", out_dtype=od)
+        torch.cuda.synchronize()
+        assert apmm.PACKED_BITSERIAL_LAUNCHES == before + 1
+        assert torch.equal(got, ref.apmm_packed(a, b, variant="bitserial")
+                           if od is None else ref.apmm_dequant(
+                               a, b, variant="bitserial", out_dtype=od))
+        assert torch.equal(got, apmm.apmm_packed(a, b, out_dtype=od))
 
 
 _FUSED_PAIRS = [(8, 2), (2, 8), (7, 7), (8, 8), (1, 1), (3, 5)]

@@ -1,7 +1,7 @@
 """The bitserial kernels of this checkout against another checkout's, on
 the card, in one process.
 
-    python3 tools/bitserial_ab.py OTHER_DIR [--rounds N]
+    python3 tools/bitserial_ab.py OTHER_DIR [--rounds N] [--kernel K5-bs]
 
 ``OTHER_DIR`` is another commit of this repository, unpacked (for
 example ``git archive <commit> | tar -x -C build/other``).  The script
@@ -9,11 +9,16 @@ builds that checkout's K1 and K5 sources (``apmm_fused_linear.cu``,
 ``apmm_packed.cu``: their C entries must take the same arguments in
 both commits -- K5's took its small-M workspace pointer with its small-M
 route, so an older checkout's K5 does not match) with this checkout's
-nvcc flags into ``build/kernels/ab/``, then times each case through this checkout's wrappers on both libraries
-in turns -- other, this, this, other, ``--rounds`` times -- with the L2
-flushed before each launch (``chip_smoke.Timer``), checks that both give
-the same bits, and prints each side's median and one JSON line.  Cases:
-llama3-8b's decode linears at M = 4 (w2 a8), bitserial.  Run it from the
+nvcc flags into ``build/kernels/ab/``, then times each case through this
+checkout's wrappers on both libraries in turns -- other, this, this,
+other, ``--rounds`` times -- with the L2 flushed before each launch
+(``chip_smoke.Timer``), checks that both give the same bits, and prints
+each side's median and one JSON line.  Cases: K1-bs at llama3-8b's
+decode gate/up and lm_head (M = 4, w2 a8); K5-bs at every phase-3 K5
+case of ``chip_smoke.py`` (``K5_CASES``: llama3-8b's decode and chunk
+linears and the odd width pairs) and at its route edges, the decode
+gate's shape at M = this checkout's ``packed_bitserial_stack_max()`` and
+one more.  ``--kernel`` keeps one kernel's cases.  Run it from the
 repository root on a machine with one CUDA card and ``nvcc``.
 """
 
@@ -31,13 +36,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 sys.path.insert(0, ROOT)
 
-# (kernel, case, N, K, dual)
-CASES = (("K1-bs", "decode gate/up", 14336, 4096, True),
-         ("K1-bs", "decode lm_head", 128256, 4096, False),
-         ("K5-bs", "decode q", 4096, 4096, False),
-         ("K5-bs", "decode gate", 14336, 4096, False),
-         ("K5-bs", "decode down", 4096, 14336, False),
-         ("K5-bs", "decode lm_head", 128256, 4096, False))
+# K1-bs's cases: (case, N, K, dual), at M = 4
+K1_CASES = (("decode gate/up", 14336, 4096, True),
+            ("decode lm_head", 128256, 4096, False))
 ENTRIES = {"apmm_fused_linear": ("repro_apmm_fused_linear", 10, 10),
            "apmm_packed": ("repro_apmm_packed", 6, 8)}
 
@@ -70,16 +71,26 @@ def build(other: str):
     return fns
 
 
+def k5_cases(stack_max: int):
+    """K5-bs's cases: chip_smoke's phase-3 ``K5_CASES`` and the two route
+    edges, as (case, M, N, K, options of ``chip_smoke._k5_operands``)."""
+    from chip_smoke import K5_CASES
+    return list(K5_CASES) + [
+        ("stack edge gate", stack_max, 14336, 4096, {}),
+        ("rows edge gate", stack_max + 1, 14336, 4096, {})]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other")
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--kernel", choices=("K1-bs", "K5-bs"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("no CUDA card", file=sys.stderr)
         return 1
-    from chip_smoke import Timer, smi_line
+    from chip_smoke import Timer, _k5_operands, smi_line
     from repro_torch.core import bipolar
     from repro_torch.kernels import apmm, ops
     other = build(os.path.abspath(args.other))
@@ -88,15 +99,24 @@ def main() -> int:
     print(smi_line(), flush=True)
     timer = Timer(torch)
     g = torch.Generator(device="cuda").manual_seed(0)
+    cases = []
+    if args.kernel in (None, "K1-bs"):
+        cases += [("K1-bs", case, 4, n, k, dict(dual=dual))
+                  for case, n, k, dual in K1_CASES]
+    if args.kernel in (None, "K5-bs"):
+        cases += [("K5-bs", *c)
+                  for c in k5_cases(apmm.packed_bitserial_stack_max())]
     rows = []
-    for kernel, case, n, k, dual in CASES:
-        w = ops.pack_weight(torch.randn((n, k), generator=g, device="cuda"),
-                            2)
-        w2 = ops.pack_weight(torch.randn((n, k), generator=g,
-                                         device="cuda"), 2) if dual else None
-        x = torch.randn((4, k), generator=g, device="cuda").to(
-            torch.bfloat16)
+    for kernel, case, m, n, k, opts in cases:
         if kernel == "K1-bs":
+            dual = opts["dual"]
+            w = ops.pack_weight(torch.randn((n, k), generator=g,
+                                            device="cuda"), 2)
+            w2 = ops.pack_weight(torch.randn((n, k), generator=g,
+                                             device="cuda"), 2) \
+                if dual else None
+            x = torch.randn((m, k), generator=g, device="cuda").to(
+                torch.bfloat16)
             a_s = bipolar.absmax_scale(x, 8, axis=-1).float()
 
             def run():
@@ -106,8 +126,7 @@ def main() -> int:
                     out_dtype=torch.bfloat16)
             lib = "apmm_fused_linear"
         else:
-            a, wk = ops._normalize_packed_kw(
-                ops.quantize_rows(x, 8, pad_bit=0), w)
+            _, a, wk = _k5_operands(torch, g, m, n, k, **opts)
 
             def run():
                 return apmm.apmm_packed(a, wk, variant="bitserial",
@@ -127,16 +146,21 @@ def main() -> int:
                 times[side].append(timer(run, iters=20))
         if not torch.equal(outs["other"], outs["this"]):
             raise AssertionError(f"{kernel} {case}: the checkouts differ")
-        row = dict(kernel=kernel, case=case, lib=lib,
+        row = dict(kernel=kernel, case=case, lib=lib, m=m, n=n, k=k,
                    other_ms=statistics.median(times["other"]),
                    this_ms=statistics.median(times["this"]),
                    other_all=times["other"], this_all=times["this"])
         rows.append(row)
-        print(f"{kernel} {case} N={n} K={k}: other {row['other_ms']:.4f} ms, "
-              f"this {row['this_ms']:.4f} ms (medians of "
-              f"{len(times['this'])} turns each; same bits)", flush=True)
+        print(f"{kernel} {case} M={m} N={n} K={k}: other "
+              f"{row['other_ms']:.4f} ms, this {row['this_ms']:.4f} ms "
+              f"(medians of {len(times['this'])} turns each; same bits)",
+              flush=True)
         use(mine)
-        del w, w2
+        if kernel == "K1-bs":
+            del w, w2
+        else:
+            del a, wk
+        torch.cuda.empty_cache()
     print(json.dumps({"bitserial_ab": rows}))
     return 0
 
