@@ -49,10 +49,11 @@ exit and no result line):
    linear (K3 + K5) equal to the fused one (K1) bit for bit, within 1
    ulp through the SwiGLU; K2, K6 and K7 outputs within 1 bf16 ulp or
    1e-5, and K6 against K2 on the same K/V; K7's fully masked rows 0;
-   K7's f32 route, ``float_attention_kernel``, at the same three cases
-   with f32 q/K/V, within 1e-5 absolute or 1e-6 relative, seen to run
-   alone in the profile and counted as its own kernel,
-   ``flash_attention_f32``),
+   K7's f32 route, ``float_flash_kernel``, at the same three cases
+   with f32 q/K/V, within 1e-5 absolute or 1e-6 relative; both K7
+   routes against the plain version of their split at the kernel's own
+   ranges, the combine seen to run exactly when the C entry splits T;
+   the f32 route counted as its own kernel, ``flash_attention_f32``),
    with its time (CUDA events, L2 flushed before every launch), its
    bound on this card (K7's operations at the bf16 tensor-core rate, its
    f32 route's at 67 TFLOP/s),
@@ -431,6 +432,10 @@ PREV_MS = {
     "K1 jamba chunk in_proj": 11.8417, "K1 seamless encoder up 128": 0.1385,
     "K1 qwen2-vl chunk down": 3.5290,
     "K7 decode": 0.8197, "K7 prefill": 1.4612, "K7 decode window 256": 0.4318,
+    # K7's f32 route before its redesign (the SIMT kernel: a block per
+    # 16-row q-tile and head, T never split): PERF.md section 6's row
+    "K7 f32 decode": 0.7494, "K7 f32 prefill": 1.3439,
+    "K7 f32 decode window 256": 0.3886,
     # fused K4's first design (a dp4a SIMT tile per segment): PERF.md's K4
     # row, and the same-call times beside the redesigned bitserial core
     "K4 decode gate/up": 0.7382, "K4 decode down": None,
@@ -1681,22 +1686,37 @@ def _k6_check(torch, timer, results, name, args, *, h, d, n_bits,
     return got
 
 
+def _k7_within(torch, got, want):
+    """K7's bar: bf16 within 1 bf16 ulp or 1e-5 (``_within``); f32 within
+    1e-5 absolute or 1e-6 relative (the card tests' f32 rule).  Returns
+    (ok, max |err|, the bar's words)."""
+    if got.dtype == torch.bfloat16:
+        ok, err, ulps = _within(got, want)
+        return ok, err, f"max {ulps} bf16 ulps beyond 1e-5 (tol 1)"
+    diff = (got - want).abs()
+    ok = bool(((diff <= 1e-5) | (diff <= 1e-6 * want.abs())).all())
+    return ok, diff.max().item(), "tol 1e-5 absolute or 1e-6 relative"
+
+
 def _k7_case(torch, timer, results, name, qf, kf, vf, qpf, kpf, window):
     """K7 at one K6 case's folded K/V in qf's dtype: bf16 takes the
-    tensor-core route (``flash_attention_mma_kernel``, split over T where
-    its C entry plans it), f32 the SIMT route (``float_attention_kernel``,
-    never split), read off the kernels that ran.  Within 1 bf16 ulp or
-    1e-5 of the plain version (f32: 1e-5 absolute or 1e-6 relative, the
-    card tests' f32 rule), fully masked rows exactly 0; its time against
-    its bound (bf16: the tensor-core rate; f32: 67 TFLOP/s) and against
-    one SDPA call in the same dtype.  Records it under ``flash_attention``
-    (bf16) or ``flash_attention_f32``; returns its launches."""
+    tensor-core route (``flash_attention_mma_kernel``), f32 the
+    register-tiled FFMA route (``float_flash_kernel``), each split over T
+    where its C entry plans it, the combine seen to run exactly when it
+    splits (read off the kernels that ran).  Within its bar (``_k7_within``)
+    of the plain version and of the plain version of its split at the
+    kernel's own ranges, fully masked rows exactly 0; its time and
+    device time against its bound (bf16: the tensor-core rate; f32: 67
+    TFLOP/s) and against one SDPA call in the same dtype.  Records it
+    under ``flash_attention`` (bf16) or ``flash_attention_f32``; returns
+    its launches."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, ref
     bf16 = qf.dtype == torch.bfloat16
     bh, sq, d = qf.shape
     key, tag = ("flash_attention", "") if bf16 else \
         ("flash_attention_f32", " f32")
+    kernel = "flash_attention_mma_kernel" if bf16 else "float_flash_kernel"
     before = flash_attention.FLOAT_LAUNCHES
 
     def run7():
@@ -1707,14 +1727,7 @@ def _k7_case(torch, timer, results, name, qf, kf, vf, qpf, kpf, window):
         return ref.flash_attention(qf, kf, vf, qpf, kpf, window=window)
 
     got, want = run7(), run7_plain()
-    if bf16:
-        ok, err, ulps = _within(got, want)
-        tol = f"max {ulps} bf16 ulps beyond 1e-5 (tol 1)"
-    else:
-        diff = (got - want).abs()
-        ok = bool(((diff <= 1e-5) | (diff <= 1e-6 * want.abs())).all())
-        err = diff.max().item()
-        tol = "tol 1e-5 absolute or 1e-6 relative"
+    ok, err, tol = _k7_within(torch, got, want)
     if not ok:
         raise AssertionError(f"K7{tag} {name}: beyond its tolerance (max "
                              f"|err| {err})")
@@ -1724,15 +1737,20 @@ def _k7_case(torch, timer, results, name, qf, kf, vf, qpf, kpf, window):
     if flash_attention.FLOAT_LAUNCHES - before != 1:
         raise AssertionError(f"K7{tag} {name}: launch counter")
     n_split = flash_attention.float_splits(bh, sq, kf.shape[1], qf.dtype)
-    if not bf16:
-        split = traced_split(torch, timer, run7, ["float_attention_kernel"])
-        ran = [k for k in kernel_names(split) if k in (
-            "float_attention_kernel", "flash_attention_mma_kernel",
-            "combine_kernel")]
-        if ran != ["float_attention_kernel"] or n_split != 1:
-            raise AssertionError(f"K7 f32 {name}: ran {ran}, {n_split} T "
-                                 f"range(s), not float_attention_kernel "
-                                 f"alone")
+    ok, err_s, _ = _k7_within(torch, got, ref.flash_attention_split(
+        qf, kf, vf, qpf, kpf, splits=n_split, tile=ref.FLOAT_TILE,
+        window=window))
+    if not ok:
+        raise AssertionError(f"K7{tag} {name}: beyond its tolerance of the "
+                             f"{n_split}-range plain version (max |err| "
+                             f"{err_s})")
+    split = traced_split(torch, timer, run7, [kernel])
+    ran = [k for k in kernel_names(split) if k in (
+        "float_flash_kernel", "flash_attention_mma_kernel",
+        "combine_kernel")]
+    if ran != sorted([kernel] + ["combine_kernel"] * (n_split > 1)):
+        raise AssertionError(f"K7{tag} {name}: {n_split} T range(s) "
+                             f"planned, but the kernels that ran were {ran}")
     ms = timer(run7, iters=20)
     plain = timer(run7_plain, iters=3, warmup=1)
     size = qf.element_size()
@@ -1751,12 +1769,16 @@ def _k7_case(torch, timer, results, name, qf, kf, vf, qpf, kpf, window):
         qs, kf, vf, attn_mask=mask), iters=20)
     lib_err = (F.scaled_dot_product_attention(qs, kf, vf, attn_mask=mask)
                .float() - want[:, seen].float()).abs().max().item()
-    route = (f"mma route, {n_split} T range(s)" if bf16 else
-             f"SIMT route (device ms: {split_line(split)})")
+    dev = sum(split.values())
+    route = "mma" if bf16 else "FFMA"
     print(f"K7 flash_attention {name} BH={bh} Sq={sq} T={kf.shape[1]} "
-          f"d={d} {'bf16' if bf16 else 'f32'}, {route}: max|err| "
-          f"{err:.3g}, {tol}; {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
-          f"{100 * b_ms / ms:.1f}% of bound; "
+          f"d={d} {'bf16' if bf16 else 'f32'}, {route} route, {n_split} T "
+          f"range(s) (device ms: {split_line(split)}): max|err| "
+          f"{err:.3g}, {tol}, against the {n_split}-range plain version "
+          f"{err_s:.3g}; {int(pads.sum())} padded query row(s), exactly 0; "
+          f"{ms:.4f} ms, device {dev:.4f} ms (bound "
+          f"{b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of bound, "
+          f"device {100 * b_ms / dev:.1f}%; "
           f"{versus_prev('K7' + tag + ' ' + name, b_ms)}), plain "
           f"{plain:.4f} ms; "
           f"library: scaled_dot_product_attention with a boolean mask "
@@ -1775,7 +1797,7 @@ def k6_k7_phase(torch, timer, seed, results):
     (4 rows, ring 1024 with 632 live slots), the bucketed prefill of the
     600-token prompt (4 x 1024 query rows, T 1024), a 256-slot window,
     and a fully masked query row; K6 against K2 on the same K/V; K7's
-    bf16 (tensor-core) and f32 (SIMT) routes at each case (``_k7_case``).
+    bf16 (tensor-core) and f32 (FFMA) routes at each case (``_k7_case``).
     Returns K7's launches by route."""
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(seed + 5)
@@ -3805,7 +3827,7 @@ def main() -> int:
             "src/repro/kernels/flash_attention.py:234"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:124"),
-        # K7's f32 route: the same pallas_call, its SIMT kernel
+        # K7's f32 route: the same pallas_call, its FFMA kernel
         "flash_attention_f32": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:124"),
         # the bitserial variants: the same pallas_call, their own kernels

@@ -36,11 +36,50 @@
 // sums in the order of K6's first kernel, so its output is that kernel's
 // bit for bit.
 //
-// K7's f32 inputs run the SIMT kernel below (one block per (q-tile of 16
-// rows, kv head, batch row), 4 warps; the block loads one tile of 32
-// float K and V slots into shared memory, each warp updates the running
-// softmax state of its rows, each lane one slot for Q.K^T and 1/32 of the
-// head dim for P.V); its bf16 inputs the tensor-core kernel further down.
+// K7's f32 inputs run the register-tiled FFMA kernel below; its bf16
+// inputs the tensor-core kernel further down.
+//
+// K7, f32 route.  Replaces the TPU kernel
+// src/repro/kernels/flash_attention.py::flash_attention (body `_kernel`,
+// its pallas_call) for f32 q/K/V.  Its bound on the H100: bytes at decode
+// (each live K/V slot read once: 2 * d * 4 B a (row, slot), at 3.35 TB/s),
+// f32 operations at a prefill (4 d flops a visible (query, slot) pair, at
+// 67 TFLOP/s: no tensor core computes f32 products).  The design:
+//   * split-KV at decode (flash-decoding): the C entry plans ranges of
+//     64-slot tiles (FT) with split_kv.cuh's plan when the (q-tile, head,
+//     request) grid would not fill the card -- llama3-8b's decode, 32
+//     folded heads and T 1024, runs 16 ranges, 512 blocks -- each block
+//     writes the f32 partials (m, l, acc) of its rows to the wrapper's
+//     workspace, a range no row may see writes (-1e30, 0, 0), and the
+//     combine (K2's and K6's) merges them with the final max(l, 1e-20)
+//     clamp; a grid that fills the card (a prefill) is not split;
+//   * the query tile fits Sq: 16 rows and 128 threads at Sq <= 16 (64
+//     slots a computed tile), 64 rows and 256 threads above (32 slots a
+//     tile, two blocks an SM up to d 128: shared memory and registers are
+//     sized for it);
+//   * K and V of the next visible tile are copied by cp.async (16-byte
+//     copies where d % 4 == 0 and the operands are 16-byte aligned, else
+//     4-byte ones; head-dim pad columns zero-filled) into the second of
+//     two shared stages while the current tile is computed; a tile that
+//     no query row of the block may see (the exact per-pair test, one
+//     __syncthreads_or a tile, over a window of 512 positions read at
+//     once) is skipped before its copy, and the query tile is read only
+//     once a tile is kept;
+//   * S = Q K^T and O += P V are register-tiled FFMA products: a thread
+//     owns 4 query rows, TS slots of S (strided by the row group's width,
+//     so its K rows, 4 floats apart in bank, load as conflict-free
+//     float4s) and DC head-dim columns of O (float4 chunks, neighbouring
+//     threads on neighbouring chunks); Q, K and V sit in shared memory as
+//     rows of the padded head dim plus 4 floats, P passes through shared
+//     memory between the two products; each row's running max and
+//     denominator are reduced with shuffles among the threads of its row
+//     group; the loops over the padded head dim and the tile are unrolled;
+//   * every sum is f32 and every product one f32 FMA (fmaf), in slot and
+//     head-dim order within a tile; expf, IEEE division.
+// The route is held to the plain version (kernels/ref.py::flash_attention)
+// and to the plain version of its split (::flash_attention_split at the
+// planned ranges) within 1e-5 absolute or 1e-6 relative; a fully masked
+// row returns exactly 0.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,155 +90,391 @@
 
 namespace {
 
-constexpr int BQ = 16;          // query rows per block
-constexpr int BT = 32;          // KV slots per tile (one per lane)
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = BQ / WARPS;
+constexpr int BT = 32;          // K6: ring slots a tile
 constexpr int MAX_DPL = 8;      // head dim <= 256
 constexpr int MAX_TILES = 4;    // K6: ring tiles a split range holds at most
 
 using bipolar_attention::pos_valid;
+using bitserial::cp_async16;
+using bitserial::cp_async4;
+using bitserial::cp_async_commit;
+using bitserial::cp_async_wait;
 
-// K7, f32: q (B * H, Sq, d), K/V (B, T, H, d) f32
-__global__ void __launch_bounds__(THREADS)
-float_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
-                       const int* __restrict__ q_pos,
-                       const int* __restrict__ kv_pos, float* __restrict__ out,
-                       int h_kv, int sq, int t_len, int d, int dp, int causal,
-                       int window, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;                       // [BQ][dp]
-  float* s_k = s_q + BQ * dp;              // [BT][dp + 1]
-  float* s_v = s_k + BT * (dp + 1);        // [BT][dp]
-  __shared__ int s_pos[BT];
+// ---------------------------------------------------------------------------
+// K7, f32 inputs
+// ---------------------------------------------------------------------------
+
+constexpr int FT = 64;          // slots a planned tile (a split range's unit)
+constexpr int F_MAX_TILES = 4;  // planned tiles a split range holds at most
+constexpr int PWIN = 512;       // slots a window of positions tested at once
+
+// The f32 kernel's geometry: BQ query rows, head dim padded to DMAX (64,
+// 128 or 256), NT threads, computed tiles of BT slots.  Thread (rg, sg)
+// of a block owns rows TR * rg .. + TR - 1, slots sg + SG * j (j < TS) of
+// each computed tile, and head-dim columns sg * W + SG * W * c + w
+// (c < DC / W, w < W) of O.
+template <int BQ, int DMAX, int NT, int BT>
+struct FGeo {
+  static constexpr int TR = 4;           // rows a thread
+  static constexpr int RG = BQ / TR;     // row groups
+  static constexpr int SG = NT / RG;     // threads a row group
+  static constexpr int TS = BT / SG;
+  static constexpr int DC = DMAX / SG;
+  static constexpr int W = DC < 4 ? DC : 4;
+  static constexpr int LD = DMAX + 4;    // floats a staged Q, K or V row
+  static constexpr int LDP = BT + 4;     // floats a row of P
+  static_assert(BQ % TR == 0 && NT % RG == 0, "row groups");
+  static_assert(SG <= 32 && (SG & (SG - 1)) == 0, "a row group in a warp");
+  static_assert(BT % SG == 0 && DC % W == 0 && FT % BT == 0, "tiling");
+  // dynamic shared memory: Q [BQ][LD], P [BQ][LDP], stages x (K, V)
+  // [BT][LD]
+  static constexpr size_t smem_bytes(int stages) {
+    return sizeof(float) *
+           ((size_t)BQ * LD + BQ * LDP + (size_t)stages * 2 * BT * LD);
+  }
+  // blocks an SM holds (2 where two fit in the H100's 228 KB at two
+  // stages, with the static arrays and 1 KB the system keeps a block):
+  // the registers are capped to match
+  static constexpr size_t BLOCK_BYTES =
+      sizeof(float) * ((size_t)BQ * LD + BQ * LDP + 4 * BT * LD) +
+      sizeof(int) * (PWIN + 2 * BT + BQ) + 1024;
+  static constexpr int MIN_BLOCKS = 2 * BLOCK_BYTES <= 228 * 1024 ? 2 : 1;
+};
+
+template <int W>
+__device__ __forceinline__ void load_w(float (&dst)[W], const float* src) {
+  static_assert(W == 2 || W == 4, "float2 or float4 loads");
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    dst[0] = t.x; dst[1] = t.y; dst[2] = t.z; dst[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    dst[0] = t.x; dst[1] = t.y;
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& a, int i) {
+  return i == 0 ? a.x : i == 1 ? a.y : i == 2 ? a.z : a.w;
+}
+
+// `rows` rows of NCOL floats (row r at src + r * stride; rows >= valid
+// and columns >= d stored as zeros) into dst [rows][LD] by cp.async
+template <int NT, int LD, int NCOL>
+__device__ __forceinline__ void stage_rows_f32(float* dst,
+                                               const float* __restrict__ src,
+                                               long long stride, int rows,
+                                               int valid, int d, int vec,
+                                               int tid) {
+  if (vec) {                             // d % 4 == 0: 16-byte copies
+    constexpr int C4 = NCOL / 4;
+    for (int item = tid; item < rows * C4; item += NT) {
+      const int r = item / C4, c = 4 * (item % C4);
+      const bool ok = r < valid && c < d;
+      cp_async16(reinterpret_cast<uint32_t*>(dst + r * LD + c),
+                 reinterpret_cast<const uint32_t*>(
+                     ok ? src + r * stride + c : src), ok ? 16 : 0);
+    }
+  } else {
+    for (int item = tid; item < rows * NCOL; item += NT) {
+      const int r = item / NCOL, c = item % NCOL;
+      const bool ok = r < valid && c < d;
+      cp_async4(reinterpret_cast<uint32_t*>(dst + r * LD + c),
+                reinterpret_cast<const uint32_t*>(
+                    ok ? src + r * stride + c : src), ok ? 4 : 0);
+    }
+  }
+}
+
+// q (B * H, Sq, d), K/V (B, T, H, d) f32; split `split` of n_split covers
+// planned tiles [split * tps, (split + 1) * tps) of FT slots
+template <int BQ, int DMAX, int NT, int BT>
+__global__ void __launch_bounds__(NT,
+                                  (FGeo<BQ, DMAX, NT, BT>::MIN_BLOCKS))
+float_flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const int* __restrict__ q_pos,
+                   const int* __restrict__ kv_pos, float* __restrict__ out,
+                   float* __restrict__ ws, int h_kv, int sq, int t_len, int d,
+                   int causal, int window, float scale, int n_split, int tps,
+                   int vec) {
+  using G = FGeo<BQ, DMAX, NT, BT>;
+  constexpr int TR = G::TR, SG = G::SG, TS = G::TS;
+  constexpr int DC = G::DC, W = G::W, LD = G::LD, LDP = G::LDP;
+  extern __shared__ __align__(16) float fsmem[];
+  float* s_q = fsmem;                    // [BQ][LD]
+  float* s_p = s_q + BQ * LD;            // [BQ][LDP]
+  float* s_kv = s_p + BQ * LDP;          // [stage][K, V][BT][LD]
+  __shared__ int s_pos[2][BT];           // the staged tiles' positions
+  __shared__ int s_posw[PWIN];           // a window of the range's
   __shared__ int s_qpos[BQ];
 
-  const long long b = blockIdx.z;
-  const int h = blockIdx.y, q0 = blockIdx.x * BQ;
-  const long long bh = b * h_kv + h;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int dpl = dp / 32;
+  const int b = blockIdx.z;
+  const int h = blockIdx.y / n_split, split = blockIdx.y % n_split;
+  const int q0 = blockIdx.x * BQ;
+  const long long bh = (long long)b * h_kv + h;
+  const int tid = threadIdx.x, rg = tid / SG, sg = tid % SG, r0 = rg * TR;
+  const long long kv_stride = (long long)h_kv * d;
 
-  // query tile (head-dim pad columns are zeros) and its positions
-  for (int i = tid; i < BQ * dp; i += THREADS) {
-    int r = i / dp, c = i % dp, row = q0 + r;
-    float val = 0.0f;
-    if (row < sq && c < d) val = q[(bh * sq + row) * d + c];
-    s_q[i] = val;
-  }
-  if (tid < BQ) {
-    int row = q0 + tid;
-    s_qpos[tid] = row < sq ? q_pos[b * sq + row] : -1;
-  }
+  for (int r = tid; r < BQ; r += NT)
+    s_qpos[r] = q0 + r < sq ? q_pos[(long long)b * sq + q0 + r] : -1;
 
-  float m_run[ROWS_PER_WARP], l_run[ROWS_PER_WARP];
-  float acc[ROWS_PER_WARP][MAX_DPL];
+  // the range's positions a window of PWIN slots at a time, and the
+  // window's tiles that some row of the block may see (the exact test on
+  // every (row, slot) pair, one __syncthreads_or a tile) as a bit mask
+  const int lo = min(t_len, split * tps * FT);
+  const int hi = min(t_len, (split + 1) * tps * FT);
+  int w0 = lo - PWIN;
+  unsigned vis = 0;
+  auto next_visible = [&]() {
+    while (vis == 0) {
+      w0 += PWIN;
+      if (w0 >= hi) return hi;
+      __syncthreads();                   // the last window is read
+      for (int i = tid; i < PWIN; i += NT)
+        s_posw[i] = w0 + i < hi ? kv_pos[(long long)b * t_len + w0 + i] : -1;
+      __syncthreads();
+      for (int j = 0; j < PWIN / BT && w0 + j * BT < hi; ++j) {
+        int any = 0;
+        for (int p = tid; p < BQ * BT; p += NT) {
+          const int r = p / BT, t = p % BT;
+          if (q0 + r < sq &&
+              pos_valid(s_qpos[r], s_posw[j * BT + t], causal, window))
+            any = 1;
+        }
+        if (__syncthreads_or(any)) vis |= 1u << j;
+      }
+    }
+    const int j = __ffs(vis) - 1;
+    vis &= vis - 1;
+    return w0 + j * BT;
+  };
+  // a tile's K and V (cp.async) and positions into stage buf
+  auto stage = [&](int t0, int buf) {
+    float* sk = s_kv + buf * 2 * BT * LD;
+    const long long row0 = ((long long)b * t_len + t0) * h_kv + h;
+    stage_rows_f32<NT, LD, DMAX>(sk, k + row0 * d, kv_stride, BT, t_len - t0,
+                                 d, vec, tid);
+    stage_rows_f32<NT, LD, DMAX>(sk + BT * LD, v + row0 * d, kv_stride, BT,
+                                 t_len - t0, d, vec, tid);
+    for (int i = tid; i < BT; i += NT) s_pos[buf][i] = s_posw[t0 - w0 + i];
+  };
+
+  int t0 = next_visible(), buf = 0;
+  if (t0 < hi) {                         // Q is read once a tile is kept
+    stage_rows_f32<NT, LD, DMAX>(s_q, q + (bh * sq + q0) * d, d, BQ, sq - q0,
+                                 d, vec, tid);
+    stage(t0, buf);
+  }
+  cp_async_commit();
+
+  float m_run[TR], l_run[TR], acc[TR][DC];
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
+  for (int i = 0; i < TR; ++i) {
     m_run[i] = -1e30f;
     l_run[i] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < MAX_DPL; ++c) acc[i][c] = 0.0f;
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
   }
-  __syncthreads();
 
-  for (int t0 = 0; t0 < t_len; t0 += BT) {
-    if (tid < BT)
-      s_pos[tid] = t0 + tid < t_len ? kv_pos[b * t_len + t0 + tid] : -1;
-    __syncthreads();
-    int any = 0;
-    for (int p = tid; p < BQ * BT; p += THREADS) {
-      int r = p / BT, t = p % BT;
-      if (q0 + r < sq && pos_valid(s_qpos[r], s_pos[t], causal, window))
-        any = 1;
-    }
-    if (!__syncthreads_or(any)) continue;     // tile invisible to the block
-
-    // BT slots of K and V of head h (head-dim pad columns 0)
-    for (int item = tid; item < 2 * BT * dp; item += THREADS) {
-      int is_v = item / (BT * dp);
-      int rem = item % (BT * dp);
-      int t = rem / dp, c = rem % dp, slot = t0 + t;
-      float val = 0.0f;
-      if (slot < t_len && c < d)
-        val = (is_v ? v : k)[((b * t_len + slot) * h_kv + h) * d + c];
-      if (is_v) s_v[t * dp + c] = val;
-      else s_k[t * (dp + 1) + c] = val;
-    }
+  while (t0 < hi) {
+    // the next visible tile's copy goes out before this one is computed
+    const int nxt = next_visible();
+    if (nxt < hi) stage(nxt, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
 
+    const float* sk = s_kv + buf * 2 * BT * LD;
+    const float* sv = sk + BT * LD;
+    // S = Q K^T over the staged columns, one FMA chain a (row, slot)
+    float s[TR][TS];
 #pragma unroll
-    for (int i = 0; i < ROWS_PER_WARP; ++i) {
-      const int r = warp + WARPS * i;
-      if (q0 + r >= sq) continue;           // uniform across the warp
-      // scores: one slot per lane over the whole head dim
-      float sdot = 0.0f;
-      for (int c = 0; c < dp; ++c)
-        sdot += s_q[r * dp + c] * s_k[lane * (dp + 1) + c];
-      const bool valid = pos_valid(s_qpos[r], s_pos[lane], causal, window);
-      const float s = valid ? sdot * scale : -1e30f;
-      float mx = s;
-      for (int off = 16; off > 0; off /= 2)
+    for (int i = 0; i < TR; ++i)
+#pragma unroll
+      for (int j = 0; j < TS; ++j) s[i][j] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < DMAX; c += 4) {
+      float4 qa[TR], kb[TS];
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+        qa[i] = *reinterpret_cast<const float4*>(s_q + (r0 + i) * LD + c);
+#pragma unroll
+      for (int j = 0; j < TS; ++j)
+        kb[j] = *reinterpret_cast<const float4*>(sk + (sg + SG * j) * LD + c);
+#pragma unroll
+      for (int i = 0; i < TR; ++i)
+#pragma unroll
+        for (int j = 0; j < TS; ++j) {
+          s[i][j] = fmaf(qa[i].x, kb[j].x, s[i][j]);
+          s[i][j] = fmaf(qa[i].y, kb[j].y, s[i][j]);
+          s[i][j] = fmaf(qa[i].z, kb[j].z, s[i][j]);
+          s[i][j] = fmaf(qa[i].w, kb[j].w, s[i][j]);
+        }
+    }
+    // online softmax: masked slots hold -1e30 and get p exactly 0
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      const int qpos = s_qpos[r0 + i];
+      float mx = -1e30f;
+#pragma unroll
+      for (int j = 0; j < TS; ++j) {
+        const bool ok = pos_valid(qpos, s_pos[buf][sg + SG * j], causal,
+                                  window);
+        s[i][j] = ok ? s[i][j] * scale : -1e30f;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int off = SG / 2; off > 0; off /= 2)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m_run[i], mx);
-      const float p = valid ? expf(s - m_new) : 0.0f;
-      float psum = p;
-      for (int off = 16; off > 0; off /= 2)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
       const float alpha = expf(m_run[i] - m_new);
-      l_run[i] = l_run[i] * alpha + psum;
       m_run[i] = m_new;
+      float sum = 0.0f;
 #pragma unroll
-      for (int c = 0; c < MAX_DPL; ++c) acc[i][c] *= alpha;
-      for (int t = 0; t < BT; ++t) {
-        const float pt = __shfl_sync(0xffffffffu, p, t);
-#pragma unroll
-        for (int c = 0; c < MAX_DPL; ++c)
-          if (c < dpl) acc[i][c] += pt * s_v[t * dp + lane + 32 * c];
+      for (int j = 0; j < TS; ++j) {
+        const float p = s[i][j] > -1e30f ? expf(s[i][j] - m_new) : 0.0f;
+        sum += p;
+        s_p[(r0 + i) * LDP + sg + SG * j] = p;
       }
+#pragma unroll
+      for (int off = SG / 2; off > 0; off /= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l_run[i] = l_run[i] * alpha + sum;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
-  }
-
+    // O += P V, slot by slot
 #pragma unroll
-  for (int i = 0; i < ROWS_PER_WARP; ++i) {
-    const int r = warp + WARPS * i, row = q0 + r;
-    if (row >= sq) continue;
-    const float denom = fmaxf(l_run[i], 1e-20f);
-    float* o = out + (bh * sq + row) * d;
+    for (int t = 0; t < BT; t += 4) {
+      float4 pa[TR];
 #pragma unroll
-    for (int c = 0; c < MAX_DPL; ++c) {
-      int col = lane + 32 * c;
-      if (c < dpl && col < d) o[col] = acc[i][c] / denom;
+      for (int i = 0; i < TR; ++i)
+        pa[i] = *reinterpret_cast<const float4*>(s_p + (r0 + i) * LDP + t);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float* vr = sv + (t + u) * LD;
+#pragma unroll
+        for (int c = 0; c < DC / W; ++c) {
+          float vb[W];
+          load_w<W>(vb, vr + sg * W + SG * W * c);
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            const float p = lane_of(pa[i], u);
+#pragma unroll
+            for (int w = 0; w < W; ++w)
+              acc[i][c * W + w] = fmaf(p, vb[w], acc[i][c * W + w]);
+          }
+        }
+      }
     }
+    __syncthreads();                     // stage buf, s_pos[buf], P reused
+    t0 = nxt;
+    buf ^= 1;
+  }
+  cp_async_wait<0>();
+
+  // rows r0 .. r0 + TR - 1: the output, or this range's partials
+  const long long rows_total = (long long)gridDim.z * h_kv * sq;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int qrow = q0 + r0 + i;
+    if (qrow >= sq) continue;
+    const long long row = bh * sq + qrow;
+    const long long pr = split * rows_total + row;
+    float* dst = out + row * d;
+    float denom = 1.0f;
+    if (n_split == 1) {
+      denom = fmaxf(l_run[i], 1e-20f);
+    } else {
+      if (sg == 0) {
+        ws[2 * pr] = m_run[i];
+        ws[2 * pr + 1] = l_run[i];
+      }
+      dst = ws + 2 * n_split * rows_total + pr * d;
+    }
+#pragma unroll
+    for (int c = 0; c < DC / W; ++c)
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        const int col = sg * W + SG * W * c + w;
+        if (col < d)
+          dst[col] = n_split == 1 ? acc[i][c * W + w] / denom
+                                  : acc[i][c * W + w];
+      }
   }
 }
 
-int launch_float(const void* q, const void* k, const void* v,
-                 const void* q_pos, const void* kv_pos, void* out, int batch,
-                 int h_kv, int sq, int t_len, int d, int causal, int window,
-                 float scale, cudaStream_t stream) {
+// splits of T (and planned tiles per split) for the f32 route; 0 or a
+// CUDA error
+int plan_float(int batch, int h_kv, int sq, int t_len, int* n_split,
+               int* tps) {
+  int n_sm = 0;
+  const int e = bitserial::sm_count(&n_sm);
+  if (e != 0) return e;
+  const int bq = sq <= 16 ? 16 : 64;
+  const long long blocks = (long long)((sq + bq - 1) / bq) * h_kv * batch;
+  split_kv::plan(blocks, (t_len + FT - 1) / FT, n_sm, F_MAX_TILES, n_split,
+                 tps);
+  return 0;
+}
+
+// one f32 launch's operands and plan
+struct FArgs {
+  const void *q, *k, *v, *q_pos, *kv_pos;
+  void *out, *ws;
+  int batch, h_kv, sq, t_len, d, causal, window;
+  float scale;
+  int n_split, tps;
+  cudaStream_t stream;
+};
+
+template <int BQ, int DMAX, int NT, int BT>
+int launch_float_t(const FArgs& a) {
+  using G = FGeo<BQ, DMAX, NT, BT>;
+  auto kernel = float_flash_kernel<BQ, DMAX, NT, BT>;
   static bool configured = false;
   if (!configured) {
-    int max_smem = sizeof(float) * (BQ * 256 + BT * 257 + BT * 256);
     cudaError_t e = cudaFuncSetAttribute(
-        float_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        max_smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)G::smem_bytes(2));
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
-  const int dp = (d + 31) / 32 * 32;
-  size_t smem = sizeof(float) * (BQ * dp + BT * (dp + 1) + BT * dp);
-  dim3 grid((sq + BQ - 1) / BQ, h_kv, batch);
-  float_attention_kernel<<<grid, THREADS, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const int*)q_pos,
-      (const int*)kv_pos, (float*)out, h_kv, sq, t_len, d, dp, causal,
-      window, scale);
+  // one stage where a range holds a single computed tile
+  const int stages = a.tps * FT > BT ? 2 : 1;
+  const int vec = a.d % 4 == 0 && bitserial::aligned16(a.q) &&
+                  bitserial::aligned16(a.k) && bitserial::aligned16(a.v);
+  dim3 grid((a.sq + BQ - 1) / BQ, a.h_kv * a.n_split, a.batch);
+  kernel<<<grid, NT, G::smem_bytes(stages), a.stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v,
+      (const int*)a.q_pos, (const int*)a.kv_pos, (float*)a.out,
+      (float*)a.ws, a.h_kv, a.sq, a.t_len, a.d, a.causal, a.window, a.scale,
+      a.n_split, a.tps, vec);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || a.n_split == 1) return (int)e;
+  const long long rows_total = (long long)a.batch * a.h_kv * a.sq;
+  split_kv::combine_kernel<float><<<(unsigned)rows_total, 128, 0,
+                                    a.stream>>>(
+      (const float*)a.ws, (float*)a.out, rows_total, a.d, a.n_split,
+      nullptr);
   return (int)cudaGetLastError();
 }
+
+// the f32 route's instantiation for a shape, the head dim padded to 64,
+// 128 or 256: at Sq <= 16, 16 query rows and 128 threads over tiles of
+// 64 slots (32 at d 256); above, 64 rows and 256 threads over tiles of
+// 32 slots (two blocks an SM up to d 128)
+int launch_float(const FArgs& a) {
+  if (a.sq <= 16) {
+    if (a.d <= 64) return launch_float_t<16, 64, 128, FT>(a);
+    if (a.d <= 128) return launch_float_t<16, 128, 128, FT>(a);
+    return launch_float_t<16, 256, 128, FT / 2>(a);
+  }
+  if (a.d <= 64) return launch_float_t<64, 64, 256, FT / 2>(a);
+  if (a.d <= 128) return launch_float_t<64, 128, 256, FT / 2>(a);
+  return launch_float_t<64, 256, 256, FT / 2>(a);
+}
+
 
 // K6's split plan: n_split ranges of tps ring tiles
 int quantized_plan(int batch, int h_kv, int sq, int t_len, int* n_split,
@@ -212,9 +487,9 @@ int quantized_plan(int batch, int h_kv, int sq, int t_len, int* n_split,
 // ---------------------------------------------------------------------------
 // K7, bf16 inputs: tensor-core flash attention with split-KV at decode.
 //
-// A SIMT kernel (the f32 one above) spends a load per element and one f32
-// FMA chain per lane over the head dim, and at decode puts B * H blocks
-// on 132 SMs.  This kernel instead:
+// A SIMT kernel (one block per (16-row q-tile, head), a load per element,
+// one f32 FMA chain per lane over the head dim) puts B * H blocks on 132
+// SMs at decode.  This kernel instead:
 //   * loads Q, K and V tiles with 16-byte vector loads into shared memory
 //     (head dim zero-padded to a multiple of 16, rows padded by 16 bytes so
 //     fragment reads do not conflict);
@@ -604,20 +879,26 @@ extern "C" int repro_flash_attention_quantized(
   return (int)cudaErrorInvalidValue;
 }
 
-// K7: the number of T splits the bf16 route runs for this shape (1 = no
-// workspace); the wrapper sizes the workspace from it: n_split * batch *
-// h_kv * sq * (d + 2) f32.  f32 inputs never split.
+// K7: the number of T splits the C entry runs for this shape and dtype
+// (1 = no workspace; negative: a CUDA error); the wrapper sizes the
+// workspace from it: n_split * batch * h_kv * sq * (d + 2) f32.  Both
+// routes split T into ranges of 64-slot tiles.
 extern "C" int repro_flash_attention_splits(int batch, int h_kv, int sq,
                                             int t_len, int dtype) {
-  if (dtype != 1 || batch == 0 || sq == 0) return 1;
-  int n_split, tps;
-  plan_splits(batch, h_kv, sq, t_len, &n_split, &tps);
-  return n_split;
+  if (batch == 0 || sq == 0) return 1;
+  int n_split = 1, tps = 1;
+  if (dtype == 1) {
+    plan_splits(batch, h_kv, sq, t_len, &n_split, &tps);
+    return n_split;
+  }
+  const int e = plan_float(batch, h_kv, sq, t_len, &n_split, &tps);
+  return e != 0 ? -e : n_split;
 }
 
-// K7.  dtype code (q, k, v alike): 0 = float32 (the SIMT kernel above),
-// 1 = bfloat16 (the mma route).  q (batch * h_kv, sq, d), k/v (batch,
-// t_len, h_kv, d); ws: the split workspace (see repro_flash_attention_splits).
+// K7.  dtype code (q, k, v alike): 0 = float32 (the register-tiled FFMA
+// route), 1 = bfloat16 (the mma route).  q (batch * h_kv, sq, d), k/v
+// (batch, t_len, h_kv, d); ws: the split workspace (see
+// repro_flash_attention_splits).
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, const void* q_pos,
     const void* kv_pos, void* out, void* ws, int batch, int h_kv, int sq,
@@ -636,8 +917,11 @@ extern "C" int repro_flash_attention(
     return launch_mma<4>(q, k, v, q_pos, kv_pos, out, ws, batch, h_kv, sq,
                          t_len, d, causal, window, scale, n_split, tps, s);
   }
-  if (dtype == 0)
-    return launch_float(q, k, v, q_pos, kv_pos, out, batch, h_kv, sq, t_len,
-                        d, causal, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  FArgs a{q, k, v, q_pos, kv_pos, out, ws, batch, h_kv, sq, t_len, d,
+          causal, window, scale, 1, 1, s};
+  const int e = plan_float(batch, h_kv, sq, t_len, &a.n_split, &a.tps);
+  if (e != 0) return e;
+  if (a.n_split > 1 && ws == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_float(a);
 }

@@ -12,7 +12,7 @@ decides: CPU tensors run the plain versions
 the kernel or raise, meta tensors take :mod:`repro_torch.kernels.meta`
 (the output's shape, no launch).  K2's C entry splits each request's
 block table across blocks, K6's splits the ring's tiles, and K7's splits
-T for bf16 inputs, when the grid would not fill the card;
+T (both its routes), when the grid would not fill the card;
 :func:`paged_splits`, :func:`quantized_splits` and :func:`float_splits`
 report their choice, and the wrappers allocate the partials' workspace.
 """
@@ -163,14 +163,18 @@ def quantized_splits(b: int, h: int, sq: int, t: int) -> int:
     return n
 
 
+@functools.cache
 def float_splits(bh: int, sq: int, t: int, dtype) -> int:
-    """How many ranges of T K7's C entry splits this shape into (its own
-    choice, from BH and T; 1 for f32 inputs)."""
+    """How many ranges of T's 64-slot tiles (``ref.FLOAT_TILE``) K7's C
+    entry splits this shape into (its own choice, from its grid and T,
+    for each dtype's route; builds the library)."""
     fn = _build.load("flash_attention").repro_flash_attention_splits
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] * 5
-        fn.restype = ctypes.c_int
-    return int(fn(bh, 1, sq, t, _DTYPES[dtype]))
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_int
+    n = int(fn(bh, 1, sq, t, _DTYPES[dtype]))
+    if n < 1:
+        raise RuntimeError(f"float attention split plan: cudaError_t {-n}")
+    return n
 
 
 def _check_positions(q_pos, kv_pos, b, sq, t, dev):

@@ -447,14 +447,25 @@ def _split_attention(q, k, v, q_pos, kv_pos, *, size: int, causal, window):
     return (acc / torch.clamp(l, min=1e-20)).to(q.dtype)
 
 
+FLOAT_TILE = 64     # slots a K7 tile (csrc/flash_attention.cu's MT, FT)
+
+
 def flash_attention_split(q, k, v, q_pos, kv_pos, *, splits: int,
-                          causal=True, window=None):
+                          tile=None, causal=True, window=None):
     """Plain version of K7's split-KV decomposition (flash-decoding), in
     the folded ``(BH, S, D)`` layout: T cut into ranges of ``ceil(T /
-    splits)`` slots (see :func:`_split_attention`).  The tests hold it
-    against :func:`attention_reference`."""
-    return _split_attention(q, k, v, q_pos, kv_pos,
-                            size=-(-k.shape[1] // splits), causal=causal,
+    splits)`` slots, or, given ``tile``, T's ``ceil(T / tile)`` tiles cut
+    into ``splits`` ranges of ``ceil(tiles / splits)`` tiles (the last
+    fewer): the kernel's own ranges at ``tile=FLOAT_TILE`` and its
+    ``float_splits`` count (see :func:`_split_attention`).  The tests
+    hold it against :func:`attention_reference`."""
+    t = k.shape[1]
+    if tile is None:
+        size = -(-t // splits)
+    else:
+        tiles = -(-t // tile)
+        size = -(-tiles // splits) * tile
+    return _split_attention(q, k, v, q_pos, kv_pos, size=size, causal=causal,
                             window=window)
 
 

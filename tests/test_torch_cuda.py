@@ -20,11 +20,12 @@ small-M route's threshold (``apmm.packed_small_m_max()``); the unfused
 linear (K3 + K5) equal to the fused one (K1) bit for bit at ``act="none"`` and with a
 residual, and within K1's 1-ulp SiLU rule through the SwiGLU.  K6 and
 K7 (contiguous attention, packed and float K/V): within 1 bf16 ulp per
-element, or 1e-5 absolute, of the plain version; K6 and K7's bf16 route
-also where their C entries split T (some ranges seen by no query row)
-and against the split plain versions (``ref.kv_cache_attention_split``,
-``ref.flash_attention_split``), K6 on both sides of its split
-threshold.  K3 is also held bit for bit at every width 1..8 and against
+element, or 1e-5 absolute, of the plain version (K7's f32 route: 1e-5
+absolute or 1e-6 relative); K6 and both K7 routes also where their C
+entries split T (some ranges seen by no query row) and against the split
+plain versions at their own ranges (``ref.kv_cache_attention_split``,
+``ref.flash_attention_split`` at ``ref.FLOAT_TILE``), K6 on both sides
+of its split threshold.  K3 is also held bit for bit at every width 1..8 and against
 the bit-serial prologue, which runs its warp routine.  K1's small-M route (M up to
 ``apmm.small_m_max()``): the integer core bit-exact on both sides of the
 threshold, the dual SiLU within 1 bf16 ulp, bias and residual bit-exact.
@@ -41,9 +42,9 @@ stacked-route threshold (``apmm.bitserial_stack_max()``,
 ``moe.bitserial_stack_max()``, ``apmm.packed_bitserial_stack_max()``):
 integer cores bit-exact to the plain versions and to the fused kernels,
 outputs equal to the fused kernels'; K1's and K4's prologue's packed
-words equal K3's and its SU the rows' sums.  K7's f32 route within 1e-5
-absolute or 1e-6 relative of one f32 SDPA call on rows that see every
-live slot.
+words equal K3's and its SU the rows' sums.  K7's f32 route, split over T
+at llama3-8b's decode, within 1e-5 absolute or 1e-6 relative of one f32
+SDPA call on rows that see every live slot.
 The enc-dec and VLM shapes: K6 not causal at seamless-m4t-medium's
 cross-attention reads (pad lanes on the null row exactly 0), K2 at
 qwen2-vl-7b's GQA group 7, K1 and K1-bs at seamless's GELU up projection
@@ -1082,11 +1083,12 @@ def test_contiguous_attention_kernels_match_plain(device, b, t, sq, d,
 
 
 def test_float_attention_f32_route_vs_sdpa(device):
-    """K7's f32 route (``float_attention_kernel``) at llama3-8b's decode
+    """K7's f32 route (``float_flash_kernel``) at llama3-8b's decode
     shape (32 folded heads, 4 query rows of a GQA group, a ring of 1024
-    with 632 live slots), the K/V in f32: on the rows that see every
-    live slot within 1e-5 absolute or 1e-6 relative of one SDPA call in
-    f32 with the same boolean position mask, and of the plain version."""
+    with 632 live slots), the K/V in f32, T split across blocks: on the
+    rows that see every live slot within 1e-5 absolute or 1e-6 relative
+    of one SDPA call in f32 with the same boolean position mask, of the
+    plain version and of the plain version of its split."""
     import torch.nn.functional as F
     rng = np.random.default_rng(632)
     bh, sq, t, live, d = 32, 4, 1024, 632, 128
@@ -1095,7 +1097,8 @@ def test_float_attention_f32_route_vs_sdpa(device):
     kv_pos[:, :live] = torch.arange(live, dtype=torch.int32)
     q_pos = torch.full((bh, sq), live - 1, dtype=torch.int32)
     q_pos, kv_pos = q_pos.to(device), kv_pos.to(device)
-    assert flash_attention.float_splits(bh, sq, t, torch.float32) == 1
+    n_split = flash_attention.float_splits(bh, sq, t, torch.float32)
+    assert n_split > 1
     before = flash_attention.FLOAT_LAUNCHES
     got = flash_attention.flash_attention(q, k, v, q_pos, kv_pos)
     torch.cuda.synchronize()
@@ -1112,6 +1115,8 @@ def test_float_attention_f32_route_vs_sdpa(device):
     assert _within_one_ulp_or(got, lib)
     assert _within_one_ulp_or(got, ref.flash_attention(q, k, v, q_pos,
                                                        kv_pos))
+    assert _within_one_ulp_or(got, ref.flash_attention_split(
+        q, k, v, q_pos, kv_pos, splits=n_split, tile=ref.FLOAT_TILE))
 
 
 @pytest.mark.parametrize("bh,sq,t,live,d,window", [
@@ -1119,14 +1124,22 @@ def test_float_attention_f32_route_vs_sdpa(device):
     (32, 4, 1024, 300, 128, 64),        # decode, sliding window
     (6, 1, 700, 700, 48, None),         # T not a multiple of the tile
     (4, 200, 256, 180, 32, None),       # prefill rows, 20 pads first
-    (2, 70, 130, 130, 40, 33)])         # head dim without 16-byte rows
-def test_float_attention_kernel_split_kv(device, bh, sq, t, live, d, window):
-    """K7's bf16 route on shapes where its C entry splits T (decode) and
-    where it does not (prefill): within 1 bf16 ulp or 1e-5 of the plain
-    version, fully masked rows exactly 0, including ranges of T that no
-    query row may see."""
+    (2, 70, 130, 130, 40, 33),          # head dim without 16-byte rows
+    (8, 3, 300, 290, 33, None),         # d % 4 != 0: 4-byte staging
+    (8, 4, 500, 450, 256, None),        # the largest head dim, decode
+    (4, 80, 200, 200, 256, 50),         # and prefill rows
+    (40, 512, 512, 500, 64, None)])     # a grid that fills the card
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_float_attention_kernel_split_kv(device, bh, sq, t, live, d, window,
+                                         dtype):
+    """K7's bf16 and f32 routes on shapes where their C entry splits T
+    (decode) and where it does not (prefill): within 1 bf16 ulp or 1e-5
+    of the plain version (f32: 1e-5 absolute or 1e-6 relative), fully
+    masked rows exactly 0, including ranges of T that no query row may
+    see, and within the same bar of the plain version of the split at
+    the kernel's own ranges."""
     rng = np.random.default_rng(bh * sq + t + d)
-    q, k, v = (_rand(rng, (bh, n_, d), device, torch.bfloat16)
+    q, k, v = (_rand(rng, (bh, n_, d), device, getattr(torch, dtype))
                for n_ in (sq, t, t))
     kv_pos = torch.full((bh, t), -1, dtype=torch.int32)
     kv_pos[:, :live] = torch.arange(live, dtype=torch.int32)
@@ -1135,7 +1148,7 @@ def test_float_attention_kernel_split_kv(device, bh, sq, t, live, d, window):
     q_pos[0, 0] = -1                       # a padded query row
     q_pos[1] = -1                          # a fully masked head
     q_pos, kv_pos = q_pos.to(device), kv_pos.to(device)
-    n_split = flash_attention.float_splits(bh, sq, t, torch.bfloat16)
+    n_split = flash_attention.float_splits(bh, sq, t, q.dtype)
     if sq <= 4:
         assert n_split > 1
     before = flash_attention.FLOAT_LAUNCHES
@@ -1147,7 +1160,8 @@ def test_float_attention_kernel_split_kv(device, bh, sq, t, live, d, window):
     assert _within_one_ulp_or(got, want)
     assert torch.all(got[0, 0] == 0) and torch.all(got[1] == 0)
     split = ref.flash_attention_split(q, k, v, q_pos, kv_pos,
-                                      splits=n_split, window=window)
+                                      splits=n_split, tile=ref.FLOAT_TILE,
+                                      window=window)
     assert _within_one_ulp_or(got, split)
 
 

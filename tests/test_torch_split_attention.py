@@ -10,7 +10,10 @@ where the reference rounds p to bf16 before P.V and the port keeps f32).
 
 Cases: split counts 1, 2, 7 and T / 32; a range that no query row may see
 (empty ring slots, and the causal future); a fully masked row (exactly
-0); a sliding window; a ring that wrapped.
+0); a sliding window; a ring that wrapped.  The kernel's own ranges
+(``tile=ref.FLOAT_TILE``: whole 64-slot tiles a range, the card's exact
+decomposition at ``float_splits``' count) at a decode shape whose last
+tile is short (T 200, Sq 4, d 40), against both, f32, at 2e-6.
 """
 
 import numpy as np
@@ -108,3 +111,40 @@ def test_fully_masked_rows_are_zero_with_every_range_empty():
     for splits in (1, 2, 7, T // 32):
         got = ref.flash_attention_split(*args, splits=splits)
         assert np.all(n(got) == 0)
+
+
+T_TILED = 200       # three whole 64-slot tiles and one of 8 slots
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+@pytest.mark.parametrize("window", [None, 9, 70])
+def test_tile_ranges_equal_plain_attention(splits, window):
+    """Ranges of whole tiles (splits 2 and 3: two tiles a range, the last
+    one 72 slots; 4: a tile a range), each range's partials, the
+    combine: the plain attention within 2e-6; the empty cache's rows and
+    the padded query row exactly 0."""
+    rng = np.random.default_rng(17 + (window or 0))
+    args = [t(a) for a in _inputs(rng, t_len=T_TILED, sq=4)]
+    got = ref.flash_attention_split(*args, splits=splits,
+                                    tile=ref.FLOAT_TILE, window=window)
+    want = ref.flash_attention(*args, window=window)
+    np.testing.assert_allclose(n(got), n(want), rtol=0, atol=2e-6)
+    assert np.all(n(got)[2] == 0) and np.all(n(got)[0, 1] == 0)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4])
+@pytest.mark.parametrize("window", [None, 70])
+def test_tile_ranges_match_reference_kernel(splits, window):
+    rng = np.random.default_rng(23 + (window or 0))
+    q, k, v, q_pos, kv_pos = _inputs(rng, t_len=T_TILED, sq=4)
+    want = JF.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                              jnp.asarray(q_pos), jnp.asarray(kv_pos),
+                              window=window, block=(8, 8), interpret=True)
+    got = ref.flash_attention_split(*(t(a) for a in (q, k, v, q_pos,
+                                                     kv_pos)),
+                                    splits=splits, tile=ref.FLOAT_TILE,
+                                    window=window)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(n(got), np.asarray(want), rtol=2e-6,
+                               atol=2e-6)
+    assert np.all(n(got)[2] == 0) and np.all(n(got)[0, 1] == 0)
