@@ -103,7 +103,14 @@ exit and no result line):
    redesign of the bit-serial core (``PREV_MS``), K1's and K4's with the
    prologue's and the GEMM's device time apart (``torch.profiler``), and
    each at the edge of the core's two routes (the stacked route's last
-   M or segment height and the rows route's first);
+   M or segment height and the rows route's first); K3 at the nested
+   checkpoint's w8 load shape, and K1 and K1-bs on one w8 checkpoint's
+   plane-prefix views (``NESTED_BITS``, ``NESTED_K1_M``: llama3-8b's dual
+   gate/up served at 8, 4 and 2 bits at decode and at a chunk), each
+   view seen to reach the C entry uncopied (the full stack's pointer
+   plus ``8 - k`` planes), with the bound at k planes; every device
+   split leaves the Timer's L2 flush, an f64 fill (``FLUSH_KERNEL``),
+   out by its kernel's name;
 4. the norm -- ``norm_apply`` on the card at llama3-8b's width and at
    stablelm-3b's layernorm with its bias (d 2560) gives the CPU's bits
    (it reproduces XLA's f32 steps in torch ops), and its time; then full
@@ -121,7 +128,9 @@ exit and no result line):
    decoder layers, its own w4, random frames from the seed, the cross
    caches on slot 1 of the pool's state slots) and of qwen2-vl-7b (depth
    2, its own w2, random patch embeddings and ``(3, B, S)`` positions
-   whose axes differ) on the card, then the same forward with
+   whose axes differ), and of llama3-8b's w8/a8 checkpoint (depth 2)
+   served at ``nested_bits`` 8, 4 and 2, on the card, then the same
+   forward with
    the parameters moved to the CPU (the plain versions run there because
    the device decides), logits compared within 5% of the largest and,
    for the MoE configs, the share of tokens routed to the same experts,
@@ -132,7 +141,7 @@ exit and no result line):
    activation bits with a kv8 cache, random weights from ``--seed``
    quantized on the card (K3 at load), the launch counters zeroed just
    before and read just after each: the full 32-layer llama3-8b (4
-   requests, w2), mixtral-8x7b at 8 of its 32 layers (``SERVE_LAYERS``;
+   requests, w2), mixtral-8x7b at 4 of its 32 layers (``SERVE_LAYERS``;
    5 requests, one of 4,300 tokens that attends through the rolling
    4,096-token window, w2), deepseek-moe-16b at 8 of its 28 layers
    (``SERVE_LAYERS``; w3: a dense layer 0, then 7 layers of 64 experts, top 6, and a shared
@@ -163,7 +172,7 @@ exit and no result line):
    more, K2 once a layer; neither hits the prefix cache, seamless
    drains its slots, and it fails if phase 3's ``K6_PATH_STEP`` case is
    not among its decode steps' K6 shapes; then
-   llama3-8b at ``CONTIGUOUS_LAYERS`` (8) of its 32 layers served by
+   llama3-8b at ``CONTIGUOUS_LAYERS`` (4) of its 32 layers served by
    ``Engine(paged=False, n_slots=4, max_len=1024)`` with the unfused
    linear (``llama3-8b-contiguous-unfused``), where every dispatch
    launches K5 and K3 7 times a layer and once more (the lm_head) and K6
@@ -188,7 +197,16 @@ exit and no result line):
    small-M launches (decode) beside its chunk-route launches (prefill); the
    MoE paths print K4's live rows against its capacity rows and its
    segment heights in both, and fail if phase 3's case for that step
-   (``K4_STEP_SEGS``) is not among those heights;
+   (``K4_STEP_SEGS``) is not among those heights; after llama3-8b's
+   pair, llama3-8b-nested and its twin (``serve_phase(precisions=)``,
+   ``NESTED_PATH``): one w8/a8 checkpoint at full depth, requests at
+   ``Request(precision=)`` 8, 4 and 2 and two late prefix-sharing ones
+   at 8 and 4, 16 tokens each; one dispatch per width among a forward's
+   lanes, K1 193 and K2 32 times each, every K1 launch on the w8
+   stacks' top k planes in place (k the dispatch's width), per-width
+   ``repro_engine_precision_total``, exactly one prefix hit (the 8-bit
+   late request's: the index is salted by width), one traced decode
+   dispatch per width (wall, busy, K1's device ms);
 6. training -- minicpm-2b (``TRAIN_ARCH``, the reference's WSD model)
    at full width and 2 layers: one gradient step on the card against
    the CPU from the same parameters and batch (the loss, the gradient
@@ -231,7 +249,9 @@ exit and no result line):
    the shared epilogue, equal to K1 on the whole weight bit for bit; (c)
    K6's lse route at the "decode" case: ``o`` with the lse equal to
    ``o`` without it, the ring's two halves combined within 1 bf16 ulp or
-   1e-5 of the unsplit output, K6's time with and without the lse;
+   1e-5 of the unsplit output, K6's time with and without the lse (run
+   with phase 3: once an NCCL group has come and gone, the profiler has
+   returned empty traces of K6 five times in a row);
 8. the examples and the dry run: (a) each ``examples/torch_*.py`` in a
    subprocess on the card at small arguments (``EXAMPLES``): exit 0, its
    launch counters printed; K1, K2, K3 and K5 must each launch in one of
@@ -366,16 +386,31 @@ K6_PATH_STEP = {"seamless-m4t-medium": "seamless cross decode"}
 
 # the depths of phase 5's cut pairs, each of its config's layers, so that
 # the whole run keeps inside its time budget: llama3-8b's contiguous pair
-# (8 of 32), mixtral-8x7b (8 of 32, to make room for phases 6 and 7),
+# (4 of 32; 8 until the nested pair came) and mixtral-8x7b (4 of 32; 16
+# until phases 6 and 7 came, 8 until the nested pair came),
 # deepseek-moe-16b (8 of 28: the dense layer 0 and 7 MoE layers) and
 # stablelm-3b (8 of 32), whose widths phases 3 and 4 cover;
 # jamba-1.5-large-398b serves one hybrid group (8 of 72 layers: 7 mamba
 # and 1 attention, MoE at every other); qwen2-vl-7b serves 4 of its 28
 # alike layers.  llama3-8b, mamba2-130m and seamless-m4t-medium (12 + 12)
 # serve at full depth.
-CONTIGUOUS_LAYERS = 8
-SERVE_LAYERS = {"mixtral-8x7b": 8, "deepseek-moe-16b": 8, "stablelm-3b": 8,
+CONTIGUOUS_LAYERS = 4
+SERVE_LAYERS = {"mixtral-8x7b": 4, "deepseek-moe-16b": 8, "stablelm-3b": 8,
                 "jamba-1.5-large-398b": 8, "qwen2-vl-7b": 4}
+
+# phase 5's nested-precision path, llama3-8b-nested (``serve_phase``'s
+# arguments): one w8/a8 checkpoint (kv8 pool) at full width and depth (32
+# layers; K1 6 a layer + the lm_head and K2 one a layer each dispatch, K3
+# 7 a layer + the lm_head at load), llama's prompts at
+# ``Request(precision=)`` 8, 4 and 2, the first carrying the 128-token
+# prefix; once it has emitted, two 200-token requests with that prefix at
+# 8 and 4 bits.  16 greedy tokens each (a mixed step makes one dispatch
+# per width, so a step costs about three of llama's)
+NESTED_PATH = dict(per_dispatch={"apmm_fused_linear": 193,
+                                 "paged_attention": 32},
+                   n_pack=225, w_bits=8, prompt_lens=(600, 100, 300),
+                   late=(200, 200), precisions=(8, 4, 2, 8, 4),
+                   new_tokens=16, prefix=128, max_len=1024, n_blocks=257)
 
 # the phase-3 case whose numbers (ms, bound, plain, error) a path's
 # entry in the kernels line carries, by path and kernel (its bitserial
@@ -411,6 +446,8 @@ PATH_CASES = {
                     "apmm_fused_linear": "qwen2-vl decode down",
                     "paged_attention": "qwen2-vl decode"},
     "llama3-8b-sharded-serve": {"flash_attention_quantized": "decode lse"},
+    "llama3-8b-nested": {"quantize_pack_rows": "nested load",
+                         "apmm_fused_linear": "nested decode gate/up k4"},
     "seamless-m4t-medium": {"quantize_pack_rows": "seamless load",
                             "apmm_fused_linear": "seamless decode up",
                             "paged_attention": "seamless decode",
@@ -493,13 +530,18 @@ def smi_line() -> str:
 # timing
 # ---------------------------------------------------------------------------
 
+# the Timer's L2 flush is a 64 MiB f64 fill, whose kernel no measured
+# function launches: ``device_split`` leaves it out by this name
+FLUSH_KERNEL = "FillFunctor<double>"
+
+
 class Timer:
     """Median CUDA-event time of ``fn`` with L2 flushed before each
     launch (the serving path reads every weight cold)."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.empty(8 << 20, dtype=torch.float64, device="cuda")
 
     def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
         torch = self.torch
@@ -538,31 +580,64 @@ def device_us(ev) -> float:
     return getattr(ev, "self_cuda_time_total", 0.0) if dev is None else dev
 
 
-def device_split(torch, timer, fn, iters: int = 10) -> dict:
+# the profiler has lost the first events of a window and the last ones
+# before it closed (on its own or in bursts of several windows):
+# ``device_split`` and ``profile_steps`` pause this long, s, after
+# opening a window and before closing it, and ``device_split`` opens its
+# with a lead-in fill it waits for and pauses a second before taking a
+# lossy trace again
+PROFILER_PAUSE_S = 0.02
+# what the profiler lost this run: a ``device_split`` window's lead-in
+# fill, a ``device_split`` trace taken again (a kernel's launches or a
+# flush fill short), a ``profile_steps`` trace with no device time (its
+# caller traces a later step); printed at the end of the run
+PROFILER_DROPS = {"lead_in": 0, "device_split": 0, "profile_steps": 0}
+
+
+def device_split(torch, timer, fn, iters: int = 10, tries: int = 5) -> dict:
     """Device ms per call of each kernel ``fn`` launches, by name
     (``torch.profiler``; L2 flushed before each call, as the Timer does;
-    the flush's own kernel left out)."""
+    the flush's own fill, ``FLUSH_KERNEL``, left out by name).  The
+    window opens with one more fill, which the profiler may miss.  Every
+    call launches the same kernels, so a trace holding other than
+    ``iters`` or ``iters + 1`` fills, or a kernel whose launches are not
+    a multiple of ``iters``, lost events: it is taken again, ``tries``
+    times in all, and then fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    flush = set()
-    with profile(activities=[ProfilerActivity.CUDA]) as p0:
-        timer.flush.zero_()
-        torch.cuda.synchronize()
-    for ev in p0.key_averages():
-        flush.add(ev.key)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    for attempt in range(tries):
+        if attempt:
+            time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             timer.flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA or ev.key in flush:
-            continue
-        out[ev.key] = device_us(ev) / iters / 1e3
-    return out
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_PAUSE_S)
+            for _ in range(iters):
+                timer.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILER_PAUSE_S)
+        out, short, fills = {}, {}, 0
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            if FLUSH_KERNEL in ev.key:
+                fills += ev.count
+                continue
+            out[ev.key] = device_us(ev) / iters / 1e3
+            if ev.count % iters:
+                short[kernel_name(ev.key)] = ev.count
+        if fills in (iters, iters + 1) and not short:
+            PROFILER_DROPS["lead_in"] += fills == iters
+            return out
+        PROFILER_DROPS["device_split"] += 1
+        print(f"device_split: the trace of {iters} calls held {fills} flush "
+              f"fills ({FLUSH_KERNEL}, the lead-in's included) and launches "
+              f"{short or 'whole'}: taken again", flush=True)
+    raise AssertionError(f"device_split: {tries} traces of {iters} calls "
+                         f"each lost events")
 
 
 def kernel_name(key: str) -> str:
@@ -658,7 +733,10 @@ K3_CASES = (("load", 14336, 4096, 2, 1),
             # seamless-m4t-medium's GELU up (4096 x 1024) at its own w4,
             # and qwen2-vl-7b's down projection (3584 x 18944), w2
             ("seamless load", 4096, 1024, 4, 1),
-            ("qwen2-vl load", 3584, 18944, 2, 1))
+            ("qwen2-vl load", 3584, 18944, 2, 1),
+            # the nested checkpoint's pack: llama3-8b's gate at w8, the
+            # widest width, once at load (served at 8, 4 and 2 bits)
+            ("nested load", 14336, 4096, 8, 1))
 
 
 def k3_phase(torch, timer, rng_seed, results):
@@ -746,11 +824,20 @@ def _fused_route(torch, timer, label, fn, m, threshold, prologue):
 
 
 def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
-             act="none", w_bits=2, a_bits=8, cache=None):
+             act="none", w_bits=2, a_bits=8, cache=None, weights=None,
+             yardsticks=True):
+    """K1 and K1-bs at one phase-3 case, on new random weights packed at
+    ``w_bits`` (``cache``: reused by shape), or on ``weights``, a (w, w2)
+    pair given (a nested checkpoint's plane-prefix views); the
+    yardsticks are left out where an earlier case timed them at this
+    shape."""
     from repro_torch.core import bipolar
     from repro_torch.kernels import apmm, ops, ref
     key = (n, k, dual, w_bits)
-    if cache is not None and key in cache:
+    if weights is not None:
+        w, w2 = weights
+        w_bits = w.n_bits
+    elif cache is not None and key in cache:
         w, w2 = cache[key]
     else:
         w = ops.pack_weight(torch.randn((n, k), generator=g, device="cuda"),
@@ -809,16 +896,22 @@ def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
     # same function and work)
     bs = _k1_bitserial(torch, timer, name, x, a_s, w, w2, res, a_bits, act,
                        got, want, ms, b_ms, b_by)
-    # yardsticks (not the same function; the port never calls them)
-    wb = torch.randn((nw * n, k), generator=g, device="cuda").to(
-        torch.bfloat16)
-    mm = timer(lambda: torch.matmul(x, wb.T), iters=10)
-    mi = max(m, 32)               # torch._int_mm takes M > 16 on the card
-    xi = torch.randint(-127, 128, (mi, k), device="cuda", dtype=torch.int8)
-    wi = torch.randint(-127, 128, (nw * n, k), device="cuda",
-                       dtype=torch.int8)
-    im = timer(lambda: torch._int_mm(xi, wi.t()), iters=10)
-    del wb, xi, wi
+    yard = ""
+    if yardsticks:    # not the same function; the port never calls them
+        wb = torch.randn((nw * n, k), generator=g, device="cuda").to(
+            torch.bfloat16)
+        mm = timer(lambda: torch.matmul(x, wb.T), iters=10)
+        mi = max(m, 32)           # torch._int_mm takes M > 16 on the card
+        xi = torch.randint(-127, 128, (mi, k), device="cuda",
+                           dtype=torch.int8)
+        wi = torch.randint(-127, 128, (nw * n, k), device="cuda",
+                           dtype=torch.int8)
+        im = timer(lambda: torch._int_mm(xi, wi.t()), iters=10)
+        del wb, xi, wi
+        yard = (f"; yardsticks (paper's cuBLAS/CUTLASS class, not the same "
+                f"function): torch.matmul bf16 {mm:.4f} ms, torch._int_mm "
+                f"int8 M={mi} {im:.4f} ms, x {groups} group pairs "
+                f"{im * groups:.4f} ms")
     print(f"K1 apmm_fused_linear {name} M={m} N={n} K={k} ({kw} words, "
           f"{'16-byte' if kw % 4 == 0 else '4-byte'} weight loads) "
           f"w{w_bits}a{a_bits}"
@@ -830,11 +923,7 @@ def _k1_case(torch, timer, g, name, m, n, k, *, dual=False, residual=False,
           f"{ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
           f"{100 * b_ms / ms:.1f}% of bound; "
           f"{versus_prev('K1 ' + name, b_ms)}), plain "
-          f"{plain:.4f} ms; "
-          f"yardsticks (paper's cuBLAS/CUTLASS class, not the same "
-          f"function): torch.matmul bf16 {mm:.4f} ms, torch._int_mm int8 "
-          f"M={mi} {im:.4f} ms, x {groups} group pairs "
-          f"{im * groups:.4f} ms", flush=True)
+          f"{plain:.4f} ms{yard}", flush=True)
     return dict(max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None), bs
 
@@ -968,6 +1057,100 @@ def k1_phase(torch, timer, seed, results):
                     "seamless decode lm_head", "qwen2-vl decode lm_head"):
             cache.pop((n, k, False, kw.get("w_bits", 2)), None)
     cache.clear()
+    torch.cuda.empty_cache()
+
+
+# the nested checkpoint's K1 cases in phase 3: llama3-8b's dual gate/up
+# packed once at w8 (the widest width, with its per-width scales), served
+# at each of NESTED_BITS through ``bipolar.nested_slice`` -- plane-prefix
+# views, not copies -- at decode (M = 4, the small-M route) and at a
+# chunk (M = 1024, the int8 chunk route); each case is named
+# "nested <step> gate/up k<bits>"
+NESTED_BITS = (8, 4, 2)
+NESTED_K1_M = {"decode": 4, "chunk": 1024}
+
+
+@contextlib.contextmanager
+def k1_calls():
+    """Record each call of K1's C entry (either variant) while the block
+    runs, as (the weight-plane pointers it is handed -- W's, and W2's
+    where given --, the bytes of one plane, the planes it streams);
+    yields the list."""
+    from repro_torch.kernels import apmm
+    lib, seen = apmm._lib, []
+
+    def recording():
+        fn = lib()
+
+        def call(*args):
+            # args 2 and 4: W's and W2's planes; 11, 13: N and Kw; 15: the
+            # weight's bits
+            seen.append((tuple(p for p in (args[2], args[4]) if p),
+                         args[11] * args[13] * 4, args[15]))
+            return fn(*args)
+        return call
+
+    apmm._lib = recording
+    try:
+        yield seen
+    finally:
+        apmm._lib = lib
+
+
+def packed_stacks(tree, n_bits: int) -> set:
+    """The pointers of the plane stacks of every ``n_bits``-plane
+    ``BipolarTensor`` in ``tree`` (dicts, lists and tuples)."""
+    from repro_torch.core.bipolar import BipolarTensor
+    if isinstance(tree, BipolarTensor):
+        return {tree.packed.data_ptr()} if tree.n_bits == n_bits else set()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return set().union(*(packed_stacks(v, n_bits) for v in tree))
+    return set()
+
+
+def k1_nested_phase(torch, timer, seed, results):
+    """K1 and K1-bs on a nested w8 checkpoint's views (``NESTED_BITS``,
+    ``NESTED_K1_M``): each view reaches the kernel uncopied (its planes
+    are the full stack's last k, at the full stack's pointer plus
+    ``8 - k`` planes), and ``_k1_case``'s checks hold on it (the integer
+    core bit for bit against the plain version on the same view, the
+    SiLU epilogue within 1 bf16 ulp, the bitserial kernel equal to the
+    fused one), with its time, device split and the bound at k planes."""
+    from repro_torch.core import bipolar
+    from repro_torch.kernels import ops
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    n, k, top = 14336, 4096, max(NESTED_BITS)
+    full = [ops.pack_weight(torch.randn((n, k), generator=g, device="cuda"),
+                            top) for _ in range(2)]
+    plane = n * full[0].packed.shape[-1] * 4           # bytes a plane
+    timed = set()
+    for step, m in NESTED_K1_M.items():
+        for bits in NESTED_BITS:
+            w, w2 = (bipolar.nested_slice(f, bits) for f in full)
+            want = tuple(f.packed.data_ptr() + (top - bits) * plane
+                         for f in full)
+            with k1_calls() as calls:
+                r, bs = _k1_case(torch, timer, g,
+                                 f"nested {step} gate/up k{bits}", m, n, k,
+                                 dual=True, act="silu", weights=(w, w2),
+                                 yardsticks=step not in timed)
+            ptrs = {p for c in calls for p in c[0]}
+            if ptrs != set(want) or {c[2] for c in calls} != {bits}:
+                raise AssertionError(f"K1 nested {step} k{bits}: the kernel "
+                                     f"streamed {sorted({c[2] for c in calls})}"
+                                     f" planes at {ptrs}, not {bits} at the "
+                                     f"views' {want}")
+            print(f"K1 nested {step} gate/up k{bits}: every launch "
+                  f"streamed the w{top} stacks' last {bits} planes in "
+                  f"place (offset {top - bits} planes, no copy)",
+                  flush=True)
+            timed.add(step)
+            case = f"nested {step} gate/up k{bits}"
+            results["apmm_fused_linear", case] = r
+            results["apmm_fused_linear_bitserial", case] = bs
+    del full
     torch.cuda.empty_cache()
 
 
@@ -1936,17 +2119,22 @@ def norm_phase(torch, timer, seed):
               flush=True)
 
 
-def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
+def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False,
+                  w_bits=None, nested=(None,), **over):
     """One full-width forward of ``s`` tokens at depth ``n_layers`` (and
     the config fields ``over``) on the card, then on the CPU, through the
     paged pool with the fused linear or (``contiguous``) a contiguous
     cache with the unfused linear; MoE layers record each token's top-k
-    experts on both devices.  A stateful stack's mamba layers, and an
-    enc-dec model's cross caches, run on slot 1 of the pool's state
-    slots; the enc-dec encoder takes random frames (``enc_len(cfg, s)``
-    of them), the VLM random patch embeddings and ``(3, 1, s)`` positions
-    whose axes differ (height: two tokens a row; width: twice the
-    index)."""
+    experts on both devices.  ``w_bits`` packs the weights at that width
+    (a8) instead of the config's own; each entry of ``nested`` other
+    than None serves them at that many bits (``QuantConfig.nested_bits``:
+    the top planes of the one checkpoint), one forward a width on each
+    device, each width held to the same bar.  A stateful stack's mamba
+    layers, and an enc-dec model's cross caches, run on slot 1 of the
+    pool's state slots; the enc-dec encoder takes random frames
+    (``enc_len(cfg, s)`` of them), the VLM random patch embeddings and
+    ``(3, 1, s)`` positions whose axes differ (height: two tokens a row;
+    width: twice the index)."""
     import dataclasses
     import numpy as np
     from repro_torch.configs import get_config
@@ -1962,6 +2150,8 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
     # glm4, minicpm and deepseek sets kv_bits; the paged pool is packed)
     quant = dataclasses.replace(cfg.quant, kv_bits=8,
                                 fused_linear=not contiguous)
+    if w_bits is not None:
+        quant = dataclasses.replace(quant, w_bits=w_bits, a_bits=8)
     path = ("contiguous cache, unfused linear" if contiguous else
             "paged pool, fused linear") + \
         f", w{quant.w_bits}/a{quant.a_bits}/kv8"
@@ -2007,29 +2197,47 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
                 p = _to_cpu(params)
                 del params
                 torch.cuda.empty_cache()
-            if contiguous:
-                caches = M.init_caches(cfg, 1, nb * 16, quant=quant,
-                                       device=dev)
-            else:
-                caches = PagedKVPool(
-                    cfg, nb + 1, 16, quant=quant, device=dev,
-                    n_state_slots=1 if stateful else 0,
-                    enc_len=n_frames).step_caches(
-                        tables, lens, slots=np.ones(1, np.int32)
-                        if stateful else None)
-            batch = {k: torch.as_tensor(v, device=dev)
-                     for k, v in batch_np.items()}
-            batch.update({k: torch.as_tensor(v, device=dev).to(
-                torch.bfloat16) for k, v in inputs.items()})
-            t0 = time.time()
-            logits, _ = E.prefill_step_bucketed(p, batch, caches, cfg, quant)
-            out[dev] = logits.float().cpu()
-            print(f"{arch} full width depth {n_layers} ({path}): forward on "
-                  f"{dev} in {time.time() - t0:.2f} s", flush=True)
-            del p, caches
+            for bits in nested:
+                q = quant if bits is None else dataclasses.replace(
+                    quant, nested_bits=bits)
+                if contiguous:
+                    caches = M.init_caches(cfg, 1, nb * 16, quant=q,
+                                           device=dev)
+                else:
+                    caches = PagedKVPool(
+                        cfg, nb + 1, 16, quant=q, device=dev,
+                        n_state_slots=1 if stateful else 0,
+                        enc_len=n_frames).step_caches(
+                            tables, lens, slots=np.ones(1, np.int32)
+                            if stateful else None)
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in batch_np.items()}
+                batch.update({k: torch.as_tensor(v, device=dev).to(
+                    torch.bfloat16) for k, v in inputs.items()})
+                t0 = time.time()
+                logits, _ = E.prefill_step_bucketed(p, batch, caches, cfg,
+                                                    q)
+                out[dev, bits] = logits.float().cpu()
+                served = "" if bits is None else f" served at {bits} bits"
+                print(f"{arch} full width depth {n_layers} ({path}"
+                      f"{served}): forward on {dev} in "
+                      f"{time.time() - t0:.2f} s", flush=True)
+                del caches
+            del p
     finally:
         L.moe_apply = moe_apply
-    a, b = out["cuda"], out["cpu"]
+    for bits in nested:
+        label = path if bits is None else f"{path} served at {bits} bits"
+        _shallow_check(torch, arch, cfg, n_layers, s, label,
+                       out["cuda", bits], out["cpu", bits], routes, margins,
+                       stateful, n_frames)
+    torch.cuda.empty_cache()
+
+
+def _shallow_check(torch, arch, cfg, n_layers, s, path, a, b, routes,
+                   margins, stateful, n_frames):
+    """Hold one of ``shallow_phase``'s card logits ``a`` to the CPU's
+    ``b`` (5% of the largest CPU logit) and print the comparison."""
     if not (torch.isfinite(a).all() and a.shape == (1, cfg.vocab_padded)):
         raise AssertionError("card logits not finite / wrong shape")
     # the vocab's pad columns (minicpm: 122753 of 122880) are masked to
@@ -2072,7 +2280,6 @@ def shallow_phase(torch, seed, arch, n_layers, s, contiguous=False, **over):
           f"logits max|err| {err:.4g} "
           f"(tol 5% of max|logit| {scale:.4g}), argmax card "
           f"{int(a.argmax())} cpu {int(b.argmax())}{routed}", flush=True)
-    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2094,16 +2301,21 @@ def profile_steps(torch, step, n_steps: int, kind: str = "decode"):
     or a trainer's) of ``kind``, recording the device's activity only (no
     caller reads a host op, and recording them adds the profiler's own
     host cost to the window): device time by kernel name and the
-    device's busy share of the window."""
+    device's busy share of the window.  Returns the trace, or None where
+    the profiler recorded no device time (it has dropped a whole window's
+    activity; the caller traces again, and fails if no trace comes
+    back)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_PAUSE_S)
         t0 = time.time()
         for _ in range(n_steps):
             step()
         torch.cuda.synchronize()
         wall_us = (time.time() - t0) * 1e6
+        time.sleep(PROFILER_PAUSE_S)
     rows = []
     busy, n_dev = 0.0, 0
     for ev in prof.key_averages():
@@ -2115,7 +2327,11 @@ def profile_steps(torch, step, n_steps: int, kind: str = "decode"):
             busy += dev
             n_dev += ev.count
     if not rows:
-        raise AssertionError("the profiler recorded no device time")
+        PROFILER_DROPS["profile_steps"] += 1
+        print(f"profile of {n_steps} {kind} steps: wall "
+              f"{wall_us / 1e3:.1f} ms, the profiler recorded no device "
+              f"time", flush=True)
+        return None
     rows.sort(reverse=True)
     print(f"profile of {n_steps} {kind} steps: wall {wall_us / 1e3:.1f} ms, "
           f"device busy {busy / 1e3:.1f} ms ({100 * busy / wall_us:.1f}%, "
@@ -2219,8 +2435,13 @@ def train_phase(torch, seed) -> None:
           + " ".join(f"{x:.4f}" for x in losses), flush=True)
     batch = trainer.batch_at(TRAIN_STEPS)
     t0 = time.time()
-    profile_steps(torch, lambda: trainer.train_step(state, batch), 1,
-                  kind="training")
+    for _ in range(2):    # the same step again if the profiler dropped it
+        if profile_steps(torch, lambda: trainer.train_step(state, batch), 1,
+                         kind="training") is not None:
+            break
+    else:
+        raise AssertionError(f"train {TRAIN_ARCH}: the profiler recorded "
+                             f"no device time in two traces of a step")
     print(f"train {TRAIN_ARCH}: the profiled step and its parse took "
           f"{time.time() - t0:.1f} s", flush=True)
     del trainer, state, batch, m
@@ -3123,6 +3344,32 @@ def k4_rows():
 
 
 @contextlib.contextmanager
+def prefix_hits(pool):
+    """Record each prefix-cache hit ``pool`` (either package's paged pool)
+    takes while the block runs, as (the salt it was looked up under, the
+    prompt's tokens, the blocks and the tokens it reuses); yields the
+    list."""
+    acquire, record, salts, hits = pool.acquire_prefix, pool.record_hit, \
+        {}, []
+
+    def salted_acquire(tokens, *, salt=None):
+        hit = acquire(tokens, salt=salt)
+        salts[id(hit)] = salt
+        return hit
+
+    def recording_hit(hit, n_tokens):
+        hits.append((salts.get(id(hit)), int(n_tokens), len(hit.ids),
+                     int(hit.cached_len)))
+        return record(hit, n_tokens)
+
+    pool.acquire_prefix, pool.record_hit = salted_acquire, recording_hit
+    try:
+        yield hits
+    finally:
+        pool.acquire_prefix, pool.record_hit = acquire, record
+
+
+@contextlib.contextmanager
 def call_shapes(name, shape_of):
     """Record ``shape_of(*args) + (window,)`` of each call of
     ``flash_attention.<name>`` while the block runs; yields the list."""
@@ -3223,35 +3470,49 @@ def same_tokens(label, reqs, twin_tokens) -> None:
 
 
 def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
-                n_blocks, per_dispatch, n_pack=None, variant="fused",
-                twin_tokens=None, params=None, n_layers=None, k1_ms=None):
+                n_blocks, per_dispatch, n_pack, variant="fused",
+                twin_tokens=None, params=None, n_layers=None, k1_ms=None,
+                late=(200,), new_tokens=32, precisions=None, w_bits=None):
     """Serve ``arch`` at full width and depth (``n_layers``: its first
     that many layers), end to end: load and
     quantize on the card (or serve ``params``, a fused path's quantized
     weights, which need no second load), then requests of
-    ``prompt_lens`` tokens (the first and the last
-    share a ``prefix``-token head; the last is submitted once the first
-    has emitted, so its prefix is indexed -- a stateful stack keeps the
-    prefix cache off and must see no hit), 32 greedy tokens each.  The
-    launch counters are zeroed just before and read just after.  Every
-    forward dispatch must launch each kernel ``per_dispatch[name]``
-    times (K3 ``n_pack`` times in all, at load), and exactly the K1
-    launches at M <= ``apmm.small_m_max()`` must take K1's small-M route
-    (each dispatch of ``tokens (B, S)`` runs its linears at M = B·S and
-    its lm_head at M = B; a stateful stack's mixed step is one decode
-    dispatch and one B=1 dispatch per chunk lane; tied embeddings run
-    the logits as a bf16 matmul, not K1).  ``k1_ms(tokens, frames)``,
+    ``prompt_lens`` tokens (the first carries a ``prefix``-token head)
+    and, once the first has emitted, requests of ``late`` tokens with the
+    same head (so its prefix is indexed -- a stateful stack keeps the
+    prefix cache off and must see no hit), ``new_tokens`` greedy tokens
+    each.  The launch counters are zeroed just before and read just
+    after.  Every forward dispatch (``Engine._step``) must launch each
+    kernel ``per_dispatch[name]`` times and nothing else (K3 ``n_pack``
+    times in all, at load), and exactly its K1 launches at M <=
+    ``apmm.small_m_max()`` must take K1's small-M route (each dispatch of
+    ``tokens (B, S)`` runs its linears at M = B·S and its lm_head at M =
+    B; a stateful stack's mixed step is one decode dispatch and one B=1
+    dispatch per chunk lane; tied embeddings run the logits as a bf16
+    matmul, not K1); every decode or fused forward makes one dispatch
+    per distinct width among its lanes.  ``k1_ms(tokens, frames)``,
     where a dispatch's K1 launches vary with its kind (an enc-dec
     prefill runs the encoder and the cross K/V projections at M = the
     frames, a decode neither), gives the M of each K1 launch of a
     dispatch instead of ``per_dispatch``'s K1 entry.  A family that
     prefills whole prompts (vlm, audio) has its ``chunk_tokens``
     dropped by the engine; its traced prefill step is an admitting
-    step.  ``variant="bitserial"`` serves the same
+    step; a traced step whose trace the profiler drops is taken again
+    on a later step, and the path fails if one never came back.
+    ``precisions`` (one per request, the late ones last) makes the path
+    ``<arch>-nested``: one checkpoint stored at ``w_bits``, each request
+    served at its own width, a metered engine; the granted widths,
+    ``repro_engine_precision_total`` by width, every K1 launch of a
+    dispatch at k bits on the stored stacks' top k planes in place (the
+    stack's pointer plus ``w_bits - k`` planes) and exactly one prefix
+    hit, the first late request's on the prefix's blocks (the index is
+    salted by width), must hold, and one decode dispatch of each width
+    is traced alone (K1's device ms at that width) in place of the three
+    decode steps.
+    ``variant="bitserial"`` serves the same
     weights through the bitserial kernels: the fused GEMM counters must
     stay 0 and the tokens must equal ``twin_tokens``, the fused run's.
-    Every GEMM counter not in ``per_dispatch`` must stay 0.  Weights and
-    activations at the config's own bits, a kv8 pool.  Returns the
+    Activations at the config's own bits, a kv8 pool.  Returns the
     counts, the tokens and the quantized weights."""
     import dataclasses
     import numpy as np
@@ -3264,12 +3525,15 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     stateful = needs_state_slots(cfg)
-    # the config's own weight and activation bits, a kv8 paged pool
-    quant = dataclasses.replace(cfg.quant, kv_bits=8, variant=variant)
-    label = arch if variant == "fused" else f"{arch}-{variant}"
+    nested = precisions is not None
+    # the config's own weight bits (a nested checkpoint's: ``w_bits``),
+    # activation bits, a kv8 paged pool
+    quant = dataclasses.replace(cfg.quant, kv_bits=8, variant=variant,
+                                w_bits=w_bits or cfg.quant.w_bits)
+    name = f"{arch}-nested" if nested else arch
+    label = name if variant == "fused" else f"{name}-{variant}"
     k1 = "apmm_fused_linear" if variant == "fused" \
         else "apmm_fused_linear_bitserial"
-    forward, n_dispatch, n_small = M.forward, [0], [0]
     # K1's small-M route is the fused variant's
     thr = apmm.small_m_max() if variant == "fused" else 0
     if k1_ms is None:
@@ -3278,67 +3542,109 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
 
         def k1_ms(tokens, frames):
             return [tokens.numel()] * n_body + [tokens.shape[0]] * head
-    # the launches the dispatches must make, summed over the dispatches
-    want = dict.fromkeys(list(per_dispatch) + [k1], 0)
+    # every dispatch: (served bits, tokens (B, S), its launches, the
+    # launches its shape makes, its small-M launches, those its M's give,
+    # K1's calls); every decode or fused forward: (its lanes' widths, its
+    # dispatches' bits); the widths whose next dispatch is traced alone
+    dispatches, forwards, traced, trace_bits = [], [], {}, set()
 
-    def counting_forward(params, tokens, *a, **kw):
-        n_dispatch[0] += 1
-        ms = k1_ms(tokens, kw.get("frames"))
-        for name, per in per_dispatch.items():
-            want[name] += per if name != k1 else 0
-        want[k1] += len(ms)
-        n_small[0] += sum(m <= thr for m in ms)
-        return forward(params, tokens, *a, **kw)
+    def counting_step(fn, batch, caches, q):
+        tokens = batch["tokens"]
+        ms = k1_ms(tokens, batch.get("frames"))
+        want = {k: v for k, v in dict(per_dispatch, **{k1: len(ms)}).items()
+                if v}
+        before, small, bits = counters(), apmm.SMALL_M_LAUNCHES, q.serve_bits
+        with k1_calls() as calls:
+            if bits in trace_bits:
+                trace_bits.discard(bits)
+                box = []
+                prof = profile_steps(
+                    torch, lambda: box.append(step_fn(fn, batch, caches, q)),
+                    1, kind=f"{label} decode dispatch at {bits} bits")
+                if prof is not None:
+                    traced[bits] = (prof, tuple(tokens.shape))
+                out = box[0]
+            else:
+                out = step_fn(fn, batch, caches, q)
+        after = counters()
+        dispatches.append((bits, tuple(tokens.shape),
+                           {k: v - before[k] for k, v in after.items()
+                            if v != before[k]}, want,
+                           apmm.SMALL_M_LAUNCHES - small,
+                           sum(m <= thr for m in ms), calls))
+        return out
+
+    def grouped(fwd, lanes_of):
+        def call(lanes):
+            n0 = len(dispatches)
+            out = fwd(lanes)
+            forwards.append(([s.precision for s in lanes_of(lanes)],
+                             [d[0] for d in dispatches[n0:]]))
+            return out
+        return call
 
     t_path = time.time()
     resident = fresh_memory(torch)
-    M.forward = counting_forward
     # --- the main path: counters zeroed just before, read just after ---
     zero_counters()
-    try:
-        t0, loaded = time.time(), params is None
-        if loaded:
-            params = M.init_params(cfg, seed=seed, device="cuda",
-                                   quant=quant)
-        torch.cuda.synchronize()
-        t_load = time.time() - t0
-        eng = E.Engine(params, cfg, n_slots=4, max_len=max_len, quant=quant,
-                       paged=True, block_size=16, n_blocks=n_blocks,
-                       chunk_tokens=256)
-        if (eng.chunk_tokens is None) != (cfg.family in ("vlm", "audio")):
-            raise AssertionError(f"{label}: chunk_tokens "
-                                 f"{eng.chunk_tokens} for {cfg.family}")
-        rng = np.random.default_rng(seed)
-        shared = rng.integers(0, cfg.vocab, (prefix,), dtype=np.int32)
+    t0, loaded = time.time(), params is None
+    if loaded:
+        params = M.init_params(cfg, seed=seed, device="cuda", quant=quant)
+    torch.cuda.synchronize()
+    t_load = time.time() - t0
+    eng = E.Engine(params, cfg, n_slots=4, max_len=max_len, quant=quant,
+                   paged=True, block_size=16, n_blocks=n_blocks,
+                   chunk_tokens=256, metrics=nested)
+    if (eng.chunk_tokens is None) != (cfg.family in ("vlm", "audio")):
+        raise AssertionError(f"{label}: chunk_tokens "
+                             f"{eng.chunk_tokens} for {cfg.family}")
+    step_fn = eng._step
+    eng._step = counting_step
+    eng._decode_forward = grouped(eng._decode_forward, lambda lanes: lanes)
+    eng._fused_forward = grouped(eng._fused_forward,
+                                 lambda plan: [s for s, _ in plan])
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(0, cfg.vocab, (prefix,), dtype=np.int32)
 
-        def prompt(n, with_prefix):
-            body = rng.integers(0, cfg.vocab, (n,), dtype=np.int32)
-            return np.concatenate([shared, body[prefix:]]) if with_prefix \
-                else body
+    def prompt(n, with_prefix):
+        body = rng.integers(0, cfg.vocab, (n,), dtype=np.int32)
+        return np.concatenate([shared, body[prefix:]]) if with_prefix \
+            else body
 
-        reqs = [E.Request(prompt=prompt(n, i == 0), max_new_tokens=32)
-                for i, n in enumerate(prompt_lens)]
-        late = E.Request(prompt=prompt(200, True), max_new_tokens=32)
-        reqs.append(late)
-        for r in reqs[:-1]:
-            eng.submit(r)
-        step_ms = {"prefill": [], "decode": []}
-        prof, t_prof, tok_prof, chunk_traced = None, 0.0, 0, False
-        t_serve = time.time()
-        while eng._has_work() or not late.done:
-            if reqs[0].out and getattr(late, "_engine", None) is None:
-                eng.submit(late)      # after the shared prefix is indexed
-            kind = "prefill" if (eng.scheduler.waiting or any(
-                s.prefilling for s in eng.scheduler.running)) else "decode"
-            # trace one chunk step (the second) and three decode steps
-            # in the middle of the run (their times are left out of the
-            # step statistics)
-            traced = (kind == "decode" and prof is None
-                      and len(step_ms["decode"]) == 8) or (
-                kind == "prefill" and not chunk_traced
+    bits = list(precisions or [None] * (len(prompt_lens) + len(late)))
+    reqs = [E.Request(prompt=prompt(n, i == 0), max_new_tokens=new_tokens,
+                      precision=b)
+            for i, (n, b) in enumerate(zip(prompt_lens, bits))]
+    lates = [E.Request(prompt=prompt(n, True), max_new_tokens=new_tokens,
+                       precision=b)
+             for n, b in zip(late, bits[len(prompt_lens):])]
+    for r in reqs:
+        eng.submit(r)
+    reqs += lates
+    step_ms = {"prefill": [], "decode": []}
+    prof, chunk_prof, t_prof, tok_prof, n_decode = None, None, 0.0, 0, 0
+    t_serve = time.time()
+    with prefix_hits(eng.pool) as hits:
+        while eng._has_work() or not all(r.done for r in lates):
+            if reqs[0].out and getattr(lates[0], "_engine", None) is None:
+                for r in lates:       # after the shared prefix is indexed
+                    eng.submit(r)
+            sch = eng.scheduler
+            kind = "prefill" if (sch.waiting or any(
+                s.prefilling for s in sch.running)) else "decode"
+            n_decode += kind == "decode"
+            trace_bits.clear()
+            # trace one chunk step (the second) and, but on a nested path
+            # (whose decode trace is a dispatch of each width, below),
+            # three decode steps in the middle of the run (their times are
+            # left out of the step statistics); a dropped trace is taken
+            # on a later step
+            traced_step = (kind == "decode" and not nested and prof is None
+                           and len(step_ms["decode"]) == 8) or (
+                kind == "prefill" and chunk_prof is None
                 and len(step_ms["prefill"]) == 1)
-            if traced:
-                n0, tp = sum(len(r.out) for r in reqs), time.time()
+            n0, tp = sum(len(r.out) for r in reqs), time.time()
+            if traced_step:
                 step = "decode" if kind == "decode" else (
                     "chunk" if eng.chunk_tokens else "admitting")
                 with k4_rows() as rows_seen, k2_shapes() as k2_seen, \
@@ -3348,45 +3654,53 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
                         kind=step)
                 if k2_seen:
                     _k2_step_shapes(label, step, k2_seen,
-                                    K2_STEP.get(arch) if step == "decode"
+                                    K2_STEP.get(name) if step == "decode"
                                     else None)
                 if k6_seen:
-                    case = K6_PATH_STEP.get(arch) if step == "decode" \
+                    case = K6_PATH_STEP.get(name) if step == "decode" \
                         else None
                     _k6_step_shapes(label, step, k6_seen, next(
                         ((len(lives), 16, sq, t, None)
                          for n, lives, sq, t in K6_CROSS_CASES
                          if n == case), None), case)
-                if step != "decode":
-                    chunk_traced = True
-                else:
+                if step == "decode":
                     prof = step_prof
+                else:
+                    chunk_prof = step_prof
                 if rows_seen:
                     _k4_step_rows(label, arch, step, rows_seen)
                 t_prof += time.time() - tp
                 tok_prof += sum(len(r.out) for r in reqs) - n0
                 continue
-            ts = time.time()
+            # nested: from the third decode step on, each width's dispatch
+            # not yet traced, alone (such steps are left out too)
+            if nested and kind == "decode" and n_decode >= 3:
+                trace_bits.update({s.precision for s in sch.running}
+                                  - set(traced))
+            tracing = bool(trace_bits)
             if not eng.step():
                 break
             torch.cuda.synchronize()
-            step_ms[kind].append((time.time() - ts) * 1e3)
-        t_serve = time.time() - t_serve - t_prof     # traced steps left out
-        counts = counters()
-        small_m = apmm.SMALL_M_LAUNCHES
-    finally:
-        M.forward = forward
+            if tracing:
+                t_prof += time.time() - tp
+                tok_prof += sum(len(r.out) for r in reqs) - n0
+            else:
+                step_ms[kind].append((time.time() - tp) * 1e3)
+    t_serve = time.time() - t_serve - t_prof     # traced steps left out
+    counts = counters()
+    small_m = apmm.SMALL_M_LAUNCHES
     # --- end of the main path ---
     rep = eng.report()
     for r in reqs:
-        if r.finish_reason != "length" or len(r.out) != 32:
-            raise AssertionError(f"request finished {r.finish_reason!r} "
-                                 f"with {len(r.out)} tokens")
+        if r.finish_reason != "length" or len(r.out) != new_tokens:
+            raise AssertionError(f"{label}: request finished "
+                                 f"{r.finish_reason!r} with {len(r.out)} "
+                                 f"tokens")
         if not all(0 <= t < cfg.vocab for t in r.out):
-            raise AssertionError("token outside the vocab")
+            raise AssertionError(f"{label}: token outside the vocab")
     if rep["free_blocks"] != rep["n_usable"] or rep["used_blocks"] \
             or rep.get("used_state_slots"):
-        raise AssertionError(f"pool did not drain: {rep}")
+        raise AssertionError(f"{label}: pool did not drain: {rep}")
     eng.pool.validate(check_contents=True)
     # stateful stacks (SSM and hybrid state, enc-dec cross caches) and
     # VLMs keep the prefix cache off
@@ -3397,27 +3711,106 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
         raise AssertionError(f"the shared {prefix}-token prefix never hit")
     if cfg.window is not None and rep["window_reclaimed"] < 1:
         raise AssertionError("no block fell out of the window")
-    nd = n_dispatch[0]
-    for name, w in want.items():
-        if counts[name] != w or counts[name] <= 0:
-            raise AssertionError(f"{label}: kernel {name} launched "
-                                 f"{counts[name]} times in {nd} dispatches, "
-                                 f"not the {w} they make")
-    for name in GEMMS:
-        if name not in want and counts[name]:
-            raise AssertionError(f"{label}: kernel {name} launched "
-                                 f"{counts[name]} times, not 0")
-    if small_m != n_small[0] or (variant == "fused" and not
-                                 0 < small_m < counts[k1]):
+    nd = len(dispatches)
+    for lanes, got in forwards:
+        if len(got) != len(set(lanes)) or (nested and sorted(got) !=
+                                           sorted(set(lanes))):
+            raise AssertionError(f"{label}: a forward over lanes at widths "
+                                 f"{lanes} made dispatches at {got}")
+    total: dict = {}
+    for bits_, shape, launched, want, small, want_small, _ in dispatches:
+        if launched != want or small != want_small:
+            raise AssertionError(f"{label}: a {bits_}-bit dispatch of tokens "
+                                 f"{shape} launched {launched} ({small} "
+                                 f"small-M), not {want} ({want_small})")
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+    outside = {k: v - total.get(k, 0) for k, v in counts.items()
+               if v != total.get(k, 0)}
+    if outside != ({"quantize_pack_rows": n_pack} if n_pack else {}):
+        raise AssertionError(f"{label}: launches outside the {nd} "
+                             f"dispatches {outside}, not K3's {n_pack} at "
+                             f"load")
+    for k in GEMMS:
+        if k not in per_dispatch and k != k1 and counts[k]:
+            raise AssertionError(f"{label}: kernel {k} launched "
+                                 f"{counts[k]} times, not 0")
+    if small_m != sum(d[4] for d in dispatches) or (
+            variant == "fused" and not 0 < small_m < counts[k1]):
         raise AssertionError(f"{label}: {small_m} of {counts[k1]} K1 "
-                             f"launches on the small-M route, not the "
-                             f"{n_small[0]} at M <= {thr}")
-    if n_pack is not None and counts["quantize_pack_rows"] != n_pack:
-        raise AssertionError(f"{arch}: K3 launched "
-                             f"{counts['quantize_pack_rows']} times at load, "
-                             f"not {n_pack}")
+                             f"launches on the small-M route")
+    served = ""
+    if nested:
+        widths = sorted(set(precisions), reverse=True)
+        grants = [r._tier_bits for r in reqs]
+        if grants != list(precisions):
+            raise AssertionError(f"{label}: widths granted {grants}")
+        emitted: dict = {}
+        for r in reqs:
+            emitted[str(r._tier_bits)] = emitted.get(str(r._tier_bits), 0) \
+                + len(r.out)
+        metered = {}
+        for line in eng.pool.metrics.render().splitlines():
+            if line.startswith("repro_engine_precision_total{"):
+                lab, val = line.split("}")
+                metered[lab.split('"')[1]] = int(float(val))
+        if metered != emitted:
+            raise AssertionError(f"{label}: repro_engine_precision_total "
+                                 f"{metered}, tokens emitted by width "
+                                 f"{emitted}")
+        # each K1 launch at k bits streams the stored stacks' top k planes
+        stacks, top = packed_stacks(params, quant.w_bits), quant.w_bits
+        for bits_, shape, _, want, _, _, calls in dispatches:
+            if len(calls) != want[k1] or any(
+                    n_bits != bits_ or any(p - (top - bits_) * plane
+                                           not in stacks for p in ptrs)
+                    for ptrs, plane, n_bits in calls):
+                raise AssertionError(
+                    f"{label}: a {bits_}-bit dispatch of tokens {shape} "
+                    f"handed K1 {sorted({c[2] for c in calls})}-plane "
+                    f"weights, not the w{top} stacks' top {bits_} planes "
+                    f"in place")
+        n_calls = sum(len(d[6]) for d in dispatches)
+        print(f"{label}: all {n_calls} K1 launches of the {nd} dispatches "
+              f"streamed the w{top} stacks' top k planes in place, k the "
+              f"dispatch's width", flush=True)
+        got_hits = [h for h in hits if h[2]]
+        if got_hits != [(precisions[len(prompt_lens)], late[0],
+                         prefix // 16, prefix)] or rep["prefix_hits"] != 1:
+            raise AssertionError(f"{label}: prefix hits (salt, prompt, "
+                                 f"blocks, tokens) {got_hits}, report "
+                                 f"{rep['prefix_hits']}: not the first late "
+                                 f"request's {prefix // 16} shared blocks "
+                                 f"alone")
+        by_bits = {b: sum(d[0] == b for d in dispatches) for b in widths}
+        served = (f"served at {widths} bits (prompts, bits "
+                  f"{[(len(r.prompt), r._tier_bits) for r in reqs]}, prefix "
+                  f"hits {got_hits}, dispatches by bits {by_bits}, tokens "
+                  f"by bits {emitted} = repro_engine_precision_total), ")
+    for what, p in (("decode", prof), ("chunk or admitting", chunk_prof)):
+        if p is None and not (nested and what == "decode"):
+            raise AssertionError(f"{label}: no {what} step was traced (the "
+                                 f"profiler recorded no device time on "
+                                 f"every attempt)")
+    if nested and set(traced) != set(precisions):
+        raise AssertionError(f"{label}: traced dispatches at "
+                             f"{sorted(traced)}, not one at each of "
+                             f"{sorted(set(precisions))} (the profiler "
+                             f"recorded no device time on every attempt)")
     if twin_tokens is not None:
         same_tokens(label, reqs, twin_tokens)
+    k1_pattern = ("quantize_x_kernel|gemm_kernel|dense_chunk_kernel|"
+                  "split_finish_kernel" if variant == "fused" else
+                  "pack_x_kernel|apmm_bitserial_")
+    for b, (p, shape) in sorted(traced.items(), reverse=True):
+        k1_dev = traced_kernels(torch, p, k1_pattern)
+        print(f"{label} traced decode dispatch at {b} bits, tokens "
+              f"{shape}: K1 device "
+              f"{sum(v[0] for v in k1_dev.values()):.3f} ms in "
+              f"{sum(v[1] for v in k1_dev.values())} kernels ("
+              + ", ".join(f"{k} {v[0]:.3f} ms x {v[1]}"
+                          for k, v in sorted(k1_dev.items())) + ")",
+              flush=True)
     n_tok = sum(len(r.out) for r in reqs) - tok_prof
     pre, dec = step_ms["prefill"], step_ms["decode"]
     counts = {k: v for k, v in counts.items() if v}
@@ -3428,12 +3821,13 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
           f"w{quant.w_bits}/"
           f"a{quant.a_bits}{'/kv8' if eng.pool.needs_blocks else ''} "
           f"paged bs=16 chunk_tokens=256 requested, "
-          f"{eng.chunk_tokens} served: {load}; {len(reqs)} requests "
+          f"{eng.chunk_tokens} served: {load}; {served}{len(reqs)} requests "
           f"(prompts {[len(r.prompt) for r in reqs]}, prefix hit tokens "
           f"{rep['prefix_hit_tokens']}, window-reclaimed blocks "
           f"{rep['window_reclaimed']}"
           f"{', state slots ' + str(rep['state_slots']) if stateful else ''}"
-          f"), {nd} forward dispatches, launches "
+          f"), {nd} forward dispatches in {len(forwards)} decode or fused "
+          f"forwards, launches "
           f"{counts} (K1 small-M route {small_m}); {n_tok} tokens outside "
           f"the traced steps in "
           f"{t_serve:.2f} s = {n_tok / t_serve:.2f} tok/s; {len(pre)} "
@@ -3443,9 +3837,10 @@ def serve_phase(torch, seed, arch, *, prompt_lens, prefix, max_len,
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({resident:.2f} "
           f"GiB allocated before {'the load' if loaded else 'the engine'}); "
           f"the path took {time.time() - t_path:.1f} s in all", flush=True)
+    tokens = [list(r.out) for r in reqs]
     del eng
     torch.cuda.empty_cache()
-    return counts, [list(r.out) for r in reqs], params
+    return counts, tokens, params
 
 
 def serve_contiguous_phase(torch, seed, *, n_layers, per_dispatch, n_pack,
@@ -3508,8 +3903,7 @@ def serve_contiguous_phase(torch, seed, *, n_layers, per_dispatch, n_pack,
         for r in reqs[:-1]:
             eng.submit(r)
         step_ms = {"prefill": [], "decode": []}
-        prof, t_prof, tok_prof, admit_traced = None, 0.0, 0, False
-        prof_admit = None
+        prof, prof_admit, t_prof, tok_prof = None, None, 0.0, 0
         t_serve = time.time()
         while eng._has_work() or not late.done:
             if reqs[0].out and getattr(late, "_engine", None) is None:
@@ -3518,7 +3912,7 @@ def serve_contiguous_phase(torch, seed, *, n_layers, per_dispatch, n_pack,
             # one admitting step (the second) and three decode steps
             traced = (kind == "decode" and prof is None
                       and len(step_ms["decode"]) == 8) or (
-                kind == "prefill" and not admit_traced
+                kind == "prefill" and prof_admit is None
                 and len(step_ms["prefill"]) == 1)
             if traced:
                 n0, tp = sum(len(r.out) for r in reqs), time.time()
@@ -3526,7 +3920,6 @@ def serve_contiguous_phase(torch, seed, *, n_layers, per_dispatch, n_pack,
                     if kind == "prefill":
                         prof_admit = profile_steps(torch, eng.step, 1,
                                                    kind="admitting")
-                        admit_traced = True
                     else:
                         prof = profile_steps(torch, eng.step, 3)
                 ring, window = next((c[1], c[2]) for c in K6_CASES
@@ -3581,6 +3974,10 @@ def serve_contiguous_phase(torch, seed, *, n_layers, per_dispatch, n_pack,
         "packed_to_xq|small_m::gemm_kernel|dense_chunk|split_finish"
     for what, p in (("admitting step", prof_admit),
                     ("3 decode steps", prof)):
+        if p is None:
+            raise AssertionError(f"{label}: the {what} went untraced (the "
+                                 f"profiler recorded no device time on "
+                                 f"every attempt)")
         rows = traced_kernels(torch, p, k5)
         print(f"{label}: K5 in the traced {what}: "
               f"{sum(ms for ms, _ in rows.values()):.3f} device ms in "
@@ -3639,11 +4036,13 @@ def main() -> int:
     results: dict = {}
     k3_phase(torch, timer, args.seed, results)
     k1_phase(torch, timer, args.seed, results)
+    k1_nested_phase(torch, timer, args.seed, results)
     k2_phase(torch, timer, args.seed, results)
     k4_phase(torch, timer, args.seed, results)
     k5_phase(torch, timer, args.seed, results)
     k7_launches = k6_k7_phase(torch, timer, args.seed, results)
     k6_cross_phase(torch, timer, args.seed, results)
+    k6_lse_phase(torch, timer, args.seed, results)
     norm_phase(torch, timer, args.seed)
     print(f"kernels and the norm checked at {time.time() - t_start:.1f} s",
           flush=True)
@@ -3652,6 +4051,9 @@ def main() -> int:
     shallow_phase(torch, args.seed, "llama3-8b", n_layers=2, s=24)
     shallow_phase(torch, args.seed, "llama3-8b", n_layers=2, s=24,
                   contiguous=True)
+    # one w8/a8 checkpoint served at its full 8 bits and at 4 and 2
+    shallow_phase(torch, args.seed, "llama3-8b", n_layers=2, s=24, w_bits=8,
+                  nested=NESTED_BITS)
     shallow_phase(torch, args.seed, "mixtral-8x7b", n_layers=1, s=8)
     shallow_phase(torch, args.seed, "glm4-9b", n_layers=2, s=24)
     shallow_phase(torch, args.seed, "minicpm-2b", n_layers=2, s=24)
@@ -3679,11 +4081,12 @@ def main() -> int:
 
     def pair(arch, per_dispatch, **kw):
         kw.setdefault("n_layers", SERVE_LAYERS.get(arch))
-        paths[arch], tokens, params = serve_phase(
+        path = arch + ("-nested" if "precisions" in kw else "")
+        paths[path], tokens, params = serve_phase(
             torch, args.seed, arch, per_dispatch=per_dispatch, **kw)
         twin = {k + "_bitserial" if k in GEMMS else k: v
                 for k, v in per_dispatch.items()}
-        paths[arch + "-bitserial"], _, _ = serve_phase(
+        paths[path + "-bitserial"], _, _ = serve_phase(
             torch, args.seed, arch, variant="bitserial", twin_tokens=tokens,
             params=params, per_dispatch=twin, **dict(kw, n_pack=0))
 
@@ -3691,6 +4094,8 @@ def main() -> int:
                     n_blocks=257)
     pair("llama3-8b", {"apmm_fused_linear": 193, "paged_attention": 32},
          n_pack=225, **llama_kw)
+    # llama3-8b-nested: one w8 checkpoint, requests at 8, 4 and 2 bits
+    pair("llama3-8b", **NESTED_PATH)
     # mixtral at SERVE_LAYERS's depth: K1 4 a layer (q, k, v, o) + the
     # lm_head, K2 one a layer, K4 two; K3 at load 4 + 8 experts x 3 a
     # layer + the lm_head
@@ -3789,11 +4194,10 @@ def main() -> int:
     if launched:
         raise AssertionError(f"the distributed phase launched kernels: "
                              f"{launched}")
-    # the sharded serve step, its row product and K6's lse route
+    # the sharded serve step and its row product
     paths["llama3-8b-sharded-serve"] = serve_dist_phase(torch, args.seed)
     timer = Timer(torch)
     row_product_phase(torch, timer, args.seed)
-    k6_lse_phase(torch, timer, args.seed, results)
     del timer
     torch.cuda.empty_cache()
     print(f"distributed done at {time.time() - t_start:.1f} s", flush=True)
@@ -3865,6 +4269,7 @@ def main() -> int:
     kernels += [entry(k, n, None) for k, n in k7_launches.items()]
     if {e["name"] for e in kernels} != set(meta):
         raise AssertionError("a kernel is missing from the kernels line")
+    print(f"events the profiler lost: {PROFILER_DROPS}", flush=True)
     print(f"total {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

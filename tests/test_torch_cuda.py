@@ -62,12 +62,17 @@ schedules' lr on the card equal the CPU's bit for bit (the WSD decay's
 ``pow`` within 2 f32 ulps).
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import bipolar
 from repro_torch.kernels import apmm, flash_attention, moe, ops, pack, ref
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -536,6 +541,42 @@ def test_apmm_kernel_row_edges_gelu_bias_nested(device, m):
                                    a_bits=8, out_dtype=torch.bfloat16)
     torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2,
                                atol=1e-2)
+
+
+@pytest.mark.parametrize("m", [4, 256])
+@pytest.mark.parametrize("variant", ["fused", "bitserial"])
+def test_apmm_kernel_streams_nested_view_uncopied(device, m, variant):
+    """K1 and K1-bs on a w8 checkpoint's 4-bit plane-prefix view, at
+    decode (small-M and stacked routes) and a chunk (int8 chunk and rows
+    routes): the integer core and the dual SiLU bf16 output equal the
+    plain version's on the same view (SiLU: within 1 ulp), and the C
+    entry is handed the full stack's planes at an offset of 4 planes
+    (the view itself, not a copy)."""
+    rng = np.random.default_rng(m + len(variant))
+    n, k, bits = 512, 1024, 4
+    full = [ops.pack_weight(_rand(rng, (n, k), device), 8) for _ in range(2)]
+    w, w2 = (bipolar.nested_slice(f, bits) for f in full)
+    plane = n * full[0].packed.shape[-1] * 4
+    want_ptrs = {f.packed.data_ptr() + (8 - bits) * plane for f in full}
+    sys.path.insert(0, ROOT)
+    from chip_smoke import k1_calls
+    x = _rand(rng, (m, k), device, torch.bfloat16)
+    a_s = bipolar.absmax_scale(x, 8, axis=-1).float()
+    with k1_calls() as calls:
+        for wt in (w, w2):
+            got = apmm.apmm_fused_linear(x, a_s, wt, a_bits=8,
+                                         variant=variant)
+            want = ref.ap_linear_fused_ref(x, a_s, wt, a_bits=8,
+                                           variant=variant)
+            assert torch.equal(got, want)
+        got = apmm.apmm_fused_linear(x, a_s, w, w2=w2, act="silu", a_bits=8,
+                                     variant=variant,
+                                     out_dtype=torch.bfloat16)
+    want = ref.ap_linear_fused_ref(x, a_s, w, w2=w2, act="silu", a_bits=8,
+                                   variant=variant, out_dtype=torch.bfloat16)
+    assert int(_bf16_ulps(got, want).max()) <= 1
+    assert {p for c in calls for p in c[0]} == want_ptrs
+    assert {c[2] for c in calls} == {bits}
 
 
 def _expert_weight(rng, dev, e, n, k, bits):
